@@ -12,9 +12,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    BatchNorm statistics): the card against the port's CPU paths at 256x512,
    then the slice's 480x640 forward in float32 and bfloat16, with the launch
    counts of both kernels read around each forward;
-6. time each kernel, its plain version and the library yardstick at the
-   shapes of the forward, and the whole forward, with CUDA events;
-7. print one ``{"kernels": [...]}`` line;
+6. time the whole forward and each of its stages with CUDA events recorded
+   at the stage boundaries (one timed pass), sum the device time of each
+   kernel family over a ``torch.profiler`` trace of the same forward, and
+   time each kernel, its plain version and the library yardstick at the
+   shapes and launch counts that the 480x640 forward of phase 5 recorded;
+7. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}`` line;
 8. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -24,6 +27,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter, defaultdict
 
 import torch
 import torch.nn.functional as F
@@ -51,17 +55,36 @@ DTYPE_NAME = {F32: "float32", BF16: "bfloat16"}
 # memory bytes/s, float32 FLOP/s outside the tensor cores, bfloat16 FLOP/s
 PEAK = (3.35e12, 67e12, 989e12)
 
-# The fused conv's launches in one GwcNet_G eval forward at 480x640,
-# max_disp 192 (1/4-res volume 48x120x160):
-# (Ci, Co, D, H, W, residual, relu, launches)
-K2_SHAPES = [
-    (40, 32, 48, 120, 160, False, True, 1),    # dres0[0]
-    (32, 32, 48, 120, 160, False, True, 3),    # dres0[1], dres1[0], classif3
-    (32, 32, 48, 120, 160, True, False, 1),    # dres1[1] (+ cost0)
-    (64, 64, 24, 60, 80, False, True, 3),      # hourglass conv2 x3
-    (128, 128, 12, 30, 40, False, True, 3),    # hourglass conv4 x3
+# Launches expected in one GwcNet_G eval forward at 480x640, max_disp 192
+# (1/4-res volume 48x120x160), keyed as the wrappers count them. Phase 5
+# requires the forward's counts to equal these; phase 6 weights its times by
+# the counts the forward recorded.
+# K1: (B, H, W, C, D, G)
+K1_MIX = {(1, 120, 160, 320, 48, 40): 1}
+# K2: (B, D, H, W, Ci, Co, residual, relu)
+K2_MIX = {
+    (1, 48, 120, 160, 40, 32, False, True): 1,   # dres0[0]
+    (1, 48, 120, 160, 32, 32, False, True): 3,   # dres0[1], dres1[0], classif3
+    (1, 48, 120, 160, 32, 32, True, False): 1,   # dres1[1] (+ cost0)
+    (1, 24, 60, 80, 64, 64, False, True): 3,     # hourglass conv2 x3
+    (1, 12, 30, 40, 128, 128, False, True): 3,   # hourglass conv4 x3
+}
+
+# Stages of the forward, as (stage, first module, last module, label of the
+# work between the previous stage and this one)
+STAGES = [
+    ("2D trunk", "feature_extraction", "feature_extraction",
+     "input cast + view batching"),
+    ("dres0", "dres0", "dres0", "cost volume (K1)"),
+    ("dres1", "dres1.0", "dres1.2", "glue"),
+    ("dres2", "dres2", "dres2", "glue"),
+    ("dres3", "dres3", "dres3", "glue"),
+    ("dres4", "dres4", "dres4", "glue"),
+    ("classif3", "classif3.0", "classif3.2", "glue"),
 ]
-K1_SHAPE = (1, 120, 160, 320, 48, 40)          # B, H, W, C, D, G
+HEAD = "head (upsample, softmax, regression)"
+GAP = "between forwards (host)"
+FWD_ITERS, FWD_WARMUP = 10, 3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -84,8 +107,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def reset_counts() -> None:
-    build_gwc_volume.launches = 0
-    conv3d_fused.launches = 0
+    for fn in (build_gwc_volume, conv3d_fused):
+        fn.launches = 0
+        fn.shapes.clear()
 
 
 def randn(shape, dtype, gen, scale=1.0):
@@ -95,7 +119,7 @@ def randn(shape, dtype, gen, scale=1.0):
 # ---------------------------------------------------------------- phase 3
 def check_gwc(gen) -> dict:
     errs = {}
-    cases = [K1_SHAPE, (2, 5, 37, 48, 48, 16)]   # ragged: W % 16, W < D, C/G=3
+    cases = [*K1_MIX, (2, 5, 37, 48, 48, 16)]   # ragged: W % 16, W < D, C/G=3
     for dtype in (F32, BF16):
         worst = 0.0
         for b, h, w, c, d, g in cases:
@@ -110,8 +134,8 @@ def check_gwc(gen) -> dict:
             print(f"  gwc_volume {DTYPE_NAME[dtype]} {(b, h, w, c)} D={d} "
                   f"G={g}: max|err| {err:.3e} (tol {tol:.3e})")
             require(err <= tol, f"gwc_volume {dtype} {(b, h, w, c)}")
-            if (b, h, w, c, d, g) == K1_SHAPE:
-                worst = err
+            if (b, h, w, c, d, g) in K1_MIX:
+                worst = max(worst, err)
         errs[dtype] = (worst, 1e-5 if dtype == F32 else 1e-2)
     return errs
 
@@ -127,14 +151,17 @@ def k2_inputs(ci, co, d, h, w, residual, dtype, gen, b=1):
 
 
 def check_conv(gen) -> dict:
+    """Every launch shape of the forward, each of its four volume shapes
+    also with both epilogue options on and off, and a ragged case."""
     errs = {}
-    shapes = dict.fromkeys(s[:5] for s in K2_SHAPES)  # the four distinct
-    cases = [(ci, co, d, h, w, res, relu, 1) for ci, co, d, h, w in shapes
-             for res, relu in ((False, False), (True, True))]
-    cases += [(12, 40, 5, 7, 19, True, True, 2)]   # ragged tiles and chunks
+    cases = dict.fromkeys(K2_MIX)
+    for key in K2_MIX:
+        for res, relu in ((False, False), (True, True)):
+            cases[key[:6] + (res, relu)] = None
+    cases[(2, 5, 7, 19, 12, 40, True, True)] = None  # ragged tiles, chunks
     for dtype in (F32, BF16):
         worst = 0.0
-        for ci, co, d, h, w, res, relu, b in cases:
+        for b, d, h, w, ci, co, res, relu in cases:
             x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen,
                                              b)
             got = conv3d_fused(x, k, scale, bias, r, relu).float()
@@ -192,14 +219,21 @@ def settle_and_perturb_bn(model, left, right, gen) -> None:
                     buf.device)
 
 
-def forward_counted(model, left, right):
+def forward_counted(model, left, right, mix=None):
+    """One forward with the counts set to 0 just before it; returns the
+    output and the launches by shape of each kernel. With `mix`, requires
+    the launches to be exactly K1_MIX and K2_MIX."""
     reset_counts()
     with torch.no_grad():
         out = model(left, right)
     torch.cuda.synchronize()
     counts = (build_gwc_volume.launches, conv3d_fused.launches)
+    shapes = (Counter(build_gwc_volume.shapes), Counter(conv3d_fused.shapes))
     require(counts == (1, 11), f"launches per forward {counts} != (1, 11)")
-    return out, counts
+    if mix:
+        require(shapes == (Counter(K1_MIX), Counter(K2_MIX)),
+                f"launches by shape {shapes} differ from K1_MIX, K2_MIX")
+    return out, shapes
 
 
 def check_model(gen):
@@ -232,52 +266,158 @@ def check_model(gen):
         for seed in (2, 3):
             left, right = (t.to(DEV, dtype) for t in stereo_pair(1, H, W,
                                                                  seed))
-            out, counts = forward_counted(m, left, right)
+            out, shapes = forward_counted(m, left, right, mix=True)
             require(out.shape == (1, H, W), f"output shape {out.shape}")
             require(bool(torch.isfinite(out).all()), "non-finite output")
             lo, hi = out.min().item(), out.max().item()
             require(0 <= lo and hi < MAX_DISP, f"output range {lo}..{hi}")
             print(f"  GwcNet_G {H}x{W} {DTYPE_NAME[dtype]} pair {seed}: "
                   f"disparity {lo:.2f}..{hi:.2f}, mean {out.mean().item():.2f}"
-                  f", launches gwc_volume={counts[0]} "
-                  f"conv3d_fused={counts[1]}")
-        runs[dtype] = (m, left, right, counts)
+                  f", launches gwc_volume={shapes[0].total()} "
+                  f"conv3d_fused={shapes[1].total()}")
+        runs[dtype] = (m, left, right, shapes)
     return runs
 
 
 # ---------------------------------------------------------------- phase 6
-def time_gwc(dtype, gen):
-    b, h, w, c, d, g = K1_SHAPE
-    left = randn((b, h, w, c), dtype, gen)
-    right = randn((b, h, w, c), dtype, gen)
-    ms = cuda_ms(lambda: build_gwc_volume(left, right, d, g), 20)
-    plain = cuda_ms(lambda: gwc_volume_reference(left, right, d, g), 5)
-    size = left.element_size()
-    nbytes = (2 * b * h * w * c + b * d * h * w * g) * size
-    # this data's work: the w < d outputs are zero and need no products
-    valid = b * h * sum(max(w - dd, 0) for dd in range(d))
-    flops = 2 * valid * c
+def forward_breakdown(model, left, right) -> dict:
+    """Forward ms, peak memory and ms per stage, from CUDA events that hooks
+    record on the stream at the stage boundaries: FWD_ITERS forwards after
+    FWD_WARMUP. The stages, with the gaps between forwards, add up to the
+    forward's time."""
+    marks: list = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    hooks = [model.register_forward_pre_hook(lambda *a: mark(GAP)),
+             model.register_forward_hook(lambda *a: mark(HEAD))]
+    for stage, first, last, before in STAGES:
+        hooks.append(model.get_submodule(first).register_forward_pre_hook(
+            lambda *a, lb=before: mark(lb)))
+        hooks.append(model.get_submodule(last).register_forward_hook(
+            lambda *a, lb=stage: mark(lb)))
+    try:
+        with torch.no_grad():
+            for _ in range(FWD_WARMUP):
+                model(left, right)
+            torch.cuda.synchronize()
+            marks.clear()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(FWD_ITERS):
+                model(left, right)
+        torch.cuda.synchronize()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    stages: dict = defaultdict(float)
+    for (_, a), (label, b) in zip(marks, marks[1:]):
+        stages[label] += a.elapsed_time(b) / FWD_ITERS
+    return {"ms": marks[0][1].elapsed_time(marks[-1][1]) / FWD_ITERS,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "stages_ms": dict(stages)}
+
+
+def kernel_family(name: str) -> str:
+    if "conv3d_fused_kernel" in name:
+        return "K2 conv3d_fused"
+    if "gwc_volume_kernel" in name:
+        return "K1 gwc_volume"
+    low = name.lower()
+    if "bn_fw" in low or "batch_norm" in low:
+        return "BatchNorm (cuDNN or ATen)"
+    if "nhwctonchw" in low or "nchwtonhwc" in low:
+        return "cuDNN layout transposes"
+    if any(s in low for s in ("conv", "xmma", "implicit", "dgrad",
+                              "winograd", "fft", "gemm")):
+        return "cuDNN/cuBLAS conv"
+    return "other (elementwise, copies, reductions)"
+
+
+def kernel_times(model, left, right) -> dict:
+    """Device ms and launches per forward of each kernel, from a
+    torch.profiler trace of FWD_ITERS forwards."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(FWD_ITERS):
+                model(left, right)
+            torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.self_device_time_total > 0:
+            out[evt.key] = (evt.self_device_time_total / 1e3 / FWD_ITERS,
+                            evt.count / FWD_ITERS)
+    return out
+
+
+def profile_forward(model, left, right, dtype) -> dict:
+    fwd = forward_breakdown(model, left, right)
+    kernels = kernel_times(model, left, right)
+    families: dict = defaultdict(float)
+    for key, (ms, _) in kernels.items():
+        families[kernel_family(key)] += ms
+    busy = sum(families.values())
+    print(f"  GwcNet_G forward {H}x{W} {DTYPE_NAME[dtype]}: {fwd['ms']:.3f} "
+          f"ms, peak memory {fwd['peak_bytes'] / 2**20:.1f} MiB")
+    for label, ms in sorted(fwd["stages_ms"].items(), key=lambda kv: -kv[1]):
+        print(f"    stage {label:40s} {ms:8.3f} ms "
+              f"{100 * ms / fwd['ms']:5.1f}%")
+    if busy == 0:
+        print("    torch.profiler saw no device time: kernel times not "
+              "measured")
+    else:
+        print(f"    device busy {busy:.3f} ms of {fwd['ms']:.3f} ms "
+              f"({100 * busy / fwd['ms']:.1f}%)")
+        for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            print(f"    family {fam:40s} {ms:8.3f} ms")
+        for key, (ms, n) in sorted(kernels.items(),
+                                   key=lambda kv: -kv[1][0])[:12]:
+            print(f"    kernel {ms:8.3f} ms x{n:g}  {key[:100]}")
+    fwd.update(device_busy_ms=busy or None, kernel_families_ms=dict(families))
+    return fwd
+
+
+def time_gwc(mix, dtype, gen):
+    """Times and work of the forward's K1 launches, weighted by `mix`."""
+    ms = plain = 0.0
+    nbytes = flops = 0
+    for (b, h, w, c, d, g), n in mix.items():
+        left = randn((b, h, w, c), dtype, gen)
+        right = randn((b, h, w, c), dtype, gen)
+        t = cuda_ms(lambda: build_gwc_volume(left, right, d, g), 20)
+        tp = cuda_ms(lambda: gwc_volume_reference(left, right, d, g), 5)
+        ms, plain = ms + n * t, plain + n * tp
+        nbytes += n * (2 * b * h * w * c + b * d * h * w * g) * \
+            left.element_size()
+        # this data's work: the w < d outputs are zero and need no products
+        flops += n * 2 * c * b * h * sum(max(w - dd, 0) for dd in range(d))
     return ms, plain, None, nbytes, flops
 
 
-def time_conv(dtype, gen):
+def time_conv(mix, dtype, gen):
+    """Times and work of the forward's K2 launches, weighted by `mix`."""
     ms = plain = lib = 0.0
     nbytes = flops = 0
     shapes = []
-    for ci, co, d, h, w, res, relu, n in K2_SHAPES:
-        x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen)
+    for (b, d, h, w, ci, co, res, relu), n in mix.items():
+        x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen, b)
         t = cuda_ms(lambda: conv3d_fused(x, k, scale, bias, r, relu), 5)
         tp = cuda_ms(lambda: conv3d_fused_reference(x, k, scale, bias, r,
                                                     relu), 5)
         xv, kv = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
         tl = cuda_ms(lambda: F.conv3d(xv, kv, padding=1), 5)
-        vox = d * h * w
-        size = x.element_size()
+        vox = b * d * h * w
         nbytes += n * ((vox * (ci + co * (2 if res else 1)) + 27 * ci * co)
-                       * size + 2 * co * 4)
+                       * x.element_size() + 2 * co * 4)
         flops += n * 2 * 27 * ci * co * vox
         ms, plain, lib = ms + n * t, plain + n * tp, lib + n * tl
-        shapes.append({"ci": ci, "co": co, "dhw": [d, h, w],
+        shapes.append({"b": b, "dhw": [d, h, w], "ci": ci, "co": co,
                        "residual": res, "relu": relu, "launches": n,
                        "ms": t, "plain_ms": tp, "library_ms": tl})
     return ms, plain, lib, nbytes, flops, shapes
@@ -324,33 +464,31 @@ def main() -> None:
 
     print("phase 6: timing")
     kernels = []
+    forward = {"shape": [1, H, W, 3], "max_disp": MAX_DISP,
+               "iters": FWD_ITERS, "warmup": FWD_WARMUP}
     for dtype in (F32, BF16):
-        m, left, right, counts = runs[dtype]
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            fwd = cuda_ms(lambda: m(left, right), 10, warmup=3)
-        peak_mem = torch.cuda.max_memory_allocated()
-        print(f"  GwcNet_G forward {H}x{W} {DTYPE_NAME[dtype]}: {fwd:.3f} ms,"
-              f" peak memory {peak_mem / 2**20:.1f} MiB")
+        m, left, right, (k1_mix, k2_mix) = runs[dtype]
+        forward[DTYPE_NAME[dtype]] = profile_forward(m, left, right, dtype)
 
-        ms, plain, lib, nbytes, flops = time_gwc(dtype, gen)
+        ms, plain, lib, nbytes, flops = time_gwc(k1_mix, dtype, gen)
         b_ms, b_by = bound(nbytes, flops, dtype)
         kernels.append({
             "name": f"gwc_volume ({DTYPE_NAME[dtype]})", "route": "cuda",
             "source": "stereo_toolbox_tpu_torch/csrc/gwc_volume.cu",
             "replaces": "stereo_toolbox_tpu/ops/pallas/volume.py:87",
-            "launches": counts[0], "max_abs_err": gwc_err[dtype][0],
+            "launches": k1_mix.total(), "max_abs_err": gwc_err[dtype][0],
             "tolerance": f"{gwc_err[dtype][1]}*max|ref|",
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "shape": list(K1_SHAPE),
-            "forward_ms": fwd, "forward_peak_bytes": peak_mem})
-        ms, plain, lib, nbytes, flops, shapes = time_conv(dtype, gen)
+            "library_ms": lib, "shapes": [
+                {"bhwc": list(key[:4]), "d": key[4], "g": key[5],
+                 "launches": n} for key, n in k1_mix.items()]})
+        ms, plain, lib, nbytes, flops, shapes = time_conv(k2_mix, dtype, gen)
         b_ms, b_by = bound(nbytes, flops, dtype)
         kernels.append({
             "name": f"conv3d_fused ({DTYPE_NAME[dtype]})", "route": "cuda",
             "source": "stereo_toolbox_tpu_torch/csrc/conv3d_fused.cu",
             "replaces": "stereo_toolbox_tpu/ops/pallas/conv3d_fused.py:159",
-            "launches": counts[1], "max_abs_err": conv_err[dtype][0],
+            "launches": k2_mix.total(), "max_abs_err": conv_err[dtype][0],
             "tolerance": f"{conv_err[dtype][1]}*max|ref|",
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "gflop": flops / 1e9, "shapes": shapes})
@@ -360,6 +498,7 @@ def main() -> None:
                   f"by {k['bound_by']})")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"forward": forward}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -119,7 +119,7 @@ class GwcNet(nn.Module):
         _, h, w, _ = left.shape
         dtype = self.classif3[0][0].weight.dtype
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
-                                 right.to(dtype), train=False)
+                                 right.to(dtype))
         volume = build_gwc_volume(fl["gwc_feature"].contiguous(),
                                   fr["gwc_feature"].contiguous(),
                                   self.max_disp // 4, self.num_groups)

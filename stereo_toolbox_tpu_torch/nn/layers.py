@@ -7,7 +7,7 @@ the JAX blocks do; cuDNN sees the channels-first view of the same memory
 toolbox's ``convbn``/``convbn_3d`` Sequentials (``0`` = conv, ``1`` = BN), so
 a model's ``state_dict`` carries the original PyTorch parameter names.
 
-In eval mode a 3D 3×3×3, stride-1, undilated ConvBNAct folds its
+In eval mode a 3D 3×3×3, stride-1, undilated, padding-1 ConvBNAct folds its
 BatchNorm into a per-channel affine and runs `ops.conv3d_fused` (the CUDA
 kernel on the card): the same condition under which the JAX package takes
 its fused lowering.
@@ -62,7 +62,7 @@ class ConvBNAct(nn.Sequential):
             _BN[dims](out_channels, eps=BN_EPS, momentum=BN_MOMENTUM))
         self.relu = relu
         self.fusible = (dims == 3 and k == (3, 3, 3) and s == (1, 1, 1)
-                        and d == (1, 1, 1))
+                        and d == (1, 1, 1) and p == (1, 1, 1))
 
     def folded_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Eval BatchNorm as float32 ``(scale, bias)``:
@@ -125,14 +125,10 @@ class BasicResBlock(nn.Module):
         return out + x
 
 
-def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor,
-                    train: bool):
-    """Run a shared feature trunk on both views. Train mode makes two calls
-    (per-view BatchNorm statistics, as the original toolbox); eval batches
-    the views into one call, which gives the same result with running
-    statistics. `feat_fn` returns a dict of tensors."""
-    if train:
-        return feat_fn(left), feat_fn(right)
+def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor):
+    """Run a shared feature trunk on both views in eval: one call on the
+    views batched together, which gives the same result as two calls with
+    running BatchNorm statistics. `feat_fn` returns a dict of tensors."""
     b = left.shape[0]
     both = feat_fn(torch.cat([left, right], dim=0))
     return ({k: v[:b] for k, v in both.items()},

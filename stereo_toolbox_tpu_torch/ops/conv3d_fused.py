@@ -12,6 +12,8 @@ version, `conv3d_fused_reference`, on a CPU tensor.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.nn.functional as F
 
@@ -91,7 +93,11 @@ def conv3d_fused(x: torch.Tensor, kernel: torch.Tensor,
             b, d, h, w, ci, co, int(relu), code, _cuda.stream_of(x))
     _cuda.check(lib, rc, "conv3d_fused")
     conv3d_fused.launches += 1
+    conv3d_fused.shapes[(b, d, h, w, ci, co, residual is not None,
+                         bool(relu))] += 1
     return out
 
 
+# launches of the kernel, in all and by (B, D, H, W, Ci, Co, residual, relu)
 conv3d_fused.launches = 0
+conv3d_fused.shapes = Counter()

@@ -11,6 +11,8 @@ channels-last layouts: feature maps ``[B, H, W, C]``, cost volumes
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from stereo_toolbox_tpu_torch.ops import _cuda
@@ -87,10 +89,13 @@ def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
                             _cuda.stream_of(left))
     _cuda.check(lib, rc, "gwc_volume")
     build_gwc_volume.launches += 1
+    build_gwc_volume.shapes[(b, h, w, c, max_disp, num_groups)] += 1
     return out
 
 
+# launches of the kernel, in all and by (B, H, W, C, D, G)
 build_gwc_volume.launches = 0
+build_gwc_volume.shapes = Counter()
 
 
 def disparity_regression(prob: torch.Tensor, max_disp: int | None = None,

@@ -70,11 +70,11 @@ def test_reference_matches_jax_pallas(seed, shape, ci, co, affine, residual,
 
 def test_cpu_wrapper_never_counts_a_launch():
     x, k, scale, bias, res = _case(4, (1, 2, 3, 4), 4, 4, True, True)
-    before = conv3d_fused.launches
+    before = conv3d_fused.launches, dict(conv3d_fused.shapes)
     conv3d_fused(torch.from_numpy(x), torch.from_numpy(k),
                  torch.from_numpy(scale), torch.from_numpy(bias),
                  torch.from_numpy(res), relu=True)
-    assert conv3d_fused.launches == before
+    assert (conv3d_fused.launches, dict(conv3d_fused.shapes)) == before
 
 
 def test_kernel_modules_import_without_nvcc():

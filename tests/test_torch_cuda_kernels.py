@@ -36,9 +36,11 @@ def test_gwc_volume_kernel_matches_plain(dev, b, h, w, c, d, g, dtype, rel):
     gen = torch.Generator().manual_seed(0)
     left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
                    for _ in range(2))
-    before = build_gwc_volume.launches
+    key = (b, h, w, c, d, g)
+    before = build_gwc_volume.launches, build_gwc_volume.shapes[key]
     got = build_gwc_volume(left, right, d, g).float()
-    assert build_gwc_volume.launches == before + 1
+    assert (build_gwc_volume.launches,
+            build_gwc_volume.shapes[key]) == (before[0] + 1, before[1] + 1)
     want = gwc_volume_reference(left.float(), right.float(), d, g)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
 
@@ -58,9 +60,11 @@ def test_conv3d_fused_kernel_matches_plain(dev, ci, co, residual, relu,
     bias = torch.randn(co, generator=gen).to(dev)
     res = (torch.randn(*shape, co, generator=gen).to(dev, dtype)
            if residual else None)
-    before = conv3d_fused.launches
+    key = (*shape, ci, co, residual, relu)
+    before = conv3d_fused.launches, conv3d_fused.shapes[key]
     got = conv3d_fused(x, k, scale, bias, res, relu).float()
-    assert conv3d_fused.launches == before + 1
+    assert (conv3d_fused.launches,
+            conv3d_fused.shapes[key]) == (before[0] + 1, before[1] + 1)
     want = conv3d_fused_reference(x.float(), k.float(), scale, bias,
                                   None if res is None else res.float(), relu)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()

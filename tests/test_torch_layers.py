@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from stereo_toolbox_tpu.nn import layers as jl
 from stereo_toolbox_tpu_torch.nn import (BasicResBlock, ConvBNAct,
@@ -115,6 +116,27 @@ def test_dual_view_apply_eval_equals_two_calls():
     a, b = (torch.from_numpy(rng.randn(2, 6, 7, 3).astype(np.float32))
             for _ in range(2))
     with torch.no_grad():
-        fa, fb = dual_view_apply(lambda z: {"f": m(z)}, a, b, train=False)
+        fa, fb = dual_view_apply(lambda z: {"f": m(z)}, a, b)
         torch.testing.assert_close(fa["f"], m(a), rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(fb["f"], m(b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("padding,fused", [(0, False), (1, True)])
+def test_convbnact_fuses_only_with_padding_one(padding, fused):
+    """A 3×3×3 stride-1 layer with an explicit padding other than 1 keeps
+    its padding in eval: it is not lowered to the SAME-padded fused conv."""
+    m = ConvBNAct(4, 6, 3, 1, padding=padding, dims=3)
+    assert m.fusible == fused
+    rng = np.random.RandomState(6)
+    with torch.no_grad():
+        for buf in (m[1].running_mean, m[1].running_var):
+            buf += 0.1 * torch.from_numpy(np.abs(rng.randn(6)).astype(
+                np.float32))
+    x = torch.from_numpy(rng.randn(1, 5, 6, 7, 4).astype(np.float32))
+    m.eval()
+    with torch.no_grad():
+        got = m(x)
+        want = F.relu(m[1](m[0](x.movedim(-1, 1)))).movedim(1, -1)
+    assert got.shape == (1, 5 - 2 + 2 * padding, 6 - 2 + 2 * padding,
+                         7 - 2 + 2 * padding, 6)
+    torch.testing.assert_close(got, want, **TOL)

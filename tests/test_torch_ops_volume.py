@@ -47,9 +47,10 @@ def test_build_gwc_volume_matches_jax_and_pallas(b, h, w, c, d, g, seed):
 def test_build_gwc_volume_cpu_is_the_plain_version():
     left, right = _feats(1, 3, 20, 8, 1)
     lt, rt = torch.from_numpy(left), torch.from_numpy(right)
-    before = ops.build_gwc_volume.launches
+    before = ops.build_gwc_volume.launches, dict(ops.build_gwc_volume.shapes)
     got = ops.build_gwc_volume(lt, rt, 25, 2)   # D > W: all-zero planes
-    assert ops.build_gwc_volume.launches == before
+    assert (ops.build_gwc_volume.launches,
+            dict(ops.build_gwc_volume.shapes)) == before
     torch.testing.assert_close(got, ops.gwc_volume_reference(lt, rt, 25, 2),
                                rtol=0, atol=0)
     assert not got[:, 20:].any()
