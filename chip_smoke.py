@@ -6,19 +6,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card and its power limit (nvidia-smi);
 2. build the CUDA kernels from ``stereo_toolbox_tpu_torch/csrc`` (nvcc);
-3. hold the gwc-volume kernel against its plain PyTorch version;
-4. hold the fused 3x3x3 conv kernel against its plain PyTorch version;
-5. GwcNet_G (max_disp 192, seeded random weights, settled and perturbed
-   BatchNorm statistics): the card against the port's CPU paths at 256x512,
-   then the slice's 480x640 forward in float32 and bfloat16, with the launch
-   counts of both kernels read around each forward;
-6. time the whole forward and each of its stages with CUDA events recorded
-   at the stage boundaries (one timed pass), sum the device time of each
-   kernel family over a ``torch.profiler`` trace of the same forward, and
-   time each kernel, its plain version and the library yardstick at the
-   shapes and launch counts that the 480x640 forward of phase 5 recorded;
-7. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}`` line;
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+3. hold the gwc-volume kernel (K1) against its plain PyTorch version at
+   every launch shape of both models' forwards and a ragged case;
+4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
+   shapes also with both epilogue options on and off;
+5. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
+   (K6) kernels likewise, at CFNet's launch shapes and ragged cases;
+6. GwcNet_G and 7. CFNet (max_disp 192, seeded random weights, settled and
+   perturbed BatchNorm statistics), one after the other: the card against
+   the port's CPU paths at 256x512, then the slice's 480x640 forward in
+   float32 and bfloat16, with every kernel's launches by shape read around
+   each forward; then time the whole forward and each of its stages with
+   CUDA events recorded at the stage boundaries (one timed pass), sum the
+   device time of each kernel family over a ``torch.profiler`` trace of the
+   same forward, and time each kernel, its plain version and the library
+   yardstick (device time of back-to-back calls) at the shapes and launch
+   counts that the 480x640 forward recorded;
+8. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
+   choice takes most of CFNet's f32 forward;
+9. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}`` line;
+10. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
     conv3d_fused, conv3d_fused_reference)
 from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
-    build_gwc_volume, gwc_volume_reference)
+    build_concat_volume, build_gwc_volume, concat_volume_reference,
+    gather_right_by_samples, gather_right_by_samples_reference,
+    gwc_volume_from_samples, gwc_volume_from_samples_reference,
+    gwc_volume_reference)
 
 DEV = torch.device("cuda")
 MAX_DISP = 192
@@ -55,10 +65,28 @@ DTYPE_NAME = {F32: "float32", BF16: "bfloat16"}
 # memory bytes/s, float32 FLOP/s outside the tensor cores, bfloat16 FLOP/s
 PEAK = (3.35e12, 67e12, 989e12)
 
-# Launches expected in one GwcNet_G eval forward at 480x640, max_disp 192
-# (1/4-res volume 48x120x160), keyed as the wrappers count them. Phase 5
-# requires the forward's counts to equal these; phase 6 weights its times by
-# the counts the forward recorded.
+# The kernels: wrapper, source, the TPU kernel it replaces (pallas_call site)
+KERNELS = {
+    "K1": (build_gwc_volume, "gwc_volume",
+           "stereo_toolbox_tpu_torch/csrc/gwc_volume.cu",
+           "stereo_toolbox_tpu/ops/pallas/volume.py:87"),
+    "K2": (conv3d_fused, "conv3d_fused",
+           "stereo_toolbox_tpu_torch/csrc/conv3d_fused.cu",
+           "stereo_toolbox_tpu/ops/pallas/conv3d_fused.py:159"),
+    "K4": (gather_right_by_samples, "gather_right_by_samples",
+           "stereo_toolbox_tpu_torch/csrc/sample_gather.cu",
+           "stereo_toolbox_tpu/ops/pallas/sample_gather.py:123"),
+    "K5": (gwc_volume_from_samples, "gwc_volume_from_samples",
+           "stereo_toolbox_tpu_torch/csrc/sample_gather.cu",
+           "stereo_toolbox_tpu/ops/pallas/sample_gather.py:151"),
+    "K6": (build_concat_volume, "concat_volume",
+           "stereo_toolbox_tpu_torch/csrc/concat_volume.cu",
+           "stereo_toolbox_tpu/ops/pallas/volume.py:137"),
+}
+
+# Launches expected in one eval forward at 480x640, max_disp 192, keyed as
+# the wrappers count them. Phases 6-7 require each forward's counts to
+# equal these; the timing weights its times by the counts a forward recorded.
 # K1: (B, H, W, C, D, G)
 K1_MIX = {(1, 120, 160, 320, 48, 40): 1}
 # K2: (B, D, H, W, Ci, Co, residual, relu)
@@ -69,22 +97,83 @@ K2_MIX = {
     (1, 24, 60, 80, 64, 64, False, True): 3,     # hourglass conv2 x3
     (1, 12, 30, 40, 128, 128, False, True): 3,   # hourglass conv4 x3
 }
+# CFNet: volumes at 1/8, 1/16, 1/32 (C = 160, 320, 320; 12 concat channels)
+CF_K1_MIX = {(1, 60, 80, 160, 24, 40): 1, (1, 30, 40, 320, 12, 40): 1,
+             (1, 15, 20, 320, 6, 40): 1}
+# K6: (B, H, W, C, D)
+CF_K6_MIX = {(1, 60, 80, 12, 24): 1, (1, 30, 40, 12, 12): 1,
+             (1, 15, 20, 12, 6): 1}
+# K4: (B, H, W, C, S, max_shift), stages s3 (1/4) and s2 (1/2)
+CF_K4_MIX = {(1, 120, 160, 12, 16, 48): 1, (1, 240, 320, 6, 12, 96): 1}
+# K5: (B, H, W, C, S, G, max_shift)
+CF_K5_MIX = {(1, 120, 160, 160, 16, 40, 48): 1,
+             (1, 240, 320, 80, 12, 20, 96): 1}
+# K2: every Mish layer launches without the ReLU epilogue
+CF_K2_MIX = {
+    (1, 24, 60, 80, 64, 32, False, False): 1,     # dres0.0
+    (1, 24, 60, 80, 32, 32, False, False): 3,     # dres0.2, dres1.0, classif2
+    (1, 24, 60, 80, 32, 32, True, False): 1,      # dres1.2
+    (1, 12, 30, 40, 64, 64, False, False): 5,     # dres*_5 x3, *.conv2 x2
+    (1, 12, 30, 40, 64, 64, True, False): 1,      # dres1_5.2
+    (1, 12, 30, 40, 128, 64, False, False): 1,    # combine1.combine1
+    (1, 6, 15, 20, 64, 64, False, False): 3,      # dres0_6, dres1_6.0
+    (1, 6, 15, 20, 64, 64, True, False): 1,       # dres1_6.2
+    (1, 6, 15, 20, 192, 128, False, False): 1,    # combine1.combine2
+    (1, 6, 15, 20, 128, 128, False, False): 2,    # combine1/dres3 conv4
+    (1, 16, 120, 160, 65, 32, False, False): 1,   # confidence0_s3.0
+    (1, 16, 120, 160, 32, 32, False, False): 3,   # s3 stack, classif1_s3
+    (1, 16, 120, 160, 32, 32, True, False): 1,    # confidence1_s3.2
+    (1, 8, 60, 80, 64, 64, False, False): 2,      # confidence{2,3}_s3.conv2
+    (1, 4, 30, 40, 128, 128, False, False): 2,    # confidence{2,3}_s3.conv4
+    (1, 12, 240, 320, 33, 16, False, False): 1,   # confidence0_s2.0
+    (1, 12, 240, 320, 16, 16, False, False): 3,   # s2 stack, classif1_s2
+    (1, 12, 240, 320, 16, 16, True, False): 1,    # confidence1_s2.2
+    (1, 6, 120, 160, 32, 32, False, False): 2,    # confidence{2,3}_s2.conv2
+    (1, 3, 60, 80, 64, 64, False, False): 2,      # confidence{2,3}_s2.conv4
+}
+MIXES = {
+    "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX},
+    "CFNet": {"K1": CF_K1_MIX, "K2": CF_K2_MIX, "K4": CF_K4_MIX,
+              "K5": CF_K5_MIX, "K6": CF_K6_MIX},
+}
 
-# Stages of the forward, as (stage, first module, last module, label of the
-# work between the previous stage and this one)
-STAGES = [
-    ("2D trunk", "feature_extraction", "feature_extraction",
-     "input cast + view batching"),
-    ("dres0", "dres0", "dres0", "cost volume (K1)"),
-    ("dres1", "dres1.0", "dres1.2", "glue"),
-    ("dres2", "dres2", "dres2", "glue"),
-    ("dres3", "dres3", "dres3", "glue"),
-    ("dres4", "dres4", "dres4", "glue"),
-    ("classif3", "classif3.0", "classif3.2", "glue"),
-]
-HEAD = "head (upsample, softmax, regression)"
+# Stages of each forward, as (stage, first module, last module, label of the
+# work between the previous stage and this one), and the label of the work
+# after the last stage
+STAGES = {
+    "GwcNet_G": ([
+        ("2D trunk", "feature_extraction", "feature_extraction",
+         "input cast + view batching"),
+        ("dres0", "dres0", "dres0", "cost volume (K1)"),
+        ("dres1", "dres1.0", "dres1.2", "glue"),
+        ("dres2", "dres2", "dres2", "glue"),
+        ("dres3", "dres3", "dres3", "glue"),
+        ("dres4", "dres4", "dres4", "glue"),
+        ("classif3", "classif3.0", "classif3.2", "glue"),
+    ], "head (upsample, softmax, regression)"),
+    "CFNet": ([
+        ("2D trunk", "feature_extraction", "feature_extraction",
+         "input cast + view batching"),
+        ("volumes 1/8-1/32 (K1, K6)", "volumes", "volumes", "glue"),
+        ("1/8-1/32 stacks (dres*)", "dres0", "dres1_6.2", "glue"),
+        ("combine1", "combine1", "combine1", "glue"),
+        ("dres3", "dres3", "dres3", "glue"),
+        ("classif2", "classif2.0", "classif2.2", "glue"),
+        ("s3 volumes (K5, K4)", "volume_s3", "volume_s3",
+         "s4 head + sampling"),
+        ("s3 stack", "confidence0_s3", "confidence_classif1_s3.2", "glue"),
+        ("s2 volumes (K5, K4)", "volume_s2", "volume_s2",
+         "s3 head + sampling"),
+        ("s2 stack", "confidence0_s2", "confidence_classif1_s2.2", "glue"),
+    ], "s2 head + final upsample"),
+}
 GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
+
+# max|err| limits against the plain version, as a share of max|ref|
+REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K2": {F32: 1e-4, BF16: 2e-2},
+           "K4": {F32: 0.0, BF16: 0.0}, "K5": {F32: 1e-5, BF16: 1e-2},
+           "K6": {F32: 0.0, BF16: 0.0}}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -92,12 +181,37 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def trace(fn, iters: int) -> dict:
+    """Device ms and launches per call of each kernel that `fn` launches,
+    from a ``torch.profiler`` trace of `iters` calls (the forward's kernel
+    families)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    return {evt.key: (evt.self_device_time_total / 1e3 / iters,
+                      evt.count / iters)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.self_device_time_total > 0}
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time of one call of `fn`: CUDA events around `iters` calls
+    that the host enqueues while a sleep kernel holds the stream, so that
+    the calls run back to back and the host's launch overhead (the ctypes
+    wrapper, ATen's dispatch) does not count for small kernels. (Device
+    times from ``torch.profiler`` were tried and lost events after the
+    trace of CFNet's f32 forward.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)     # ~50 ms at the H100's clock
     start.record()
     for _ in range(iters):
         fn()
@@ -107,7 +221,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def reset_counts() -> None:
-    for fn in (build_gwc_volume, conv3d_fused):
+    for fn, *_ in KERNELS.values():
         fn.launches = 0
         fn.shapes.clear()
 
@@ -116,27 +230,44 @@ def randn(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen) * scale).to(DEV, dtype)
 
 
+def samples_for(b, s, h, w, lo, hi, gen):
+    """Integer-valued float32 disparity samples in [lo, hi] on the card."""
+    return torch.randint(lo, hi + 1, (b, s, h, w), generator=gen).float().to(
+        DEV)
+
+
+def held(tag, dtype, got, want, what) -> float:
+    """max|got - want|, required within REL_TOL · max|want|."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = REL_TOL[tag][dtype] * want.float().abs().max().item()
+    print(f"  {tag} {DTYPE_NAME[dtype]} {what}: max|err| {err:.3e} "
+          f"(tol {tol:.3e})")
+    require(err <= tol, f"{tag} {DTYPE_NAME[dtype]} {what}")
+    return err
+
+
+def all_shapes(tag):
+    return {key for mix in MIXES.values() for key in mix.get(tag, {})}
+
+
 # ---------------------------------------------------------------- phase 3
 def check_gwc(gen) -> dict:
     errs = {}
-    cases = [*K1_MIX, (2, 5, 37, 48, 48, 16)]   # ragged: W % 16, W < D, C/G=3
+    model_cases = all_shapes("K1")
+    cases = [*model_cases, (2, 5, 37, 48, 48, 16)]   # W % 16, W < D, C/G=3
     for dtype in (F32, BF16):
         worst = 0.0
         for b, h, w, c, d, g in cases:
             left = randn((b, h, w, c), dtype, gen)
             right = randn((b, h, w, c), dtype, gen)
-            got = build_gwc_volume(left, right, d, g).float()
-            want = gwc_volume_reference(left.float(), right.float(), d, g)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ref = want.abs().max().item()
-            tol = (1e-5 if dtype == F32 else 1e-2) * ref
-            print(f"  gwc_volume {DTYPE_NAME[dtype]} {(b, h, w, c)} D={d} "
-                  f"G={g}: max|err| {err:.3e} (tol {tol:.3e})")
-            require(err <= tol, f"gwc_volume {dtype} {(b, h, w, c)}")
-            if (b, h, w, c, d, g) in K1_MIX:
+            err = held("K1", dtype, build_gwc_volume(left, right, d, g),
+                       gwc_volume_reference(left.float(), right.float(), d,
+                                            g),
+                       f"{(b, h, w, c)} D={d} G={g}")
+            if (b, h, w, c, d, g) in model_cases:
                 worst = max(worst, err)
-        errs[dtype] = (worst, 1e-5 if dtype == F32 else 1e-2)
+        errs[dtype] = worst
     return errs
 
 
@@ -151,11 +282,12 @@ def k2_inputs(ci, co, d, h, w, residual, dtype, gen, b=1):
 
 
 def check_conv(gen) -> dict:
-    """Every launch shape of the forward, each of its four volume shapes
+    """Every launch shape of both forwards, each of their volume shapes
     also with both epilogue options on and off, and a ragged case."""
     errs = {}
-    cases = dict.fromkeys(K2_MIX)
-    for key in K2_MIX:
+    model_cases = all_shapes("K2")
+    cases = dict.fromkeys(sorted(model_cases))
+    for key in sorted(model_cases):
         for res, relu in ((False, False), (True, True)):
             cases[key[:6] + (res, relu)] = None
     cases[(2, 5, 7, 19, 12, 40, True, True)] = None  # ragged tiles, chunks
@@ -164,24 +296,71 @@ def check_conv(gen) -> dict:
         for b, d, h, w, ci, co, res, relu in cases:
             x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen,
                                              b)
-            got = conv3d_fused(x, k, scale, bias, r, relu).float()
-            want = conv3d_fused_reference(
-                x.float(), k.float(), scale, bias,
-                None if r is None else r.float(), relu)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ref = want.abs().max().item()
-            rel = 1e-4 if dtype == F32 else 2e-2
-            print(f"  conv3d_fused {DTYPE_NAME[dtype]} Ci={ci} Co={co} "
-                  f"{(b, d, h, w)} res={res} relu={relu}: max|err| "
-                  f"{err:.3e} (tol {rel * ref:.3e})")
-            require(err <= rel * ref, f"conv3d_fused {dtype} {ci}->{co}")
+            err = held("K2", dtype, conv3d_fused(x, k, scale, bias, r, relu),
+                       conv3d_fused_reference(
+                           x.float(), k.float(), scale, bias,
+                           None if r is None else r.float(), relu),
+                       f"Ci={ci} Co={co} {(b, d, h, w)} res={res} "
+                       f"relu={relu}")
             worst = max(worst, err)
-        errs[dtype] = (worst, 1e-4 if dtype == F32 else 2e-2)
+        errs[dtype] = worst
     return errs
 
 
 # ---------------------------------------------------------------- phase 5
+def check_samples(gen) -> tuple[dict, dict]:
+    """K4 and K5 at CFNet's launch shapes and ragged cases (W % 32, odd C,
+    C/G = 3, a window past a block's shared memory), with samples in
+    [-3, max_shift + 4] so that both clamps and the x < 0 zeros are met."""
+    errs4, errs5 = {}, {}
+    k4_cases = [*CF_K4_MIX, (2, 3, 45, 5, 7, 20), (1, 2, 40, 320, 3, 200)]
+    k5_cases = [*CF_K5_MIX, (2, 3, 45, 12, 7, 4, 20),
+                (1, 2, 40, 320, 3, 40, 200)]
+    for dtype in (F32, BF16):
+        errs4[dtype] = errs5[dtype] = 0.0
+        for b, h, w, c, s, ms in k4_cases:
+            right = randn((b, h, w, c), dtype, gen)
+            smp = samples_for(b, s, h, w, -3, ms + 4, gen)
+            err = held("K4", dtype, gather_right_by_samples(right, smp, ms),
+                       gather_right_by_samples_reference(right, smp, ms),
+                       f"{(b, h, w, c)} S={s} max_shift={ms}")
+            if (b, h, w, c, s, ms) in CF_K4_MIX:
+                errs4[dtype] = max(errs4[dtype], err)
+        for b, h, w, c, s, g, ms in k5_cases:
+            left = randn((b, h, w, c), dtype, gen)
+            right = randn((b, h, w, c), dtype, gen)
+            smp = samples_for(b, s, h, w, -3, ms + 4, gen)
+            err = held("K5", dtype,
+                       gwc_volume_from_samples(left, right, smp, g, ms),
+                       gwc_volume_from_samples_reference(
+                           left.float(), right.float(), smp, g, ms),
+                       f"{(b, h, w, c)} S={s} G={g} max_shift={ms}")
+            if (b, h, w, c, s, g, ms) in CF_K5_MIX:
+                errs5[dtype] = max(errs5[dtype], err)
+    return errs4, errs5
+
+
+def check_concat(gen) -> dict:
+    """K6 at CFNet's launch shapes, D > W (all-zero planes) and odd C."""
+    errs = {}
+    cases = [*CF_K6_MIX, (2, 3, 37, 12, 45), (1, 2, 9, 5, 4)]
+    for dtype in (F32, BF16):
+        errs[dtype] = 0.0
+        for b, h, w, c, d in cases:
+            left = randn((b, h, w, c), dtype, gen)
+            right = randn((b, h, w, c), dtype, gen)
+            got = build_concat_volume(left, right, d)
+            err = held("K6", dtype, got,
+                       concat_volume_reference(left, right, d),
+                       f"{(b, h, w, c)} D={d}")
+            require(d <= w or not got[:, w:].any(),
+                    f"K6 planes d >= W not zero at {(b, h, w, c, d)}")
+            if (b, h, w, c, d) in CF_K6_MIX:
+                errs[dtype] = max(errs[dtype], err)
+    return errs
+
+
+# ------------------------------------------------------------- phases 6-7
 def stereo_pair(b, h, w, seed, shift=24):
     """ImageNet-normalised [B, H, W, 3] pair with a constant disparity."""
     gen = torch.Generator().manual_seed(seed)
@@ -219,72 +398,128 @@ def settle_and_perturb_bn(model, left, right, gen) -> None:
                     buf.device)
 
 
-def forward_counted(model, left, right, mix=None):
+def forward_counted(name, model, left, right, by_shape=False):
     """One forward with the counts set to 0 just before it; returns the
-    output and the launches by shape of each kernel. With `mix`, requires
-    the launches to be exactly K1_MIX and K2_MIX."""
+    output and the launches by shape of each kernel. Requires each kernel's
+    launches to total its count in MIXES[name] and, with `by_shape`, to be
+    exactly MIXES[name] shape by shape."""
     reset_counts()
     with torch.no_grad():
         out = model(left, right)
     torch.cuda.synchronize()
-    counts = (build_gwc_volume.launches, conv3d_fused.launches)
-    shapes = (Counter(build_gwc_volume.shapes), Counter(conv3d_fused.shapes))
-    require(counts == (1, 11), f"launches per forward {counts} != (1, 11)")
-    if mix:
-        require(shapes == (Counter(K1_MIX), Counter(K2_MIX)),
-                f"launches by shape {shapes} differ from K1_MIX, K2_MIX")
+    shapes = {tag: Counter(fn.shapes) for tag, (fn, *_) in KERNELS.items()}
+    want = {tag: Counter(MIXES[name].get(tag, {})) for tag in KERNELS}
+    totals = {tag: c.total() for tag, c in shapes.items()}
+    require(totals == {tag: c.total() for tag, c in want.items()},
+            f"{name} launches per forward {totals} != {want}")
+    if by_shape:
+        require(shapes == want, f"{name} launches by shape {shapes} differ "
+                                f"from {want}")
     return out, shapes
 
 
-def check_model(gen):
-    model = create_model("GwcNet_G", max_disp=MAX_DISP,
+def card_vs_cpu(name, hook=None):
+    """The model on the card and on the CPU at CHECK_HxCHECK_W, float32,
+    from the same settled weights. Returns (card model, |card - CPU| of the
+    output, CPU and card outputs of the module `hook` names).
+
+    The card side runs with cuDNN's deterministic algorithms and its own
+    seed: CFNet's floors turn run-to-run rounding (atomics in cuDNN's
+    transposed convs) into different samples, and so into a comparison that
+    moved from run to run; this way it is the same in every run."""
+    model = create_model(name, max_disp=MAX_DISP,
                          generator=torch.Generator().manual_seed(0))
     l_small, r_small = stereo_pair(1, CHECK_H, CHECK_W, seed=1)
-    settle_and_perturb_bn(model, l_small.to(DEV), r_small.to(DEV), gen)
-
-    cpu = create_model("GwcNet_G", max_disp=MAX_DISP, device="cpu")
-    cpu.load_state_dict(model.state_dict())
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        want = cpu(l_small, r_small)
-    print(f"  CPU reference forward at {CHECK_H}x{CHECK_W}: "
-          f"{time.perf_counter() - t0:.1f} s")
-    got, _ = forward_counted(model, l_small.to(DEV), r_small.to(DEV))
+    torch.backends.cudnn.deterministic = True
+    try:
+        settle_and_perturb_bn(model, l_small.to(DEV), r_small.to(DEV),
+                              torch.Generator().manual_seed(1234))
+        cpu = create_model(name, max_disp=MAX_DISP, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        caught = []
+        hooks = [m.get_submodule(hook).register_forward_hook(
+            lambda mod, inp, out: caught.append(out.float().cpu()))
+            for m in (cpu, model) if hook]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu(l_small, r_small)
+        print(f"  {name} CPU reference forward at {CHECK_H}x{CHECK_W}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        got, _ = forward_counted(name, model, l_small.to(DEV),
+                                 r_small.to(DEV))
+        for h in hooks:
+            h.remove()
+    finally:
+        torch.backends.cudnn.deterministic = False
     d = (got.cpu() - want).abs()
-    print(f"  GwcNet_G {CHECK_H}x{CHECK_W} f32, card vs CPU: mean |d| "
-          f"{d.mean().item():.3e} px, max {d.max().item():.3e} px "
-          f"(disparity range {want.min().item():.2f}..{want.max().item():.2f})")
-    require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
-            "GwcNet_G card output differs from the CPU port")
+    print(f"  {name} {CHECK_H}x{CHECK_W} f32, card vs CPU: mean |d| "
+          f"{d.mean().item():.3e} px, median {d.median().item():.3e}, "
+          f"q90 {d.quantile(0.9).item():.3e}, max {d.max().item():.3e} px "
+          f"(range {want.min().item():.2f}..{want.max().item():.2f})")
+    return model, d, caught
 
+
+def full_size_runs(name, model):
+    """The 480x640 forward in float32 and bfloat16, two pairs each, with
+    the launches by shape required to be MIXES[name]. Returns, by dtype,
+    (model, left, right, launches by shape, last output)."""
     runs = {}
     for dtype in (F32, BF16):
         m = model if dtype == F32 else create_model(
-            "GwcNet_G", max_disp=MAX_DISP).to(dtype)
+            name, max_disp=MAX_DISP).to(dtype)
         if dtype != F32:
             m.load_state_dict(model.state_dict())
         for seed in (2, 3):
             left, right = (t.to(DEV, dtype) for t in stereo_pair(1, H, W,
                                                                  seed))
-            out, shapes = forward_counted(m, left, right, mix=True)
+            out, shapes = forward_counted(name, m, left, right, by_shape=True)
             require(out.shape == (1, H, W), f"output shape {out.shape}")
             require(bool(torch.isfinite(out).all()), "non-finite output")
             lo, hi = out.min().item(), out.max().item()
             require(0 <= lo and hi < MAX_DISP, f"output range {lo}..{hi}")
-            print(f"  GwcNet_G {H}x{W} {DTYPE_NAME[dtype]} pair {seed}: "
+            print(f"  {name} {H}x{W} {DTYPE_NAME[dtype]} pair {seed}: "
                   f"disparity {lo:.2f}..{hi:.2f}, mean {out.mean().item():.2f}"
-                  f", launches gwc_volume={shapes[0].total()} "
-                  f"conv3d_fused={shapes[1].total()}")
-        runs[dtype] = (m, left, right, shapes)
+                  ", launches " + " ".join(
+                      f"{t}={c.total()}" for t, c in shapes.items()))
+        runs[dtype] = (m, left, right, shapes, out.float())
     return runs
 
 
-# ---------------------------------------------------------------- phase 6
-def forward_breakdown(model, left, right) -> dict:
+def check_gwcnet():
+    model, d, _ = card_vs_cpu("GwcNet_G")
+    require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
+            "GwcNet_G card output differs from the CPU port")
+    return full_size_runs("GwcNet_G", model)
+
+
+def check_cfnet():
+    """CFNet floors its search bounds into integer samples, so a ~1e-6
+    difference can move one sample at a near-tie pixel: the output is held
+    with quantile bounds, the classif2 costs (before the first floor)
+    tightly."""
+    model, d, (want_cost, got_cost) = card_vs_cpu("CFNet", hook="classif2.2")
+    err = (got_cost - want_cost).abs().max().item()
+    ref = want_cost.abs().max().item()
+    print(f"  CFNet classif2 costs, card vs CPU: max|d| {err:.3e} "
+          f"(tol {1e-3 * ref:.3e})")
+    require(err <= 1e-3 * ref, "CFNet classif2 costs differ from the CPU")
+    require(d.median().item() < 5e-3 and d.quantile(0.9).item() < 0.1
+            and d.mean().item() < 0.05,
+            "CFNet card output differs from the CPU port")
+    runs = full_size_runs("CFNet", model)
+    diff = (runs[BF16][4] - runs[F32][4]).abs()
+    print(f"  CFNet {H}x{W} pair 3, bfloat16 vs float32: mean |d| "
+          f"{diff.mean().item():.3f} px, median {diff.median().item():.3f} px")
+    return runs
+
+
+# ------------------------------------------------------ timing (phases 6-7)
+def forward_breakdown(name, model, left, right) -> dict:
     """Forward ms, peak memory and ms per stage, from CUDA events that hooks
     record on the stream at the stage boundaries: FWD_ITERS forwards after
     FWD_WARMUP. The stages, with the gaps between forwards, add up to the
     forward's time."""
+    stages, tail = STAGES[name]
     marks: list = []
 
     def mark(label):
@@ -293,8 +528,8 @@ def forward_breakdown(model, left, right) -> dict:
         marks.append((label, ev))
 
     hooks = [model.register_forward_pre_hook(lambda *a: mark(GAP)),
-             model.register_forward_hook(lambda *a: mark(HEAD))]
-    for stage, first, last, before in STAGES:
+             model.register_forward_hook(lambda *a: mark(tail))]
+    for stage, first, last, before in stages:
         hooks.append(model.get_submodule(first).register_forward_pre_hook(
             lambda *a, lb=before: mark(lb)))
         hooks.append(model.get_submodule(last).register_forward_hook(
@@ -312,19 +547,22 @@ def forward_breakdown(model, left, right) -> dict:
     finally:
         for hook in hooks:
             hook.remove()
-    stages: dict = defaultdict(float)
+    per_stage: dict = defaultdict(float)
     for (_, a), (label, b) in zip(marks, marks[1:]):
-        stages[label] += a.elapsed_time(b) / FWD_ITERS
+        per_stage[label] += a.elapsed_time(b) / FWD_ITERS
     return {"ms": marks[0][1].elapsed_time(marks[-1][1]) / FWD_ITERS,
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            "stages_ms": dict(stages)}
+            "stages_ms": dict(per_stage)}
 
 
 def kernel_family(name: str) -> str:
-    if "conv3d_fused_kernel" in name:
-        return "K2 conv3d_fused"
-    if "gwc_volume_kernel" in name:
-        return "K1 gwc_volume"
+    for mark, fam in (("conv3d_fused_kernel", "K2 conv3d_fused"),
+                      ("gwc_volume_kernel", "K1 gwc_volume"),
+                      ("::gather_kernel<", "K4 sample gather"),
+                      ("::gwc_kernel<", "K5 gwc volume from samples"),
+                      ("concat_volume_kernel", "K6 concat volume")):
+        if mark in name:
+            return fam
     low = name.lower()
     if "bn_fw" in low or "batch_norm" in low:
         return "BatchNorm (cuDNN or ATen)"
@@ -336,34 +574,14 @@ def kernel_family(name: str) -> str:
     return "other (elementwise, copies, reductions)"
 
 
-def kernel_times(model, left, right) -> dict:
-    """Device ms and launches per forward of each kernel, from a
-    torch.profiler trace of FWD_ITERS forwards."""
-    from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(FWD_ITERS):
-                model(left, right)
-            torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if evt.self_device_time_total > 0:
-            out[evt.key] = (evt.self_device_time_total / 1e3 / FWD_ITERS,
-                            evt.count / FWD_ITERS)
-    return out
-
-
-def profile_forward(model, left, right, dtype) -> dict:
-    fwd = forward_breakdown(model, left, right)
-    kernels = kernel_times(model, left, right)
+def profile_forward(name, model, left, right, dtype) -> dict:
+    fwd = forward_breakdown(name, model, left, right)
+    kernels = trace(lambda: model(left, right), FWD_ITERS)
     families: dict = defaultdict(float)
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
     busy = sum(families.values())
-    print(f"  GwcNet_G forward {H}x{W} {DTYPE_NAME[dtype]}: {fwd['ms']:.3f} "
+    print(f"  {name} forward {H}x{W} {DTYPE_NAME[dtype]}: {fwd['ms']:.3f} "
           f"ms, peak memory {fwd['peak_bytes'] / 2**20:.1f} MiB")
     for label, ms in sorted(fwd["stages_ms"].items(), key=lambda kv: -kv[1]):
         print(f"    stage {label:40s} {ms:8.3f} ms "
@@ -384,34 +602,37 @@ def profile_forward(model, left, right, dtype) -> dict:
 
 
 def time_gwc(mix, dtype, gen):
-    """Times and work of the forward's K1 launches, weighted by `mix`."""
+    """Times and work of a forward's K1 launches, weighted by `mix`."""
     ms = plain = 0.0
     nbytes = flops = 0
+    shapes = []
     for (b, h, w, c, d, g), n in mix.items():
         left = randn((b, h, w, c), dtype, gen)
         right = randn((b, h, w, c), dtype, gen)
-        t = cuda_ms(lambda: build_gwc_volume(left, right, d, g), 20)
-        tp = cuda_ms(lambda: gwc_volume_reference(left, right, d, g), 5)
+        t = device_ms(lambda: build_gwc_volume(left, right, d, g), 20)
+        tp = device_ms(lambda: gwc_volume_reference(left, right, d, g), 5)
         ms, plain = ms + n * t, plain + n * tp
         nbytes += n * (2 * b * h * w * c + b * d * h * w * g) * \
             left.element_size()
         # this data's work: the w < d outputs are zero and need no products
         flops += n * 2 * c * b * h * sum(max(w - dd, 0) for dd in range(d))
-    return ms, plain, None, nbytes, flops
+        shapes.append({"bhwc": [b, h, w, c], "d": d, "g": g, "launches": n,
+                       "ms": t, "plain_ms": tp})
+    return ms, plain, None, nbytes, flops, shapes
 
 
 def time_conv(mix, dtype, gen):
-    """Times and work of the forward's K2 launches, weighted by `mix`."""
+    """Times and work of a forward's K2 launches, weighted by `mix`."""
     ms = plain = lib = 0.0
     nbytes = flops = 0
     shapes = []
     for (b, d, h, w, ci, co, res, relu), n in mix.items():
         x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen, b)
-        t = cuda_ms(lambda: conv3d_fused(x, k, scale, bias, r, relu), 5)
-        tp = cuda_ms(lambda: conv3d_fused_reference(x, k, scale, bias, r,
+        t = device_ms(lambda: conv3d_fused(x, k, scale, bias, r, relu), 5)
+        tp = device_ms(lambda: conv3d_fused_reference(x, k, scale, bias, r,
                                                     relu), 5)
         xv, kv = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
-        tl = cuda_ms(lambda: F.conv3d(xv, kv, padding=1), 5)
+        tl = device_ms(lambda: F.conv3d(xv, kv, padding=1), 5)
         vox = b * d * h * w
         nbytes += n * ((vox * (ci + co * (2 if res else 1)) + 27 * ci * co)
                        * x.element_size() + 2 * co * 4)
@@ -421,6 +642,133 @@ def time_conv(mix, dtype, gen):
                        "residual": res, "relu": relu, "launches": n,
                        "ms": t, "plain_ms": tp, "library_ms": tl})
     return ms, plain, lib, nbytes, flops, shapes
+
+
+def time_gather(mix, dtype, gen):
+    """Times and work of a forward's K4 launches, weighted by `mix`; the
+    library yardstick is one ``torch.gather`` on the right features padded
+    with max_shift zero columns (the pad and the index outside the timed
+    call)."""
+    ms = plain = lib = 0.0
+    nbytes = 0
+    shapes = []
+    for (b, h, w, c, s, mshift), n in mix.items():
+        right = randn((b, h, w, c), dtype, gen)
+        smp = samples_for(b, s, h, w, 0, mshift, gen)
+        t = device_ms(lambda: gather_right_by_samples(right, smp, mshift),
+                      20)
+        tp = device_ms(lambda: gather_right_by_samples_reference(right, smp,
+                                                               mshift), 5)
+        padded = F.pad(right, (0, 0, mshift, 0))[:, None].expand(
+            b, s, h, w + mshift, c)
+        idx = (torch.arange(w, device=DEV) + mshift - smp.long())[
+            ..., None].expand(b, s, h, w, c).contiguous()
+        tl = device_ms(lambda: torch.gather(padded, 3, idx), 20)
+        ms, plain, lib = ms + n * t, plain + n * tp, lib + n * tl
+        nbytes += n * ((b * h * w * c + b * s * h * w * c)
+                       * right.element_size() + b * s * h * w * 4)
+        shapes.append({"bhwc": [b, h, w, c], "s": s, "max_shift": mshift,
+                       "launches": n, "ms": t, "plain_ms": tp,
+                       "library_ms": tl})
+    return ms, plain, lib, nbytes, 0, shapes
+
+
+def time_gwc_samples(mix, dtype, gen):
+    """Times and work of a forward's K5 launches, weighted by `mix`."""
+    ms = plain = 0.0
+    nbytes = flops = 0
+    shapes = []
+    for (b, h, w, c, s, g, mshift), n in mix.items():
+        left = randn((b, h, w, c), dtype, gen)
+        right = randn((b, h, w, c), dtype, gen)
+        smp = samples_for(b, s, h, w, 0, mshift, gen)
+        t = device_ms(lambda: gwc_volume_from_samples(left, right, smp, g,
+                                                    mshift), 20)
+        tp = device_ms(lambda: gwc_volume_from_samples_reference(
+            left, right, smp, g, mshift), 5)
+        ms, plain = ms + n * t, plain + n * tp
+        nbytes += n * ((2 * b * h * w * c + b * s * h * w * g)
+                       * left.element_size() + b * s * h * w * 4)
+        # this data's work: samples reaching x < 0 give zeros, no products
+        inside = (torch.arange(w, device=DEV) >= smp).sum().item()
+        flops += n * 2 * c * inside
+        shapes.append({"bhwc": [b, h, w, c], "s": s, "g": g,
+                       "max_shift": mshift, "launches": n, "ms": t,
+                       "plain_ms": tp})
+    return ms, plain, None, nbytes, flops, shapes
+
+
+def time_concat(mix, dtype, gen):
+    """Times and work of a forward's K6 launches, weighted by `mix`."""
+    ms = plain = 0.0
+    nbytes = 0
+    shapes = []
+    for (b, h, w, c, d), n in mix.items():
+        left = randn((b, h, w, c), dtype, gen)
+        right = randn((b, h, w, c), dtype, gen)
+        t = device_ms(lambda: build_concat_volume(left, right, d), 20)
+        tp = device_ms(lambda: concat_volume_reference(left, right, d), 5)
+        ms, plain = ms + n * t, plain + n * tp
+        nbytes += n * (2 * b * h * w * c + 2 * b * d * h * w * c) * \
+            left.element_size()
+        shapes.append({"bhwc": [b, h, w, c], "d": d, "launches": n,
+                       "ms": t, "plain_ms": tp})
+    return ms, plain, None, nbytes, 0, shapes
+
+
+# The two 3x3 convs of CFNet's 2D trunk (iconv3, gw3: Ci, Co, H, W, both
+# views) for which cuDNN, with TF32 off, takes an algorithm that needs a
+# workspace of many GB and most of the f32 forward
+CUDNN_PROBE = [(256, 128, 120, 160), (128, 160, 120, 160)]
+
+
+def cudnn_probe(gen) -> list:
+    """``F.conv2d`` at CUDNN_PROBE (float32, channels-last, batch 2) with
+    TF32 off and on: device ms and the memory the call takes beyond its
+    inputs."""
+    rows = []
+    for ci, co, h, w in CUDNN_PROBE:
+        x = randn((2, h, w, ci), F32, gen).permute(0, 3, 1, 2)
+        k = randn((co, ci, 3, 3), F32, gen, 0.02)
+        row = {"ci": ci, "co": co, "hw": [h, w]}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = device_ms(lambda: F.conv2d(x, k, padding=1), 3)
+            row["tf32" if tf32 else "f32"] = {
+                "ms": ms, "extra_mib": (torch.cuda.max_memory_allocated()
+                                        - base) / 2**20}
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"  cuDNN conv2d {ci}->{co} at 2x{h}x{w}: TF32 off "
+              f"{row['f32']['ms']:.3f} ms (+{row['f32']['extra_mib']:.0f} "
+              f"MiB), TF32 on {row['tf32']['ms']:.3f} ms "
+              f"(+{row['tf32']['extra_mib']:.0f} MiB)")
+        rows.append(row)
+    return rows
+
+
+TIMERS = {"K1": time_gwc, "K2": time_conv, "K4": time_gather,
+          "K5": time_gwc_samples, "K6": time_concat}
+
+
+def time_kernel(model_name, tag, dtype, mix, err, gen) -> dict:
+    """The ``kernels`` line's entry of kernel `tag` on the launches `mix`
+    that a forward of `model_name` recorded."""
+    _, kname, source, replaces = KERNELS[tag]
+    ms, plain, lib, nbytes, flops, per_shape = TIMERS[tag](mix, dtype, gen)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    print(f"  {model_name} {tag} {kname} ({DTYPE_NAME[dtype]}): {ms:.4f} ms "
+          f"x{mix.total()} (plain {plain:.4f}, library {lib}, bound "
+          f"{b_ms:.4f} by {b_by})")
+    return {"name": f"{kname} ({DTYPE_NAME[dtype]})", "id": tag,
+            "model": model_name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": mix.total(),
+            "max_abs_err": err, "tolerance": f"{REL_TOL[tag][dtype]}*max|ref|",
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "shapes": per_shape}
 
 
 def bound(nbytes, flops, dtype):
@@ -438,7 +786,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(f"phase 1: device {name}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
+          f"CUDA {torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}")
     print(smi[0] if smi else "nvidia-smi: no output")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -455,48 +803,36 @@ def main() -> None:
                 print(f"  {lib}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(1234)
-    print("phase 3: gwc_volume kernel vs plain")
-    gwc_err = check_gwc(gen)
-    print("phase 4: conv3d_fused kernel vs plain")
-    conv_err = check_conv(gen)
-    print("phase 5: GwcNet_G")
-    runs = check_model(gen)
-
-    print("phase 6: timing")
+    errs = {}
+    print("phase 3: K1 gwc_volume kernel vs plain")
+    errs["K1"] = check_gwc(gen)
+    print("phase 4: K2 conv3d_fused kernel vs plain")
+    errs["K2"] = check_conv(gen)
+    print("phase 5: K4, K5 sample kernels and K6 concat volume vs plain")
+    errs["K4"], errs["K5"] = check_samples(gen)
+    errs["K6"] = check_concat(gen)
     kernels = []
-    forward = {"shape": [1, H, W, 3], "max_disp": MAX_DISP,
-               "iters": FWD_ITERS, "warmup": FWD_WARMUP}
-    for dtype in (F32, BF16):
-        m, left, right, (k1_mix, k2_mix) = runs[dtype]
-        forward[DTYPE_NAME[dtype]] = profile_forward(m, left, right, dtype)
+    forward = {}
+    for phase, (model_name, check) in enumerate(
+            (("GwcNet_G", check_gwcnet), ("CFNet", check_cfnet)), 6):
+        print(f"phase {phase}: {model_name} "
+              f"({time.perf_counter() - t_start:.1f} s)")
+        runs = check()
+        print(f"phase {phase}: {model_name} timing")
+        forward[model_name] = {"shape": [1, H, W, 3], "max_disp": MAX_DISP,
+                               "iters": FWD_ITERS, "warmup": FWD_WARMUP}
+        for dtype, (m, left, right, shapes, _) in runs.items():
+            forward[model_name][DTYPE_NAME[dtype]] = profile_forward(
+                model_name, m, left, right, dtype)
+            for tag in MIXES[model_name]:
+                kernels.append(time_kernel(model_name, tag, dtype,
+                                           shapes[tag], errs[tag][dtype],
+                                           gen))
+        del runs, m, left, right   # the next model's peak memory is its own
+        torch.cuda.empty_cache()
 
-        ms, plain, lib, nbytes, flops = time_gwc(k1_mix, dtype, gen)
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        kernels.append({
-            "name": f"gwc_volume ({DTYPE_NAME[dtype]})", "route": "cuda",
-            "source": "stereo_toolbox_tpu_torch/csrc/gwc_volume.cu",
-            "replaces": "stereo_toolbox_tpu/ops/pallas/volume.py:87",
-            "launches": k1_mix.total(), "max_abs_err": gwc_err[dtype][0],
-            "tolerance": f"{gwc_err[dtype][1]}*max|ref|",
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "shapes": [
-                {"bhwc": list(key[:4]), "d": key[4], "g": key[5],
-                 "launches": n} for key, n in k1_mix.items()]})
-        ms, plain, lib, nbytes, flops, shapes = time_conv(k2_mix, dtype, gen)
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        kernels.append({
-            "name": f"conv3d_fused ({DTYPE_NAME[dtype]})", "route": "cuda",
-            "source": "stereo_toolbox_tpu_torch/csrc/conv3d_fused.cu",
-            "replaces": "stereo_toolbox_tpu/ops/pallas/conv3d_fused.py:159",
-            "launches": k2_mix.total(), "max_abs_err": conv_err[dtype][0],
-            "tolerance": f"{conv_err[dtype][1]}*max|ref|",
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "gflop": flops / 1e9, "shapes": shapes})
-        for k in kernels[-2:]:
-            print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}"
-                  f", library {k['library_ms']}, bound {k['bound_ms']:.4f} "
-                  f"by {k['bound_by']})")
-
+    print("phase 8: cuDNN float32 probe")
+    forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
     print(json.dumps({"kernels": kernels}))

@@ -12,9 +12,11 @@ from typing import Any, Callable
 
 import torch
 
+from stereo_toolbox_tpu_torch.models.cfnet import CFNet
 from stereo_toolbox_tpu_torch.models.gwcnet import GwcNet, GwcNet_G
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
+    "CFNet": CFNet,
     "GwcNet_G": GwcNet_G,
 }
 
@@ -34,4 +36,4 @@ def create_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     return MODEL_REGISTRY[name](**kwargs).eval().to(device)
 
 
-__all__ = ["GwcNet", "GwcNet_G", "MODEL_REGISTRY", "create_model"]
+__all__ = ["CFNet", "GwcNet", "GwcNet_G", "MODEL_REGISTRY", "create_model"]

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock, ConvBNAct,
-                                                ConvTransposeBN,
+                                                HourglassRedir,
                                                 channels_first,
                                                 dual_view_apply, init_weights)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate
@@ -64,27 +64,6 @@ class GwcFeature(nn.Module):
         return {"gwc_feature": torch.cat([l2, l3, l4], dim=-1)}
 
 
-class HourglassRedir(nn.Module):
-    """3D hourglass with 1×1 ``redir`` skips; channels-last."""
-
-    def __init__(self, c: int):
-        super().__init__()
-        self.conv1 = nn.Sequential(ConvBNAct(c, 2 * c, 3, 2, dims=3))
-        self.conv2 = nn.Sequential(ConvBNAct(2 * c, 2 * c, 3, 1, dims=3))
-        self.conv3 = nn.Sequential(ConvBNAct(2 * c, 4 * c, 3, 2, dims=3))
-        self.conv4 = nn.Sequential(ConvBNAct(4 * c, 4 * c, 3, 1, dims=3))
-        self.conv5 = ConvTransposeBN(4 * c, 2 * c)
-        self.conv6 = ConvTransposeBN(2 * c, c)
-        self.redir1 = ConvBNAct(c, c, 1, 1, 0, dims=3, relu=False)
-        self.redir2 = ConvBNAct(2 * c, 2 * c, 1, 1, 0, dims=3, relu=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c2 = self.conv2(self.conv1(x))
-        c4 = self.conv4(self.conv3(c2))
-        c5 = torch.relu(self.conv5(c4) + self.redir2(c2))
-        return torch.relu(self.conv6(c5) + self.redir1(x))
-
-
 def _classifier() -> nn.Sequential:
     return _every_other(ConvBNAct(32, 32, 3, 1, dims=3),
                         nn.Conv3d(32, 1, 3, 1, 1, bias=False))
@@ -100,7 +79,7 @@ class GwcNet(nn.Module):
         self.dres0 = _every_other(ConvBNAct(num_groups, 32, 3, 1, dims=3),
                                   ConvBNAct(32, 32, 3, 1, dims=3))
         self.dres1 = _every_other(ConvBNAct(32, 32, 3, 1, dims=3),
-                                  ConvBNAct(32, 32, 3, 1, dims=3, relu=False))
+                                  ConvBNAct(32, 32, 3, 1, dims=3, act=None))
         self.dres2 = HourglassRedir(32)
         self.dres3 = HourglassRedir(32)
         self.dres4 = HourglassRedir(32)

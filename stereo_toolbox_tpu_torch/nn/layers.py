@@ -10,7 +10,8 @@ a model's ``state_dict`` carries the original PyTorch parameter names.
 In eval mode a 3D 3×3×3, stride-1, undilated, padding-1 ConvBNAct folds its
 BatchNorm into a per-channel affine and runs `ops.conv3d_fused` (the CUDA
 kernel on the card): the same condition under which the JAX package takes
-its fused lowering.
+its fused lowering. The kernel's epilogue applies ReLU; Mish runs after it,
+as in the JAX package's fused lowering.
 """
 
 from __future__ import annotations
@@ -34,6 +35,24 @@ def _tuple(v, n: int) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
 
 
+ACTIVATIONS = {"relu": F.relu, "mish": F.mish, None: lambda x: x}
+
+
+def activate(x: torch.Tensor, act: str | None) -> torch.Tensor:
+    """``act`` of ``{"relu", "mish", None}`` applied to `x`."""
+    return ACTIVATIONS[act](x)
+
+
+def avg_pool(x: torch.Tensor, window, stride=None) -> torch.Tensor:
+    """Floor-mode average pool over the spatial axes of a channels-last
+    ``[B, *spatial, C]`` tensor, no padding (torch ``AvgPool``)."""
+    n = x.dim() - 2
+    window = _tuple(window, n)
+    stride = _tuple(stride if stride is not None else window, n)
+    pool = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}[n]
+    return channels_last(pool(channels_first(x), window, stride))
+
+
 def channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-1, 1)
 
@@ -43,15 +62,16 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBNAct(nn.Sequential):
-    """Bias-free conv (2D or 3D) → BatchNorm → optional ReLU.
+    """Bias-free conv (2D or 3D) → BatchNorm → activation `act` (``"relu"``,
+    ``"mish"`` or None).
 
-    ``forward(x, residual=None)``: with a residual, ``relu(bn(conv(x)) +
+    ``forward(x, residual=None)``: with a residual, ``act(bn(conv(x)) +
     residual)`` — the epilogue of the fused kernel.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size=3, stride=1, padding=None, dilation=1,
-                 dims: int = 2, relu: bool = True):
+                 dims: int = 2, act: str | None = "relu"):
         k = _tuple(kernel_size, dims)
         s = _tuple(stride, dims)
         d = _tuple(dilation, dims)
@@ -60,7 +80,9 @@ class ConvBNAct(nn.Sequential):
         super().__init__(
             _CONV[dims](in_channels, out_channels, k, s, p, d, bias=False),
             _BN[dims](out_channels, eps=BN_EPS, momentum=BN_MOMENTUM))
-        self.relu = relu
+        if act not in ACTIVATIONS:
+            raise ValueError(f"act {act!r} is not relu, mish or None")
+        self.act = act
         self.fusible = (dims == 3 and k == (3, 3, 3) and s == (1, 1, 1)
                         and d == (1, 1, 1) and p == (1, 1, 1))
 
@@ -77,16 +99,15 @@ class ConvBNAct(nn.Sequential):
         if self.fusible and not self.training:
             scale, bias = self.folded_affine()
             kernel = self[0].weight.permute(2, 3, 4, 1, 0).to(x.dtype)
-            return conv3d_fused(
+            y = conv3d_fused(
                 x.contiguous(), kernel, scale, bias,
                 None if residual is None else residual.contiguous(),
-                relu=self.relu)
+                relu=self.act == "relu")
+            return y if self.act == "relu" else activate(y, self.act)
         y = self[1](self[0](channels_first(x)))
         if residual is not None:
             y = y + channels_first(residual)
-        if self.relu:
-            y = F.relu(y)
-        return channels_last(y)
+        return channels_last(activate(y, self.act))
 
 
 class ConvTransposeBN(nn.Sequential):
@@ -104,18 +125,21 @@ class ConvTransposeBN(nn.Sequential):
 
 
 class BasicResBlock(nn.Module):
-    """Two 3×3 conv-BN with a residual add and no ReLU after it (the
-    original toolbox's ``BasicBlock``); 2D."""
+    """Two 3×3 conv-BN, `act` after the first, with a residual add and no
+    activation after it (the original toolbox's ``BasicBlock``; with
+    ``act="mish"`` CFNet's); 2D."""
 
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
-                 dilation: int = 1, downsample: bool = False):
+                 dilation: int = 1, downsample: bool = False,
+                 act: str = "relu"):
         super().__init__()
         self.conv1 = nn.Sequential(
-            ConvBNAct(in_channels, planes, 3, stride, dilation=dilation))
+            ConvBNAct(in_channels, planes, 3, stride, dilation=dilation,
+                      act=act))
         self.conv2 = ConvBNAct(planes, planes, 3, 1, dilation=dilation,
-                               relu=False)
+                               act=None)
         self.downsample = (ConvBNAct(in_channels, planes, 1, stride,
-                                     padding=0, relu=False)
+                                     padding=0, act=None)
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +147,33 @@ class BasicResBlock(nn.Module):
         if self.downsample is not None:
             x = self.downsample(x)
         return out + x
+
+
+class HourglassRedir(nn.Module):
+    """3D hourglass with 1×1 ``redir`` skips, `act` in all six places
+    (GwcNet's with ReLU; CFNet's ``HourglassMish`` with Mish);
+    channels-last."""
+
+    def __init__(self, c: int, act: str = "relu"):
+        super().__init__()
+        self.act = act
+        self.conv1 = nn.Sequential(ConvBNAct(c, 2 * c, 3, 2, dims=3, act=act))
+        self.conv2 = nn.Sequential(ConvBNAct(2 * c, 2 * c, 3, 1, dims=3,
+                                             act=act))
+        self.conv3 = nn.Sequential(ConvBNAct(2 * c, 4 * c, 3, 2, dims=3,
+                                             act=act))
+        self.conv4 = nn.Sequential(ConvBNAct(4 * c, 4 * c, 3, 1, dims=3,
+                                             act=act))
+        self.conv5 = ConvTransposeBN(4 * c, 2 * c)
+        self.conv6 = ConvTransposeBN(2 * c, c)
+        self.redir1 = ConvBNAct(c, c, 1, 1, 0, dims=3, act=None)
+        self.redir2 = ConvBNAct(2 * c, 2 * c, 1, 1, 0, dims=3, act=None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c2 = self.conv2(self.conv1(x))
+        c4 = self.conv4(self.conv3(c2))
+        c5 = activate(self.conv5(c4) + self.redir2(c2), self.act)
+        return activate(self.conv6(c5) + self.redir1(x), self.act)
 
 
 def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor):

@@ -2,15 +2,21 @@
 
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
                                                        conv3d_fused_reference)
-from stereo_toolbox_tpu_torch.ops.upsample import interpolate
-from stereo_toolbox_tpu_torch.ops.volume import (build_gwc_volume,
-                                                 disparity_regression,
-                                                 groupwise_correlation,
-                                                 gwc_volume_reference,
-                                                 shifted_right_stack,
-                                                 soft_argmax)
+from stereo_toolbox_tpu_torch.ops.upsample import interpolate, resize_nearest
+from stereo_toolbox_tpu_torch.ops.volume import (
+    build_concat_volume, build_gwc_volume, concat_volume_from_samples,
+    concat_volume_reference, disparity_regression, disparity_variance,
+    disparity_variance_confidence, gather_right_by_samples,
+    gather_right_by_samples_reference, groupwise_correlation,
+    gwc_volume_from_samples, gwc_volume_from_samples_reference,
+    gwc_volume_reference, shifted_right_stack, soft_argmax)
 
-__all__ = ["build_gwc_volume", "conv3d_fused", "conv3d_fused_reference",
-           "disparity_regression", "groupwise_correlation",
-           "gwc_volume_reference", "interpolate", "shifted_right_stack",
+__all__ = ["build_concat_volume", "build_gwc_volume",
+           "concat_volume_from_samples", "concat_volume_reference",
+           "conv3d_fused", "conv3d_fused_reference", "disparity_regression",
+           "disparity_variance", "disparity_variance_confidence",
+           "gather_right_by_samples", "gather_right_by_samples_reference",
+           "groupwise_correlation", "gwc_volume_from_samples",
+           "gwc_volume_from_samples_reference", "gwc_volume_reference",
+           "interpolate", "resize_nearest", "shifted_right_stack",
            "soft_argmax"]

@@ -26,12 +26,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argtypes of each library's launch function, named like the source
+# argtypes of each launch function, by library (named like its source)
 SIGNATURES = {
-    # left, right, out, B, H, W, C, D, G, dtype, stream
-    "gwc_volume": [_P, _P, _P] + [_I] * 7 + [_P],
-    # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, relu, dtype, stream
-    "conv3d_fused": [_P] * 6 + [_I] * 8 + [_P],
+    "gwc_volume": {
+        # left, right, out, B, H, W, C, D, G, dtype, stream
+        "gwc_volume": [_P, _P, _P] + [_I] * 7 + [_P]},
+    "conv3d_fused": {
+        # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, relu, dtype, stream
+        "conv3d_fused": [_P] * 6 + [_I] * 8 + [_P]},
+    "sample_gather": {
+        # right, samples, out, B, H, W, C, S, max_shift, dtype, stream
+        "gather_right_by_samples": [_P] * 3 + [_I] * 7 + [_P],
+        # left, right, samples, out, B, H, W, C, S, G, max_shift, dtype, stream
+        "gwc_volume_from_samples": [_P] * 4 + [_I] * 8 + [_P]},
+    "concat_volume": {
+        # left, right, out, B, H, W, C, D, dtype, stream
+        "concat_volume": [_P] * 3 + [_I] * 6 + [_P]},
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,9 +100,10 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _libs[name] = lib

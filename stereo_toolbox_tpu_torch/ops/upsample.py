@@ -1,8 +1,9 @@
-"""Linear resizing with PyTorch ``F.interpolate`` semantics, over any axes.
+"""Linear and nearest resizing with PyTorch ``F.interpolate`` semantics,
+over any axes.
 
 Counterpart of ``stereo_toolbox_tpu/ops/upsample.py`` (`_resize_axis_linear`,
-`interpolate`): separable, one axis at a time, in both ``align_corners``
-modes, on channels-last or any other layout.
+`interpolate`, `resize_nearest`): separable, one axis at a time, in both
+``align_corners`` modes, on channels-last or any other layout.
 """
 
 from __future__ import annotations
@@ -41,4 +42,16 @@ def interpolate(x: torch.Tensor, size: tuple[int, ...],
         raise ValueError(f"size {size} and axes {axes} differ in length")
     for s, a in zip(size, axes):
         x = _resize_axis_linear(x, a, s, align_corners)
+    return x
+
+
+def resize_nearest(x: torch.Tensor, size: tuple[int, ...],
+                   axes: tuple[int, ...]) -> torch.Tensor:
+    """Nearest-neighbour resize of `axes` to `size` (PyTorch ``'nearest'``:
+    source index ``floor(i · in / out)``)."""
+    for s, a in zip(size, axes):
+        in_size = x.shape[a]
+        idx = torch.floor(torch.arange(s, dtype=torch.float32,
+                                       device=x.device) * (in_size / s))
+        x = torch.index_select(x, a, idx.long().clamp(0, in_size - 1))
     return x

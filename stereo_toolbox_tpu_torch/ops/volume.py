@@ -4,9 +4,17 @@ Counterpart of ``stereo_toolbox_tpu/ops/volume.py``, in the same
 channels-last layouts: feature maps ``[B, H, W, C]``, cost volumes
 ``[B, D, H, W, C]``.
 
-`build_gwc_volume` launches the hand-written CUDA kernel
-(``csrc/gwc_volume.cu``) on a CUDA tensor and runs the plain PyTorch version,
-`gwc_volume_reference`, on a CPU tensor.
+Each op with a kernel launches the hand-written CUDA kernel on a CUDA tensor
+and runs its plain PyTorch version, named ``*_reference``, on a CPU tensor:
+
+  * `build_gwc_volume` → ``csrc/gwc_volume.cu`` (K1);
+  * `build_concat_volume` with ``mask_left=True`` → ``csrc/concat_volume.cu``
+    (K6);
+  * `gather_right_by_samples` and `gwc_volume_from_samples` →
+    ``csrc/sample_gather.cu`` (K4, K5).
+
+Each wrapper counts its launches, in all (``.launches``) and by shape
+(``.shapes``).
 """
 
 from __future__ import annotations
@@ -16,6 +24,41 @@ from collections import Counter
 import torch
 
 from stereo_toolbox_tpu_torch.ops import _cuda
+
+
+def _check_features(*feats: torch.Tensor) -> None:
+    """What the volume kernels take: contiguous ``[B, H, W, C]`` CUDA
+    tensors, all of one shape, device and dtype."""
+    first = feats[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"unsupported device {first.device}")
+    if first.dim() != 4 or any(f.shape != first.shape for f in feats):
+        raise ValueError(f"features {[tuple(f.shape) for f in feats]} must "
+                         f"be equal [B, H, W, C]")
+    if any(f.device != first.device or f.dtype != first.dtype
+           for f in feats):
+        raise ValueError("features must share device and dtype")
+    if not all(f.is_contiguous() for f in feats):
+        raise ValueError("features must be contiguous")
+
+
+def _check_samples(right: torch.Tensor, samples: torch.Tensor,
+                   max_shift: int | None) -> None:
+    """What the sample kernels take besides the features: contiguous float32
+    ``[B, S, H, W]`` samples on the features' device and a bound
+    ``max_shift``."""
+    b, h, w, _ = right.shape
+    if (samples.dim() != 4 or samples.shape[0] != b
+            or samples.shape[2:] != (h, w)):
+        raise ValueError(f"samples {tuple(samples.shape)} are not [B, S, H, W]"
+                         f" for features {tuple(right.shape)}")
+    if (samples.dtype != torch.float32 or samples.device != right.device
+            or not samples.is_contiguous()):
+        raise ValueError("samples must be contiguous float32 on the features'"
+                         " device")
+    if max_shift is None or max_shift < 0:
+        raise ValueError(f"the kernels need a bound max_shift >= 0, got "
+                         f"{max_shift}")
 
 
 def shifted_right_stack(right: torch.Tensor, max_disp: int) -> torch.Tensor:
@@ -66,15 +109,7 @@ def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     """
     if left.device.type == "cpu":
         return gwc_volume_reference(left, right, max_disp, num_groups)
-    if left.device.type != "cuda":
-        raise ValueError(f"unsupported device {left.device}")
-    if right.shape != left.shape or left.dim() != 4:
-        raise ValueError(f"left {tuple(left.shape)} / right "
-                         f"{tuple(right.shape)} must be equal [B, H, W, C]")
-    if right.device != left.device or right.dtype != left.dtype:
-        raise ValueError("left and right must share device and dtype")
-    if not (left.is_contiguous() and right.is_contiguous()):
-        raise ValueError("left and right must be contiguous")
+    _check_features(left, right)
     b, h, w, c = left.shape
     if c % num_groups or max_disp < 1:
         raise ValueError(f"bad groups {num_groups} / max_disp {max_disp} "
@@ -98,6 +133,182 @@ build_gwc_volume.launches = 0
 build_gwc_volume.shapes = Counter()
 
 
+def concat_volume_reference(left: torch.Tensor, right: torch.Tensor,
+                            max_disp: int, mask_left: bool = True
+                            ) -> torch.Tensor:
+    """Plain concatenation volume: the left features broadcast over D (zero
+    where w < d with `mask_left`) beside the shifted right stack."""
+    b, h, w, c = left.shape
+    left_b = left[:, None].expand(b, max_disp, h, w, c)
+    if mask_left:
+        d = torch.arange(max_disp, device=left.device)[:, None]
+        valid = torch.arange(w, device=left.device)[None, :] >= d   # [D, W]
+        left_b = left_b * valid[None, :, None, :, None].to(left.dtype)
+    return torch.cat([left_b, shifted_right_stack(right, max_disp)], dim=-1)
+
+
+def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
+                        max_disp: int, mask_left: bool = True
+                        ) -> torch.Tensor:
+    """Concatenation cost volume ``[B, D, H, W, 2C]``:
+    ``[left[b,h,w] · (w ≥ d), right[b,h,w-d]]`` on the channel axis, the
+    right half zero where w < d. ``mask_left=False`` keeps the left features
+    at every d (ACVNet, IGEV, FoundationStereo).
+
+    CPU tensors, and ``mask_left=False`` on any device, take
+    `concat_volume_reference`; CUDA tensors with ``mask_left=True`` launch
+    the kernel (float32 or bfloat16, contiguous ``[B, H, W, C]``) or raise.
+    """
+    if left.device.type == "cpu" or not mask_left:
+        return concat_volume_reference(left, right, max_disp, mask_left)
+    _check_features(left, right)
+    b, h, w, c = left.shape
+    if max_disp < 1:
+        raise ValueError(f"bad max_disp {max_disp}")
+    code = _cuda.dtype_code(left)
+    out = torch.empty((b, max_disp, h, w, 2 * c), dtype=left.dtype,
+                      device=left.device)
+    if out.numel() == 0:
+        return out
+    lib = _cuda.library("concat_volume")
+    with torch.cuda.device(left.device):
+        rc = lib.concat_volume(left.data_ptr(), right.data_ptr(),
+                               out.data_ptr(), b, h, w, c, max_disp, code,
+                               _cuda.stream_of(left))
+    _cuda.check(lib, rc, "concat_volume")
+    build_concat_volume.launches += 1
+    build_concat_volume.shapes[(b, h, w, c, max_disp)] += 1
+    return out
+
+
+# launches of the kernel, in all and by (B, H, W, C, D)
+build_concat_volume.launches = 0
+build_concat_volume.shapes = Counter()
+
+
+def gather_right_by_samples_reference(right: torch.Tensor,
+                                      samples: torch.Tensor,
+                                      max_shift: int | None = None
+                                      ) -> torch.Tensor:
+    """Plain gather: ``out[b,s,h,w,c] = right[b, h, w - d, c]`` with
+    ``d = int(samples[b,s,h,w])`` (clamped to ``[0, max_shift]`` when it is
+    given), zero where ``w - d`` is off the image. ``[B, S, H, W, C]``."""
+    if max_shift is not None:
+        samples = samples.clamp(0, max_shift)
+    b, h, w, c = right.shape
+    x = (torch.arange(w, device=right.device)[None, None, None, :]
+         - samples.to(torch.int64))                               # [B,S,H,W]
+    valid = (x >= 0) & (x <= w - 1)
+    s = samples.shape[1]
+    idx = x.clamp(0, w - 1)[..., None].expand(b, s, h, w, c)
+    src = right[:, None].expand(b, s, h, w, c)
+    return torch.gather(src, 3, idx) * valid[..., None].to(right.dtype)
+
+
+def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
+                            max_shift: int | None = None) -> torch.Tensor:
+    """Right features at integer disparity samples ``[B, S, H, W]``:
+    ``out[b,s,h,w,c] = right[b, h, w - samples[b,s,h,w], c]``, zero off the
+    image (CFNet's ``SpatialTransformer``). ``[B, S, H, W, C]``.
+
+    Samples are clamped to ``[0, max_shift]`` and truncated to integers.
+    CPU tensors take `gather_right_by_samples_reference`; CUDA tensors launch
+    the kernel (features float32 or bfloat16, samples float32, `max_shift`
+    given) or raise.
+    """
+    if right.device.type == "cpu":
+        return gather_right_by_samples_reference(right, samples, max_shift)
+    _check_features(right)
+    _check_samples(right, samples, max_shift)
+    b, h, w, c = right.shape
+    s = samples.shape[1]
+    code = _cuda.dtype_code(right)
+    out = torch.empty((b, s, h, w, c), dtype=right.dtype, device=right.device)
+    if out.numel() == 0:
+        return out
+    lib = _cuda.library("sample_gather")
+    with torch.cuda.device(right.device):
+        rc = lib.gather_right_by_samples(
+            right.data_ptr(), samples.data_ptr(), out.data_ptr(), b, h, w, c,
+            s, max_shift, code, _cuda.stream_of(right))
+    _cuda.check(lib, rc, "gather_right_by_samples")
+    gather_right_by_samples.launches += 1
+    gather_right_by_samples.shapes[(b, h, w, c, s, max_shift)] += 1
+    return out
+
+
+# launches of the kernel, in all and by (B, H, W, C, S, max_shift)
+gather_right_by_samples.launches = 0
+gather_right_by_samples.shapes = Counter()
+
+
+def concat_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
+                               samples: torch.Tensor,
+                               max_shift: int | None = None) -> torch.Tensor:
+    """Concatenation volume over per-pixel disparity samples (CFNet's
+    cascade): ``[left, gather_right_by_samples(right)]`` on the channel axis.
+    ``[B, S, H, W, 2C]``."""
+    gathered = gather_right_by_samples(right, samples, max_shift)
+    return torch.cat([left[:, None].expand_as(gathered), gathered], dim=-1)
+
+
+def gwc_volume_from_samples_reference(left: torch.Tensor,
+                                      right: torch.Tensor,
+                                      samples: torch.Tensor, num_groups: int,
+                                      max_shift: int | None = None
+                                      ) -> torch.Tensor:
+    """Plain version: the gathered right features correlated with the left
+    ones. ``[B, S, H, W, G]``."""
+    return groupwise_correlation(
+        left[:, None],
+        gather_right_by_samples_reference(right, samples, max_shift),
+        num_groups)
+
+
+def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
+                            samples: torch.Tensor, num_groups: int,
+                            max_shift: int | None = None) -> torch.Tensor:
+    """Group-wise correlation over per-pixel disparity samples:
+    ``out[b,s,h,w,g] = mean_{c in g} left[b,h,w,c] · right[b,h,w-d,c]`` with
+    d the clamped, truncated sample, zero off the image. ``[B, S, H, W, G]``.
+
+    CPU tensors take `gwc_volume_from_samples_reference`; CUDA tensors launch
+    the kernel, which never writes the gathered ``[B, S, H, W, C]`` tensor
+    (features float32 or bfloat16, samples float32, `max_shift` given), or
+    raise.
+    """
+    if left.device.type == "cpu":
+        return gwc_volume_from_samples_reference(left, right, samples,
+                                                 num_groups, max_shift)
+    _check_features(left, right)
+    _check_samples(right, samples, max_shift)
+    b, h, w, c = left.shape
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    s = samples.shape[1]
+    code = _cuda.dtype_code(left)
+    out = torch.empty((b, s, h, w, num_groups), dtype=left.dtype,
+                      device=left.device)
+    if out.numel() == 0:
+        return out
+    lib = _cuda.library("sample_gather")
+    with torch.cuda.device(left.device):
+        rc = lib.gwc_volume_from_samples(
+            left.data_ptr(), right.data_ptr(), samples.data_ptr(),
+            out.data_ptr(), b, h, w, c, s, num_groups, max_shift, code,
+            _cuda.stream_of(left))
+    _cuda.check(lib, rc, "gwc_volume_from_samples")
+    gwc_volume_from_samples.launches += 1
+    gwc_volume_from_samples.shapes[(b, h, w, c, s, num_groups,
+                                    max_shift)] += 1
+    return out
+
+
+# launches of the kernel, in all and by (B, H, W, C, S, G, max_shift)
+gwc_volume_from_samples.launches = 0
+gwc_volume_from_samples.shapes = Counter()
+
+
 def disparity_regression(prob: torch.Tensor, max_disp: int | None = None,
                          offset: float = 0.0) -> torch.Tensor:
     """Expectation of disparity over ``[B, D, H, W]`` probabilities →
@@ -112,3 +323,20 @@ def soft_argmax(cost: torch.Tensor, max_disp: int | None = None
     """Softmax over D of ``[B, D, H, W]`` costs, then disparity
     regression → ``[B, H, W]``."""
     return disparity_regression(torch.softmax(cost, dim=1), max_disp)
+
+
+def disparity_variance(prob: torch.Tensor, disp: torch.Tensor
+                       ) -> torch.Tensor:
+    """Per-pixel variance of a ``[B, D, H, W]`` disparity distribution
+    about ``disp [B, H, W]`` (CFNet's uncertainty) → ``[B, H, W]``."""
+    d = torch.arange(prob.shape[1], dtype=prob.dtype,
+                     device=prob.device)[None, :, None, None]
+    return (prob * (d - disp[:, None]) ** 2).sum(1)
+
+
+def disparity_variance_confidence(prob: torch.Tensor, samples: torch.Tensor,
+                                  disp: torch.Tensor) -> torch.Tensor:
+    """Variance of a distribution over per-pixel disparity samples:
+    ``prob``, ``samples`` ``[B, S, H, W]``, ``disp [B, H, W]`` →
+    ``[B, H, W]``."""
+    return (prob * (disp[:, None] - samples) ** 2).sum(1)

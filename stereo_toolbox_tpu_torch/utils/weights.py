@@ -10,7 +10,8 @@ as the port's own copy of the name map:
   * transposed conv: ``[k…, I, O]`` → ``[I, O, k…]``, spatial axes flipped
     (PyTorch's transposed conv correlates with the flipped kernel);
   * BatchNorm ``scale``/``bias``/``mean``/``var`` →
-    ``weight``/``bias``/``running_mean``/``running_var``.
+    ``weight``/``bias``/``running_mean``/``running_var``;
+  * a bare parameter (CFNet's ``gamma_s3``) is copied as it is.
 """
 
 from __future__ import annotations
@@ -80,6 +81,9 @@ class JaxToTorch:
                                                    f"{path}/var")
         self.sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
 
+    def raw(self, path: str, key: str) -> None:
+        self.sd[key] = self._take("params", path)
+
     def convbn(self, path: str, conv_key: str, bn_key: str) -> None:
         """A JAX ``ConvBNAct`` (``Conv_0`` + ``BatchNorm_0``)."""
         self.conv(f"{path}/Conv_0", conv_key)
@@ -94,6 +98,20 @@ class JaxToTorch:
                              f"over, e.g. {left[:5]}")
         return {k: torch.from_numpy(np.array(v))
                 for k, v in self.sd.items()}
+
+
+def _hourglass(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX ``HourglassRedir`` (GwcNet) or ``HourglassMish`` (CFNet) →
+    the port's ``HourglassRedir``."""
+    for j in range(4):
+        t.convbn(f"{path}/ConvBNAct_{j}", f"{key}.conv{j + 1}.0.0",
+                 f"{key}.conv{j + 1}.0.1")
+    for j, conv in enumerate(("conv5", "conv6")):
+        t.conv_transpose(f"{path}/ConvTransposeBN_{j}/ConvTranspose_0",
+                         f"{key}.{conv}.0")
+        t.bn(f"{path}/ConvTransposeBN_{j}/BatchNorm_0", f"{key}.{conv}.1")
+    t.convbn(f"{path}/ConvBNAct_4", f"{key}.redir2.0", f"{key}.redir2.1")
+    t.convbn(f"{path}/ConvBNAct_5", f"{key}.redir1.0", f"{key}.redir1.1")
 
 
 def _gwcnet(t: JaxToTorch) -> None:
@@ -115,22 +133,72 @@ def _gwcnet(t: JaxToTorch) -> None:
     for i, key in enumerate(("dres0.0", "dres0.2", "dres1.0", "dres1.2")):
         t.convbn(f"ConvBNAct_{i}", f"{key}.0", f"{key}.1")
     for i, dres in enumerate(("dres2", "dres3", "dres4")):
-        hg = f"HourglassRedir_{i}"
-        for j in range(4):
-            t.convbn(f"{hg}/ConvBNAct_{j}", f"{dres}.conv{j + 1}.0.0",
-                     f"{dres}.conv{j + 1}.0.1")
-        for j, conv in enumerate(("conv5", "conv6")):
-            t.conv_transpose(f"{hg}/ConvTransposeBN_{j}/ConvTranspose_0",
-                             f"{dres}.{conv}.0")
-            t.bn(f"{hg}/ConvTransposeBN_{j}/BatchNorm_0", f"{dres}.{conv}.1")
-        t.convbn(f"{hg}/ConvBNAct_4", f"{dres}.redir2.0", f"{dres}.redir2.1")
-        t.convbn(f"{hg}/ConvBNAct_5", f"{dres}.redir1.0", f"{dres}.redir1.1")
+        _hourglass(t, f"HourglassRedir_{i}", dres)
     for i in range(4):
         t.convbn(f"classif{i}_conv", f"classif{i}.0.0", f"classif{i}.0.1")
         t.conv(f"classif{i}_out", f"classif{i}.2")
 
 
-CONVERTERS = {"GwcNet_G": _gwcnet}
+def _cfnet(t: JaxToTorch) -> None:
+    fe = "feature_extraction"
+    for i in range(3):
+        t.convbn(f"{fe}/ConvBNAct_{i}", f"{fe}.firstconv.{2 * i}.0",
+                 f"{fe}.firstconv.{2 * i}.1")
+    for n, layer in enumerate(("layer2", "layer3", "layer4", "layer5",
+                               "layer6")):
+        f, k = f"{fe}/CFBasicBlock_{n}", f"{fe}.{layer}.0"
+        t.convbn(f"{f}/ConvBNAct_0", f"{k}.conv1.0.0", f"{k}.conv1.0.1")
+        t.convbn(f"{f}/ConvBNAct_1", f"{k}.conv2.0", f"{k}.conv2.1")
+        t.convbn(f"{f}/ConvBNAct_2", f"{k}.downsample.0", f"{k}.downsample.1")
+    for i in range(4):
+        k = f"{fe}.pyramid_pooling.path_module_list.{i}.cbr_unit"
+        t.convbn(f"{fe}/PyramidPooling_0/path{i}", f"{k}.0", f"{k}.1")
+    for up in ("upconv6", "upconv5", "upconv4", "upconv3"):
+        t.convbn(f"{fe}/{up}", f"{fe}.{up}.1.0", f"{fe}.{up}.1.1")
+    for ic in ("iconv5", "iconv4", "iconv3", "iconv2"):
+        t.convbn(f"{fe}/{ic}", f"{fe}.{ic}.0.0", f"{fe}.{ic}.0.1")
+    for head in ("gw2", "gw3", "gw4", "gw5", "gw6", "concat2", "concat3",
+                 "concat4", "concat5", "concat6"):
+        t.convbn(f"{fe}/{head}_0", f"{fe}.{head}.0.0", f"{fe}.{head}.0.1")
+        t.conv(f"{fe}/{head}_1", f"{fe}.{head}.2")
+    for path, k0, k1 in (
+            ("dres4", "dres0", "dres1"), ("dres5", "dres0_5", "dres1_5"),
+            ("dres6", "dres0_6", "dres1_6"),
+            ("confidence_s3", "confidence0_s3", "confidence1_s3"),
+            ("confidence_s2", "confidence0_s2", "confidence1_s2")):
+        t.convbn(f"{path}_a", f"{k0}.0.0", f"{k0}.0.1")
+        t.convbn(f"{path}_b", f"{k0}.2.0", f"{k0}.2.1")
+        t.convbn(f"{path}_c", f"{k1}.0.0", f"{k1}.0.1")
+        t.convbn(f"{path}_d", f"{k1}.2.0", f"{k1}.2.1")
+    hu = "combine1"
+    t.conv(f"{hu}/Conv_0", "combine1.conv1")
+    t.convbn(f"{hu}/combine1", "combine1.combine1.0.0",
+             "combine1.combine1.0.1")
+    t.convbn(f"{hu}/ConvBNAct_0", "combine1.conv2.0.0", "combine1.conv2.0.1")
+    t.conv(f"{hu}/Conv_1", "combine1.conv3")
+    t.convbn(f"{hu}/combine2", "combine1.combine2.0.0",
+             "combine1.combine2.0.1")
+    t.convbn(f"{hu}/ConvBNAct_1", "combine1.conv4.0.0", "combine1.conv4.0.1")
+    for j, conv in enumerate(("conv8", "conv9")):
+        t.conv_transpose(f"{hu}/ConvTransposeBN_{j}/ConvTranspose_0",
+                         f"combine1.{conv}.0")
+        t.bn(f"{hu}/ConvTransposeBN_{j}/BatchNorm_0", f"combine1.{conv}.1")
+    t.convbn(f"{hu}/ConvBNAct_2", "combine1.redir2.0", "combine1.redir2.1")
+    t.convbn(f"{hu}/ConvBNAct_3", "combine1.redir1.0", "combine1.redir1.1")
+    for hg in ("dres3", "confidence2_s3", "confidence3_s3", "confidence2_s2",
+               "confidence3_s2"):
+        _hourglass(t, hg, hg)
+    for cl in ("classif0", "classif1", "classif2", "confidence_classif0_s3",
+               "confidence_classif1_s3", "confidence_classifmid_s3",
+               "confidence_classif0_s2", "confidence_classif1_s2",
+               "confidence_classifmid_s2"):
+        t.convbn(f"{cl}_conv", f"{cl}.0.0", f"{cl}.0.1")
+        t.conv(f"{cl}_out", f"{cl}.2")
+    for p in ("gamma_s3", "beta_s3", "gamma_s2", "beta_s2"):
+        t.raw(p, p)
+
+
+CONVERTERS = {"CFNet": _cfnet, "GwcNet_G": _gwcnet}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:

@@ -13,9 +13,11 @@ machine need not have.)
 import pytest
 import torch
 
-from stereo_toolbox_tpu_torch.ops import (build_gwc_volume, conv3d_fused,
-                                          conv3d_fused_reference,
-                                          gwc_volume_reference)
+from stereo_toolbox_tpu_torch.ops import (
+    build_concat_volume, build_gwc_volume, concat_volume_reference,
+    conv3d_fused, conv3d_fused_reference, gather_right_by_samples,
+    gather_right_by_samples_reference, gwc_volume_from_samples,
+    gwc_volume_from_samples_reference, gwc_volume_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +49,9 @@ def test_gwc_volume_kernel_matches_plain(dev, b, h, w, c, d, g, dtype, rel):
 
 @pytest.mark.parametrize("ci,co,residual,relu", [(40, 32, False, True),
                                                  (12, 40, True, True),
-                                                 (64, 64, True, False)])
+                                                 (64, 64, True, False),
+                                                 (65, 32, False, False),
+                                                 (33, 16, True, False)])
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_conv3d_fused_kernel_matches_plain(dev, ci, co, residual, relu,
@@ -70,6 +74,79 @@ def test_conv3d_fused_kernel_matches_plain(dev, ci, co, residual, relu,
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
 
 
+def _counted(fn, key, *args):
+    """Call wrapper `fn` and check that it counted one launch of `key`."""
+    before = fn.launches, fn.shapes[key]
+    out = fn(*args)
+    assert (fn.launches, fn.shapes[key]) == (before[0] + 1, before[1] + 1)
+    return out
+
+
+def _sample_inputs(dev, dtype, b, h, w, c, s, max_shift, seed):
+    """Features and float32 samples in [-3, max_shift + 4]: some reach x < 0
+    and some are clamped at both ends."""
+    gen = torch.Generator().manual_seed(seed)
+    left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+                   for _ in range(2))
+    samples = torch.randint(-3, max_shift + 5, (b, s, h, w),
+                            generator=gen).float().to(dev)
+    return left, right, samples
+
+
+# (b, h, w, c, s, max_shift): ragged W, odd C; CFNet's s3 widths; a window
+# past a block's shared memory, which splits the channels
+SAMPLE_CASES = [(2, 3, 45, 5, 7, 20), (1, 2, 70, 12, 16, 48),
+                (1, 2, 40, 320, 3, 200)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,max_shift", SAMPLE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_gather_kernel_matches_plain(dev, b, h, w, c, s, max_shift,
+                                            dtype):
+    _, right, samples = _sample_inputs(dev, dtype, b, h, w, c, s, max_shift,
+                                       2)
+    got = _counted(gather_right_by_samples, (b, h, w, c, s, max_shift),
+                   right, samples, max_shift)
+    want = gather_right_by_samples_reference(right, samples, max_shift)
+    assert torch.equal(got, want)
+
+
+# (b, h, w, c, s, g, max_shift): C/G = 3 (scalar sums); CFNet's s2 and s3
+# widths; the split window
+GWC_SAMPLE_CASES = [(2, 3, 45, 12, 7, 4, 20), (1, 2, 70, 80, 12, 20, 96),
+                    (1, 2, 70, 160, 16, 40, 48), (1, 2, 40, 320, 3, 40, 200)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,g,max_shift", GWC_SAMPLE_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gwc_from_samples_kernel_matches_plain(dev, b, h, w, c, s, g,
+                                               max_shift, dtype, rel):
+    left, right, samples = _sample_inputs(dev, dtype, b, h, w, c, s,
+                                          max_shift, 3)
+    got = _counted(gwc_volume_from_samples, (b, h, w, c, s, g, max_shift),
+                   left, right, samples, g, max_shift).float()
+    want = gwc_volume_from_samples_reference(left.float(), right.float(),
+                                             samples, g, max_shift)
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+# (b, h, w, c, d): D > W; odd C (4- and 2-byte copies); CFNet's C=12
+CONCAT_CASES = [(2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 4, 80, 12, 24)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d", CONCAT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_concat_volume_kernel_matches_plain(dev, b, h, w, c, d, dtype):
+    gen = torch.Generator().manual_seed(4)
+    left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+                   for _ in range(2))
+    got = _counted(build_concat_volume, (b, h, w, c, d), left, right, d)
+    assert torch.equal(got, concat_volume_reference(left, right, d))
+    if d > w:
+        assert not got[:, w:].any()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 2, 3, 4, 8, device=dev, dtype=torch.float16)
     k = torch.zeros(3, 3, 3, 8, 8, device=dev, dtype=torch.float16)
@@ -80,3 +157,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     f = torch.zeros(1, 2, 3, 8, device=dev)
     with pytest.raises(ValueError):
         build_gwc_volume(f, f, 4, 3)
+    samples = torch.zeros(1, 4, 2, 3, device=dev)
+    with pytest.raises(ValueError):        # no bound on the samples
+        gather_right_by_samples(f, samples)
+    with pytest.raises(ValueError):        # float64 samples
+        gwc_volume_from_samples(f, f, samples.double(), 2, 4)
+    with pytest.raises(TypeError):
+        build_concat_volume(f.half(), f.half(), 4)

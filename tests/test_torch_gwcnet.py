@@ -121,6 +121,7 @@ def test_port_imports_no_jax():
         "import stereo_toolbox_tpu_torch\n"
         "import stereo_toolbox_tpu_torch.ops, stereo_toolbox_tpu_torch.nn\n"
         "import stereo_toolbox_tpu_torch.models, stereo_toolbox_tpu_torch.utils\n"
+        "import stereo_toolbox_tpu_torch.models.cfnet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stereo_toolbox_tpu')]\n"
         "print(bad)\n"

@@ -9,9 +9,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from stereo_toolbox_tpu.models.cfnet import HourglassMish, mish
 from stereo_toolbox_tpu.nn import layers as jl
 from stereo_toolbox_tpu_torch.nn import (BasicResBlock, ConvBNAct,
-                                         ConvTransposeBN, dual_view_apply)
+                                         ConvTransposeBN, HourglassRedir,
+                                         dual_view_apply)
+from stereo_toolbox_tpu_torch.utils.weights import _hourglass
 from stereo_toolbox_tpu_torch.utils.weights import JaxToTorch
 
 torch.set_num_threads(2)
@@ -71,10 +74,10 @@ def test_fused_convbnact_residual_is_added_before_relu():
     r = rng.randn(1, 4, 5, 6, 8).astype(np.float32)
     v, want = _jax_run(jl.ConvBNAct(8, 3, act=None), x)
     sd = _carry(v, CONVBN)
-    m = ConvBNAct(8, 8, 3, dims=3, relu=False)
+    m = ConvBNAct(8, 8, 3, dims=3, act=None)
     got = _port(m, sd, x, residual=torch.from_numpy(r))
     np.testing.assert_allclose(got, want + r, **TOL)
-    m = ConvBNAct(8, 8, 3, dims=3, relu=True)
+    m = ConvBNAct(8, 8, 3, dims=3, act="relu")
     got = _port(m, sd, x, residual=torch.from_numpy(r))
     np.testing.assert_allclose(got, np.maximum(want + r, 0.0), **TOL)
 
@@ -140,3 +143,29 @@ def test_convbnact_fuses_only_with_padding_one(padding, fused):
     assert got.shape == (1, 5 - 2 + 2 * padding, 6 - 2 + 2 * padding,
                          7 - 2 + 2 * padding, 6)
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dims,shape", [(2, (2, 9, 11)), (3, (1, 4, 6, 8))])
+def test_convbnact_mish_matches_jax(dims, shape):
+    """Mish after the conv (in 3D, after the fused kernel's epilogue)."""
+    x = np.random.RandomState(7).randn(*shape, 8).astype(np.float32)
+    v, want = _jax_run(jl.ConvBNAct(8, 3, act=mish), x)
+    m = ConvBNAct(8, 8, 3, dims=dims, act="mish")
+    assert m.fusible == (dims == 3)
+    np.testing.assert_allclose(_port(m, _carry(v, CONVBN), x), want, **TOL)
+
+
+def test_convbnact_rejects_unknown_activation():
+    with pytest.raises(ValueError):
+        ConvBNAct(4, 4, 3, act="gelu")
+
+
+def test_hourglass_mish_matches_jax():
+    """CFNet's Mish hourglass: the port's HourglassRedir with act="mish"."""
+    x = np.random.RandomState(8).randn(1, 4, 8, 12, 8).astype(np.float32)
+    v, want = _jax_run(HourglassMish(8), x)
+    t = JaxToTorch({c: {"hg": tree} for c, tree in v.items()})
+    _hourglass(t, "hg", "hg")
+    sd = {k.removeprefix("hg."): a for k, a in t.state_dict().items()}
+    np.testing.assert_allclose(_port(HourglassRedir(8, act="mish"), sd, x),
+                               want, **TOL)
