@@ -12,24 +12,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    shapes also with both epilogue options on and off;
 5. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
    (K6) kernels likewise, at CFNet's launch shapes and ragged cases;
-6. GwcNet_G and 7. CFNet (max_disp 192, seeded random weights, settled and
+6. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
+   launch shape, vits' and MonSter's two-view shapes and ragged N;
+7. GwcNet_G and 8. CFNet (max_disp 192, seeded random weights, settled and
    perturbed BatchNorm statistics), one after the other: the card against
    the port's CPU paths at 256x512, then the slice's 480x640 forward in
    float32 and bfloat16, with every kernel's launches by shape read around
-   each forward; then time the whole forward and each of its stages with
-   CUDA events recorded at the stage boundaries (one timed pass), sum the
-   device time of each kernel family over a ``torch.profiler`` trace of the
-   same forward, and time each kernel, its plain version and the library
-   yardstick (device time of back-to-back calls) at the shapes and launch
-   counts that the 480x640 forward recorded;
-8. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
-   choice takes most of CFNet's f32 forward;
-9. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}`` line;
-10. print ``{"ok": true, "device": {...}}`` as the last line.
+   each forward; 9. DepthAnythingV2 (vitl, seeded random weights): the card
+   against the CPU at 266x350 on the depth and the pre-ReLU ``out``, then
+   the 518x518 forward in float32 and bfloat16, launches by shape read
+   likewise. For each model: time the whole forward and each of its stages
+   with CUDA events recorded at the stage boundaries (one timed pass), sum
+   the device time of each kernel family over a ``torch.profiler`` trace of
+   the same forward, and time each kernel, its plain version and the
+   library yardstick (device time of back-to-back calls) at the shapes and
+   launch counts that the full-size forward recorded;
+10. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
+    choice takes most of CFNet's f32 forward;
+11. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
+    line;
+12. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -46,6 +53,8 @@ if not torch.cuda.is_available():
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
+from stereo_toolbox_tpu_torch.ops.attention import (  # noqa: E402
+    attention, attention_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
     conv3d_fused, conv3d_fused_reference)
 from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
@@ -58,6 +67,9 @@ DEV = torch.device("cuda")
 MAX_DISP = 192
 H, W = 480, 640
 CHECK_H, CHECK_W = 256, 512                    # card vs CPU comparison
+DAV2_ENCODER = "vitl"
+DAV2_H = DAV2_W = 518                          # the canonical 37x37 grid
+DAV2_CHECK_H, DAV2_CHECK_W = 266, 350          # a 19x25 grid: pos resize
 F32, BF16 = torch.float32, torch.bfloat16
 DTYPE_NAME = {F32: "float32", BF16: "bfloat16"}
 
@@ -82,10 +94,14 @@ KERNELS = {
     "K6": (build_concat_volume, "concat_volume",
            "stereo_toolbox_tpu_torch/csrc/concat_volume.cu",
            "stereo_toolbox_tpu/ops/pallas/volume.py:137"),
+    # the library Pallas flash_attention, called by _vit_attention_fn
+    "K7": (attention, "vit_attention",
+           "stereo_toolbox_tpu_torch/csrc/vit_attention.cu",
+           "stereo_toolbox_tpu/models/depth_anything_v2.py:75"),
 }
 
 # Launches expected in one eval forward at 480x640, max_disp 192, keyed as
-# the wrappers count them. Phases 6-7 require each forward's counts to
+# the wrappers count them. Phases 7-9 require each forward's counts to
 # equal these; the timing weights its times by the counts a forward recorded.
 # K1: (B, H, W, C, D, G)
 K1_MIX = {(1, 120, 160, 320, 48, 40): 1}
@@ -131,10 +147,13 @@ CF_K2_MIX = {
     (1, 6, 120, 160, 32, 32, False, False): 2,    # confidence{2,3}_s2.conv2
     (1, 3, 60, 80, 64, 64, False, False): 2,      # confidence{2,3}_s2.conv4
 }
+# DepthAnythingV2-vitl at 518x518: one K7 per block, (B, heads, N, head_dim)
+DAV2_K7_MIX = {(1, 16, 1370, 64): 24}
 MIXES = {
     "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX},
     "CFNet": {"K1": CF_K1_MIX, "K2": CF_K2_MIX, "K4": CF_K4_MIX,
               "K5": CF_K5_MIX, "K6": CF_K6_MIX},
+    "DepthAnythingV2": {"K7": DAV2_K7_MIX},
 }
 
 # Stages of each forward, as (stage, first module, last module, label of the
@@ -166,6 +185,22 @@ STAGES = {
          "s3 head + sampling"),
         ("s2 stack", "confidence0_s2", "confidence_classif1_s2.2", "glue"),
     ], "s2 head + final upsample"),
+    "DepthAnythingV2": ([
+        ("ViT blocks 0-5", "pretrained.blocks.0", "pretrained.blocks.5",
+         "input cast, patch embed + pos"),
+        ("ViT blocks 6-11", "pretrained.blocks.6", "pretrained.blocks.11",
+         "tap norms"),
+        ("ViT blocks 12-17", "pretrained.blocks.12", "pretrained.blocks.17",
+         "tap norms"),
+        ("ViT blocks 18-23", "pretrained.blocks.18", "pretrained.blocks.23",
+         "tap norms"),
+        ("DPT reassemble", "depth_head.projects.0",
+         "depth_head.scratch.layer4_rn", "tap norms"),
+        ("DPT fusion chain", "depth_head.scratch.refinenet4",
+         "depth_head.scratch.refinenet1", "glue"),
+        ("DPT output head", "depth_head.scratch.output_conv1",
+         "depth_head.scratch.output_conv2", "path_1 upsample"),
+    ], "glue"),
 }
 GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
@@ -173,7 +208,7 @@ FWD_ITERS, FWD_WARMUP = 10, 3
 # max|err| limits against the plain version, as a share of max|ref|
 REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K2": {F32: 1e-4, BF16: 2e-2},
            "K4": {F32: 0.0, BF16: 0.0}, "K5": {F32: 1e-5, BF16: 1e-2},
-           "K6": {F32: 0.0, BF16: 0.0}}
+           "K6": {F32: 0.0, BF16: 0.0}, "K7": {F32: 1e-5, BF16: 1e-2}}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -360,20 +395,59 @@ def check_concat(gen) -> dict:
     return errs
 
 
-# ------------------------------------------------------------- phases 6-7
-def stereo_pair(b, h, w, seed, shift=24):
-    """ImageNet-normalised [B, H, W, 3] pair with a constant disparity."""
-    gen = torch.Generator().manual_seed(seed)
-    wide = w + 2 * shift
-    base = torch.rand(b, 3, h // 8, wide // 8, generator=gen)
-    tex = F.interpolate(base, size=(h, wide), mode="bilinear",
+# ---------------------------------------------------------------- phase 6
+def check_attention(gen) -> dict:
+    """K7 at DepthAnythingV2-vitl's launch shape, vits' (6 heads), MonSter's
+    two views at 420x560 (N = 1201) and ragged N (1, 77, 1025), at the ViT's
+    scale 1/8; and logits of ~±30 (scale 1), where a wrong running max
+    shows."""
+    errs = {}
+    cases = [(*key[:3], 0.125) for key in DAV2_K7_MIX]
+    cases += [(1, 6, 1370, 0.125), (2, 16, 1201, 0.125), (1, 2, 1, 0.125),
+              (2, 3, 77, 0.125), (1, 4, 1025, 0.125), (1, 2, 200, 1.0)]
+    for dtype in (F32, BF16):
+        errs[dtype] = 0.0
+        for b, heads, n, scale in cases:
+            q, k, v = (randn((b, heads, n, 64), dtype, gen) for _ in range(3))
+            got = attention(q, k, v, scale)
+            require(got.dtype == dtype and got.shape == q.shape,
+                    f"K7 output {got.dtype} {tuple(got.shape)}")
+            err = held("K7", dtype, got,
+                       attention_reference(q.float(), k.float(), v.float(),
+                                           scale),
+                       f"{(b, heads, n, 64)} scale={scale}")
+            if (b, heads, n, 64) in DAV2_K7_MIX:
+                errs[dtype] = max(errs[dtype], err)
+    return errs
+
+
+# ------------------------------------------------------------- phases 7-9
+def texture(b, h, w, gen):
+    """Smooth random texture in [0, 1.1), ``[B, 3, H, W]``."""
+    base = torch.rand(b, 3, h // 8, w // 8, generator=gen)
+    tex = F.interpolate(base, size=(h, w), mode="bilinear",
                         align_corners=False)
-    tex = tex + 0.1 * torch.rand(b, 3, h, wide, generator=gen)
-    left, right = tex[..., shift:shift + w], tex[..., 2 * shift:]
+    return tex + 0.1 * torch.rand(b, 3, h, w, generator=gen)
+
+
+def imagenet_normalised(t):
+    """``[B, 3, H, W]`` in [0, 1] → ImageNet-normalised ``[B, H, W, 3]``."""
     mean = torch.tensor([0.485, 0.456, 0.406]).view(1, 3, 1, 1)
     std = torch.tensor([0.229, 0.224, 0.225]).view(1, 3, 1, 1)
-    return [((t - mean) / std).permute(0, 2, 3, 1).contiguous()
-            for t in (left, right)]
+    return ((t - mean) / std).permute(0, 2, 3, 1).contiguous()
+
+
+def stereo_pair(b, h, w, seed, shift=24):
+    """ImageNet-normalised [B, H, W, 3] pair with a constant disparity."""
+    tex = texture(b, h, w + 2 * shift, torch.Generator().manual_seed(seed))
+    left, right = tex[..., shift:shift + w], tex[..., 2 * shift:]
+    return [imagenet_normalised(t) for t in (left, right)]
+
+
+def mono_image(b, h, w, seed):
+    """ImageNet-normalised [B, H, W, 3] image."""
+    return imagenet_normalised(texture(b, h, w,
+                                       torch.Generator().manual_seed(seed)))
 
 
 def settle_and_perturb_bn(model, left, right, gen) -> None:
@@ -398,14 +472,15 @@ def settle_and_perturb_bn(model, left, right, gen) -> None:
                     buf.device)
 
 
-def forward_counted(name, model, left, right, by_shape=False):
-    """One forward with the counts set to 0 just before it; returns the
-    output and the launches by shape of each kernel. Requires each kernel's
-    launches to total its count in MIXES[name] and, with `by_shape`, to be
-    exactly MIXES[name] shape by shape."""
+def forward_counted(name, model, *inputs, by_shape=False, **kwargs):
+    """One forward ``model(*inputs, **kwargs)`` with the counts set to 0
+    just before it; returns the output and the launches by shape of each
+    kernel. Requires each kernel's launches to total its count in
+    MIXES[name] and, with `by_shape`, to be exactly MIXES[name] shape by
+    shape."""
     reset_counts()
     with torch.no_grad():
-        out = model(left, right)
+        out = model(*inputs, **kwargs)
     torch.cuda.synchronize()
     shapes = {tag: Counter(fn.shapes) for tag, (fn, *_) in KERNELS.items()}
     want = {tag: Counter(MIXES[name].get(tag, {})) for tag in KERNELS}
@@ -462,7 +537,7 @@ def card_vs_cpu(name, hook=None):
 def full_size_runs(name, model):
     """The 480x640 forward in float32 and bfloat16, two pairs each, with
     the launches by shape required to be MIXES[name]. Returns, by dtype,
-    (model, left, right, launches by shape, last output)."""
+    (model, (left, right), launches by shape, last output)."""
     runs = {}
     for dtype in (F32, BF16):
         m = model if dtype == F32 else create_model(
@@ -481,7 +556,7 @@ def full_size_runs(name, model):
                   f"disparity {lo:.2f}..{hi:.2f}, mean {out.mean().item():.2f}"
                   ", launches " + " ".join(
                       f"{t}={c.total()}" for t, c in shapes.items()))
-        runs[dtype] = (m, left, right, shapes, out.float())
+        runs[dtype] = (m, (left, right), shapes, out.float())
     return runs
 
 
@@ -489,7 +564,7 @@ def check_gwcnet():
     model, d, _ = card_vs_cpu("GwcNet_G")
     require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
             "GwcNet_G card output differs from the CPU port")
-    return full_size_runs("GwcNet_G", model)
+    return full_size_runs("GwcNet_G", model), {}
 
 
 def check_cfnet():
@@ -507,18 +582,94 @@ def check_cfnet():
             and d.mean().item() < 0.05,
             "CFNet card output differs from the CPU port")
     runs = full_size_runs("CFNet", model)
-    diff = (runs[BF16][4] - runs[F32][4]).abs()
+    diff = (runs[BF16][3] - runs[F32][3]).abs()
     print(f"  CFNet {H}x{W} pair 3, bfloat16 vs float32: mean |d| "
           f"{diff.mean().item():.3f} px, median {diff.median().item():.3f} px")
-    return runs
+    return runs, {}
 
 
-# ------------------------------------------------------ timing (phases 6-7)
-def forward_breakdown(name, model, left, right) -> dict:
-    """Forward ms, peak memory and ms per stage, from CUDA events that hooks
-    record on the stream at the stage boundaries: FWD_ITERS forwards after
-    FWD_WARMUP. The stages, with the gaps between forwards, add up to the
-    forward's time."""
+def dav2_gates(got, want, what) -> dict:
+    """The JAX package's cross-framework bounds for DepthAnythingV2
+    (its ``tests/test_torch_import.py``): mean |d| < 5e-3 · scale and max |d|
+    < 0.05 · scale, scale = mean |ref|."""
+    d = (got.float().cpu() - want).abs()
+    scale = max(want.abs().mean().item(), 1e-3)
+    row = {"mean_abs": d.mean().item(), "max_abs": d.max().item(),
+           "scale": scale}
+    print(f"  DepthAnythingV2 {DAV2_CHECK_H}x{DAV2_CHECK_W} f32 {what}, card "
+          f"vs CPU: mean |d| {row['mean_abs']:.3e} (tol {5e-3 * scale:.3e}), "
+          f"max |d| {row['max_abs']:.3e} (tol {0.05 * scale:.3e})")
+    require(row["mean_abs"] < 5e-3 * scale and row["max_abs"] < 0.05 * scale,
+            f"DepthAnythingV2 card {what} differs from the CPU port")
+    return row
+
+
+def check_dav2():
+    """DepthAnythingV2 (seeded random weights): the card against the port's
+    CPU path at DAV2_CHECK (float32, TF32 off) on the depth and on the
+    pre-ReLU ``out``; then the 518x518 forward in float32 and bfloat16 with
+    the launches by shape required to be DAV2_K7_MIX. Returns the runs as
+    `full_size_runs` does, and the check's numbers.
+
+    The random head's last ReLU can zero most of the map: where fewer than
+    a fifth of the CPU depth's pixels are positive, the check says so and
+    lifts ``output_conv2.2``'s bias on both models."""
+    name = "DepthAnythingV2"
+    model = create_model(name, encoder=DAV2_ENCODER,
+                         generator=torch.Generator().manual_seed(0))
+    cpu = create_model(name, encoder=DAV2_ENCODER, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    x = mono_image(1, DAV2_CHECK_H, DAV2_CHECK_W, seed=1)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        with torch.no_grad():
+            want, want_f = cpu(x, return_features=True)
+        if (want > 0).float().mean().item() >= 0.2:
+            break
+        print("  DepthAnythingV2: degenerate depth (under a fifth of the "
+              "pixels > 0); output_conv2.2 bias += 0.1")
+        with torch.no_grad():
+            for m in (cpu, model):
+                m.depth_head.scratch.output_conv2[2].bias += 0.1
+    print(f"  DepthAnythingV2 CPU reference at {DAV2_CHECK_H}x{DAV2_CHECK_W}:"
+          f" {time.perf_counter() - t0:.1f} s, depth > 0 at "
+          f"{100 * (want > 0).float().mean().item():.1f}% of pixels")
+    (got, got_f), _ = forward_counted(name, model, x.to(DEV),
+                                      return_features=True)
+    check = {"shape": [1, DAV2_CHECK_H, DAV2_CHECK_W, 3],
+             "depth": dav2_gates(got, want, "depth"),
+             "out": dav2_gates(got_f["out"], want_f["out"], "out")}
+    del cpu
+    runs = {}
+    for dtype in (F32, BF16):
+        m = model if dtype == F32 else copy.deepcopy(model).to(dtype)
+        img = mono_image(1, DAV2_H, DAV2_W, seed=2).to(DEV, dtype)
+        out, shapes = forward_counted(name, m, img, by_shape=True)
+        require(out.shape == (1, DAV2_H, DAV2_W), f"output shape {out.shape}")
+        require(bool(torch.isfinite(out).all()), "non-finite output")
+        lo, hi = out.min().item(), out.max().item()
+        require(lo >= 0 and hi > 0, f"output range {lo}..{hi}")
+        print(f"  {name} {DAV2_H}x{DAV2_W} {DTYPE_NAME[dtype]}: depth "
+              f"{lo:.3f}..{hi:.3f}, > 0 at "
+              f"{100 * (out > 0).float().mean().item():.1f}%, launches "
+              + " ".join(f"{t}={c.total()}" for t, c in shapes.items()))
+        runs[dtype] = (m, (img,), shapes, out.float())
+    diff = (runs[BF16][3] - runs[F32][3]).abs()
+    print(f"  {name} {DAV2_H}x{DAV2_W}, bfloat16 vs float32: mean |d| "
+          f"{diff.mean().item():.3e}, max {diff.max().item():.3e} (f32 mean "
+          f"{runs[F32][3].mean().item():.3e})")
+    return runs, check
+
+
+# ------------------------------------------------------ timing (phases 7-9)
+def forward_breakdown(name, model, *inputs) -> dict:
+    """Forward ms, peak memory (and the memory resident before the
+    forwards) and ms per stage, from CUDA events that hooks record on the
+    stream at the stage boundaries: FWD_ITERS forwards after FWD_WARMUP.
+    The stages, with the gaps between forwards, add up to the forward's
+    time. Also the host's time to enqueue one forward to an idle device
+    (host clock, no synchronise inside; median of 3): where it is near the
+    forward's time, the host sets the pace."""
     stages, tail = STAGES[name]
     marks: list = []
 
@@ -537,12 +688,19 @@ def forward_breakdown(name, model, left, right) -> dict:
     try:
         with torch.no_grad():
             for _ in range(FWD_WARMUP):
-                model(left, right)
+                model(*inputs)
+            enqueue = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(*inputs)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             marks.clear()
             torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
             for _ in range(FWD_ITERS):
-                model(left, right)
+                model(*inputs)
         torch.cuda.synchronize()
     finally:
         for hook in hooks:
@@ -552,6 +710,7 @@ def forward_breakdown(name, model, left, right) -> dict:
         per_stage[label] += a.elapsed_time(b) / FWD_ITERS
     return {"ms": marks[0][1].elapsed_time(marks[-1][1]) / FWD_ITERS,
             "peak_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes": resident, "host_enqueue_ms": sorted(enqueue)[1],
             "stages_ms": dict(per_stage)}
 
 
@@ -560,29 +719,41 @@ def kernel_family(name: str) -> str:
                       ("gwc_volume_kernel", "K1 gwc_volume"),
                       ("::gather_kernel<", "K4 sample gather"),
                       ("::gwc_kernel<", "K5 gwc volume from samples"),
-                      ("concat_volume_kernel", "K6 concat volume")):
+                      ("concat_volume_kernel", "K6 concat volume"),
+                      ("vit_attention_kernel", "K7 vit attention")):
         if mark in name:
             return fam
     low = name.lower()
     if "bn_fw" in low or "batch_norm" in low:
         return "BatchNorm (cuDNN or ATen)"
+    if "layer_norm" in low:
+        return "LayerNorm (ATen)"
     if "nhwctonchw" in low or "nchwtonhwc" in low:
         return "cuDNN layout transposes"
+    # plain GEMMs: cuBLAS's (Linear layers) and any cuDNN runs as one; not
+    # the implicit-GEMM convs nor the complex GEMMs of cuDNN's FFT convs
+    if "nvjet" in low or ("_gemm_" in low and not any(
+            s in low for s in ("fprop", "dgrad", "implicit", "cf32"))):
+        return "GEMM (cuBLAS, cuDNN)"
     if any(s in low for s in ("conv", "xmma", "implicit", "dgrad",
                               "winograd", "fft", "gemm")):
-        return "cuDNN/cuBLAS conv"
+        return "cuDNN conv"
     return "other (elementwise, copies, reductions)"
 
 
-def profile_forward(name, model, left, right, dtype) -> dict:
-    fwd = forward_breakdown(name, model, left, right)
-    kernels = trace(lambda: model(left, right), FWD_ITERS)
+def profile_forward(name, model, inputs, dtype) -> dict:
+    fwd = forward_breakdown(name, model, *inputs)
+    kernels = trace(lambda: model(*inputs), FWD_ITERS)
     families: dict = defaultdict(float)
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
     busy = sum(families.values())
-    print(f"  {name} forward {H}x{W} {DTYPE_NAME[dtype]}: {fwd['ms']:.3f} "
-          f"ms, peak memory {fwd['peak_bytes'] / 2**20:.1f} MiB")
+    h, w = inputs[0].shape[1:3]
+    print(f"  {name} forward {h}x{w} {DTYPE_NAME[dtype]}: {fwd['ms']:.3f} "
+          f"ms, peak memory {fwd['peak_bytes'] / 2**20:.1f} MiB, of which "
+          f"{fwd['resident_bytes'] / 2**20:.1f} MiB resident before the "
+          f"forwards (both dtypes' weights, inputs); host enqueues a forward "
+          f"in {fwd['host_enqueue_ms']:.3f} ms")
     for label, ms in sorted(fwd["stages_ms"].items(), key=lambda kv: -kv[1]):
         print(f"    stage {label:40s} {ms:8.3f} ms "
               f"{100 * ms / fwd['ms']:5.1f}%")
@@ -716,6 +887,29 @@ def time_concat(mix, dtype, gen):
     return ms, plain, None, nbytes, 0, shapes
 
 
+def time_attention(mix, dtype, gen):
+    """Times and work of a forward's K7 launches, weighted by `mix`; the
+    library yardstick is ``F.scaled_dot_product_attention`` on the same
+    ``[B, heads, N, 64]`` tensors."""
+    ms = plain = lib = 0.0
+    nbytes = flops = 0
+    shapes = []
+    for (b, heads, n, d), cnt in mix.items():
+        q, k, v = (randn((b, heads, n, d), dtype, gen) for _ in range(3))
+        scale = d ** -0.5
+        t = device_ms(lambda: attention(q, k, v, scale), 20)
+        tp = device_ms(lambda: attention_reference(q, k, v, scale), 5)
+        tl = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), 20)
+        ms, plain, lib = ms + cnt * t, plain + cnt * tp, lib + cnt * tl
+        nbytes += cnt * 4 * b * heads * n * d * q.element_size()
+        flops += cnt * 4 * b * heads * n * n * d     # q·kᵀ and p·v
+        shapes.append({"b": b, "heads": heads, "n": n, "head_dim": d,
+                       "launches": cnt, "ms": t, "plain_ms": tp,
+                       "library_ms": tl})
+    return ms, plain, lib, nbytes, flops, shapes
+
+
 # The two 3x3 convs of CFNet's 2D trunk (iconv3, gw3: Ci, Co, H, W, both
 # views) for which cuDNN, with TF32 off, takes an algorithm that needs a
 # workspace of many GB and most of the f32 forward
@@ -750,7 +944,7 @@ def cudnn_probe(gen) -> list:
 
 
 TIMERS = {"K1": time_gwc, "K2": time_conv, "K4": time_gather,
-          "K5": time_gwc_samples, "K6": time_concat}
+          "K5": time_gwc_samples, "K6": time_concat, "K7": time_attention}
 
 
 def time_kernel(model_name, tag, dtype, mix, err, gen) -> dict:
@@ -811,27 +1005,35 @@ def main() -> None:
     print("phase 5: K4, K5 sample kernels and K6 concat volume vs plain")
     errs["K4"], errs["K5"] = check_samples(gen)
     errs["K6"] = check_concat(gen)
+    print("phase 6: K7 vit_attention kernel vs plain")
+    errs["K7"] = check_attention(gen)
     kernels = []
     forward = {}
-    for phase, (model_name, check) in enumerate(
-            (("GwcNet_G", check_gwcnet), ("CFNet", check_cfnet)), 6):
+    stereo = {"shape": [1, H, W, 3], "max_disp": MAX_DISP}
+    for phase, (model_name, check, meta) in enumerate((
+            ("GwcNet_G", check_gwcnet, stereo),
+            ("CFNet", check_cfnet, stereo),
+            ("DepthAnythingV2", check_dav2,
+             {"shape": [1, DAV2_H, DAV2_W, 3], "encoder": DAV2_ENCODER})), 7):
         print(f"phase {phase}: {model_name} "
               f"({time.perf_counter() - t_start:.1f} s)")
-        runs = check()
+        runs, checked = check()
         print(f"phase {phase}: {model_name} timing")
-        forward[model_name] = {"shape": [1, H, W, 3], "max_disp": MAX_DISP,
-                               "iters": FWD_ITERS, "warmup": FWD_WARMUP}
-        for dtype, (m, left, right, shapes, _) in runs.items():
+        forward[model_name] = {**meta, "iters": FWD_ITERS,
+                               "warmup": FWD_WARMUP}
+        if checked:
+            forward[model_name]["card_vs_cpu"] = checked
+        for dtype, (m, inputs, shapes, _) in runs.items():
             forward[model_name][DTYPE_NAME[dtype]] = profile_forward(
-                model_name, m, left, right, dtype)
+                model_name, m, inputs, dtype)
             for tag in MIXES[model_name]:
                 kernels.append(time_kernel(model_name, tag, dtype,
                                            shapes[tag], errs[tag][dtype],
                                            gen))
-        del runs, m, left, right   # the next model's peak memory is its own
+        del runs, m, inputs   # the next model's peak memory is its own
         torch.cuda.empty_cache()
 
-    print("phase 8: cuDNN float32 probe")
+    print("phase 10: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))

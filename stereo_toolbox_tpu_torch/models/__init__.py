@@ -13,18 +13,20 @@ from typing import Any, Callable
 import torch
 
 from stereo_toolbox_tpu_torch.models.cfnet import CFNet
+from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 from stereo_toolbox_tpu_torch.models.gwcnet import GwcNet, GwcNet_G
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "CFNet": CFNet,
+    "DepthAnythingV2": DepthAnythingV2,
     "GwcNet_G": GwcNet_G,
 }
 
 
 def create_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     """Build registry model `name` (keyword arguments go to its
-    constructor, e.g. ``max_disp`` and ``generator``), in eval mode, on
-    `device`."""
+    constructor, e.g. ``max_disp``, ``encoder`` and ``generator``), in
+    eval mode, on `device`."""
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
@@ -36,4 +38,5 @@ def create_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     return MODEL_REGISTRY[name](**kwargs).eval().to(device)
 
 
-__all__ = ["CFNet", "GwcNet", "GwcNet_G", "MODEL_REGISTRY", "create_model"]
+__all__ = ["CFNet", "DepthAnythingV2", "GwcNet", "GwcNet_G",
+           "MODEL_REGISTRY", "create_model"]

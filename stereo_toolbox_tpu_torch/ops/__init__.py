@@ -1,5 +1,7 @@
 """Shared ops of the PyTorch port (counterpart of ``stereo_toolbox_tpu.ops``)."""
 
+from stereo_toolbox_tpu_torch.ops.attention import (attention,
+                                                    attention_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
                                                        conv3d_fused_reference)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate, resize_nearest
@@ -11,7 +13,8 @@ from stereo_toolbox_tpu_torch.ops.volume import (
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference, shifted_right_stack, soft_argmax)
 
-__all__ = ["build_concat_volume", "build_gwc_volume",
+__all__ = ["attention", "attention_reference", "build_concat_volume",
+           "build_gwc_volume",
            "concat_volume_from_samples", "concat_volume_reference",
            "conv3d_fused", "conv3d_fused_reference", "disparity_regression",
            "disparity_variance", "disparity_variance_confidence",

@@ -25,7 +25,7 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each launch function, by library (named like its source)
 SIGNATURES = {
     "gwc_volume": {
@@ -42,6 +42,9 @@ SIGNATURES = {
     "concat_volume": {
         # left, right, out, B, H, W, C, D, dtype, stream
         "concat_volume": [_P] * 3 + [_I] * 6 + [_P]},
+    "vit_attention": {
+        # q, k, v, out, B*heads, N, scale, dtype, stream
+        "vit_attention": [_P] * 4 + [_I] * 2 + [_F, _I, _P]},
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -3,12 +3,40 @@ over any axes.
 
 Counterpart of ``stereo_toolbox_tpu/ops/upsample.py`` (`_resize_axis_linear`,
 `interpolate`, `resize_nearest`): separable, one axis at a time, in both
-``align_corners`` modes, on channels-last or any other layout.
+``align_corners`` modes, on channels-last or any other layout. Also the
+bicubic resize matrix of DINOv2's position-embedding interpolation
+(`bicubic_matrix`, the port's copy of
+``stereo_toolbox_tpu/models/depth_anything_v2.py::_torch_bicubic_matrix``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def bicubic_matrix(n_in: int, n_out: int, scale: float) -> np.ndarray:
+    """``[n_out, n_in]`` float32 row-stochastic matrix of torch
+    ``F.interpolate(mode='bicubic', align_corners=False,
+    scale_factor=scale)`` along one axis: source ``(i + 0.5) / scale - 0.5``,
+    cubic convolution kernel with A = −0.75, taps clamped at the edges."""
+    a = -0.75
+
+    def kernel(t):
+        t = np.abs(t)
+        return np.where(
+            t <= 1, (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
+            np.where(t < 2, a * t ** 3 - 5 * a * t ** 2 + 8 * a * t - 4 * a,
+                     0.0))
+
+    m = np.zeros((n_out, n_in), np.float64)
+    for i in range(n_out):
+        src = (i + 0.5) / scale - 0.5
+        x0 = np.floor(src)
+        for j in range(-1, 3):
+            idx = int(np.clip(x0 + j, 0, n_in - 1))
+            m[i, idx] += kernel(src - (x0 + j))
+    return m.astype(np.float32)
 
 
 def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int,

@@ -9,9 +9,15 @@ as the port's own copy of the name map:
   * conv ``[k…, I, O]`` → ``[O, I, k…]``;
   * transposed conv: ``[k…, I, O]`` → ``[I, O, k…]``, spatial axes flipped
     (PyTorch's transposed conv correlates with the flipped kernel);
+  * both with their bias where the layer has one;
+  * Dense ``[I, O]`` → Linear ``[O, I]``; LayerNorm ``scale``/``bias`` →
+    ``weight``/``bias``;
+  * flax attention's query / key / value ``[dim, heads, hd]`` (+ bias
+    ``[heads, hd]``) → one ``qkv`` Linear ``[3 · dim, dim]`` in q, k, v
+    order, and its ``out [heads, hd, dim]`` → ``proj [dim, dim]``;
   * BatchNorm ``scale``/``bias``/``mean``/``var`` →
     ``weight``/``bias``/``running_mean``/``running_var``;
-  * a bare parameter (CFNet's ``gamma_s3``) is copied as it is.
+  * a bare parameter (CFNet's ``gamma_s3``, LayerScale) is copied as it is.
 """
 
 from __future__ import annotations
@@ -59,18 +65,47 @@ class JaxToTorch:
     def has(self, path: str) -> bool:
         return self._find("params", path) is not None
 
-    def conv(self, path: str, key: str) -> None:
+    def _bias(self, path: str, key: str) -> None:
+        self.sd[f"{key}.bias"] = self._take("params", f"{path}/bias")
+
+    def conv(self, path: str, key: str, bias: bool = False) -> None:
         k = self._take("params", f"{path}/kernel")
         rank = k.ndim - 2
         self.sd[f"{key}.weight"] = k.transpose((rank + 1, rank)
                                                + tuple(range(rank)))
+        if bias:
+            self._bias(path, key)
 
-    def conv_transpose(self, path: str, key: str) -> None:
+    def conv_transpose(self, path: str, key: str, bias: bool = False) -> None:
         k = self._take("params", f"{path}/kernel")
         rank = k.ndim - 2
         w = k.transpose((rank, rank + 1) + tuple(range(rank)))
         self.sd[f"{key}.weight"] = w[(slice(None),) * 2
                                      + (slice(None, None, -1),) * rank]
+        if bias:
+            self._bias(path, key)
+
+    def dense(self, path: str, key: str) -> None:
+        self.sd[f"{key}.weight"] = self._take("params", f"{path}/kernel").T
+        self._bias(path, key)
+
+    def layernorm(self, path: str, key: str) -> None:
+        self.sd[f"{key}.weight"] = self._take("params", f"{path}/scale")
+        self._bias(path, key)
+
+    def attention(self, path: str, key: str) -> None:
+        """A flax ``MultiHeadDotProductAttention`` → ``{key}.qkv`` and
+        ``{key}.proj`` Linears."""
+        ws, bs = [], []
+        for name in ("query", "key", "value"):
+            k = self._take("params", f"{path}/{name}/kernel")  # [dim, h, hd]
+            ws.append(k.reshape(k.shape[0], -1).T)
+            bs.append(self._take("params", f"{path}/{name}/bias").reshape(-1))
+        self.sd[f"{key}.qkv.weight"] = np.concatenate(ws, axis=0)
+        self.sd[f"{key}.qkv.bias"] = np.concatenate(bs, axis=0)
+        out = self._take("params", f"{path}/out/kernel")     # [h, hd, dim]
+        self.sd[f"{key}.proj.weight"] = out.reshape(-1, out.shape[-1]).T
+        self._bias(f"{path}/out", f"{key}.proj")
 
     def bn(self, path: str, key: str) -> None:
         self.sd[f"{key}.weight"] = self._take("params", f"{path}/scale")
@@ -198,7 +233,63 @@ def _cfnet(t: JaxToTorch) -> None:
         t.raw(p, p)
 
 
-CONVERTERS = {"CFNet": _cfnet, "GwcNet_G": _gwcnet}
+def _numbered(tree: dict, prefix: str) -> list[int]:
+    """Sorted i of the keys ``{prefix}{i}`` of `tree`."""
+    return sorted(int(k[len(prefix):]) for k in tree
+                  if k.startswith(prefix) and k[len(prefix):].isdigit())
+
+
+def _depth_anything_v2(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_depth_anything_v2``. The JAX
+    trunk has one LayerNorm per tap where the original has one ``norm``
+    applied at every tap: carried only if all tap norms are equal."""
+    p, h = "pretrained", "depth_head"
+    tree = t.trees["params"][p]
+    t.conv(f"{p}/patch_embed", f"{p}.patch_embed.proj", bias=True)
+    t.raw(f"{p}/cls_token", f"{p}.cls_token")
+    t.raw(f"{p}/pos_embed", f"{p}.pos_embed")
+    for i in _numbered(tree, "block"):
+        f, k = f"{p}/block{i}", f"{p}.blocks.{i}"
+        t.layernorm(f"{f}/LayerNorm_0", f"{k}.norm1")
+        t.attention(f"{f}/MultiHeadDotProductAttention_0", f"{k}.attn")
+        t.raw(f"{f}/ls1", f"{k}.ls1.gamma")
+        t.layernorm(f"{f}/LayerNorm_1", f"{k}.norm2")
+        t.dense(f"{f}/Dense_0", f"{k}.mlp.fc1")
+        t.dense(f"{f}/Dense_1", f"{k}.mlp.fc2")
+        t.raw(f"{f}/ls2", f"{k}.ls2.gamma")
+    norms = [(t._take("params", f"{p}/tapnorm{i}/scale"),
+              t._take("params", f"{p}/tapnorm{i}/bias"))
+             for i in _numbered(tree, "tapnorm")]
+    if not norms or not all(np.array_equal(s, norms[0][0])
+                            and np.array_equal(b, norms[0][1])
+                            for s, b in norms):
+        raise ValueError("the JAX tap norms differ (or are missing): the "
+                         "original has one norm applied at every tap")
+    t.sd[f"{p}.norm.weight"], t.sd[f"{p}.norm.bias"] = norms[0]
+    for i in range(4):
+        t.conv(f"{h}/project{i}", f"{h}.projects.{i}", bias=True)
+        if i in (0, 1):
+            t.conv_transpose(f"{h}/resize{i}", f"{h}.resize_layers.{i}",
+                             bias=True)
+        elif i == 3:
+            t.conv(f"{h}/resize{i}", f"{h}.resize_layers.{i}", bias=True)
+        t.conv(f"{h}/layer{i + 1}_rn", f"{h}.scratch.layer{i + 1}_rn")
+    for i in (1, 2, 3, 4):
+        f, k = f"{h}/refine{i}", f"{h}.scratch.refinenet{i}"
+        units = ("resConfUnit2",) if i == 4 else ("resConfUnit1",
+                                                   "resConfUnit2")
+        for j, unit in enumerate(units):
+            for c in (0, 1):
+                t.conv(f"{f}/ResidualConvUnit_{j}/Conv_{c}",
+                       f"{k}.{unit}.conv{c + 1}", bias=True)
+        t.conv(f"{f}/Conv_0", f"{k}.out_conv", bias=True)
+    t.conv(f"{h}/output_conv1", f"{h}.scratch.output_conv1", bias=True)
+    t.conv(f"{h}/output_conv2a", f"{h}.scratch.output_conv2.0", bias=True)
+    t.conv(f"{h}/output_conv2b", f"{h}.scratch.output_conv2.2", bias=True)
+
+
+CONVERTERS = {"CFNet": _cfnet, "DepthAnythingV2": _depth_anything_v2,
+              "GwcNet_G": _gwcnet}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:

@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from stereo_toolbox_tpu_torch.ops import (
-    build_concat_volume, build_gwc_volume, concat_volume_reference,
-    conv3d_fused, conv3d_fused_reference, gather_right_by_samples,
-    gather_right_by_samples_reference, gwc_volume_from_samples,
-    gwc_volume_from_samples_reference, gwc_volume_reference)
+    attention, attention_reference, build_concat_volume, build_gwc_volume,
+    concat_volume_reference, conv3d_fused, conv3d_fused_reference,
+    gather_right_by_samples, gather_right_by_samples_reference,
+    gwc_volume_from_samples, gwc_volume_from_samples_reference,
+    gwc_volume_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -145,6 +146,39 @@ def test_concat_volume_kernel_matches_plain(dev, b, h, w, c, d, dtype):
     assert torch.equal(got, concat_volume_reference(left, right, d))
     if d > w:
         assert not got[:, w:].any()
+
+
+# (b, heads, n, logit scale): one key (N = 1), ragged N, one past a tile,
+# vits' heads, MonSter's two views, DepthAnythingV2-vitl's launch; the large
+# scale gives logits of ~±30, where a wrong running max shows
+ATTENTION_CASES = [(1, 2, 1, 0.125), (2, 3, 77, 0.125), (1, 4, 1025, 0.125),
+                   (1, 6, 300, 0.125), (2, 16, 1201, 0.125),
+                   (1, 16, 1370, 0.125), (1, 2, 200, 1.0)]
+
+
+@pytest.mark.parametrize("b,heads,n,scale", ATTENTION_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_attention_kernel_matches_plain(dev, b, heads, n, scale, dtype, rel):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(b, heads, n, 64, generator=gen).to(dev, dtype)
+               for _ in range(3))
+    out = _counted(attention, (b, heads, n, 64), q, k, v, scale)
+    assert out.dtype == dtype and out.shape == q.shape
+    want = attention_reference(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item()
+
+
+def test_attention_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(1, 2, 10, 32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention(q, q, q, 0.1)
+    q = torch.zeros(1, 2, 10, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, 0.1)
+    with pytest.raises(TypeError):
+        attention(q.half(), q.half(), q.half(), 0.1)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
