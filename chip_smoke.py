@@ -7,18 +7,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. require CUDA; print the card and its power limit (nvidia-smi);
 2. build the CUDA kernels from ``stereo_toolbox_tpu_torch/csrc`` (nvcc);
 3. hold the gwc-volume kernel (K1) against its plain PyTorch version at
-   every launch shape of both models' forwards and a ragged case;
+   every launch shape of the stereo models' forwards and a ragged case;
 4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
    shapes also with both epilogue options on and off;
-5. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
-   (K6) kernels likewise, at CFNet's launch shapes and ragged cases;
-6. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
+5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Co
+   8 and 33, odd H and W, D < 3);
+6. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
+   (K6, masked and not) kernels likewise, at CFNet's, GwcNet_GC's and
+   ACVNet's launch shapes and ragged cases;
+7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
    launch shape, vits' and MonSter's two-view shapes and ragged N;
-7. GwcNet_G and 8. CFNet (max_disp 192, seeded random weights, settled and
-   perturbed BatchNorm statistics), one after the other: the card against
-   the port's CPU paths at 256x512, then the slice's 480x640 forward in
-   float32 and bfloat16, with every kernel's launches by shape read around
-   each forward; 9. DepthAnythingV2 (vitl, seeded random weights): the card
+8. GwcNet_G, 9. GwcNet_GC, 10. CFNet and 11. ACVNet (max_disp 192, seeded
+   random weights, settled and perturbed BatchNorm statistics), one after
+   the other: the card against the port's CPU paths at 256x512 (ACVNet at
+   288x512, where its bottleneck attention pads H, and also in its
+   ``attn_weights_only`` mode), then the 480x640 forward in float32 and
+   bfloat16, with every kernel's launches by shape read around each
+   forward; 12. DepthAnythingV2 (vitl, seeded random weights): the card
    against the CPU at 266x350 on the depth and the pre-ReLU ``out``, then
    the 518x518 forward in float32 and bfloat16, launches by shape read
    likewise. For each model: time the whole forward and each of its stages
@@ -27,11 +32,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the same forward, and time each kernel, its plain version and the
    library yardstick (device time of back-to-back calls) at the shapes and
    launch counts that the full-size forward recorded;
-10. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
+13. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
-11. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
+14. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
     line;
-12. print ``{"ok": true, "device": {...}}`` as the last line.
+15. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.attention import (  # noqa: E402
     attention, attention_reference)
+from stereo_toolbox_tpu_torch.ops.conv3d import (  # noqa: E402
+    conv3d, conv3d_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
     conv3d_fused, conv3d_fused_reference)
 from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
@@ -67,6 +74,7 @@ DEV = torch.device("cuda")
 MAX_DISP = 192
 H, W = 480, 640
 CHECK_H, CHECK_W = 256, 512                    # card vs CPU comparison
+ACV_CHECK_H, ACV_CHECK_W = 288, 512            # bottleneck H 18 -> 20
 DAV2_ENCODER = "vitl"
 DAV2_H = DAV2_W = 518                          # the canonical 37x37 grid
 DAV2_CHECK_H, DAV2_CHECK_W = 266, 350          # a 19x25 grid: pos resize
@@ -85,6 +93,8 @@ KERNELS = {
     "K2": (conv3d_fused, "conv3d_fused",
            "stereo_toolbox_tpu_torch/csrc/conv3d_fused.cu",
            "stereo_toolbox_tpu/ops/pallas/conv3d_fused.py:159"),
+    "K3": (conv3d, "conv3d", "stereo_toolbox_tpu_torch/csrc/conv3d.cu",
+           "stereo_toolbox_tpu/ops/pallas/conv3d.py:82"),
     "K4": (gather_right_by_samples, "gather_right_by_samples",
            "stereo_toolbox_tpu_torch/csrc/sample_gather.cu",
            "stereo_toolbox_tpu/ops/pallas/sample_gather.py:123"),
@@ -113,12 +123,21 @@ K2_MIX = {
     (1, 24, 60, 80, 64, 64, False, True): 3,     # hourglass conv2 x3
     (1, 12, 30, 40, 128, 128, False, True): 3,   # hourglass conv4 x3
 }
+# K3: (B, D, H, W, Ci, Co), classif3's last conv
+K3_MIX = {(1, 48, 120, 160, 32, 1): 1}
+# GwcNet_GC: dres0 takes the gwc (40) and concat (24) volumes
+GC_K2_MIX = {(1, 48, 120, 160, 64, 32, False, True): 1,
+             **{k: n for k, n in K2_MIX.items() if k[4] != 40}}
+# K6: (B, H, W, C, D, mask_left)
+GC_K6_MIX = {(1, 120, 160, 12, 48, True): 1}
 # CFNet: volumes at 1/8, 1/16, 1/32 (C = 160, 320, 320; 12 concat channels)
 CF_K1_MIX = {(1, 60, 80, 160, 24, 40): 1, (1, 30, 40, 320, 12, 40): 1,
              (1, 15, 20, 320, 6, 40): 1}
-# K6: (B, H, W, C, D)
-CF_K6_MIX = {(1, 60, 80, 12, 24): 1, (1, 30, 40, 12, 12): 1,
-             (1, 15, 20, 12, 6): 1}
+CF_K6_MIX = {(1, 60, 80, 12, 24, True): 1, (1, 30, 40, 12, 12, True): 1,
+             (1, 15, 20, 12, 6, True): 1}
+# classif2 at 1/8, confidence_classif1_s3 at 1/4, confidence_classif1_s2
+CF_K3_MIX = {(1, 24, 60, 80, 32, 1): 1, (1, 16, 120, 160, 32, 1): 1,
+             (1, 12, 240, 320, 16, 1): 1}
 # K4: (B, H, W, C, S, max_shift), stages s3 (1/4) and s2 (1/2)
 CF_K4_MIX = {(1, 120, 160, 12, 16, 48): 1, (1, 240, 320, 6, 12, 96): 1}
 # K5: (B, H, W, C, S, G, max_shift)
@@ -147,12 +166,29 @@ CF_K2_MIX = {
     (1, 6, 120, 160, 32, 32, False, False): 2,    # confidence{2,3}_s2.conv2
     (1, 3, 60, 80, 64, 64, False, False): 2,      # confidence{2,3}_s2.conv4
 }
+# ACVNet: K6 without the left mask; K3 for classif_att_ and classif2
+ACV_K6_MIX = {(1, 120, 160, 32, 48, False): 1}
+ACV_K3_MIX = {(1, 48, 120, 160, 32, 1): 2}
+ACV_K2_MIX = {
+    (1, 48, 120, 160, 40, 32, False, True): 1,   # dres1_att_.0
+    (1, 48, 120, 160, 32, 32, False, False): 1,  # dres1_att_.2
+    (1, 48, 120, 160, 64, 32, False, True): 1,   # dres0.0
+    # classif_att_.0, dres0.2, dres1.0, classif2.0
+    (1, 48, 120, 160, 32, 32, False, True): 4,
+    (1, 48, 120, 160, 32, 32, True, False): 1,   # dres1.2 (+ cost0)
+    (1, 24, 60, 80, 64, 64, False, True): 3,     # hourglass conv2 x3
+    (1, 12, 30, 40, 128, 128, False, True): 3,   # hourglass conv4 x3
+}
 # DepthAnythingV2-vitl at 518x518: one K7 per block, (B, heads, N, head_dim)
 DAV2_K7_MIX = {(1, 16, 1370, 64): 24}
 MIXES = {
-    "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX},
-    "CFNet": {"K1": CF_K1_MIX, "K2": CF_K2_MIX, "K4": CF_K4_MIX,
-              "K5": CF_K5_MIX, "K6": CF_K6_MIX},
+    "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX, "K3": K3_MIX},
+    "GwcNet_GC": {"K1": K1_MIX, "K2": GC_K2_MIX, "K3": K3_MIX,
+                  "K6": GC_K6_MIX},
+    "CFNet": {"K1": CF_K1_MIX, "K2": CF_K2_MIX, "K3": CF_K3_MIX,
+              "K4": CF_K4_MIX, "K5": CF_K5_MIX, "K6": CF_K6_MIX},
+    "ACVNet": {"K1": K1_MIX, "K2": ACV_K2_MIX, "K3": ACV_K3_MIX,
+               "K6": ACV_K6_MIX},
     "DepthAnythingV2": {"K7": DAV2_K7_MIX},
 }
 
@@ -169,6 +205,25 @@ STAGES = {
         ("dres3", "dres3", "dres3", "glue"),
         ("dres4", "dres4", "dres4", "glue"),
         ("classif3", "classif3.0", "classif3.2", "glue"),
+    ], "head (upsample, softmax, regression)"),
+    "GwcNet_GC": ([
+        ("2D trunk", "feature_extraction", "feature_extraction",
+         "input cast + view batching"),
+        ("dres0", "dres0", "dres0", "cost volumes (K1, K6)"),
+        ("dres1", "dres1.0", "dres1.2", "glue"),
+        ("dres2", "dres2", "dres2", "glue"),
+        ("dres3", "dres3", "dres3", "glue"),
+        ("dres4", "dres4", "dres4", "glue"),
+        ("classif3", "classif3.0", "classif3.2", "glue"),
+    ], "head (upsample, softmax, regression)"),
+    "ACVNet": ([
+        ("2D trunk + concatconv", "feature_extraction", "concatconv.2",
+         "input cast + view batching"),
+        ("attention branch to att_weights (patch, dres*_att_, "
+         "classif_att_)", "patch", "classif_att_.2", "gwc volume (K1)"),
+        ("main stack (dres0-dres3)", "dres0", "dres3",
+         "concat volume (K6) + attention filter"),
+        ("classif2", "classif2.0", "classif2.2", "glue"),
     ], "head (upsample, softmax, regression)"),
     "CFNet": ([
         ("2D trunk", "feature_extraction", "feature_extraction",
@@ -204,9 +259,11 @@ STAGES = {
 }
 GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
+TRACE_ITERS = 3        # forwards in the torch.profiler trace
 
 # max|err| limits against the plain version, as a share of max|ref|
 REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K2": {F32: 1e-4, BF16: 2e-2},
+           "K3": {F32: 1e-4, BF16: 2e-2},
            "K4": {F32: 0.0, BF16: 0.0}, "K5": {F32: 1e-5, BF16: 1e-2},
            "K6": {F32: 0.0, BF16: 0.0}, "K7": {F32: 1e-5, BF16: 1e-2}}
 
@@ -343,6 +400,37 @@ def check_conv(gen) -> dict:
 
 
 # ---------------------------------------------------------------- phase 5
+def k3_inputs(b, d, h, w, ci, co, dtype, gen):
+    x = randn((b, d, h, w, ci), dtype, gen)
+    k = randn((3, 3, 3, ci, co), dtype, gen, (2.0 / (27 * ci)) ** 0.5)
+    return x, k
+
+
+def check_conv3d(gen) -> dict:
+    """K3 at every launch shape of the stereo forwards and ragged cases:
+    Co 8 and 33 (the second tile ragged), odd H and W, D < 3, Ci not a
+    multiple of the staged chunk, B = 2."""
+    errs = {}
+    model_cases = all_shapes("K3")
+    cases = [*sorted(model_cases), (2, 5, 7, 37, 32, 1), (1, 2, 9, 33, 32, 1),
+             (1, 1, 5, 7, 16, 1), (2, 3, 7, 19, 12, 8), (1, 4, 9, 35, 32, 33),
+             (1, 3, 17, 30, 5, 1)]
+    for dtype in (F32, BF16):
+        errs[dtype] = 0.0
+        for b, d, h, w, ci, co in cases:
+            x, k = k3_inputs(b, d, h, w, ci, co, dtype, gen)
+            got = conv3d(x, k)
+            require(got.dtype == dtype and got.shape == (b, d, h, w, co),
+                    f"K3 output {got.dtype} {tuple(got.shape)}")
+            err = held("K3", dtype, got,
+                       conv3d_reference(x.float(), k.float()),
+                       f"{(b, d, h, w)} Ci={ci} Co={co}")
+            if (b, d, h, w, ci, co) in model_cases:
+                errs[dtype] = max(errs[dtype], err)
+    return errs
+
+
+# ---------------------------------------------------------------- phase 6
 def check_samples(gen) -> tuple[dict, dict]:
     """K4 and K5 at CFNet's launch shapes and ragged cases (W % 32, odd C,
     C/G = 3, a window past a block's shared memory), with samples in
@@ -376,26 +464,32 @@ def check_samples(gen) -> tuple[dict, dict]:
 
 
 def check_concat(gen) -> dict:
-    """K6 at CFNet's launch shapes, D > W (all-zero planes) and odd C."""
+    """K6 at the stereo models' launch shapes (masked: CFNet, GwcNet_GC;
+    unmasked: ACVNet), D > W (zero planes, or zero right halves unmasked)
+    and odd C, with the left half masked and not."""
     errs = {}
-    cases = [*CF_K6_MIX, (2, 3, 37, 12, 45), (1, 2, 9, 5, 4)]
+    model_cases = all_shapes("K6")
+    cases = [*sorted(model_cases)]
+    for ragged in ((2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 2, 10, 32, 14)):
+        cases += [(*ragged, True), (*ragged, False)]
     for dtype in (F32, BF16):
         errs[dtype] = 0.0
-        for b, h, w, c, d in cases:
+        for b, h, w, c, d, mask_left in cases:
             left = randn((b, h, w, c), dtype, gen)
             right = randn((b, h, w, c), dtype, gen)
-            got = build_concat_volume(left, right, d)
+            got = build_concat_volume(left, right, d, mask_left)
             err = held("K6", dtype, got,
-                       concat_volume_reference(left, right, d),
-                       f"{(b, h, w, c)} D={d}")
-            require(d <= w or not got[:, w:].any(),
+                       concat_volume_reference(left, right, d, mask_left),
+                       f"{(b, h, w, c)} D={d} mask_left={mask_left}")
+            zero = got[:, w:] if mask_left else got[:, w:, ..., c:]
+            require(d <= w or not zero.any(),
                     f"K6 planes d >= W not zero at {(b, h, w, c, d)}")
-            if (b, h, w, c, d) in CF_K6_MIX:
+            if (b, h, w, c, d, mask_left) in model_cases:
                 errs[dtype] = max(errs[dtype], err)
     return errs
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 def check_attention(gen) -> dict:
     """K7 at DepthAnythingV2-vitl's launch shape, vits' (6 heads), MonSter's
     two views at 420x560 (N = 1201) and ragged N (1, 77, 1025), at the ViT's
@@ -421,7 +515,7 @@ def check_attention(gen) -> dict:
     return errs
 
 
-# ------------------------------------------------------------- phases 7-9
+# ------------------------------------------------------------ phases 8-12
 def texture(b, h, w, gen):
     """Smooth random texture in [0, 1.1), ``[B, 3, H, W]``."""
     base = torch.rand(b, 3, h // 8, w // 8, generator=gen)
@@ -493,10 +587,10 @@ def forward_counted(name, model, *inputs, by_shape=False, **kwargs):
     return out, shapes
 
 
-def card_vs_cpu(name, hook=None):
-    """The model on the card and on the CPU at CHECK_HxCHECK_W, float32,
-    from the same settled weights. Returns (card model, |card - CPU| of the
-    output, CPU and card outputs of the module `hook` names).
+def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W)):
+    """The model on the card and on the CPU at `size`, float32, from the
+    same settled weights. Returns (card model, |card - CPU| of the output,
+    CPU and card outputs of the module `hook` names, the CPU model).
 
     The card side runs with cuDNN's deterministic algorithms and its own
     seed: CFNet's floors turn run-to-run rounding (atomics in cuDNN's
@@ -504,7 +598,7 @@ def card_vs_cpu(name, hook=None):
     moved from run to run; this way it is the same in every run."""
     model = create_model(name, max_disp=MAX_DISP,
                          generator=torch.Generator().manual_seed(0))
-    l_small, r_small = stereo_pair(1, CHECK_H, CHECK_W, seed=1)
+    l_small, r_small = stereo_pair(1, *size, seed=1)
     torch.backends.cudnn.deterministic = True
     try:
         settle_and_perturb_bn(model, l_small.to(DEV), r_small.to(DEV),
@@ -518,7 +612,7 @@ def card_vs_cpu(name, hook=None):
         t0 = time.perf_counter()
         with torch.no_grad():
             want = cpu(l_small, r_small)
-        print(f"  {name} CPU reference forward at {CHECK_H}x{CHECK_W}: "
+        print(f"  {name} CPU reference forward at {size[0]}x{size[1]}: "
               f"{time.perf_counter() - t0:.1f} s")
         got, _ = forward_counted(name, model, l_small.to(DEV),
                                  r_small.to(DEV))
@@ -527,11 +621,11 @@ def card_vs_cpu(name, hook=None):
     finally:
         torch.backends.cudnn.deterministic = False
     d = (got.cpu() - want).abs()
-    print(f"  {name} {CHECK_H}x{CHECK_W} f32, card vs CPU: mean |d| "
+    print(f"  {name} {size[0]}x{size[1]} f32, card vs CPU: mean |d| "
           f"{d.mean().item():.3e} px, median {d.median().item():.3e}, "
           f"q90 {d.quantile(0.9).item():.3e}, max {d.max().item():.3e} px "
           f"(range {want.min().item():.2f}..{want.max().item():.2f})")
-    return model, d, caught
+    return model, d, caught, cpu
 
 
 def full_size_runs(name, model):
@@ -560,11 +654,42 @@ def full_size_runs(name, model):
     return runs
 
 
-def check_gwcnet():
-    model, d, _ = card_vs_cpu("GwcNet_G")
+def check_gwcnet(name="GwcNet_G"):
+    model, d, _, _ = card_vs_cpu(name)
     require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
-            "GwcNet_G card output differs from the CPU port")
-    return full_size_runs("GwcNet_G", model), {}
+            f"{name} card output differs from the CPU port")
+    return full_size_runs(name, model), {}
+
+
+def check_acvnet():
+    """ACVNet card vs CPU at ACV_CHECK (the bottleneck attention pads H 18
+    to 20), full model and, on the same weights, ``attn_weights_only``;
+    then the 480x640 runs."""
+    size = (ACV_CHECK_H, ACV_CHECK_W)
+    model, d, _, cpu = card_vs_cpu("ACVNet", size=size)
+    check = {"shape": [1, *size, 3], "full": {
+        "mean_abs": d.mean().item(), "max_abs": d.max().item()}}
+    require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
+            "ACVNet card output differs from the CPU port")
+    l_small, r_small = stereo_pair(1, *size, seed=1)
+    for m in (cpu, model):
+        m.attn_weights_only = True
+    try:
+        with torch.no_grad():
+            want = cpu(l_small, r_small)
+            got = model(l_small.to(DEV), r_small.to(DEV)).cpu()
+    finally:
+        model.attn_weights_only = False
+    d = (got - want).abs()
+    check["attn_weights_only"] = {"mean_abs": d.mean().item(),
+                                  "max_abs": d.max().item()}
+    print(f"  ACVNet {size[0]}x{size[1]} f32 attn_weights_only, card vs CPU:"
+          f" mean |d| {d.mean().item():.3e} px, max {d.max().item():.3e} px "
+          f"(range {want.min().item():.2f}..{want.max().item():.2f})")
+    require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
+            "ACVNet attn_weights_only card output differs from the CPU port")
+    del cpu
+    return full_size_runs("ACVNet", model), check
 
 
 def check_cfnet():
@@ -572,7 +697,8 @@ def check_cfnet():
     difference can move one sample at a near-tie pixel: the output is held
     with quantile bounds, the classif2 costs (before the first floor)
     tightly."""
-    model, d, (want_cost, got_cost) = card_vs_cpu("CFNet", hook="classif2.2")
+    model, d, (want_cost, got_cost), _ = card_vs_cpu("CFNet",
+                                                      hook="classif2.2")
     err = (got_cost - want_cost).abs().max().item()
     ref = want_cost.abs().max().item()
     print(f"  CFNet classif2 costs, card vs CPU: max|d| {err:.3e} "
@@ -661,7 +787,7 @@ def check_dav2():
     return runs, check
 
 
-# ------------------------------------------------------ timing (phases 7-9)
+# ----------------------------------------------------- timing (phases 8-12)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
     forwards) and ms per stage, from CUDA events that hooks record on the
@@ -716,6 +842,7 @@ def forward_breakdown(name, model, *inputs) -> dict:
 
 def kernel_family(name: str) -> str:
     for mark, fam in (("conv3d_fused_kernel", "K2 conv3d_fused"),
+                      ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_volume_kernel", "K1 gwc_volume"),
                       ("::gather_kernel<", "K4 sample gather"),
                       ("::gwc_kernel<", "K5 gwc volume from samples"),
@@ -743,7 +870,7 @@ def kernel_family(name: str) -> str:
 
 def profile_forward(name, model, inputs, dtype) -> dict:
     fwd = forward_breakdown(name, model, *inputs)
-    kernels = trace(lambda: model(*inputs), FWD_ITERS)
+    kernels = trace(lambda: model(*inputs), TRACE_ITERS)
     families: dict = defaultdict(float)
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
@@ -815,6 +942,29 @@ def time_conv(mix, dtype, gen):
     return ms, plain, lib, nbytes, flops, shapes
 
 
+def time_conv3d(mix, dtype, gen):
+    """Times and work of a forward's K3 launches, weighted by `mix`; the
+    library yardstick is ``F.conv3d`` on the channels-first views of the
+    same tensors (cuDNN, TF32 off)."""
+    ms = plain = lib = 0.0
+    nbytes = flops = 0
+    shapes = []
+    for (b, d, h, w, ci, co), n in mix.items():
+        x, k = k3_inputs(b, d, h, w, ci, co, dtype, gen)
+        t = device_ms(lambda: conv3d(x, k), 20)
+        tp = device_ms(lambda: conv3d_reference(x, k), 5)
+        xv, kv = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
+        tl = device_ms(lambda: F.conv3d(xv, kv, padding=1), 20)
+        vox = b * d * h * w
+        nbytes += n * (vox * (ci + co) + 27 * ci * co) * x.element_size()
+        flops += n * 2 * 27 * ci * co * vox
+        ms, plain, lib = ms + n * t, plain + n * tp, lib + n * tl
+        shapes.append({"b": b, "dhw": [d, h, w], "ci": ci, "co": co,
+                       "launches": n, "ms": t, "plain_ms": tp,
+                       "library_ms": tl})
+    return ms, plain, lib, nbytes, flops, shapes
+
+
 def time_gather(mix, dtype, gen):
     """Times and work of a forward's K4 launches, weighted by `mix`; the
     library yardstick is one ``torch.gather`` on the right features padded
@@ -874,16 +1024,18 @@ def time_concat(mix, dtype, gen):
     ms = plain = 0.0
     nbytes = 0
     shapes = []
-    for (b, h, w, c, d), n in mix.items():
+    for (b, h, w, c, d, mask_left), n in mix.items():
         left = randn((b, h, w, c), dtype, gen)
         right = randn((b, h, w, c), dtype, gen)
-        t = device_ms(lambda: build_concat_volume(left, right, d), 20)
-        tp = device_ms(lambda: concat_volume_reference(left, right, d), 5)
+        t = device_ms(lambda: build_concat_volume(left, right, d, mask_left),
+                      20)
+        tp = device_ms(lambda: concat_volume_reference(left, right, d,
+                                                       mask_left), 5)
         ms, plain = ms + n * t, plain + n * tp
         nbytes += n * (2 * b * h * w * c + 2 * b * d * h * w * c) * \
             left.element_size()
-        shapes.append({"bhwc": [b, h, w, c], "d": d, "launches": n,
-                       "ms": t, "plain_ms": tp})
+        shapes.append({"bhwc": [b, h, w, c], "d": d, "mask_left": mask_left,
+                       "launches": n, "ms": t, "plain_ms": tp})
     return ms, plain, None, nbytes, 0, shapes
 
 
@@ -943,7 +1095,8 @@ def cudnn_probe(gen) -> list:
     return rows
 
 
-TIMERS = {"K1": time_gwc, "K2": time_conv, "K4": time_gather,
+TIMERS = {"K1": time_gwc, "K2": time_conv, "K3": time_conv3d,
+          "K4": time_gather,
           "K5": time_gwc_samples, "K6": time_concat, "K7": time_attention}
 
 
@@ -1002,25 +1155,30 @@ def main() -> None:
     errs["K1"] = check_gwc(gen)
     print("phase 4: K2 conv3d_fused kernel vs plain")
     errs["K2"] = check_conv(gen)
-    print("phase 5: K4, K5 sample kernels and K6 concat volume vs plain")
+    print("phase 5: K3 conv3d kernel vs plain")
+    errs["K3"] = check_conv3d(gen)
+    print("phase 6: K4, K5 sample kernels and K6 concat volume vs plain")
     errs["K4"], errs["K5"] = check_samples(gen)
     errs["K6"] = check_concat(gen)
-    print("phase 6: K7 vit_attention kernel vs plain")
+    print("phase 7: K7 vit_attention kernel vs plain")
     errs["K7"] = check_attention(gen)
     kernels = []
     forward = {}
     stereo = {"shape": [1, H, W, 3], "max_disp": MAX_DISP}
     for phase, (model_name, check, meta) in enumerate((
             ("GwcNet_G", check_gwcnet, stereo),
+            ("GwcNet_GC", lambda: check_gwcnet("GwcNet_GC"), stereo),
             ("CFNet", check_cfnet, stereo),
+            ("ACVNet", check_acvnet, stereo),
             ("DepthAnythingV2", check_dav2,
-             {"shape": [1, DAV2_H, DAV2_W, 3], "encoder": DAV2_ENCODER})), 7):
+             {"shape": [1, DAV2_H, DAV2_W, 3], "encoder": DAV2_ENCODER})), 8):
         print(f"phase {phase}: {model_name} "
               f"({time.perf_counter() - t_start:.1f} s)")
         runs, checked = check()
         print(f"phase {phase}: {model_name} timing")
         forward[model_name] = {**meta, "iters": FWD_ITERS,
-                               "warmup": FWD_WARMUP}
+                               "warmup": FWD_WARMUP,
+                               "trace_iters": TRACE_ITERS}
         if checked:
             forward[model_name]["card_vs_cpu"] = checked
         for dtype, (m, inputs, shapes, _) in runs.items():
@@ -1033,7 +1191,7 @@ def main() -> None:
         del runs, m, inputs   # the next model's peak memory is its own
         torch.cuda.empty_cache()
 
-    print("phase 10: cuDNN float32 probe")
+    print("phase 13: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))

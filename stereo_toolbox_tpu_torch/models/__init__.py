@@ -12,14 +12,18 @@ from typing import Any, Callable
 
 import torch
 
+from stereo_toolbox_tpu_torch.models.acvnet import ACVNet
 from stereo_toolbox_tpu_torch.models.cfnet import CFNet
 from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
-from stereo_toolbox_tpu_torch.models.gwcnet import GwcNet, GwcNet_G
+from stereo_toolbox_tpu_torch.models.gwcnet import (GwcNet, GwcNet_G,
+                                                    GwcNet_GC)
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
+    "ACVNet": ACVNet,
     "CFNet": CFNet,
     "DepthAnythingV2": DepthAnythingV2,
     "GwcNet_G": GwcNet_G,
+    "GwcNet_GC": GwcNet_GC,
 }
 
 
@@ -38,5 +42,5 @@ def create_model(name: str, device=None, **kwargs) -> torch.nn.Module:
     return MODEL_REGISTRY[name](**kwargs).eval().to(device)
 
 
-__all__ = ["CFNet", "DepthAnythingV2", "GwcNet", "GwcNet_G",
-           "MODEL_REGISTRY", "create_model"]
+__all__ = ["ACVNet", "CFNet", "DepthAnythingV2", "GwcNet", "GwcNet_G",
+           "GwcNet_GC", "MODEL_REGISTRY", "create_model"]

@@ -16,13 +16,12 @@ parameter set is the original's whole.
 
 On the card the forward launches K1 three times (the gwc volumes at 1/8,
 1/16, 1/32), K6 three times (the concat volumes), K5 and K4 once per
-cascade stage (the sampled gwc and concat volumes at 1/4 and 1/2) and K2 on
-each stride-1 3×3×3 ConvBN of the 3D stacks.
+cascade stage (the sampled gwc and concat volumes at 1/4 and 1/2), K2 on
+each stride-1 3×3×3 ConvBN of the 3D stacks and K3 on the last conv of each
+of the three classifiers that run.
 """
 
 from __future__ import annotations
-
-from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -33,7 +32,8 @@ from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock, ConvBNAct,
                                                 ConvTransposeBN,
                                                 HourglassRedir, avg_pool,
                                                 channels_first, channels_last,
-                                                dual_view_apply, init_weights)
+                                                classifier, dual_view_apply,
+                                                every_other, init_weights)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate, resize_nearest
 from stereo_toolbox_tpu_torch.ops.volume import (
     build_concat_volume, build_gwc_volume, concat_volume_from_samples,
@@ -43,13 +43,6 @@ from stereo_toolbox_tpu_torch.ops.volume import (
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     return F.mish(x)
-
-
-def _every_other(*mods: nn.Module) -> nn.Sequential:
-    """Sequential numbered 0, 2, 4, …: the original interleaves parameter-free
-    Mish modules, which the blocks here apply themselves."""
-    return nn.Sequential(OrderedDict((str(2 * i), m)
-                                     for i, m in enumerate(mods)))
 
 
 class _PoolPath(nn.Module):
@@ -95,8 +88,8 @@ class _NearestUp2(nn.Module):
 
 def _head(ci: int, mid: int, out: int) -> nn.Sequential:
     """3×3 ConvBN-Mish then a bias-free 1×1 conv; applied by `_run_head`."""
-    return _every_other(ConvBNAct(ci, mid, 3, act="mish"),
-                        nn.Conv2d(mid, out, 1, bias=False))
+    return every_other(ConvBNAct(ci, mid, 3, act="mish"),
+                       nn.Conv2d(mid, out, 1, bias=False))
 
 
 def _run_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
@@ -110,9 +103,9 @@ class CFFeature(nn.Module):
 
     def __init__(self, concat_channels: int = 12):
         super().__init__()
-        self.firstconv = _every_other(ConvBNAct(3, 32, 3, 2, act="mish"),
-                                      ConvBNAct(32, 32, 3, 1, act="mish"),
-                                      ConvBNAct(32, 32, 3, 1, act="mish"))
+        self.firstconv = every_other(ConvBNAct(3, 32, 3, 2, act="mish"),
+                                     ConvBNAct(32, 32, 3, 1, act="mish"),
+                                     ConvBNAct(32, 32, 3, 1, act="mish"))
         chans = (32, 64, 128, 192, 256, 512)
         for i, (ci, co) in enumerate(zip(chans, chans[1:])):
             setattr(self, f"layer{i + 2}", nn.Sequential(BasicResBlock(
@@ -246,10 +239,10 @@ class SampledVolume(nn.Module):
 def _dres_pair(ci: int, c: int) -> tuple[nn.Sequential, nn.Sequential]:
     """The original's ``dres0``/``dres1`` pair: two ConvBN-Mish, then two
     more whose second has no activation and adds the pair's first output."""
-    return (_every_other(ConvBNAct(ci, c, 3, 1, dims=3, act="mish"),
-                         ConvBNAct(c, c, 3, 1, dims=3, act="mish")),
-            _every_other(ConvBNAct(c, c, 3, 1, dims=3, act="mish"),
-                         ConvBNAct(c, c, 3, 1, dims=3, act=None)))
+    return (every_other(ConvBNAct(ci, c, 3, 1, dims=3, act="mish"),
+                        ConvBNAct(c, c, 3, 1, dims=3, act="mish")),
+            every_other(ConvBNAct(c, c, 3, 1, dims=3, act="mish"),
+                        ConvBNAct(c, c, 3, 1, dims=3, act=None)))
 
 
 def _run_dres(first: nn.Sequential, second: nn.Sequential,
@@ -258,14 +251,9 @@ def _run_dres(first: nn.Sequential, second: nn.Sequential,
     return second[1](second[0](c), residual=c)
 
 
-def _classifier(c: int) -> nn.Sequential:
-    return _every_other(ConvBNAct(c, c, 3, 1, dims=3, act="mish"),
-                        nn.Conv3d(c, 1, 3, 1, 1, bias=False))
-
-
 def _classify(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     """``[B, D, H, W, C]`` → ``[B, D, H, W]`` costs."""
-    return head[1](channels_first(head[0](x)))[:, 0]
+    return head[1](head[0](x))[..., 0]
 
 
 class CFNet(nn.Module):
@@ -299,10 +287,10 @@ class CFNet(nn.Module):
         for name in ("classif0", "classif1", "classif2",
                      "confidence_classif0_s3", "confidence_classif1_s3",
                      "confidence_classifmid_s3"):
-            setattr(self, name, _classifier(32))
+            setattr(self, name, classifier(32, "mish"))
         for name in ("confidence_classif0_s2", "confidence_classif1_s2",
                      "confidence_classifmid_s2"):
-            setattr(self, name, _classifier(16))
+            setattr(self, name, classifier(16, "mish"))
         for name in ("gamma_s3", "beta_s3", "gamma_s2", "beta_s2"):
             setattr(self, name, nn.Parameter(torch.zeros(1)))
         init_weights(self, generator if generator is not None

@@ -1,52 +1,57 @@
 """GwcNet (CVPR'19): group-wise correlation volume, redirected hourglasses.
 
-Counterpart of ``stereo_toolbox_tpu/models/gwcnet.py`` (G variant: the
-40-group correlation volume alone). Modules and their names follow the
-original toolbox's ``models/GwcNet/gwcnet.py``, so ``state_dict`` keys are
-its PyTorch names and published checkpoints load with ``load_state_dict``.
+Counterpart of ``stereo_toolbox_tpu/models/gwcnet.py``: GwcNet_G (the
+40-group correlation volume alone) and GwcNet_GC (that volume beside a
+12-channel concat volume). Modules and their names follow the original
+toolbox's ``models/GwcNet/gwcnet.py``, so ``state_dict`` keys are its
+PyTorch names and published checkpoints load with ``load_state_dict``.
 
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32). Eval only: only ``classif3`` runs, but all four
 classifiers are registered so the parameter set is the original's whole.
+
+On the card the forward launches K1 once (the gwc volume), K6 once for
+GwcNet_GC (the masked concat volume), K2 on each stride-1 3×3×3 ConvBN of
+the 3D stack and K3 once (``classif3``'s last conv).
 """
 
 from __future__ import annotations
-
-from collections import OrderedDict
 
 import torch
 import torch.nn as nn
 
 from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock, ConvBNAct,
                                                 HourglassRedir,
-                                                channels_first,
-                                                dual_view_apply, init_weights)
+                                                channels_first, channels_last,
+                                                classifier, dual_view_apply,
+                                                every_other, init_weights)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate
-from stereo_toolbox_tpu_torch.ops.volume import (build_gwc_volume,
+from stereo_toolbox_tpu_torch.ops.volume import (build_concat_volume,
+                                                 build_gwc_volume,
                                                  disparity_regression)
-
-
-def _every_other(*mods: nn.Module) -> nn.Sequential:
-    """Sequential numbered 0, 2, 4, …: the original interleaves parameter-free
-    ReLUs, which the blocks here apply themselves."""
-    return nn.Sequential(OrderedDict((str(2 * i), m)
-                                     for i, m in enumerate(mods)))
 
 
 class GwcFeature(nn.Module):
     """Residual trunk → 320-channel gwc feature (concat of layer2..4) at
-    1/4 resolution, channels-last."""
+    1/4 resolution, channels-last; with `concat_feature`, also the
+    ``lastconv`` concat feature (3×3 ConvBN-ReLU to 128, bias-free 1×1 to
+    `CONCAT_CHANNELS`)."""
+    CONCAT_CHANNELS = 12
 
-    def __init__(self):
+    def __init__(self, concat_feature: bool = False):
         super().__init__()
-        self.firstconv = _every_other(ConvBNAct(3, 32, 3, 2),
-                                      ConvBNAct(32, 32, 3, 1),
-                                      ConvBNAct(32, 32, 3, 1))
+        self.firstconv = every_other(ConvBNAct(3, 32, 3, 2),
+                                     ConvBNAct(32, 32, 3, 1),
+                                     ConvBNAct(32, 32, 3, 1))
         self.inplanes = 32
         self.layer1 = self._layer(32, 3, 1, 1)
         self.layer2 = self._layer(64, 16, 2, 1)
         self.layer3 = self._layer(128, 3, 1, 1)
         self.layer4 = self._layer(128, 3, 1, 2)
+        self.lastconv = (every_other(
+            ConvBNAct(320, 128, 3),
+            nn.Conv2d(128, self.CONCAT_CHANNELS, 1, bias=False))
+            if concat_feature else None)
 
     def _layer(self, planes, blocks, stride, dilation) -> nn.Sequential:
         down = stride != 1 or self.inplanes != planes
@@ -61,32 +66,35 @@ class GwcFeature(nn.Module):
         l2 = self.layer2(x)
         l3 = self.layer3(l2)
         l4 = self.layer4(l3)
-        return {"gwc_feature": torch.cat([l2, l3, l4], dim=-1)}
-
-
-def _classifier() -> nn.Sequential:
-    return _every_other(ConvBNAct(32, 32, 3, 1, dims=3),
-                        nn.Conv3d(32, 1, 3, 1, 1, bias=False))
+        gwc = torch.cat([l2, l3, l4], dim=-1)
+        if self.lastconv is None:
+            return {"gwc_feature": gwc}
+        cf = self.lastconv[1](channels_first(self.lastconv[0](gwc)))
+        return {"gwc_feature": gwc, "concat_feature": channels_last(cf)}
 
 
 class GwcNet(nn.Module):
-    def __init__(self, max_disp: int = 192, num_groups: int = 40,
+    def __init__(self, max_disp: int = 192, use_concat_volume: bool = False,
+                 num_groups: int = 40,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.max_disp = max_disp
+        self.use_concat_volume = use_concat_volume
         self.num_groups = num_groups
-        self.feature_extraction = GwcFeature()
-        self.dres0 = _every_other(ConvBNAct(num_groups, 32, 3, 1, dims=3),
-                                  ConvBNAct(32, 32, 3, 1, dims=3))
-        self.dres1 = _every_other(ConvBNAct(32, 32, 3, 1, dims=3),
-                                  ConvBNAct(32, 32, 3, 1, dims=3, act=None))
+        self.feature_extraction = GwcFeature(use_concat_volume)
+        ci = num_groups + (2 * GwcFeature.CONCAT_CHANNELS
+                           if use_concat_volume else 0)
+        self.dres0 = every_other(ConvBNAct(ci, 32, 3, 1, dims=3),
+                                 ConvBNAct(32, 32, 3, 1, dims=3))
+        self.dres1 = every_other(ConvBNAct(32, 32, 3, 1, dims=3),
+                                 ConvBNAct(32, 32, 3, 1, dims=3, act=None))
         self.dres2 = HourglassRedir(32)
         self.dres3 = HourglassRedir(32)
         self.dres4 = HourglassRedir(32)
-        self.classif0 = _classifier()
-        self.classif1 = _classifier()
-        self.classif2 = _classifier()
-        self.classif3 = _classifier()
+        self.classif0 = classifier()
+        self.classif1 = classifier()
+        self.classif2 = classifier()
+        self.classif3 = classifier()
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
@@ -99,19 +107,28 @@ class GwcNet(nn.Module):
         dtype = self.classif3[0][0].weight.dtype
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
                                  right.to(dtype))
+        d4 = self.max_disp // 4
         volume = build_gwc_volume(fl["gwc_feature"].contiguous(),
-                                  fr["gwc_feature"].contiguous(),
-                                  self.max_disp // 4, self.num_groups)
+                                  fr["gwc_feature"].contiguous(), d4,
+                                  self.num_groups)
+        if self.use_concat_volume:
+            volume = torch.cat([volume, build_concat_volume(
+                fl["concat_feature"].contiguous(),
+                fr["concat_feature"].contiguous(), d4)], dim=-1)
         cost0 = self.dres0(volume)
         c = self.dres1[0](cost0)
         cost0 = self.dres1[1](c, residual=cost0)
         out3 = self.dres4(self.dres3(self.dres2(cost0)))
-        cost = self.classif3[1](channels_first(self.classif3[0](out3)))
-        cost = interpolate(cost[:, 0], (self.max_disp, h, w), (1, 2, 3),
+        cost = self.classif3[1](self.classif3[0](out3))
+        cost = interpolate(cost[..., 0], (self.max_disp, h, w), (1, 2, 3),
                            align_corners=False)
         prob = torch.softmax(cost.float(), dim=1)
         return disparity_regression(prob, self.max_disp)
 
 
 def GwcNet_G(max_disp: int = 192, **kw) -> GwcNet:
-    return GwcNet(max_disp=max_disp, **kw)
+    return GwcNet(max_disp=max_disp, use_concat_volume=False, **kw)
+
+
+def GwcNet_GC(max_disp: int = 192, **kw) -> GwcNet:
+    return GwcNet(max_disp=max_disp, use_concat_volume=True, **kw)

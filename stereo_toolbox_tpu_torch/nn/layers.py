@@ -11,17 +11,20 @@ In eval mode a 3D 3×3×3, stride-1, undilated, padding-1 ConvBNAct folds its
 BatchNorm into a per-channel affine and runs `ops.conv3d_fused` (the CUDA
 kernel on the card): the same condition under which the JAX package takes
 its fused lowering. The kernel's epilogue applies ReLU; Mish runs after it,
-as in the JAX package's fused lowering.
+as in the JAX package's fused lowering. The bias-free 3×3×3 classifier convs
+(`Conv3dSame`) run `ops.conv3d` in eval mode.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereo_toolbox_tpu_torch.ops.conv3d import conv3d
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import conv3d_fused
 
 BN_EPS = 1e-5
@@ -110,6 +113,38 @@ class ConvBNAct(nn.Sequential):
         return channels_last(activate(y, self.act))
 
 
+class Conv3dSame(nn.Conv3d):
+    """Bias-free 3×3×3 conv, stride 1, zero padding 1, on channels-last
+    ``[B, D, H, W, Ci]`` → ``[B, D, H, W, Co]`` (the cost-volume
+    classifiers). Its parameter is ``nn.Conv3d``'s ``weight [Co, Ci, 3, 3,
+    3]``; in eval mode it runs `ops.conv3d` on the ``[3, 3, 3, Ci, Co]`` view
+    of it, in x's type."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, 1, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return channels_last(super().forward(channels_first(x)))
+        return conv3d(x.contiguous(),
+                      self.weight.permute(2, 3, 4, 1, 0).to(x.dtype))
+
+
+def every_other(*mods: nn.Module) -> nn.Sequential:
+    """Sequential numbered 0, 2, 4, …: the original toolbox interleaves
+    parameter-free activation modules, which the blocks here apply
+    themselves, so the parameters keep its indices."""
+    return nn.Sequential(OrderedDict((str(2 * i), m)
+                                     for i, m in enumerate(mods)))
+
+
+def classifier(c: int = 32, act: str = "relu") -> nn.Sequential:
+    """A cost-volume classifier: 3×3×3 ConvBN-`act` (K2), then the
+    bias-free 3×3×3 conv to one channel (K3)."""
+    return every_other(ConvBNAct(c, c, 3, 1, dims=3, act=act),
+                       Conv3dSame(c, 1))
+
+
 class ConvTransposeBN(nn.Sequential):
     """``ConvTranspose3d(k=3, s=2, p=1, output_padding=1)`` → BatchNorm: the
     output is exactly twice the input along D, H and W."""
@@ -152,9 +187,11 @@ class BasicResBlock(nn.Module):
 class HourglassRedir(nn.Module):
     """3D hourglass with 1×1 ``redir`` skips, `act` in all six places
     (GwcNet's with ReLU; CFNet's ``HourglassMish`` with Mish);
-    channels-last."""
+    channels-last. An `attention_block` (a module on ``[B, D, H, W, 4c]``)
+    is applied to ``conv4``'s output: ACVNet's ``HourglassAttn``."""
 
-    def __init__(self, c: int, act: str = "relu"):
+    def __init__(self, c: int, act: str = "relu",
+                 attention_block: nn.Module | None = None):
         super().__init__()
         self.act = act
         self.conv1 = nn.Sequential(ConvBNAct(c, 2 * c, 3, 2, dims=3, act=act))
@@ -168,10 +205,13 @@ class HourglassRedir(nn.Module):
         self.conv6 = ConvTransposeBN(2 * c, c)
         self.redir1 = ConvBNAct(c, c, 1, 1, 0, dims=3, act=None)
         self.redir2 = ConvBNAct(2 * c, 2 * c, 1, 1, 0, dims=3, act=None)
+        self.attention_block = attention_block
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c2 = self.conv2(self.conv1(x))
         c4 = self.conv4(self.conv3(c2))
+        if self.attention_block is not None:
+            c4 = self.attention_block(c4)
         c5 = activate(self.conv5(c4) + self.redir2(c2), self.act)
         return activate(self.conv6(c5) + self.redir1(x), self.act)
 
@@ -189,10 +229,15 @@ def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor):
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The original toolbox's initialisation, drawn from `generator`:
     conv weights ~ N(0, 2 / (k_volume · out_channels)), BatchNorm γ = 1,
-    β = 0."""
+    β = 0; biases 0. Linear weights (ACVNet's attention), which the original
+    leaves to PyTorch's default, ~ N(0, 1 / in_features)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            if isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5,
+                                 generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
                 n = math.prod(m.kernel_size) * m.out_channels
                 m.weight.normal_(0.0, math.sqrt(2.0 / n), generator=generator)
                 if m.bias is not None:

@@ -40,8 +40,11 @@ SIGNATURES = {
         # left, right, samples, out, B, H, W, C, S, G, max_shift, dtype, stream
         "gwc_volume_from_samples": [_P] * 4 + [_I] * 8 + [_P]},
     "concat_volume": {
-        # left, right, out, B, H, W, C, D, dtype, stream
-        "concat_volume": [_P] * 3 + [_I] * 6 + [_P]},
+        # left, right, out, B, H, W, C, D, mask_left, dtype, stream
+        "concat_volume": [_P] * 3 + [_I] * 7 + [_P]},
+    "conv3d": {
+        # x, w, out, B, D, H, W, Ci, Co, dtype, stream
+        "conv3d": [_P] * 3 + [_I] * 7 + [_P]},
     "vit_attention": {
         # q, k, v, out, B*heads, N, scale, dtype, stream
         "vit_attention": [_P] * 4 + [_I] * 2 + [_F, _I, _P]},

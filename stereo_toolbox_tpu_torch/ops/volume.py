@@ -8,8 +8,8 @@ Each op with a kernel launches the hand-written CUDA kernel on a CUDA tensor
 and runs its plain PyTorch version, named ``*_reference``, on a CPU tensor:
 
   * `build_gwc_volume` → ``csrc/gwc_volume.cu`` (K1);
-  * `build_concat_volume` with ``mask_left=True`` → ``csrc/concat_volume.cu``
-    (K6);
+  * `build_concat_volume` → ``csrc/concat_volume.cu`` (K6), with the left
+    half masked or not;
   * `gather_right_by_samples` and `gwc_volume_from_samples` →
     ``csrc/sample_gather.cu`` (K4, K5).
 
@@ -155,11 +155,11 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
     right half zero where w < d. ``mask_left=False`` keeps the left features
     at every d (ACVNet, IGEV, FoundationStereo).
 
-    CPU tensors, and ``mask_left=False`` on any device, take
-    `concat_volume_reference`; CUDA tensors with ``mask_left=True`` launch
-    the kernel (float32 or bfloat16, contiguous ``[B, H, W, C]``) or raise.
+    CPU tensors take `concat_volume_reference`; CUDA tensors launch the
+    kernel, with either `mask_left` (float32 or bfloat16, contiguous
+    ``[B, H, W, C]``), or raise.
     """
-    if left.device.type == "cpu" or not mask_left:
+    if left.device.type == "cpu":
         return concat_volume_reference(left, right, max_disp, mask_left)
     _check_features(left, right)
     b, h, w, c = left.shape
@@ -173,15 +173,15 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
     lib = _cuda.library("concat_volume")
     with torch.cuda.device(left.device):
         rc = lib.concat_volume(left.data_ptr(), right.data_ptr(),
-                               out.data_ptr(), b, h, w, c, max_disp, code,
-                               _cuda.stream_of(left))
+                               out.data_ptr(), b, h, w, c, max_disp,
+                               int(mask_left), code, _cuda.stream_of(left))
     _cuda.check(lib, rc, "concat_volume")
     build_concat_volume.launches += 1
-    build_concat_volume.shapes[(b, h, w, c, max_disp)] += 1
+    build_concat_volume.shapes[(b, h, w, c, max_disp, bool(mask_left))] += 1
     return out
 
 
-# launches of the kernel, in all and by (B, H, W, C, D)
+# launches of the kernel, in all and by (B, H, W, C, D, mask_left)
 build_concat_volume.launches = 0
 build_concat_volume.shapes = Counter()
 

@@ -136,11 +136,16 @@ class JaxToTorch:
 
 
 def _hourglass(t: JaxToTorch, path: str, key: str) -> None:
-    """A JAX ``HourglassRedir`` (GwcNet) or ``HourglassMish`` (CFNet) →
-    the port's ``HourglassRedir``."""
+    """A JAX ``HourglassRedir`` (GwcNet), ``HourglassMish`` (CFNet) or
+    ``HourglassAttn`` (ACVNet, with its ``BlockAttention3D_0``) → the port's
+    ``HourglassRedir``."""
     for j in range(4):
         t.convbn(f"{path}/ConvBNAct_{j}", f"{key}.conv{j + 1}.0.0",
                  f"{key}.conv{j + 1}.0.1")
+    att = f"{path}/BlockAttention3D_0"
+    if t.has(att):
+        t.dense(f"{att}/qkv", f"{key}.attention_block.qkv_3d")
+        t.conv(f"{att}/proj", f"{key}.attention_block.final1x1", bias=True)
     for j, conv in enumerate(("conv5", "conv6")):
         t.conv_transpose(f"{path}/ConvTransposeBN_{j}/ConvTranspose_0",
                          f"{key}.{conv}.0")
@@ -149,7 +154,9 @@ def _hourglass(t: JaxToTorch, path: str, key: str) -> None:
     t.convbn(f"{path}/ConvBNAct_5", f"{key}.redir1.0", f"{key}.redir1.1")
 
 
-def _gwcnet(t: JaxToTorch) -> None:
+def _gwc_trunk(t: JaxToTorch) -> None:
+    """GwcNet's feature trunk (also ACVNet's), with GwcNet_GC's ``lastconv``
+    where the variables have it."""
     fe = "feature_extraction"
     for i in range(3):
         t.convbn(f"{fe}/ConvBNAct_{i}", f"{fe}.firstconv.{2 * i}.0",
@@ -165,11 +172,40 @@ def _gwcnet(t: JaxToTorch) -> None:
                 t.convbn(f"{f}/ConvBNAct_2", f"{k}.downsample.0",
                          f"{k}.downsample.1")
             n += 1
+    if t.has(f"{fe}/ConvBNAct_3"):
+        t.convbn(f"{fe}/ConvBNAct_3", f"{fe}.lastconv.0.0",
+                 f"{fe}.lastconv.0.1")
+        t.conv(f"{fe}/Conv_0", f"{fe}.lastconv.2")
+
+
+def _gwcnet(t: JaxToTorch) -> None:
+    _gwc_trunk(t)
     for i, key in enumerate(("dres0.0", "dres0.2", "dres1.0", "dres1.2")):
         t.convbn(f"ConvBNAct_{i}", f"{key}.0", f"{key}.1")
     for i, dres in enumerate(("dres2", "dres3", "dres4")):
         _hourglass(t, f"HourglassRedir_{i}", dres)
     for i in range(4):
+        t.convbn(f"classif{i}_conv", f"classif{i}.0.0", f"classif{i}.0.1")
+        t.conv(f"classif{i}_out", f"classif{i}.2")
+
+
+def _acvnet(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_acvnet``."""
+    _gwc_trunk(t)
+    for p in ("patch", "patch_l1", "patch_l2", "patch_l3"):
+        t.conv(p, p)
+    t.convbn("ConvBNAct_0", "dres1_att_.0.0", "dres1_att_.0.1")
+    t.convbn("ConvBNAct_1", "dres1_att_.2.0", "dres1_att_.2.1")
+    _hourglass(t, "HourglassAttn_0", "dres2_att_")
+    t.convbn("ConvBNAct_2", "classif_att_.0.0", "classif_att_.0.1")
+    t.conv("Conv_0", "classif_att_.2")
+    t.convbn("concatconv_0", "concatconv.0.0", "concatconv.0.1")
+    t.conv("concatconv_1", "concatconv.2")
+    for i, key in enumerate(("dres0.0", "dres0.2", "dres1.0", "dres1.2"), 3):
+        t.convbn(f"ConvBNAct_{i}", f"{key}.0", f"{key}.1")
+    _hourglass(t, "HourglassAttn_1", "dres2")
+    _hourglass(t, "HourglassAttn_2", "dres3")
+    for i in range(3):
         t.convbn(f"classif{i}_conv", f"classif{i}.0.0", f"classif{i}.0.1")
         t.conv(f"classif{i}_out", f"classif{i}.2")
 
@@ -288,8 +324,9 @@ def _depth_anything_v2(t: JaxToTorch) -> None:
     t.conv(f"{h}/output_conv2b", f"{h}.scratch.output_conv2.2", bias=True)
 
 
-CONVERTERS = {"CFNet": _cfnet, "DepthAnythingV2": _depth_anything_v2,
-              "GwcNet_G": _gwcnet}
+CONVERTERS = {"ACVNet": _acvnet, "CFNet": _cfnet,
+              "DepthAnythingV2": _depth_anything_v2, "GwcNet_G": _gwcnet,
+              "GwcNet_GC": _gwcnet}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:

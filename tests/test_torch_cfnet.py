@@ -78,8 +78,8 @@ def test_cfnet_matches_jax(jax_setup):
     with torch.no_grad():
         got = m(torch.from_numpy(left), torch.from_numpy(right)).numpy()
     hook.remove()
-    # port [B, 1, D, H, W] against JAX [B, D, H, W, 1]
-    cost = costs[0][:, 0].numpy()
+    # port and JAX both [B, D, H, W, 1]
+    cost = costs[0][..., 0].numpy()
     err = np.abs(cost - want_cost[..., 0]).max()
     ref = np.abs(want_cost).max()
     d = np.abs(got - want)

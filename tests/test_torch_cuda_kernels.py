@@ -15,7 +15,8 @@ import torch
 
 from stereo_toolbox_tpu_torch.ops import (
     attention, attention_reference, build_concat_volume, build_gwc_volume,
-    concat_volume_reference, conv3d_fused, conv3d_fused_reference,
+    concat_volume_reference, conv3d, conv3d_fused, conv3d_fused_reference,
+    conv3d_reference,
     gather_right_by_samples, gather_right_by_samples_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference)
@@ -73,6 +74,29 @@ def test_conv3d_fused_kernel_matches_plain(dev, ci, co, residual, relu,
     want = conv3d_fused_reference(x.float(), k.float(), scale, bias,
                                   None if res is None else res.float(), relu)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+# (b, d, h, w, ci, co): the classifiers' Co = 1 at GwcNet's Ci and CFNet's
+# 1/2 stage's (shorter D and H); ragged H/W; D < 3; Co = 8 and 33 (tiles of
+# 8, the last one ragged); Ci not a multiple of the staged chunk
+CONV3D_CASES = [(1, 6, 20, 40, 32, 1), (1, 4, 24, 64, 16, 1),
+                (2, 5, 7, 37, 32, 1), (1, 2, 9, 33, 32, 1),
+                (1, 1, 5, 7, 16, 1), (2, 3, 7, 19, 12, 8),
+                (1, 4, 9, 35, 32, 33), (1, 3, 17, 30, 5, 1)]
+
+
+@pytest.mark.parametrize("b,d,h,w,ci,co", CONV3D_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_conv3d_kernel_matches_plain(dev, b, d, h, w, ci, co, dtype, rel):
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(b, d, h, w, ci, generator=gen).to(dev, dtype)
+    k = (torch.randn(3, 3, 3, ci, co, generator=gen) * 0.1).to(dev, dtype)
+    got = _counted(conv3d, (b, d, h, w, ci, co), x, k)
+    assert got.dtype == dtype and got.shape == (b, d, h, w, co)
+    want = conv3d_reference(x.float(), k.float())
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item()
 
 
 def _counted(fn, key, *args):
@@ -142,10 +166,32 @@ def test_concat_volume_kernel_matches_plain(dev, b, h, w, c, d, dtype):
     gen = torch.Generator().manual_seed(4)
     left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
                    for _ in range(2))
-    got = _counted(build_concat_volume, (b, h, w, c, d), left, right, d)
+    got = _counted(build_concat_volume, (b, h, w, c, d, True), left, right,
+                   d)
     assert torch.equal(got, concat_volume_reference(left, right, d))
     if d > w:
         assert not got[:, w:].any()
+
+
+# ACVNet's C = 32 and D > W beside the masked cases' shapes
+UNMASKED_CASES = CONCAT_CASES + [(1, 3, 40, 32, 12), (1, 2, 10, 32, 14)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d", UNMASKED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unmasked_concat_volume_kernel_matches_plain(dev, b, h, w, c, d,
+                                                     dtype):
+    """``mask_left=False`` (ACVNet) launches the kernel too, exact: the
+    left half at every d, the right half zero where w < d."""
+    gen = torch.Generator().manual_seed(7)
+    left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+                   for _ in range(2))
+    got = _counted(build_concat_volume, (b, h, w, c, d, False), left, right,
+                   d, False)
+    assert torch.equal(got, concat_volume_reference(left, right, d, False))
+    assert torch.equal(got[..., :c], left[:, None].expand(b, d, h, w, c))
+    if d > w:
+        assert not got[:, w:, ..., c:].any()
 
 
 # (b, heads, n, logit scale): one key (N = 1), ragged N, one past a tile,
@@ -198,3 +244,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gwc_volume_from_samples(f, f, samples.double(), 2, 4)
     with pytest.raises(TypeError):
         build_concat_volume(f.half(), f.half(), 4)
+    k1 = torch.zeros(3, 3, 3, 8, 1, device=dev)
+    with pytest.raises(TypeError):
+        conv3d(x, k1.half())
+    with pytest.raises(ValueError):        # not contiguous
+        conv3d(x.float().transpose(2, 3), k1)
+    with pytest.raises(ValueError):        # kernel of another Ci
+        conv3d(x.float(), torch.zeros(3, 3, 3, 4, 1, device=dev))
+    with pytest.raises(ValueError):        # kernel of another dtype
+        conv3d(x.float(), k1.bfloat16())

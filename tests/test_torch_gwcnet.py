@@ -1,4 +1,5 @@
-"""GwcNet_G in the PyTorch port against the JAX package on carried weights.
+"""GwcNet_G and GwcNet_GC in the PyTorch port against the JAX package on
+carried weights.
 
 JAX variables are initialised with every head (``train=True``), their
 BatchNorm statistics perturbed, carried into the port with
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from stereo_toolbox_tpu.models import GwcNet_G as JaxGwcNet_G
+from stereo_toolbox_tpu.models import GwcNet_GC as JaxGwcNet_GC
 from stereo_toolbox_tpu.utils.torch_import import import_torch_checkpoint
 from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.utils.weights import from_jax_variables
@@ -42,13 +44,12 @@ def _settled_stats(model, v, x):
                                             v["batch_stats"])
 
 
-@pytest.fixture(scope="module")
-def jax_setup():
+def _setup(jax_model):
     rng = np.random.RandomState(0)
     left = rng.randn(1, H, W, 3).astype(np.float32)
     right = np.roll(left, -3, axis=2) + 0.05 * rng.randn(1, H, W, 3).astype(
         np.float32)
-    model = JaxGwcNet_G(max_disp=MAX_DISP)
+    model = jax_model(max_disp=MAX_DISP)
     x = jnp.asarray(left)
     v = jax.jit(model.init, static_argnames="train")(
         jax.random.PRNGKey(0), x, x, train=True)
@@ -61,6 +62,16 @@ def jax_setup():
     pred = jax.jit(lambda vv, a, b: model.apply(vv, a, b, train=False))(
         v, x, jnp.asarray(right))
     return v, left, right, np.asarray(pred)
+
+
+@pytest.fixture(scope="module")
+def jax_setup():
+    return _setup(JaxGwcNet_G)
+
+
+@pytest.fixture(scope="module")
+def jax_setup_gc():
+    return _setup(JaxGwcNet_GC)
 
 
 def test_gwcnet_g_matches_jax(jax_setup):
@@ -101,6 +112,60 @@ def test_port_state_dict_has_original_torch_names():
         assert k in keys, k
 
 
+def test_gwcnet_gc_matches_jax(jax_setup_gc):
+    """GwcNet_GC: the 12-channel concat feature and the masked concat
+    volume (K6 on the card) beside the gwc volume."""
+    v, left, right, want = jax_setup_gc
+    m = create_model("GwcNet_GC", max_disp=MAX_DISP, device="cpu")
+    m.load_state_dict(from_jax_variables("GwcNet_GC", v))
+    with torch.no_grad():
+        got = m(torch.from_numpy(left), torch.from_numpy(right)).numpy()
+    d = np.abs(got - want)
+    print(f"GwcNet_GC port vs JAX: mean |d| {d.mean():.3e} px, "
+          f"max {d.max():.3e} px")
+    assert got.shape == want.shape == (1, H, W)
+    assert d.mean() < 5e-3
+    assert d.max() < 0.1
+
+
+def test_gwcnet_gc_state_dict_round_trips_through_jax_importer(jax_setup_gc):
+    v = jax_setup_gc[0]
+    m = create_model("GwcNet_GC", max_disp=MAX_DISP, device="cpu")
+    m.load_state_dict(from_jax_variables("GwcNet_GC", v))
+    sd = {k: t.numpy() for k, t in m.state_dict().items()}
+    back = import_torch_checkpoint("GwcNet_GC", sd)  # raises on leftovers
+    want = dict(jax.tree_util.tree_flatten_with_path(v)[0])
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert set(got) == set(want)
+    for path, a in want.items():
+        np.testing.assert_array_equal(got[path], a)
+
+
+def test_gwcnet_gc_state_dict_has_original_torch_names():
+    sd = create_model("GwcNet_GC", max_disp=MAX_DISP, device="cpu"
+                      ).state_dict()
+    for k in ("feature_extraction.lastconv.0.0.weight",
+              "feature_extraction.lastconv.0.1.running_mean",
+              "feature_extraction.lastconv.2.weight", "dres0.0.0.weight",
+              "classif3.2.weight"):
+        assert k in sd, k
+    assert tuple(sd["feature_extraction.lastconv.2.weight"].shape) == (
+        12, 128, 1, 1)
+    assert tuple(sd["dres0.0.0.weight"].shape) == (32, 64, 3, 3, 3)
+    g = create_model("GwcNet_G", max_disp=MAX_DISP, device="cpu")
+    assert not any("lastconv" in k for k in g.state_dict())
+
+
+def test_gwcnet_gc_defaults_to_cuda_and_train_mode_raises():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            create_model("GwcNet_GC")
+    m = create_model("GwcNet_GC", max_disp=MAX_DISP, device="cpu").train()
+    x = torch.zeros(1, 32, 64, 3)
+    with pytest.raises(NotImplementedError):
+        m(x, x)
+
+
 def test_create_model_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -122,6 +187,7 @@ def test_port_imports_no_jax():
         "import stereo_toolbox_tpu_torch.ops, stereo_toolbox_tpu_torch.nn\n"
         "import stereo_toolbox_tpu_torch.models, stereo_toolbox_tpu_torch.utils\n"
         "import stereo_toolbox_tpu_torch.models.cfnet\n"
+        "import stereo_toolbox_tpu_torch.models.acvnet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stereo_toolbox_tpu')]\n"
         "print(bad)\n"

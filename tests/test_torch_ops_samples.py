@@ -43,7 +43,8 @@ def _t(*arrays):
 
 @pytest.mark.parametrize("mask_left", [True, False])
 @pytest.mark.parametrize("b,h,w,c,d", [(2, 3, 10, 6, 4),    # D < W
-                                       (1, 2, 5, 3, 9)])    # D > W
+                                       (1, 2, 5, 3, 9),     # D > W
+                                       (1, 3, 40, 32, 12)])  # ACVNet's C
 def test_build_concat_volume_matches_jax(b, h, w, c, d, mask_left):
     left, right = _feats(b, h, w, c, 0)
     got = ops.build_concat_volume(*_t(left, right), d, mask_left).numpy()
