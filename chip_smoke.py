@@ -9,20 +9,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 3. hold the gwc-volume kernel (K1) against its plain PyTorch version at
    every launch shape of the stereo models' forwards and a ragged case;
 4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
-   shapes also with both epilogue options on and off;
+   shapes also with both epilogue options on and off, and ragged cases (Ci
+   1, 3, 33, 65; Co 8, 33; odd H and W; D 1 and 2); bfloat16 runs the
+   tensor-core design ("mma"), float32 the CUDA-core one ("simt");
 5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Co
    8 and 33, odd H and W, D < 3);
 6. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
    (K6, masked and not) kernels likewise, at CFNet's, GwcNet_GC's and
    ACVNet's launch shapes and ragged cases;
 7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
-   launch shape, vits' and MonSter's two-view shapes and ragged N;
+   launch shape, vits' and MonSter's two-view shapes and ragged N (1, 15,
+   64, 65, 77, 200, 1025, 2048), bfloat16 on its tensor-core design;
 8. GwcNet_G, 9. GwcNet_GC, 10. CFNet and 11. ACVNet (max_disp 192, seeded
    random weights, settled and perturbed BatchNorm statistics), one after
    the other: the card against the port's CPU paths at 256x512 (ACVNet at
    288x512, where its bottleneck attention pads H, and also in its
-   ``attn_weights_only`` mode), then the 480x640 forward in float32 and
-   bfloat16, with every kernel's launches by shape read around each
+   ``attn_weights_only`` mode), then in bfloat16 at the same size the card
+   forward as the model runs against the card forward with K2 and K7
+   swapped for their plain versions, then the 480x640 forward in float32
+   and bfloat16, with every kernel's launches by shape read around each
    forward; 12. DepthAnythingV2 (vitl, seeded random weights): the card
    against the CPU at 266x350 on the depth and the pre-ReLU ``out``, then
    the 518x518 forward in float32 and bfloat16, launches by shape read
@@ -31,7 +36,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the device time of each kernel family over a ``torch.profiler`` trace of
    the same forward, and time each kernel, its plain version and the
    library yardstick (device time of back-to-back calls) at the shapes and
-   launch counts that the full-size forward recorded;
+   launch counts that the full-size forward recorded. Every forward
+   requires its K2 and K7 launches to have run the design of its type:
+   "mma" in bfloat16, "simt" in float32;
 13. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
 14. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
@@ -55,6 +62,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this script "
              "needs an NVIDIA GPU")
 
+from stereo_toolbox_tpu_torch import nn as port_nn  # noqa: E402
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
@@ -63,7 +71,8 @@ from stereo_toolbox_tpu_torch.ops.attention import (  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.conv3d import (  # noqa: E402
     conv3d, conv3d_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
-    conv3d_fused, conv3d_fused_reference)
+    PackedConv3dWeight, conv3d_fused, conv3d_fused_reference,
+    pack_conv3d_weight)
 from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
     build_concat_volume, build_gwc_volume, concat_volume_reference,
     gather_right_by_samples, gather_right_by_samples_reference,
@@ -261,6 +270,12 @@ GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
 TRACE_ITERS = 3        # forwards in the torch.profiler trace
 
+# The design each type's K2 and K7 launches must run
+DESIGN = {F32: "simt", BF16: "mma"}
+# bfloat16 forward with K2 and K7 against the same forward with their plain
+# versions: mean |d| limit in px
+PLAIN_SWAP_MEAN_PX = 0.5
+
 # max|err| limits against the plain version, as a share of max|ref|
 REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K2": {F32: 1e-4, BF16: 2e-2},
            "K3": {F32: 1e-4, BF16: 2e-2},
@@ -273,10 +288,10 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def trace(fn, iters: int) -> dict:
-    """Device ms and launches per call of each kernel that `fn` launches,
-    from a ``torch.profiler`` trace of `iters` calls (the forward's kernel
-    families)."""
+def trace(fn, iters: int) -> tuple[dict, dict]:
+    """Device ms and launches per call of each kernel that `fn` launches
+    (the forward's kernel families), and host ms and calls per call of each
+    operator, from a ``torch.profiler`` trace of `iters` calls."""
     from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
         with profile(activities=[ProfilerActivity.CPU,
@@ -284,11 +299,18 @@ def trace(fn, iters: int) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-    return {evt.key: (evt.self_device_time_total / 1e3 / iters,
+    events = prof.key_averages()
+    device = {evt.key: (evt.self_device_time_total / 1e3 / iters,
+                        evt.count / iters)
+              for evt in events
+              if evt.device_type == torch.autograd.DeviceType.CUDA
+              and evt.self_device_time_total > 0}
+    host = {evt.key: (evt.self_cpu_time_total / 1e3 / iters,
                       evt.count / iters)
-            for evt in prof.key_averages()
-            if evt.device_type == torch.autograd.DeviceType.CUDA
-            and evt.self_device_time_total > 0}
+            for evt in events
+            if evt.device_type == torch.autograd.DeviceType.CPU
+            and evt.self_cpu_time_total > 0}
+    return device, host
 
 
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -316,6 +338,16 @@ def reset_counts() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
         fn.shapes.clear()
+        if hasattr(fn, "designs"):
+            fn.designs.clear()
+
+
+def designs_of(tag) -> dict:
+    """Launches of K2 or K7 by design since the counts were reset, as
+    ``{"mma 128x64": n}`` (design, voxels or queries x channels or keys of
+    a block)."""
+    return {f"{k[0]} {k[1]}x{k[2]}": n
+            for k, n in sorted(KERNELS[tag][0].designs.items())}
 
 
 def randn(shape, dtype, gen, scale=1.0):
@@ -382,19 +414,34 @@ def check_conv(gen) -> dict:
     for key in sorted(model_cases):
         for res, relu in ((False, False), (True, True)):
             cases[key[:6] + (res, relu)] = None
-    cases[(2, 5, 7, 19, 12, 40, True, True)] = None  # ragged tiles, chunks
+    # ragged: Ci not a multiple of 16 (1, 3, 12, 33, 65; all but 40 also
+    # not of 8, where the halo goes through plain loads), Co 8, 33 and 40
+    # (ragged channel tiles, scalar stores at 33), odd H and W, D 1 and 2
+    for ragged in ((2, 5, 7, 19, 12, 40, True, True),
+                   (1, 3, 7, 19, 1, 8, False, True),
+                   (2, 2, 9, 35, 3, 33, True, True),
+                   (1, 1, 5, 7, 33, 8, True, False),
+                   (1, 2, 11, 13, 65, 33, False, False)):
+        cases[ragged] = None
     for dtype in (F32, BF16):
         worst = 0.0
         for b, d, h, w, ci, co, res, relu in cases:
             x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen,
                                              b)
-            err = held("K2", dtype, conv3d_fused(x, k, scale, bias, r, relu),
+            reset_counts()
+            got = conv3d_fused(x, pack_conv3d_weight(k), scale, bias, r, relu)
+            design = designs_of("K2")
+            require(list(design) and all(key.split()[0] == DESIGN[dtype]
+                                         for key in design),
+                    f"K2 {DTYPE_NAME[dtype]} ran {design}")
+            err = held("K2", dtype, got,
                        conv3d_fused_reference(
                            x.float(), k.float(), scale, bias,
                            None if r is None else r.float(), relu),
                        f"Ci={ci} Co={co} {(b, d, h, w)} res={res} "
-                       f"relu={relu}")
-            worst = max(worst, err)
+                       f"relu={relu} [{' '.join(design)}]")
+            if (b, d, h, w, ci, co) in {key[:6] for key in model_cases}:
+                worst = max(worst, err)
         errs[dtype] = worst
     return errs
 
@@ -498,12 +545,17 @@ def check_attention(gen) -> dict:
     errs = {}
     cases = [(*key[:3], 0.125) for key in DAV2_K7_MIX]
     cases += [(1, 6, 1370, 0.125), (2, 16, 1201, 0.125), (1, 2, 1, 0.125),
-              (2, 3, 77, 0.125), (1, 4, 1025, 0.125), (1, 2, 200, 1.0)]
+              (1, 3, 15, 0.125), (2, 2, 64, 0.125), (1, 2, 65, 1.0),
+              (2, 3, 77, 0.125), (1, 4, 1025, 0.125), (1, 4, 2048, 0.125),
+              (1, 2, 200, 1.0)]
     for dtype in (F32, BF16):
         errs[dtype] = 0.0
         for b, heads, n, scale in cases:
             q, k, v = (randn((b, heads, n, 64), dtype, gen) for _ in range(3))
+            reset_counts()
             got = attention(q, k, v, scale)
+            require(list(designs_of("K7")) == [f"{DESIGN[dtype]} 64x64"],
+                    f"K7 {DTYPE_NAME[dtype]} ran {designs_of('K7')}")
             require(got.dtype == dtype and got.shape == q.shape,
                     f"K7 output {got.dtype} {tuple(got.shape)}")
             err = held("K7", dtype, got,
@@ -568,10 +620,11 @@ def settle_and_perturb_bn(model, left, right, gen) -> None:
 
 def forward_counted(name, model, *inputs, by_shape=False, **kwargs):
     """One forward ``model(*inputs, **kwargs)`` with the counts set to 0
-    just before it; returns the output and the launches by shape of each
-    kernel. Requires each kernel's launches to total its count in
-    MIXES[name] and, with `by_shape`, to be exactly MIXES[name] shape by
-    shape."""
+    just before it; returns the output, the launches by shape of each
+    kernel and the K2 and K7 launches by design. Requires each kernel's
+    launches to total its count in MIXES[name], every K2 and K7 launch to
+    have run the design of the inputs' type (DESIGN) and, with `by_shape`,
+    the launches to be exactly MIXES[name] shape by shape."""
     reset_counts()
     with torch.no_grad():
         out = model(*inputs, **kwargs)
@@ -584,7 +637,117 @@ def forward_counted(name, model, *inputs, by_shape=False, **kwargs):
     if by_shape:
         require(shapes == want, f"{name} launches by shape {shapes} differ "
                                 f"from {want}")
-    return out, shapes
+    designs = {tag: designs_of(tag) for tag in ("K2", "K7")}
+    kind = DESIGN[inputs[0].dtype]
+    for tag, got in designs.items():
+        ran = sum(n for key, n in got.items() if key.split()[0] == kind)
+        require(ran == totals[tag], f"{name} {DTYPE_NAME[inputs[0].dtype]} "
+                                    f"{tag} launches by design {got}, not all "
+                                    f"{kind}")
+    return out, shapes, designs
+
+
+def conv3d_fused_plain_f32(x, kernel, scale=None, bias=None, residual=None,
+                           relu=False):
+    """K2's plain version in float32 arithmetic on x's values, cast back to
+    x's type: the yardstick phase 4 holds the kernel to (one rounding of
+    the output, as the kernel has)."""
+    if isinstance(kernel, PackedConv3dWeight):
+        kernel = kernel.kernel()
+    return conv3d_fused_reference(
+        x.float(), kernel.float(), scale, bias,
+        None if residual is None else residual.float(), relu).to(x.dtype)
+
+
+class plain_kernels:
+    """Within it, the port's layers call the plain versions of K2 and K7
+    (float32 arithmetic, output in the input's type) in place of their
+    wrappers (names imported by ``nn.layers`` and ``nn.vit``)."""
+
+    SWAPS = ((port_nn.layers, "conv3d_fused", conv3d_fused_plain_f32),
+             (port_nn.vit, "attention", attention_reference))
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr))
+                      for mod, attr, _ in self.SWAPS]
+        for mod, attr, plain in self.SWAPS:
+            setattr(mod, attr, plain)
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def bf16_vs_plain(name, model, size, hook=None) -> dict:
+    """The bfloat16 copy of the float32 card model `model` at `size`: the
+    card forward as the model runs (K2, K7 on their "mma" designs, launches
+    required as MIXES[name]), run twice, against the card forward with K2
+    and K7 swapped for their plain versions (no K2, K7 launch required),
+    all with cuDNN's deterministic algorithms. Requires finite outputs and
+    a mean |d| under PLAIN_SWAP_MEAN_PX; prints the |d| between the two
+    kernel runs and each bf16 forward's mean |d| from `model`'s float32
+    forward beside it.
+
+    With `hook` (CFNet's ``classif2.2``, the costs before its first floor)
+    the mean |d| of the output is printed, not required: CFNet floors its
+    search bounds into integer samples, and in bfloat16 two correct
+    roundings move enough samples to put the output's mean |d| near 1 px
+    (0.91 px, and 1.18 px between its bf16 and f32 forwards); there the
+    costs are required within K2's bf16 tolerance · max|ref| instead."""
+    m = create_model(name, max_disp=MAX_DISP).to(BF16)
+    m.load_state_dict(model.state_dict())
+    left, right = (t.to(DEV, BF16) for t in stereo_pair(1, *size, seed=1))
+    caught = []
+    handle = hook and m.get_submodule(hook).register_forward_hook(
+        lambda mod, inp, out: caught.append(out.float()))
+    torch.backends.cudnn.deterministic = True
+    try:
+        got, _, _ = forward_counted(name, m, left, right)
+        again, _, _ = forward_counted(name, m, left, right)
+        reset_counts()
+        with plain_kernels(), torch.no_grad():
+            want = m(left, right)
+        torch.cuda.synchronize()
+        require(conv3d_fused.launches == 0 and attention.launches == 0,
+                "the plain swap still launched K2 or K7")
+        with torch.no_grad():
+            f32 = model(left.float(), right.float()).float()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if handle:
+            handle.remove()
+    require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+            f"{name} bf16 non-finite output")
+    d = (got.float() - want.float()).abs()
+    rerun = (got.float() - again.float()).abs().max().item()
+    row = {"shape": [1, *size, 3], "mean_abs": d.mean().item(),
+           "median_abs": d.median().item(),
+           "q90_abs": d.quantile(0.9).item(), "max_abs": d.max().item(),
+           "rerun_max_abs": rerun,
+           "kernels_vs_f32_mean_abs": (got.float() - f32).abs().mean().item(),
+           "plain_vs_f32_mean_abs": (want.float() - f32).abs().mean().item()}
+    print(f"  {name} {size[0]}x{size[1]} bf16, K2/K7 kernels vs their plain "
+          f"versions on the card: mean |d| {row['mean_abs']:.3e} px (limit "
+          f"{PLAIN_SWAP_MEAN_PX}{', not required' if hook else ''}), median "
+          f"{row['median_abs']:.3e}, q90 {row['q90_abs']:.3e}, max "
+          f"{row['max_abs']:.3e} px; kernels run twice: max |d| {rerun:.3e}"
+          f" px; from the f32 forward: kernels "
+          f"{row['kernels_vs_f32_mean_abs']:.3e}, plain "
+          f"{row['plain_vs_f32_mean_abs']:.3e} px mean")
+    if hook:
+        cost, _, cost_plain = caught
+        err = (cost - cost_plain).abs().max().item()
+        tol = REL_TOL["K2"][BF16] * cost_plain.abs().max().item()
+        row[f"{hook}_max_abs"] = err
+        print(f"  {name} {hook} bf16, kernels vs plain: max|d| {err:.3e} "
+              f"(tol {tol:.3e})")
+        require(err <= tol, f"{name} bf16 {hook} differs from its plain "
+                            f"kernels")
+    else:
+        require(row["mean_abs"] < PLAIN_SWAP_MEAN_PX,
+                f"{name} bf16 forward differs from its plain kernels")
+    del m
+    return row
 
 
 def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W)):
@@ -614,8 +777,8 @@ def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W)):
             want = cpu(l_small, r_small)
         print(f"  {name} CPU reference forward at {size[0]}x{size[1]}: "
               f"{time.perf_counter() - t0:.1f} s")
-        got, _ = forward_counted(name, model, l_small.to(DEV),
-                                 r_small.to(DEV))
+        got, _, _ = forward_counted(name, model, l_small.to(DEV),
+                                    r_small.to(DEV))
         for h in hooks:
             h.remove()
     finally:
@@ -631,7 +794,8 @@ def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W)):
 def full_size_runs(name, model):
     """The 480x640 forward in float32 and bfloat16, two pairs each, with
     the launches by shape required to be MIXES[name]. Returns, by dtype,
-    (model, (left, right), launches by shape, last output)."""
+    (model, (left, right), launches by shape, last output, K2/K7 launches
+    by design)."""
     runs = {}
     for dtype in (F32, BF16):
         m = model if dtype == F32 else create_model(
@@ -641,7 +805,8 @@ def full_size_runs(name, model):
         for seed in (2, 3):
             left, right = (t.to(DEV, dtype) for t in stereo_pair(1, H, W,
                                                                  seed))
-            out, shapes = forward_counted(name, m, left, right, by_shape=True)
+            out, shapes, designs = forward_counted(name, m, left, right,
+                                                   by_shape=True)
             require(out.shape == (1, H, W), f"output shape {out.shape}")
             require(bool(torch.isfinite(out).all()), "non-finite output")
             lo, hi = out.min().item(), out.max().item()
@@ -650,7 +815,7 @@ def full_size_runs(name, model):
                   f"disparity {lo:.2f}..{hi:.2f}, mean {out.mean().item():.2f}"
                   ", launches " + " ".join(
                       f"{t}={c.total()}" for t, c in shapes.items()))
-        runs[dtype] = (m, (left, right), shapes, out.float())
+        runs[dtype] = (m, (left, right), shapes, out.float(), designs)
     return runs
 
 
@@ -658,7 +823,8 @@ def check_gwcnet(name="GwcNet_G"):
     model, d, _, _ = card_vs_cpu(name)
     require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
             f"{name} card output differs from the CPU port")
-    return full_size_runs(name, model), {}
+    check = {"bf16_vs_plain": bf16_vs_plain(name, model, (CHECK_H, CHECK_W))}
+    return full_size_runs(name, model), check
 
 
 def check_acvnet():
@@ -689,6 +855,7 @@ def check_acvnet():
     require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
             "ACVNet attn_weights_only card output differs from the CPU port")
     del cpu
+    check["bf16_vs_plain"] = bf16_vs_plain("ACVNet", model, size)
     return full_size_runs("ACVNet", model), check
 
 
@@ -707,11 +874,14 @@ def check_cfnet():
     require(d.median().item() < 5e-3 and d.quantile(0.9).item() < 0.1
             and d.mean().item() < 0.05,
             "CFNet card output differs from the CPU port")
+    check = {"bf16_vs_plain": bf16_vs_plain("CFNet", model,
+                                            (CHECK_H, CHECK_W),
+                                            hook="classif2.2")}
     runs = full_size_runs("CFNet", model)
     diff = (runs[BF16][3] - runs[F32][3]).abs()
     print(f"  CFNet {H}x{W} pair 3, bfloat16 vs float32: mean |d| "
           f"{diff.mean().item():.3f} px, median {diff.median().item():.3f} px")
-    return runs, {}
+    return runs, check
 
 
 def dav2_gates(got, want, what) -> dict:
@@ -760,8 +930,8 @@ def check_dav2():
     print(f"  DepthAnythingV2 CPU reference at {DAV2_CHECK_H}x{DAV2_CHECK_W}:"
           f" {time.perf_counter() - t0:.1f} s, depth > 0 at "
           f"{100 * (want > 0).float().mean().item():.1f}% of pixels")
-    (got, got_f), _ = forward_counted(name, model, x.to(DEV),
-                                      return_features=True)
+    (got, got_f), _, _ = forward_counted(name, model, x.to(DEV),
+                                         return_features=True)
     check = {"shape": [1, DAV2_CHECK_H, DAV2_CHECK_W, 3],
              "depth": dav2_gates(got, want, "depth"),
              "out": dav2_gates(got_f["out"], want_f["out"], "out")}
@@ -770,7 +940,7 @@ def check_dav2():
     for dtype in (F32, BF16):
         m = model if dtype == F32 else copy.deepcopy(model).to(dtype)
         img = mono_image(1, DAV2_H, DAV2_W, seed=2).to(DEV, dtype)
-        out, shapes = forward_counted(name, m, img, by_shape=True)
+        out, shapes, designs = forward_counted(name, m, img, by_shape=True)
         require(out.shape == (1, DAV2_H, DAV2_W), f"output shape {out.shape}")
         require(bool(torch.isfinite(out).all()), "non-finite output")
         lo, hi = out.min().item(), out.max().item()
@@ -779,7 +949,7 @@ def check_dav2():
               f"{lo:.3f}..{hi:.3f}, > 0 at "
               f"{100 * (out > 0).float().mean().item():.1f}%, launches "
               + " ".join(f"{t}={c.total()}" for t, c in shapes.items()))
-        runs[dtype] = (m, (img,), shapes, out.float())
+        runs[dtype] = (m, (img,), shapes, out.float(), designs)
     diff = (runs[BF16][3] - runs[F32][3]).abs()
     print(f"  {name} {DAV2_H}x{DAV2_W}, bfloat16 vs float32: mean |d| "
           f"{diff.mean().item():.3e}, max {diff.max().item():.3e} (f32 mean "
@@ -842,6 +1012,8 @@ def forward_breakdown(name, model, *inputs) -> dict:
 
 def kernel_family(name: str) -> str:
     for mark, fam in (("conv3d_fused_kernel", "K2 conv3d_fused"),
+                      ("conv3d_fused_mma_kernel", "K2 conv3d_fused"),
+                      ("vit_attention_mma_kernel", "K7 vit attention"),
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_volume_kernel", "K1 gwc_volume"),
                       ("::gather_kernel<", "K4 sample gather"),
@@ -870,11 +1042,12 @@ def kernel_family(name: str) -> str:
 
 def profile_forward(name, model, inputs, dtype) -> dict:
     fwd = forward_breakdown(name, model, *inputs)
-    kernels = trace(lambda: model(*inputs), TRACE_ITERS)
+    kernels, host_ops = trace(lambda: model(*inputs), TRACE_ITERS)
     families: dict = defaultdict(float)
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
     busy = sum(families.values())
+    launches = sum(n for _, n in kernels.values())
     h, w = inputs[0].shape[1:3]
     print(f"  {name} forward {h}x{w} {DTYPE_NAME[dtype]}: {fwd['ms']:.3f} "
           f"ms, peak memory {fwd['peak_bytes'] / 2**20:.1f} MiB, of which "
@@ -889,13 +1062,20 @@ def profile_forward(name, model, inputs, dtype) -> dict:
               "measured")
     else:
         print(f"    device busy {busy:.3f} ms of {fwd['ms']:.3f} ms "
-              f"({100 * busy / fwd['ms']:.1f}%)")
+              f"({100 * busy / fwd['ms']:.1f}%), {launches:g} kernel "
+              f"launches a forward")
         for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
             print(f"    family {fam:40s} {ms:8.3f} ms")
         for key, (ms, n) in sorted(kernels.items(),
                                    key=lambda kv: -kv[1][0])[:12]:
             print(f"    kernel {ms:8.3f} ms x{n:g}  {key[:100]}")
-    fwd.update(device_busy_ms=busy or None, kernel_families_ms=dict(families))
+    # the host's side (traced, so slower than untraced): where the time to
+    # enqueue a forward goes, by operator's own time
+    for key, (ms, n) in sorted(host_ops.items(),
+                               key=lambda kv: -kv[1][0])[:8]:
+        print(f"    host op {ms:8.3f} ms x{n:g}  {key[:90]}")
+    fwd.update(device_busy_ms=busy or None, kernel_families_ms=dict(families),
+               kernel_launches=launches)
     return fwd
 
 
@@ -926,7 +1106,10 @@ def time_conv(mix, dtype, gen):
     shapes = []
     for (b, d, h, w, ci, co, res, relu), n in mix.items():
         x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen, b)
-        t = device_ms(lambda: conv3d_fused(x, k, scale, bias, r, relu), 5)
+        kp = pack_conv3d_weight(k)     # as the layers pass it, from a cache
+        reset_counts()
+        t = device_ms(lambda: conv3d_fused(x, kp, scale, bias, r, relu), 5)
+        design = " ".join(designs_of("K2"))
         tp = device_ms(lambda: conv3d_fused_reference(x, k, scale, bias, r,
                                                     relu), 5)
         xv, kv = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
@@ -938,7 +1121,8 @@ def time_conv(mix, dtype, gen):
         ms, plain, lib = ms + n * t, plain + n * tp, lib + n * tl
         shapes.append({"b": b, "dhw": [d, h, w], "ci": ci, "co": co,
                        "residual": res, "relu": relu, "launches": n,
-                       "ms": t, "plain_ms": tp, "library_ms": tl})
+                       "design": design, "ms": t, "plain_ms": tp,
+                       "library_ms": tl})
     return ms, plain, lib, nbytes, flops, shapes
 
 
@@ -1100,18 +1284,20 @@ TIMERS = {"K1": time_gwc, "K2": time_conv, "K3": time_conv3d,
           "K5": time_gwc_samples, "K6": time_concat, "K7": time_attention}
 
 
-def time_kernel(model_name, tag, dtype, mix, err, gen) -> dict:
+def time_kernel(model_name, tag, dtype, mix, designs, err, gen) -> dict:
     """The ``kernels`` line's entry of kernel `tag` on the launches `mix`
-    that a forward of `model_name` recorded."""
+    that a forward of `model_name` recorded, with the designs they ran."""
     _, kname, source, replaces = KERNELS[tag]
     ms, plain, lib, nbytes, flops, per_shape = TIMERS[tag](mix, dtype, gen)
     b_ms, b_by = bound(nbytes, flops, dtype)
-    print(f"  {model_name} {tag} {kname} ({DTYPE_NAME[dtype]}): {ms:.4f} ms "
-          f"x{mix.total()} (plain {plain:.4f}, library {lib}, bound "
-          f"{b_ms:.4f} by {b_by})")
+    print(f"  {model_name} {tag} {kname} ({DTYPE_NAME[dtype]}, "
+          f"{designs.get(tag) or 'simt'}): {ms:.4f} ms x{mix.total()} (plain "
+          f"{plain:.4f}, library {lib}, bound {b_ms:.4f} by {b_by})")
     return {"name": f"{kname} ({DTYPE_NAME[dtype]})", "id": tag,
             "model": model_name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": mix.total(),
+            "design": DESIGN[dtype] if tag in designs else "simt",
+            "design_launches": designs.get(tag) or {"simt": mix.total()},
             "max_abs_err": err, "tolerance": f"{REL_TOL[tag][dtype]}*max|ref|",
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -1181,13 +1367,13 @@ def main() -> None:
                                "trace_iters": TRACE_ITERS}
         if checked:
             forward[model_name]["card_vs_cpu"] = checked
-        for dtype, (m, inputs, shapes, _) in runs.items():
+        for dtype, (m, inputs, shapes, _, designs) in runs.items():
             forward[model_name][DTYPE_NAME[dtype]] = profile_forward(
                 model_name, m, inputs, dtype)
             for tag in MIXES[model_name]:
                 kernels.append(time_kernel(model_name, tag, dtype,
-                                           shapes[tag], errs[tag][dtype],
-                                           gen))
+                                           shapes[tag], designs,
+                                           errs[tag][dtype], gen))
         del runs, m, inputs   # the next model's peak memory is its own
         torch.cuda.empty_cache()
 

@@ -1,0 +1,74 @@
+// Warp-level tensor-core building blocks for sm_90a, shared by the bfloat16
+// kernels (conv3d_fused.cu, vit_attention.cu).
+//
+// - cp.async 16-byte copies global -> shared, zero-filled when the source is
+//   off the tensor (src-size 0), with commit and wait;
+// - ldmatrix .x4 and .x4.trans (four 8x8 b16 matrices; lanes 8i .. 8i + 7
+//   give the row addresses of matrix i);
+// - mma.sync m16n8k16, bf16 inputs, float32 accumulators;
+// - packing two floats into a bf16x2 register.
+//
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
+//   A 16x16 row-major, a[0]: (g, 2t..2t+1), a[1]: (g+8, 2t..), a[2]: (g, 8+2t..),
+//     a[3]: (g+8, 8+2t..);
+//   B 16x8 (k x n), b[0]: (k 2t..2t+1, n g), b[1]: (k 8+2t.., n g);
+//   C 16x8, c[0..1]: (g, 2t..2t+1), c[2..3]: (g+8, 2t..2t+1).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mma {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from `src` into shared memory at `dst`; zeros when !pred (src is
+// then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b, m16n8k16, bf16 x bf16 -> float32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, `lo` in the low half (the lower address).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace mma

@@ -12,7 +12,10 @@ BatchNorm into a per-channel affine and runs `ops.conv3d_fused` (the CUDA
 kernel on the card): the same condition under which the JAX package takes
 its fused lowering. The kernel's epilogue applies ReLU; Mish runs after it,
 as in the JAX package's fused lowering. The bias-free 3×3×3 classifier convs
-(`Conv3dSame`) run `ops.conv3d` in eval mode.
+(`Conv3dSame`) run `ops.conv3d` in eval mode. Both keep what they derive
+from their parameters for the kernels (the folded affine, the packed or
+permuted weight) per (device, dtype) between eval forwards
+(`DerivedCache`), so a warm forward refolds and copies nothing.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stereo_toolbox_tpu_torch.ops.conv3d import conv3d
-from stereo_toolbox_tpu_torch.ops.conv3d_fused import conv3d_fused
+from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
+                                                       pack_conv3d_weight)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -64,7 +68,34 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, -1)
 
 
-class ConvBNAct(nn.Sequential):
+class DerivedCache:
+    """Mixin for a module whose eval forward derives kernel arguments from
+    its parameters and buffers. `derived` keeps each such value per key
+    while every tensor it came from is the same tensor, at the same version
+    (in-place edits and ``load_state_dict`` bump it) and the same address
+    (``.to()`` moves it); ``train()`` and ``eval()`` drop them all."""
+
+    def train(self, mode: bool = True):
+        self.__dict__["_derived"] = {}
+        return super().train(mode)
+
+    def derived(self, key, sources, build):
+        """``build()`` (run without autograd), or the value it gave for
+        `key` while `sources` are unchanged."""
+        cache = self.__dict__.setdefault("_derived", {})
+        stamp = [(t, t._version, t.data_ptr()) for t in sources]
+        hit = cache.get(key)
+        if hit is not None and all(
+                a is b and va == vb and pa == pb
+                for (a, va, pa), (b, vb, pb) in zip(hit[0], stamp)):
+            return hit[1]
+        with torch.no_grad():
+            value = build()
+        cache[key] = (stamp, value)
+        return value
+
+
+class ConvBNAct(DerivedCache, nn.Sequential):
     """Bias-free conv (2D or 3D) → BatchNorm → activation `act` (``"relu"``,
     ``"mish"`` or None).
 
@@ -97,11 +128,22 @@ class ConvBNAct(nn.Sequential):
                                                 + bn.eps)
         return scale, bn.bias.float() - bn.running_mean.float() * scale
 
+    def fused_arguments(self, x: torch.Tensor):
+        """``(packed kernel, scale, bias)`` of `ops.conv3d_fused` for x's
+        device and dtype, kept between eval forwards (`DerivedCache`)."""
+        conv, bn = self[0], self[1]
+
+        def build():
+            kernel = conv.weight.permute(2, 3, 4, 1, 0).to(x.dtype)
+            return (pack_conv3d_weight(kernel), *self.folded_affine())
+        return self.derived((x.device, x.dtype),
+                            (conv.weight, bn.weight, bn.bias,
+                             bn.running_mean, bn.running_var), build)
+
     def forward(self, x: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         if self.fusible and not self.training:
-            scale, bias = self.folded_affine()
-            kernel = self[0].weight.permute(2, 3, 4, 1, 0).to(x.dtype)
+            kernel, scale, bias = self.fused_arguments(x)
             y = conv3d_fused(
                 x.contiguous(), kernel, scale, bias,
                 None if residual is None else residual.contiguous(),
@@ -113,12 +155,13 @@ class ConvBNAct(nn.Sequential):
         return channels_last(activate(y, self.act))
 
 
-class Conv3dSame(nn.Conv3d):
+class Conv3dSame(DerivedCache, nn.Conv3d):
     """Bias-free 3×3×3 conv, stride 1, zero padding 1, on channels-last
     ``[B, D, H, W, Ci]`` → ``[B, D, H, W, Co]`` (the cost-volume
     classifiers). Its parameter is ``nn.Conv3d``'s ``weight [Co, Ci, 3, 3,
-    3]``; in eval mode it runs `ops.conv3d` on the ``[3, 3, 3, Ci, Co]`` view
-    of it, in x's type."""
+    3]``; in eval mode it runs `ops.conv3d` on a contiguous ``[3, 3, 3, Ci,
+    Co]`` copy of it in x's type, kept between eval forwards
+    (`DerivedCache`)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, 1, 1, bias=False)
@@ -126,8 +169,11 @@ class Conv3dSame(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return channels_last(super().forward(channels_first(x)))
-        return conv3d(x.contiguous(),
-                      self.weight.permute(2, 3, 4, 1, 0).to(x.dtype))
+        kernel = self.derived(
+            (x.device, x.dtype), (self.weight,),
+            lambda: self.weight.permute(2, 3, 4, 1, 0).to(x.dtype)
+            .contiguous())
+        return conv3d(x.contiguous(), kernel)
 
 
 def every_other(*mods: nn.Module) -> nn.Sequential:

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for ``sm_90a`` into its own shared library under ``csrc/build/``
-(named by a hash of the source and the flags, so an edited source rebuilds)
-and loaded with ``ctypes``. Nothing here runs at import time: a machine
-without ``nvcc`` can import every module of the package and use the plain
-PyTorch paths on the CPU.
+(named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds) and loaded with ``ctypes``.
+Nothing here runs at import time: a machine without ``nvcc`` can import
+every module of the package and use the plain PyTorch paths on the CPU.
 """
 
 from __future__ import annotations
@@ -32,8 +32,12 @@ SIGNATURES = {
         # left, right, out, B, H, W, C, D, G, dtype, stream
         "gwc_volume": [_P, _P, _P] + [_I] * 7 + [_P]},
     "conv3d_fused": {
-        # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, relu, dtype, stream
-        "conv3d_fused": [_P] * 6 + [_I] * 8 + [_P]},
+        # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
+        # relu, tile, stream
+        "conv3d_fused_mma": [_P] * 6 + [_I] * 10 + [_P],
+        # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
+        # relu, stream
+        "conv3d_fused_simt": [_P] * 6 + [_I] * 9 + [_P]},
     "sample_gather": {
         # right, samples, out, B, H, W, C, S, max_shift, dtype, stream
         "gather_right_by_samples": [_P] * 3 + [_I] * 7 + [_P],
@@ -46,8 +50,9 @@ SIGNATURES = {
         # x, w, out, B, D, H, W, Ci, Co, dtype, stream
         "conv3d": [_P] * 3 + [_I] * 7 + [_P]},
     "vit_attention": {
-        # q, k, v, out, B*heads, N, scale, dtype, stream
-        "vit_attention": [_P] * 4 + [_I] * 2 + [_F, _I, _P]},
+        # q, k, v, out, B*heads, N, scale, stream
+        "vit_attention_mma": [_P] * 4 + [_I] * 2 + [_F, _P],
+        "vit_attention_simt": [_P] * 4 + [_I] * 2 + [_F, _P]},
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,8 +71,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of ``csrc/<name>.cu`` is built: named by a hash of
+    the source, every ``csrc/*.cuh`` header (a source may include any of
+    them) and the flags, so an edit to any of them rebuilds."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -20,6 +20,8 @@ from stereo_toolbox_tpu_torch.ops import (
     gather_right_by_samples, gather_right_by_samples_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference)
+from stereo_toolbox_tpu_torch.ops.conv3d_fused import (MMA_TILES, mma_tile,
+                                                       pack_conv3d_weight)
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +76,47 @@ def test_conv3d_fused_kernel_matches_plain(dev, ci, co, residual, relu,
     want = conv3d_fused_reference(x.float(), k.float(), scale, bias,
                                   None if res is None else res.float(), relu)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+# (b, d, h, w, ci, co, residual, relu), bfloat16 on the tensor cores: Ci not
+# a multiple of 16 (1, 3, 33, 65; 1, 3, 33 and 65 also not of 8, where the
+# halo is staged with plain loads), Co 8 and 33 (ragged tiles, scalar
+# stores), odd H and W, D 1 and 2; and shapes whose grids pick each tile
+MMA_CASES = [(1, 3, 7, 19, 1, 8, False, True),
+             (2, 2, 9, 35, 3, 33, True, True),
+             (1, 1, 5, 7, 33, 8, True, False),
+             (1, 2, 11, 13, 65, 33, False, False),
+             (1, 4, 6, 40, 40, 64, True, True),
+             (1, 16, 40, 64, 64, 64, True, False),
+             (1, 24, 64, 64, 32, 32, False, True),
+             (1, 24, 64, 64, 16, 16, True, False),
+             (1, 16, 30, 40, 128, 128, False, True)]
+
+
+@pytest.mark.parametrize("b,d,h,w,ci,co,residual,relu", MMA_CASES)
+def test_conv3d_fused_mma_kernel_matches_plain(dev, b, d, h, w, ci, co,
+                                               residual, relu):
+    """bfloat16 launches the tensor-core design, with the tile `mma_tile`
+    picks, on a raw or a packed kernel alike; within 2e-2 · max|ref|."""
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(b, d, h, w, ci, generator=gen).to(dev, torch.bfloat16)
+    k = (torch.randn(3, 3, 3, ci, co, generator=gen)
+         * (2.0 / (27 * ci)) ** 0.5).to(dev, torch.bfloat16)
+    scale = (torch.rand(co, generator=gen) + 0.5).to(dev)
+    bias = torch.randn(co, generator=gen).to(dev)
+    res = (torch.randn(b, d, h, w, co, generator=gen).to(dev, torch.bfloat16)
+           if residual else None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, n = MMA_TILES[mma_tile(b, d, h, w, co, sms)]
+    want = conv3d_fused_reference(x.float(), k.float(), scale, bias,
+                                  None if res is None else res.float(), relu)
+    for kernel in (k, pack_conv3d_weight(k)):
+        before = conv3d_fused.designs[("mma", rows * 32, n)]
+        got = conv3d_fused(x, kernel, scale, bias, res, relu)
+        assert conv3d_fused.designs[("mma", rows * 32, n)] == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item(), err
 
 
 # (b, d, h, w, ci, co): the classifiers' Co = 1 at GwcNet's Ci and CFNet's
@@ -200,6 +243,10 @@ def test_unmasked_concat_volume_kernel_matches_plain(dev, b, h, w, c, d,
 ATTENTION_CASES = [(1, 2, 1, 0.125), (2, 3, 77, 0.125), (1, 4, 1025, 0.125),
                    (1, 6, 300, 0.125), (2, 16, 1201, 0.125),
                    (1, 16, 1370, 0.125), (1, 2, 200, 1.0)]
+# ragged N of the bfloat16 tensor-core kernel: under, at and one past its
+# 64-row tiles, and a long sequence
+MMA_ATTENTION_CASES = [(1, 3, 15, 0.125), (2, 2, 64, 0.125), (1, 2, 65, 1.0),
+                       (1, 4, 2048, 0.125)]
 
 
 @pytest.mark.parametrize("b,heads,n,scale", ATTENTION_CASES)
@@ -214,6 +261,33 @@ def test_attention_kernel_matches_plain(dev, b, heads, n, scale, dtype, rel):
     want = attention_reference(q.float(), k.float(), v.float(), scale)
     err = (out.float() - want).abs().max().item()
     assert err <= rel * want.abs().max().item()
+
+
+@pytest.mark.parametrize("b,heads,n,scale", MMA_ATTENTION_CASES)
+def test_attention_mma_kernel_matches_plain(dev, b, heads, n, scale):
+    """bfloat16 launches the tensor-core design; within 1e-2 · max|ref|."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(b, heads, n, 64, generator=gen).to(
+        dev, torch.bfloat16) for _ in range(3))
+    before = attention.designs[("mma", 64, 64)]
+    out = _counted(attention, (b, heads, n, 64), q, k, v, scale)
+    assert attention.designs[("mma", 64, 64)] == before + 1
+    want = attention_reference(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - want).abs().max().item()
+    assert err <= 1e-2 * want.abs().max().item(), err
+
+
+def test_float32_launches_the_simt_designs(dev):
+    x = torch.zeros(1, 2, 3, 4, 8, device=dev)
+    before = sum(n for key, n in conv3d_fused.designs.items()
+                 if key[0] == "simt")
+    conv3d_fused(x, torch.zeros(3, 3, 3, 8, 8, device=dev))
+    assert sum(n for key, n in conv3d_fused.designs.items()
+               if key[0] == "simt") == before + 1
+    q = torch.zeros(1, 2, 10, 64, device=dev)
+    before = attention.designs[("simt", 64, 64)]
+    attention(q, q, q, 0.1)
+    assert attention.designs[("simt", 64, 64)] == before + 1
 
 
 def test_attention_rejects_what_the_kernel_does_not_take(dev):

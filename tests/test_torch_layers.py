@@ -11,9 +11,13 @@ import torch.nn.functional as F
 
 from stereo_toolbox_tpu.models.cfnet import HourglassMish, mish
 from stereo_toolbox_tpu.nn import layers as jl
+from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.nn import (BasicResBlock, ConvBNAct,
                                          ConvTransposeBN, HourglassRedir,
-                                         dual_view_apply)
+                                         dual_view_apply, layers)
+from stereo_toolbox_tpu_torch.nn.layers import Conv3dSame, DerivedCache
+from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
+                                                       pack_conv3d_weight)
 from stereo_toolbox_tpu_torch.utils.weights import _hourglass
 from stereo_toolbox_tpu_torch.utils.weights import JaxToTorch
 
@@ -169,3 +173,135 @@ def test_hourglass_mish_matches_jax():
     sd = {k.removeprefix("hg."): a for k, a in t.state_dict().items()}
     np.testing.assert_allclose(_port(HourglassRedir(8, act="mish"), sd, x),
                                want, **TOL)
+
+
+# ---------------------------------------------------------------- eval cache
+def _fused_layer(seed=9, act="relu"):
+    """A fusible 3D ConvBNAct in eval with perturbed BatchNorm statistics,
+    and an input for it."""
+    gen = torch.Generator().manual_seed(seed)
+    m = ConvBNAct(6, 5, 3, 1, dims=3, act=act)
+    with torch.no_grad():
+        m[0].weight.normal_(0.0, 0.2, generator=gen)
+        m[1].running_mean.normal_(0.0, 0.1, generator=gen)
+        m[1].running_var.uniform_(0.5, 1.5, generator=gen)
+        m[1].weight.uniform_(0.5, 1.5, generator=gen)
+        m[1].bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(1, 3, 4, 5, 6, generator=gen)
+    return m.eval(), x
+
+
+def _uncached(m, x, residual=None):
+    """The fused layer's forward from its parameters, nothing kept."""
+    scale, bias = m.folded_affine()
+    return conv3d_fused(x, m[0].weight.permute(2, 3, 4, 1, 0).to(x.dtype),
+                        scale, bias, residual, relu=m.act == "relu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_fused_layer_matches_the_uncached_path_bit_for_bit(dtype):
+    m, x = _fused_layer()
+    m = m.to(dtype)
+    x = x.to(dtype)
+    r = torch.randn(1, 3, 4, 5, 5, generator=torch.Generator().manual_seed(3)
+                    ).to(dtype)
+    with torch.no_grad():
+        for _ in range(2):            # cold, then warm
+            assert torch.equal(m(x), _uncached(m, x))
+            assert torch.equal(m(x, residual=r), _uncached(m, x, r))
+
+
+def test_in_place_edit_of_running_var_changes_the_output():
+    m, x = _fused_layer()
+    with torch.no_grad():
+        before = m(x)
+        m[1].running_var.mul_(4.0)
+        after = m(x)
+    assert not torch.equal(before, after)
+    assert torch.equal(after, _uncached(m, x))
+
+
+def test_load_state_dict_changes_the_output():
+    m, x = _fused_layer(seed=9)
+    other, _ = _fused_layer(seed=10)
+    with torch.no_grad():
+        before = m(x)
+        m.load_state_dict(other.state_dict())
+        after = m(x)
+    assert not torch.equal(before, after)
+    assert torch.equal(after, other(x))
+
+
+def test_train_then_eval_rebuilds_the_cache(monkeypatch):
+    m, x = _fused_layer()
+    folds = []
+    fold = ConvBNAct.folded_affine
+    monkeypatch.setattr(ConvBNAct, "folded_affine",
+                        lambda self: folds.append(1) or fold(self))
+    with torch.no_grad():
+        first = m(x)
+        m(x)
+        assert len(folds) == 1
+        m.train().eval()
+        assert torch.equal(m(x), first)
+    assert len(folds) == 2
+
+
+def test_conv3d_same_keeps_its_kernel_until_the_weight_changes():
+    gen = torch.Generator().manual_seed(11)
+    m = Conv3dSame(4, 1).eval()
+    x = torch.randn(1, 3, 4, 5, 4, generator=gen)
+    with torch.no_grad():
+        first = m(x)
+        kept = next(iter(m._derived.values()))[1]
+        assert torch.equal(m(x), first)
+        assert next(iter(m._derived.values()))[1] is kept
+        m.weight.mul_(2.0)
+        torch.testing.assert_close(m(x), 2.0 * first)
+    assert next(iter(m._derived.values()))[1] is not kept
+
+
+@pytest.mark.parametrize("name,h,w,max_disp", [
+    ("GwcNet_G", 64, 128, 48), ("GwcNet_GC", 64, 128, 48),
+    ("CFNet", 64, 128, 64), ("ACVNet", 80, 144, 48)])
+def test_warm_forward_refolds_and_copies_no_weight(monkeypatch, name, h, w,
+                                                   max_disp):
+    """Over two eval forwards, each fused layer folds its BatchNorm and
+    packs its kernel once, and each classifier conv copies its kernel once:
+    the second forward derives nothing."""
+    m = create_model(name, max_disp=max_disp, device="cpu")
+    calls = {"fold": 0, "pack": 0}
+    fold = ConvBNAct.folded_affine
+
+    def counted_fold(self):
+        calls["fold"] += 1
+        return fold(self)
+
+    def counted_pack(kernel):
+        calls["pack"] += 1
+        return pack_conv3d_weight(kernel)
+    monkeypatch.setattr(ConvBNAct, "folded_affine", counted_fold)
+    monkeypatch.setattr(layers, "pack_conv3d_weight", counted_pack)
+    rng = np.random.RandomState(12)
+    left, right = (torch.from_numpy(rng.randn(1, h, w, 3).astype(np.float32))
+                   for _ in range(2))
+    def kept():
+        """What each module that ran its kernel's lowering keeps."""
+        return {id(mod): list(mod.__dict__["_derived"].values())
+                for mod in m.modules()
+                if isinstance(mod, DerivedCache) and mod.__dict__.get(
+                    "_derived")}
+    with torch.no_grad():
+        m(left, right)
+        first = kept()
+        fused = [mod for mod in m.modules()
+                 if isinstance(mod, ConvBNAct) and id(mod) in first]
+        assert fused and calls == {"fold": len(fused), "pack": len(fused)}
+        assert any(isinstance(mod, Conv3dSame) and id(mod) in first
+                   for mod in m.modules())
+        m(left, right)
+    assert calls == {"fold": len(fused), "pack": len(fused)}
+    second = kept()
+    assert second.keys() == first.keys()
+    assert all(a[1] is b[1] for key in first
+               for a, b in zip(first[key], second[key]))

@@ -71,6 +71,20 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
     assert (attention.launches, sum(attention.shapes.values())) == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_on_cpu_counts_no_design(dtype):
+    """bfloat16 too: a CPU tensor takes the plain version and counts no
+    launch by design (the card's "mma" and "simt" kernels)."""
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 2, 65, 64, generator=gen).to(dtype)
+               for _ in range(3))
+    before = dict(attention.designs)
+    got = attention(q, k, v, 0.125)
+    assert got.dtype == dtype
+    assert torch.equal(got, attention_reference(q, k, v, 0.125))
+    assert dict(attention.designs) == before
+
+
 def test_attention_reference_keeps_the_dtype_and_softmaxes_in_float32():
     gen = torch.Generator().manual_seed(1)
     q, k, v = (torch.randn(1, 2, 33, 64, generator=gen) for _ in range(3))
