@@ -6,14 +6,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. require CUDA; print the card and its power limit (nvidia-smi);
 2. build the CUDA kernels from ``stereo_toolbox_tpu_torch/csrc`` (nvcc);
-3. hold the gwc-volume kernel (K1) against its plain PyTorch version at
-   every launch shape of the stereo models' forwards and a ragged case;
+3. hold the gwc-volume kernel (K1, its "stream" design) against its plain
+   PyTorch version at every launch shape of the stereo models' forwards and
+   ragged cases;
 4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
    shapes also with both epilogue options on and off, and ragged cases (Ci
    1, 3, 33, 65; Co 8, 33; odd H and W; D 1 and 2); bfloat16 runs the
    tensor-core design ("mma"), float32 the CUDA-core one ("simt");
-5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Co
-   8 and 33, odd H and W, D < 3);
+5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Ci
+   5, 16; Co 8 and 33, odd H and W, D < 3): Co = 1 on its "stencil"
+   design, Co > 1 on the "direct" one;
 6. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
    (K6, masked and not) kernels likewise, at CFNet's, GwcNet_GC's and
    ACVNet's launch shapes and ragged cases;
@@ -24,7 +26,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    random weights, settled and perturbed BatchNorm statistics), one after
    the other: the card against the port's CPU paths at 256x512 (ACVNet at
    288x512, where its bottleneck attention pads H, and also in its
-   ``attn_weights_only`` mode), then in bfloat16 at the same size the card
+   ``attn_weights_only`` mode; GwcNet_G with both global TF32 flags set
+   True, which the float32 forward must ignore), then in bfloat16 (built
+   with ``create_model(..., dtype=torch.bfloat16)``) at the same size the card
    forward as the model runs against the card forward with K2 and K7
    swapped for their plain versions, then the 480x640 forward in float32
    and bfloat16, with every kernel's launches by shape read around each
@@ -38,7 +42,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    library yardstick (device time of back-to-back calls) at the shapes and
    launch counts that the full-size forward recorded. Every forward
    requires its K2 and K7 launches to have run the design of its type:
-   "mma" in bfloat16, "simt" in float32;
+   "mma" in bfloat16, "simt" in float32; every K1 launch "stream" and every
+   (Co = 1) K3 launch "stencil";
 13. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
 14. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
@@ -48,7 +53,6 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 from __future__ import annotations
 
-import copy
 import json
 import subprocess
 import sys
@@ -270,8 +274,10 @@ GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
 TRACE_ITERS = 3        # forwards in the torch.profiler trace
 
-# The design each type's K2 and K7 launches must run
+# The design each type's K2 and K7 launches must run, and the one design
+# every K1 and (Co = 1) K3 launch of a forward must run in both types
 DESIGN = {F32: "simt", BF16: "mma"}
+ONE_DESIGN = {"K1": "stream", "K3": "stencil"}
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
 PLAIN_SWAP_MEAN_PX = 0.5
@@ -343,11 +349,21 @@ def reset_counts() -> None:
 
 
 def designs_of(tag) -> dict:
-    """Launches of K2 or K7 by design since the counts were reset, as
-    ``{"mma 128x64": n}`` (design, voxels or queries x channels or keys of
-    a block)."""
-    return {f"{k[0]} {k[1]}x{k[2]}": n
+    """Launches of K1, K2, K3 or K7 by design since the counts were reset,
+    as ``{"mma 128x64": n}``: the design and its tile (K2, K7: voxels or
+    queries x channels or keys of a block; K1: W tile x groups x
+    disparities x rows of a block; K3 "stencil": output planes a block)."""
+    return {" ".join([k[0], "x".join(map(str, k[1:]))]).strip(): n
             for k, n in sorted(KERNELS[tag][0].designs.items())}
+
+
+def require_design(tag, kind, what) -> str:
+    """The designs kernel `tag` ran since the counts were reset, required
+    to be all of `kind`."""
+    ran = designs_of(tag)
+    require(list(ran) and all(k.split()[0] == kind for k in ran),
+            f"{tag} {what} ran {ran}, not {kind}")
+    return " ".join(ran)
 
 
 def randn(shape, dtype, gen, scale=1.0):
@@ -379,16 +395,24 @@ def all_shapes(tag):
 def check_gwc(gen) -> dict:
     errs = {}
     model_cases = all_shapes("K1")
-    cases = [*model_cases, (2, 5, 37, 48, 48, 16)]   # W % 16, W < D, C/G=3
+    # W not a multiple of the tile, W < D, C/G = 3, B = 2; odd G (one group
+    # a bf16 thread); a row of 6 channels (plain staging, no 16-byte copies)
+    cases = [*sorted(model_cases), (2, 5, 37, 48, 48, 16),
+             (1, 3, 21, 24, 9, 3), (1, 4, 70, 320, 48, 40),
+             (1, 2, 9, 6, 13, 6)]
     for dtype in (F32, BF16):
         worst = 0.0
         for b, h, w, c, d, g in cases:
             left = randn((b, h, w, c), dtype, gen)
             right = randn((b, h, w, c), dtype, gen)
-            err = held("K1", dtype, build_gwc_volume(left, right, d, g),
+            reset_counts()
+            got = build_gwc_volume(left, right, d, g)
+            design = require_design("K1", ONE_DESIGN["K1"],
+                                    DTYPE_NAME[dtype])
+            err = held("K1", dtype, got,
                        gwc_volume_reference(left.float(), right.float(), d,
                                             g),
-                       f"{(b, h, w, c)} D={d} G={g}")
+                       f"{(b, h, w, c)} D={d} G={g} [{design}]")
             if (b, h, w, c, d, g) in model_cases:
                 worst = max(worst, err)
         errs[dtype] = worst
@@ -461,17 +485,21 @@ def check_conv3d(gen) -> dict:
     model_cases = all_shapes("K3")
     cases = [*sorted(model_cases), (2, 5, 7, 37, 32, 1), (1, 2, 9, 33, 32, 1),
              (1, 1, 5, 7, 16, 1), (2, 3, 7, 19, 12, 8), (1, 4, 9, 35, 32, 33),
-             (1, 3, 17, 30, 5, 1)]
+             (1, 3, 17, 30, 5, 1), (1, 2, 11, 9, 5, 1)]
     for dtype in (F32, BF16):
         errs[dtype] = 0.0
         for b, d, h, w, ci, co in cases:
             x, k = k3_inputs(b, d, h, w, ci, co, dtype, gen)
+            reset_counts()
             got = conv3d(x, k)
+            design = require_design(
+                "K3", ONE_DESIGN["K3"] if co == 1 else "direct",
+                f"{DTYPE_NAME[dtype]} Co={co}")
             require(got.dtype == dtype and got.shape == (b, d, h, w, co),
                     f"K3 output {got.dtype} {tuple(got.shape)}")
             err = held("K3", dtype, got,
                        conv3d_reference(x.float(), k.float()),
-                       f"{(b, d, h, w)} Ci={ci} Co={co}")
+                       f"{(b, d, h, w)} Ci={ci} Co={co} [{design}]")
             if (b, d, h, w, ci, co) in model_cases:
                 errs[dtype] = max(errs[dtype], err)
     return errs
@@ -637,9 +665,9 @@ def forward_counted(name, model, *inputs, by_shape=False, **kwargs):
     if by_shape:
         require(shapes == want, f"{name} launches by shape {shapes} differ "
                                 f"from {want}")
-    designs = {tag: designs_of(tag) for tag in ("K2", "K7")}
-    kind = DESIGN[inputs[0].dtype]
+    designs = {tag: designs_of(tag) for tag in ("K1", "K2", "K3", "K7")}
     for tag, got in designs.items():
+        kind = ONE_DESIGN.get(tag) or DESIGN[inputs[0].dtype]
         ran = sum(n for key, n in got.items() if key.split()[0] == kind)
         require(ran == totals[tag], f"{name} {DTYPE_NAME[inputs[0].dtype]} "
                                     f"{tag} launches by design {got}, not all "
@@ -694,7 +722,7 @@ def bf16_vs_plain(name, model, size, hook=None) -> dict:
     roundings move enough samples to put the output's mean |d| near 1 px
     (0.91 px, and 1.18 px between its bf16 and f32 forwards); there the
     costs are required within K2's bf16 tolerance · max|ref| instead."""
-    m = create_model(name, max_disp=MAX_DISP).to(BF16)
+    m = create_model(name, max_disp=MAX_DISP, dtype=BF16)
     m.load_state_dict(model.state_dict())
     left, right = (t.to(DEV, BF16) for t in stereo_pair(1, *size, seed=1))
     caught = []
@@ -750,10 +778,12 @@ def bf16_vs_plain(name, model, size, hook=None) -> dict:
     return row
 
 
-def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W)):
+def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W), tf32=False):
     """The model on the card and on the CPU at `size`, float32, from the
     same settled weights. Returns (card model, |card - CPU| of the output,
-    CPU and card outputs of the module `hook` names, the CPU model).
+    CPU and card outputs of the module `hook` names, the CPU model). With
+    `tf32`, both global TF32 flags are True around the card's forward: the
+    float32 forward turns them off for its length (`utils.precision`).
 
     The card side runs with cuDNN's deterministic algorithms and its own
     seed: CFNet's floors turn run-to-run rounding (atomics in cuDNN's
@@ -777,14 +807,19 @@ def card_vs_cpu(name, hook=None, size=(CHECK_H, CHECK_W)):
             want = cpu(l_small, r_small)
         print(f"  {name} CPU reference forward at {size[0]}x{size[1]}: "
               f"{time.perf_counter() - t0:.1f} s")
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
         got, _, _ = forward_counted(name, model, l_small.to(DEV),
                                     r_small.to(DEV))
         for h in hooks:
             h.remove()
     finally:
         torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     d = (got.cpu() - want).abs()
-    print(f"  {name} {size[0]}x{size[1]} f32, card vs CPU: mean |d| "
+    flags = " (global TF32 flags True)" if tf32 else ""
+    print(f"  {name} {size[0]}x{size[1]} f32{flags}, card vs CPU: mean |d| "
           f"{d.mean().item():.3e} px, median {d.median().item():.3e}, "
           f"q90 {d.quantile(0.9).item():.3e}, max {d.max().item():.3e} px "
           f"(range {want.min().item():.2f}..{want.max().item():.2f})")
@@ -799,7 +834,7 @@ def full_size_runs(name, model):
     runs = {}
     for dtype in (F32, BF16):
         m = model if dtype == F32 else create_model(
-            name, max_disp=MAX_DISP).to(dtype)
+            name, max_disp=MAX_DISP, dtype=dtype)
         if dtype != F32:
             m.load_state_dict(model.state_dict())
         for seed in (2, 3):
@@ -820,10 +855,16 @@ def full_size_runs(name, model):
 
 
 def check_gwcnet(name="GwcNet_G"):
-    model, d, _, _ = card_vs_cpu(name)
+    """GwcNet_G's card-vs-CPU check runs with both global TF32 flags True:
+    its float32 forward holds the float32 gates all the same."""
+    tf32 = name == "GwcNet_G"
+    model, d, _, _ = card_vs_cpu(name, tf32=tf32)
     require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
-            f"{name} card output differs from the CPU port")
-    check = {"bf16_vs_plain": bf16_vs_plain(name, model, (CHECK_H, CHECK_W))}
+            f"{name} card output differs from the CPU port"
+            f"{' with the global TF32 flags True' if tf32 else ''}")
+    check = {"global_tf32_flags": tf32, "mean_abs": d.mean().item(),
+             "max_abs": d.max().item(),
+             "bf16_vs_plain": bf16_vs_plain(name, model, (CHECK_H, CHECK_W))}
     return full_size_runs(name, model), check
 
 
@@ -938,7 +979,11 @@ def check_dav2():
     del cpu
     runs = {}
     for dtype in (F32, BF16):
-        m = model if dtype == F32 else copy.deepcopy(model).to(dtype)
+        if dtype == F32:
+            m = model
+        else:
+            m = create_model(name, encoder=DAV2_ENCODER, dtype=dtype)
+            m.load_state_dict(model.state_dict())
         img = mono_image(1, DAV2_H, DAV2_W, seed=2).to(DEV, dtype)
         out, shapes, designs = forward_counted(name, m, img, by_shape=True)
         require(out.shape == (1, DAV2_H, DAV2_W), f"output shape {out.shape}")
@@ -1014,8 +1059,9 @@ def kernel_family(name: str) -> str:
     for mark, fam in (("conv3d_fused_kernel", "K2 conv3d_fused"),
                       ("conv3d_fused_mma_kernel", "K2 conv3d_fused"),
                       ("vit_attention_mma_kernel", "K7 vit attention"),
+                      ("conv3d_stencil_kernel", "K3 conv3d"),
                       ("::conv3d_kernel<", "K3 conv3d"),
-                      ("gwc_volume_kernel", "K1 gwc_volume"),
+                      ("gwc_stream_kernel", "K1 gwc_volume"),
                       ("::gather_kernel<", "K4 sample gather"),
                       ("::gwc_kernel<", "K5 gwc volume from samples"),
                       ("concat_volume_kernel", "K6 concat volume"),
@@ -1087,7 +1133,9 @@ def time_gwc(mix, dtype, gen):
     for (b, h, w, c, d, g), n in mix.items():
         left = randn((b, h, w, c), dtype, gen)
         right = randn((b, h, w, c), dtype, gen)
+        reset_counts()
         t = device_ms(lambda: build_gwc_volume(left, right, d, g), 20)
+        design = " ".join(designs_of("K1"))
         tp = device_ms(lambda: gwc_volume_reference(left, right, d, g), 5)
         ms, plain = ms + n * t, plain + n * tp
         nbytes += n * (2 * b * h * w * c + b * d * h * w * g) * \
@@ -1095,7 +1143,7 @@ def time_gwc(mix, dtype, gen):
         # this data's work: the w < d outputs are zero and need no products
         flops += n * 2 * c * b * h * sum(max(w - dd, 0) for dd in range(d))
         shapes.append({"bhwc": [b, h, w, c], "d": d, "g": g, "launches": n,
-                       "ms": t, "plain_ms": tp})
+                       "design": design, "ms": t, "plain_ms": tp})
     return ms, plain, None, nbytes, flops, shapes
 
 
@@ -1135,7 +1183,9 @@ def time_conv3d(mix, dtype, gen):
     shapes = []
     for (b, d, h, w, ci, co), n in mix.items():
         x, k = k3_inputs(b, d, h, w, ci, co, dtype, gen)
+        reset_counts()
         t = device_ms(lambda: conv3d(x, k), 20)
+        design = " ".join(designs_of("K3"))
         tp = device_ms(lambda: conv3d_reference(x, k), 5)
         xv, kv = x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2)
         tl = device_ms(lambda: F.conv3d(xv, kv, padding=1), 20)
@@ -1144,8 +1194,8 @@ def time_conv3d(mix, dtype, gen):
         flops += n * 2 * 27 * ci * co * vox
         ms, plain, lib = ms + n * t, plain + n * tp, lib + n * tl
         shapes.append({"b": b, "dhw": [d, h, w], "ci": ci, "co": co,
-                       "launches": n, "ms": t, "plain_ms": tp,
-                       "library_ms": tl})
+                       "launches": n, "design": design, "ms": t,
+                       "plain_ms": tp, "library_ms": tl})
     return ms, plain, lib, nbytes, flops, shapes
 
 
@@ -1290,13 +1340,15 @@ def time_kernel(model_name, tag, dtype, mix, designs, err, gen) -> dict:
     _, kname, source, replaces = KERNELS[tag]
     ms, plain, lib, nbytes, flops, per_shape = TIMERS[tag](mix, dtype, gen)
     b_ms, b_by = bound(nbytes, flops, dtype)
+    kinds = sorted({k.split()[0] for k in designs.get(tag) or {}}) or [
+        "simt"]
     print(f"  {model_name} {tag} {kname} ({DTYPE_NAME[dtype]}, "
           f"{designs.get(tag) or 'simt'}): {ms:.4f} ms x{mix.total()} (plain "
           f"{plain:.4f}, library {lib}, bound {b_ms:.4f} by {b_by})")
     return {"name": f"{kname} ({DTYPE_NAME[dtype]})", "id": tag,
             "model": model_name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": mix.total(),
-            "design": DESIGN[dtype] if tag in designs else "simt",
+            "design": "/".join(kinds),
             "design_launches": designs.get(tag) or {"simt": mix.total()},
             "max_abs_err": err, "tolerance": f"{REL_TOL[tag][dtype]}*max|ref|",
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,

@@ -1,11 +1,14 @@
-// Warp-level tensor-core building blocks for sm_90a, shared by the bfloat16
-// kernels (conv3d_fused.cu, vit_attention.cu).
+// Warp-level tensor-core building blocks for sm_90a, shared by the
+// tensor-core kernels (conv3d_fused.cu, vit_attention.cu, conv3d.cu).
 //
 // - cp.async 16-byte copies global -> shared, zero-filled when the source is
 //   off the tensor (src-size 0), with commit and wait;
 // - ldmatrix .x4 and .x4.trans (four 8x8 b16 matrices; lanes 8i .. 8i + 7
 //   give the row addresses of matrix i);
 // - mma.sync m16n8k16, bf16 inputs, float32 accumulators;
+// - mma.sync m16n8k8, tf32 inputs, float32 accumulators, and the float32 ->
+//   tf32 rounding (a float32 is its tf32 "high" part plus a tf32 remainder:
+//   three tf32 products keep about float32 accuracy);
 // - packing two floats into a bf16x2 register.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
@@ -13,6 +16,9 @@
 //     a[3]: (g+8, 8+2t..);
 //   B 16x8 (k x n), b[0]: (k 2t..2t+1, n g), b[1]: (k 8+2t.., n g);
 //   C 16x8, c[0..1]: (g, 2t..2t+1), c[2..3]: (g+8, 2t..2t+1).
+// m16n8k8 tf32: A 16x8, a[0]: (g, t), a[1]: (g+8, t), a[2]: (g, t+4),
+//   a[3]: (g+8, t+4); B 8x8 (k x n), b[0]: (k t, n g), b[1]: (k t+4, n g);
+//   C as above.
 
 #pragma once
 
@@ -60,6 +66,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (nearest, ties away), as the 32-bit pattern mma takes
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a * b, m16n8k8, tf32 x tf32 -> float32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -39,6 +39,7 @@ from stereo_toolbox_tpu_torch.ops.volume import (
     build_concat_volume, build_gwc_volume, concat_volume_from_samples,
     disparity_regression, disparity_variance, disparity_variance_confidence,
     gwc_volume_from_samples)
+from stereo_toolbox_tpu_torch.utils.precision import full_float32
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -310,8 +311,12 @@ class CFNet(nn.Module):
         if self.training:
             raise NotImplementedError("CFNet runs in eval mode only; call "
                                       ".eval() first")
-        _, h, w, _ = left.shape
         dtype = self.classif2[0][0].weight.dtype
+        with full_float32(dtype == torch.float32):
+            return self._forward(left, right, dtype)
+
+    def _forward(self, left, right, dtype):
+        _, h, w, _ = left.shape
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
                                  right.to(dtype))
 

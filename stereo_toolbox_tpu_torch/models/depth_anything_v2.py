@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from stereo_toolbox_tpu_torch.nn.dpt import DPTHead
 from stereo_toolbox_tpu_torch.nn.vit import PATCH, DINOv2
+from stereo_toolbox_tpu_torch.utils.precision import full_float32
 
 VIT_CONFIGS = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6,
@@ -78,8 +79,12 @@ class DepthAnythingV2(nn.Module):
         if self.training:
             raise NotImplementedError("DepthAnythingV2 runs in eval mode "
                                       "only; call .eval() first")
-        ph, pw = x.shape[1] // PATCH, x.shape[2] // PATCH
         dtype = self.pretrained.patch_embed.proj.weight.dtype
+        with full_float32(dtype == torch.float32):
+            return self._forward(x, dtype, return_features)
+
+    def _forward(self, x, dtype, return_features):
+        ph, pw = x.shape[1] // PATCH, x.shape[2] // PATCH
         taps = self.pretrained.get_intermediate_layers(x.to(dtype), self.taps)
         if return_features:
             depth, feats = self.depth_head(taps, ph, pw, return_path1=True)

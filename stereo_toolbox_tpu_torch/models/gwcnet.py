@@ -29,6 +29,7 @@ from stereo_toolbox_tpu_torch.ops.upsample import interpolate
 from stereo_toolbox_tpu_torch.ops.volume import (build_concat_volume,
                                                  build_gwc_volume,
                                                  disparity_regression)
+from stereo_toolbox_tpu_torch.utils.precision import full_float32
 
 
 class GwcFeature(nn.Module):
@@ -103,8 +104,12 @@ class GwcNet(nn.Module):
         if self.training:
             raise NotImplementedError("GwcNet runs in eval mode only; call "
                                       ".eval() first")
-        _, h, w, _ = left.shape
         dtype = self.classif3[0][0].weight.dtype
+        with full_float32(dtype == torch.float32):
+            return self._forward(left, right, dtype)
+
+    def _forward(self, left, right, dtype):
+        _, h, w, _ = left.shape
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
                                  right.to(dtype))
         d4 = self.max_disp // 4

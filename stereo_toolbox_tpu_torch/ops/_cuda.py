@@ -29,8 +29,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each launch function, by library (named like its source)
 SIGNATURES = {
     "gwc_volume": {
-        # left, right, out, B, H, W, C, D, G, dtype, stream
-        "gwc_volume": [_P, _P, _P] + [_I] * 7 + [_P]},
+        # left, right, out, B, H, W, C, D, G, dtype, tw, gs, dc, strip,
+        # stream
+        "gwc_volume": [_P, _P, _P] + [_I] * 11 + [_P]},
     "conv3d_fused": {
         # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
         # relu, tile, stream
@@ -47,8 +48,10 @@ SIGNATURES = {
         # left, right, out, B, H, W, C, D, mask_left, dtype, stream
         "concat_volume": [_P] * 3 + [_I] * 7 + [_P]},
     "conv3d": {
+        # x, w, out, B, D, H, W, Ci, dtype, run, stream
+        "conv3d_stencil": [_P] * 3 + [_I] * 7 + [_P],
         # x, w, out, B, D, H, W, Ci, Co, dtype, stream
-        "conv3d": [_P] * 3 + [_I] * 7 + [_P]},
+        "conv3d_direct": [_P] * 3 + [_I] * 7 + [_P]},
     "vit_attention": {
         # q, k, v, out, B*heads, N, scale, stream
         "vit_attention_mma": [_P] * 4 + [_I] * 2 + [_F, _P],

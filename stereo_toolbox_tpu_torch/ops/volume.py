@@ -19,7 +19,9 @@ Each wrapper counts its launches, in all (``.launches``) and by shape
 
 from __future__ import annotations
 
+import math
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +100,73 @@ def gwc_volume_reference(left: torch.Tensor, right: torch.Tensor,
                                  num_groups)
 
 
+GWC_CPG = (1, 2, 3, 4, 6, 8, 12, 16)   # channels a group the kernel takes
+GWC_TILE_W = 16           # output pixels of W a block
+GWC_MAX_SMEM = 200 * 1024  # bytes of a block's staged row, at most
+
+
+class GwcPlan(NamedTuple):
+    """How the K1 kernel cuts a launch: W tile `tw`, groups a slice `gs`,
+    disparities a chunk `dc`, pixels a thread's strip `strip` (see
+    ``csrc/gwc_volume.cu``)."""
+    tw: int
+    gs: int
+    dc: int
+    strip: int
+
+
+def gwc_strip(cpg: int, ng: int) -> int:
+    """Pixels of a K1 thread's strip for `ng` groups of `cpg` channels: the
+    largest power of two ≤ 8 with strip · ng · cpg ≤ 32."""
+    s = 8
+    while s > 1 and s * ng * cpg > 32:
+        s //= 2
+    return s
+
+
+def gwc_plan(b: int, h: int, w: int, c: int, d: int, g: int,
+             dtype: torch.dtype, sms: int) -> GwcPlan:
+    """The K1 kernel's plan for a ``[b, d, h, w, g]`` volume from ``[b, h,
+    w, c]`` features of `dtype` on a card of `sms` SMs. A block is one row
+    of one `GWC_TILE_W`-pixel W tile; its slice is the whole row of groups
+    (the output's d planes then take contiguous stores) unless the grid
+    has under 4 blocks an SM, where slices halve (16-byte aligned, down to
+    32 thread items a block) and then the disparities are cut into chunks;
+    slices and chunks are cut further until the staged row fits
+    `GWC_MAX_SMEM`."""
+    size = 4 if dtype == torch.float32 else 2
+    cpg = c // g
+    ng = 2 if size == 2 and g % 2 == 0 else 1
+    s = gwc_strip(cpg, ng)
+    tw = GWC_TILE_W
+    step = math.lcm(ng, 16 // math.gcd(16, cpg * size))
+    gs = g
+    target = 4 * sms
+
+    def blocks(gs, dc):
+        return b * h * -(-w // tw) * -(-g // gs) * -(-d // dc)
+
+    def smem(gs, dc):
+        scp = -(-gs * cpg // (16 // size)) * (16 // size)
+        return (2 * tw + dc - 1) * scp * size
+
+    while (blocks(gs, d) < target and gs % (2 * step) == 0
+           and gs // 2 // ng * (tw // s) >= 32):
+        gs //= 2
+    dc = d
+    if blocks(gs, d) < target:
+        n = min(-(-d // s), -(-target // blocks(gs, d)))
+        dc = -(-(-(-d // n)) // s) * s
+    while smem(gs, dc) > GWC_MAX_SMEM:
+        if gs > step:
+            gs = max(step, gs // 2 // step * step)
+        elif dc > 1:
+            dc = -(-dc // 2)
+        else:
+            raise ValueError(f"no K1 plan fits shared memory at C={c}, G={g}")
+    return GwcPlan(tw, gs, dc, s)
+
+
 def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
                      num_groups: int) -> torch.Tensor:
     """Group-wise correlation cost volume ``[B, D, H, W, G]`` (GwcNet):
@@ -105,32 +174,43 @@ def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
     zero for w < d.
 
     CPU tensors take `gwc_volume_reference`; CUDA tensors launch the kernel
-    (float32 or bfloat16, contiguous ``[B, H, W, C]``) or raise.
+    (float32 or bfloat16, contiguous ``[B, H, W, C]``, C / G in `GWC_CPG`),
+    cut as `gwc_plan` says, or raise.
     """
     if left.device.type == "cpu":
         return gwc_volume_reference(left, right, max_disp, num_groups)
     _check_features(left, right)
     b, h, w, c = left.shape
-    if c % num_groups or max_disp < 1:
+    if num_groups < 1 or c % num_groups or max_disp < 1:
         raise ValueError(f"bad groups {num_groups} / max_disp {max_disp} "
                          f"for C={c}")
+    if c // num_groups not in GWC_CPG:
+        raise ValueError(f"the K1 kernel takes C/G in {GWC_CPG}, got "
+                         f"{c}/{num_groups}")
     code = _cuda.dtype_code(left)
     out = torch.empty((b, max_disp, h, w, num_groups), dtype=left.dtype,
                       device=left.device)
+    if out.numel() == 0:
+        return out
+    sms = torch.cuda.get_device_properties(left.device).multi_processor_count
+    plan = gwc_plan(b, h, w, c, max_disp, num_groups, left.dtype, sms)
     lib = _cuda.library("gwc_volume")
     with torch.cuda.device(left.device):
         rc = lib.gwc_volume(left.data_ptr(), right.data_ptr(), out.data_ptr(),
-                            b, h, w, c, max_disp, num_groups, code,
+                            b, h, w, c, max_disp, num_groups, code, *plan,
                             _cuda.stream_of(left))
     _cuda.check(lib, rc, "gwc_volume")
     build_gwc_volume.launches += 1
     build_gwc_volume.shapes[(b, h, w, c, max_disp, num_groups)] += 1
+    build_gwc_volume.designs[("stream", *plan[:3])] += 1
     return out
 
 
-# launches of the kernel, in all and by (B, H, W, C, D, G)
+# launches of the kernel, in all, by (B, H, W, C, D, G) and by design
+# ("stream", W tile, groups a slice, disparities a chunk)
 build_gwc_volume.launches = 0
 build_gwc_volume.shapes = Counter()
+build_gwc_volume.designs = Counter()
 
 
 def concat_volume_reference(left: torch.Tensor, right: torch.Tensor,

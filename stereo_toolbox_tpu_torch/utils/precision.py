@@ -1,0 +1,76 @@
+"""The port's float32 contract: a float32 forward computes in full float32.
+
+PyTorch runs a float32 cuDNN convolution in TF32 by default
+(``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
+decimal digits. Every model's ``forward`` enters `full_float32` when it
+computes in float32, so that the 2D trunk, the stride-2 and transposed 3D
+convs, the 1×1 and depthwise convs and the Linear layers compute what the
+CPU reference computes, whatever the process-global flags say. The
+hand-written kernels never use TF32.
+
+bfloat16 is the other half of the contract: ``create_model(...,
+dtype=torch.bfloat16)`` casts the conv, linear and attention parameters and
+keeps every BatchNorm's weight, bias and running statistics in float32, as
+the JAX package's ``param_dtype`` does, so that the folded BatchNorm is the
+float32 model's. (LayerNorm stays in the model's type: on the card
+``F.layer_norm`` takes no float32 weight with a bfloat16 input.)
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+@contextlib.contextmanager
+def full_float32(enabled: bool = True):
+    """Within it, cuDNN's convolutions and cuBLAS's matrix products take no
+    TF32 (``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` False); on exit, also by an
+    exception, the caller's settings are back. With ``enabled=False`` it
+    changes nothing."""
+    if not enabled:
+        yield
+        return
+    restore = _tf32_restorer()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        restore()
+
+
+def _tf32_restorer():
+    """A function that puts the TF32 settings back as they are now, through
+    the API they were set with. PyTorch (2.9 and later) refuses to read the
+    two flags once a caller has set TF32 per operator
+    (``torch.backends.cudnn.conv.fp32_precision``, ...), and refuses to read
+    the float32 matmul precision once its backends disagree; each is saved
+    where it can be read."""
+    backends = torch.backends
+    try:
+        cudnn = backends.cudnn.allow_tf32
+        matmul = backends.cuda.matmul.allow_tf32
+    except RuntimeError:                       # set per operator
+        per_op = (backends.cudnn.conv.fp32_precision,
+                  backends.cudnn.rnn.fp32_precision,
+                  backends.cuda.matmul.fp32_precision)
+
+        def restore_per_op():
+            (backends.cudnn.conv.fp32_precision,
+             backends.cudnn.rnn.fp32_precision,
+             backends.cuda.matmul.fp32_precision) = per_op
+        return restore_per_op
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError:                       # its backends disagree
+        precision = None
+
+    def restore():
+        backends.cudnn.allow_tf32 = cudnn
+        backends.cuda.matmul.allow_tf32 = matmul
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+    return restore

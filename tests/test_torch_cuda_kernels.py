@@ -20,8 +20,10 @@ from stereo_toolbox_tpu_torch.ops import (
     gather_right_by_samples, gather_right_by_samples_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference)
+from stereo_toolbox_tpu_torch.ops.conv3d import stencil_run
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (MMA_TILES, mma_tile,
                                                        pack_conv3d_weight)
+from stereo_toolbox_tpu_torch.ops.volume import gwc_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -34,19 +36,30 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,h,w,c,d,g", [(1, 4, 40, 320, 12, 40),
-                                         (2, 3, 37, 48, 48, 16)])
+# (b, h, w, c, d, g): CFNet's three volumes, W not a multiple of the tile,
+# D > W with C/G = 3 and B = 2, odd G in bfloat16 (one group a thread), a
+# row of 6 channels (no 16-byte copies: plain staging)
+GWC_CASES = [(1, 60, 80, 160, 24, 40), (1, 30, 40, 320, 12, 40),
+             (1, 15, 20, 320, 6, 40), (1, 4, 70, 320, 48, 40),
+             (2, 3, 37, 48, 48, 16), (1, 3, 21, 24, 9, 3),
+             (1, 2, 9, 6, 13, 6)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d,g", GWC_CASES)
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_gwc_volume_kernel_matches_plain(dev, b, h, w, c, d, g, dtype, rel):
+    """The "stream" design with the plan `gwc_plan` makes; within rel ·
+    max|ref|."""
     gen = torch.Generator().manual_seed(0)
     left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
                    for _ in range(2))
-    key = (b, h, w, c, d, g)
-    before = build_gwc_volume.launches, build_gwc_volume.shapes[key]
-    got = build_gwc_volume(left, right, d, g).float()
-    assert (build_gwc_volume.launches,
-            build_gwc_volume.shapes[key]) == (before[0] + 1, before[1] + 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    design = ("stream", *gwc_plan(b, h, w, c, d, g, dtype, sms)[:3])
+    before = build_gwc_volume.designs[design]
+    got = _counted(build_gwc_volume, (b, h, w, c, d, g), left, right, d,
+                   g).float()
+    assert build_gwc_volume.designs[design] == before + 1
     want = gwc_volume_reference(left.float(), right.float(), d, g)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
 
@@ -120,22 +133,31 @@ def test_conv3d_fused_mma_kernel_matches_plain(dev, b, d, h, w, ci, co,
 
 
 # (b, d, h, w, ci, co): the classifiers' Co = 1 at GwcNet's Ci and CFNet's
-# 1/2 stage's (shorter D and H); ragged H/W; D < 3; Co = 8 and 33 (tiles of
-# 8, the last one ragged); Ci not a multiple of the staged chunk
+# 1/2 stage's (shorter D and H); Ci 16, 32 and 5 (plain staging); D 1 and 2;
+# odd H and W; B = 2; Co = 8 and 33 (the direct design, tiles of 8, the last
+# one ragged); Ci not a multiple of the direct design's staged chunk
 CONV3D_CASES = [(1, 6, 20, 40, 32, 1), (1, 4, 24, 64, 16, 1),
                 (2, 5, 7, 37, 32, 1), (1, 2, 9, 33, 32, 1),
-                (1, 1, 5, 7, 16, 1), (2, 3, 7, 19, 12, 8),
-                (1, 4, 9, 35, 32, 33), (1, 3, 17, 30, 5, 1)]
+                (1, 1, 5, 7, 16, 1), (1, 3, 17, 30, 5, 1),
+                (1, 2, 11, 9, 5, 1), (1, 1, 9, 45, 32, 1),
+                (2, 3, 7, 19, 12, 8), (1, 4, 9, 35, 32, 33)]
 
 
 @pytest.mark.parametrize("b,d,h,w,ci,co", CONV3D_CASES)
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_conv3d_kernel_matches_plain(dev, b, d, h, w, ci, co, dtype, rel):
+    """Co = 1 runs the "stencil" design with the run `stencil_run` picks,
+    Co > 1 the "direct" one; within rel · max|ref|."""
     gen = torch.Generator().manual_seed(6)
     x = torch.randn(b, d, h, w, ci, generator=gen).to(dev, dtype)
     k = (torch.randn(3, 3, 3, ci, co, generator=gen) * 0.1).to(dev, dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    design = (("stencil", stencil_run(b, d, h, w, ci, dtype, sms))
+              if co == 1 else ("direct",))
+    before = conv3d.designs[design]
     got = _counted(conv3d, (b, d, h, w, ci, co), x, k)
+    assert conv3d.designs[design] == before + 1
     assert got.dtype == dtype and got.shape == (b, d, h, w, co)
     want = conv3d_reference(x.float(), k.float())
     err = (got.float() - want).abs().max().item()
@@ -311,6 +333,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     f = torch.zeros(1, 2, 3, 8, device=dev)
     with pytest.raises(ValueError):
         build_gwc_volume(f, f, 4, 3)
+    with pytest.raises(ValueError):        # C/G = 5: no kernel instance
+        build_gwc_volume(torch.zeros(1, 2, 3, 10, device=dev),
+                         torch.zeros(1, 2, 3, 10, device=dev), 4, 2)
     samples = torch.zeros(1, 4, 2, 3, device=dev)
     with pytest.raises(ValueError):        # no bound on the samples
         gather_right_by_samples(f, samples)

@@ -1,0 +1,261 @@
+"""The port's precision contract, on the CPU.
+
+- float32: a model's float32 forward computes in full float32. It turns
+  cuDNN's and cuBLAS's TF32 off for its length, whatever the process-global
+  flags are, and gives the caller's settings back, also after an exception
+  (`utils.precision.full_float32`).
+- bfloat16: ``create_model(..., dtype=torch.bfloat16)`` is the JAX package's
+  ``dtype=jnp.bfloat16``: conv, linear and attention parameters in bfloat16,
+  every BatchNorm's values (`models.NORMS`) in float32, so the folded
+  BatchNorm is the float32 model's bit for bit. GwcNet_G in bfloat16
+  is held against JAX ``GwcNet_G(dtype=jnp.bfloat16)`` on the same carried
+  variables (the fixture of ``tests/test_torch_gwcnet.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_torch_gwcnet as gwcnet_fixture
+from stereo_toolbox_tpu.models import GwcNet_G as JaxGwcNet_G
+from stereo_toolbox_tpu_torch.models import NORMS, create_model
+from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct
+from stereo_toolbox_tpu_torch.utils.precision import full_float32
+from stereo_toolbox_tpu_torch.utils.weights import from_jax_variables
+
+torch.set_num_threads(2)
+
+# small sizes each model takes: (constructor arguments, input H, W)
+SMALL = {
+    "GwcNet_G": (dict(max_disp=16), 32, 64),
+    "GwcNet_GC": (dict(max_disp=16), 32, 64),
+    "CFNet": (dict(max_disp=64), 64, 128),
+    "ACVNet": (dict(max_disp=48), 64, 128),
+    "DepthAnythingV2": (dict(encoder="vits"), 28, 42),
+}
+
+
+def _inputs(name, h, w):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(1, h, w, 3).astype(np.float32))
+    return (x,) if name == "DepthAnythingV2" else (x, x.roll(-2, 2))
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.fixture
+def tf32_on():
+    """Both global TF32 flags True for the test; PyTorch's defaults back
+    after it (cuDNN's TF32 on, cuBLAS's off)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+
+
+def _first_conv(model):
+    return next(m for m in model.modules() if isinstance(m, torch.nn.Conv2d))
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_float32_forward_runs_without_tf32(name, tf32_on):
+    kw, h, w = SMALL[name]
+    model = create_model(name, device="cpu", **kw)
+    seen = []
+    handle = _first_conv(model).register_forward_pre_hook(
+        lambda mod, inp: seen.append(_tf32_flags()))
+    with torch.no_grad():
+        model(*_inputs(name, h, w))
+    handle.remove()
+    assert seen == [(False, False)]
+    assert _tf32_flags() == (True, True)
+    assert torch.get_float32_matmul_precision() == "high"
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_float32_forward_restores_the_flags_after_an_exception(name,
+                                                               tf32_on):
+    kw, h, w = SMALL[name]
+    model = create_model(name, device="cpu", **kw)
+
+    def fail(mod, inp):
+        raise RuntimeError("stop inside the forward")
+
+    _first_conv(model).register_forward_pre_hook(fail)
+    with pytest.raises(RuntimeError, match="stop inside"):
+        with torch.no_grad():
+            model(*_inputs(name, h, w))
+    assert _tf32_flags() == (True, True)
+
+
+def test_full_float32_keeps_a_callers_settings(tf32_on):
+    """The caller's values come back whatever they were and through
+    whichever API they were set with, and ``enabled=False`` changes
+    nothing."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("medium")
+    with full_float32():
+        assert _tf32_flags() == (False, False)
+    assert not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "medium"
+    torch.backends.cudnn.allow_tf32 = True
+    with full_float32(enabled=False):
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == "medium"
+    # a flag set with the legacy API after the precision: PyTorch can no
+    # longer read the precision, and the forward must still run
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for _ in range(2):
+        with full_float32():
+            assert _tf32_flags() == (False, False)
+        assert _tf32_flags() == (True, False)
+
+
+def test_full_float32_keeps_per_operator_settings(tf32_on):
+    """TF32 set per operator (PyTorch's newer API) comes back as it was."""
+    backends = torch.backends
+    if not hasattr(backends.cuda.matmul, "fp32_precision"):
+        pytest.skip("this PyTorch has no per-operator TF32 settings")
+    backends.cudnn.conv.fp32_precision = "tf32"
+    backends.cudnn.rnn.fp32_precision = "ieee"
+    backends.cuda.matmul.fp32_precision = "tf32"
+    with full_float32():
+        assert _tf32_flags() == (False, False)
+    assert (backends.cudnn.conv.fp32_precision,
+            backends.cudnn.rnn.fp32_precision,
+            backends.cuda.matmul.fp32_precision) == ("tf32", "ieee", "tf32")
+    backends.cudnn.allow_tf32 = True             # the fixture's restore
+    backends.cuda.matmul.allow_tf32 = True
+
+
+def test_bfloat16_forward_leaves_the_flags_alone(tf32_on):
+    """Only a float32 forward enters the contract: a bfloat16 one sees the
+    caller's flags."""
+    kw, h, w = SMALL["GwcNet_G"]
+    model = create_model("GwcNet_G", device="cpu", dtype=torch.bfloat16,
+                         **kw)
+    seen = []
+    _first_conv(model).register_forward_pre_hook(
+        lambda mod, inp: seen.append(_tf32_flags()))
+    with torch.no_grad():
+        model(*_inputs("GwcNet_G", h, w))
+    assert seen == [(True, True)]
+
+
+def _perturb_norms(model, seed):
+    """BatchNorm values away from their initial 1 / 0, with means large
+    against the spread (a trained checkpoint's, where rounding them to bf16
+    shows)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, NORMS):
+                for t in (m.weight, m.bias):
+                    t.copy_(1 + 0.3 * torch.randn(t.shape, generator=gen))
+                m.running_mean.copy_(
+                    5 * torch.randn(m.running_mean.shape, generator=gen))
+                m.running_var.copy_(
+                    0.5 + torch.rand(m.running_var.shape, generator=gen))
+
+
+BN_MODELS = ["ACVNet", "CFNet", "GwcNet_G", "GwcNet_GC"]
+
+
+@pytest.mark.parametrize("name", BN_MODELS)
+def test_bfloat16_model_keeps_batchnorm_values_in_float32(name):
+    kw, _, _ = SMALL[name]
+    f32 = create_model(name, device="cpu", **kw)
+    _perturb_norms(f32, 1)
+    bf16 = create_model(name, device="cpu", dtype=torch.bfloat16, **kw)
+    bf16.load_state_dict(f32.state_dict())
+    norms = [(a, b) for a, b in zip(f32.modules(), bf16.modules())
+             if isinstance(a, NORMS)]
+    assert norms
+    for a, b in norms:
+        for key, t in b.state_dict().items():
+            if t.is_floating_point():
+                assert t.dtype == torch.float32, key
+                assert torch.equal(t, a.state_dict()[key]), key
+    rest = [p for m in bf16.modules() if not isinstance(m, NORMS)
+            for p in m.parameters(recurse=False)]
+    assert rest and all(p.dtype == torch.bfloat16 for p in rest)
+
+
+def test_bfloat16_depth_anything_v2_is_all_bfloat16():
+    """DepthAnythingV2 has no BatchNorm; its LayerNorms take the model's
+    type, because the card's ``F.layer_norm`` takes no float32 weight with a
+    bfloat16 input."""
+    kw, h, w = SMALL["DepthAnythingV2"]
+    model = create_model("DepthAnythingV2", device="cpu",
+                         dtype=torch.bfloat16, **kw)
+    assert not any(isinstance(m, NORMS) for m in model.modules())
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    with torch.no_grad():
+        depth = model(*_inputs("DepthAnythingV2", h, w))
+    assert depth.dtype == torch.bfloat16
+    assert bool(torch.isfinite(depth.float()).all())
+
+
+@pytest.mark.parametrize("name", BN_MODELS)
+def test_bfloat16_folded_batchnorm_equals_float32(name):
+    """Each fused layer's folded affine is the float32 model's bit for bit;
+    ``model.to(torch.bfloat16)`` rounds the statistics first and is not."""
+    kw, _, _ = SMALL[name]
+    f32 = create_model(name, device="cpu", **kw)
+    _perturb_norms(f32, 2)
+    bf16 = create_model(name, device="cpu", dtype=torch.bfloat16, **kw)
+    bf16.load_state_dict(f32.state_dict())
+    cast = create_model(name, device="cpu", **kw).to(torch.bfloat16)
+    cast.load_state_dict(f32.state_dict())
+    layers = [(a, b, c) for a, b, c in zip(f32.modules(), bf16.modules(),
+                                           cast.modules())
+              if isinstance(a, ConvBNAct)]
+    assert layers
+    rounded = 0
+    for a, b, c in layers:
+        want = a.folded_affine()
+        got = b.folded_affine()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        rounded += not all(torch.equal(x, y)
+                           for x, y in zip(c.folded_affine(), want))
+    assert rounded == len(layers)
+
+
+def test_create_model_takes_float32_or_bfloat16():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        create_model("GwcNet_G", device="cpu", dtype=torch.float16)
+
+
+@pytest.fixture(scope="module")
+def jax_setup():
+    return gwcnet_fixture._setup(JaxGwcNet_G)
+
+
+def test_gwcnet_g_bfloat16_matches_jax_bfloat16(jax_setup):
+    """Port bf16 against JAX ``GwcNet_G(dtype=jnp.bfloat16)`` on the same
+    variables, 64×128, max_disp 48. Measured on the CPU: mean |Δ| 0.0179 px,
+    max 0.104 px (printed below): bf16 roundings in other places, amplified
+    by the soft argmax. Bounds: mean < 0.03, max < 0.2 px."""
+    v, left, right, _ = jax_setup
+    model = JaxGwcNet_G(max_disp=gwcnet_fixture.MAX_DISP, dtype=jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda vv, a, b: model.apply(
+        vv, a, b, train=False))(v, jnp.asarray(left), jnp.asarray(right)),
+        dtype=np.float32)
+    m = create_model("GwcNet_G", max_disp=gwcnet_fixture.MAX_DISP,
+                     device="cpu", dtype=torch.bfloat16)
+    m.load_state_dict(from_jax_variables("GwcNet_G", v))
+    with torch.no_grad():
+        got = m(torch.from_numpy(left), torch.from_numpy(right)).float()
+    d = np.abs(got.numpy() - want)
+    print(f"GwcNet_G bf16 port vs JAX bf16: mean |d| {d.mean():.4f} px, "
+          f"max {d.max():.4f} px")
+    assert got.shape == (1, gwcnet_fixture.H, gwcnet_fixture.W)
+    assert d.mean() < 0.03
+    assert d.max() < 0.2
