@@ -16,9 +16,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Ci
    5, 16; Co 8 and 33, odd H and W, D < 3): Co = 1 on its "stencil"
    design, Co > 1 on the "direct" one;
-6. hold the sample-gather (K4), sampled gwc-volume (K5) and concat-volume
-   (K6, masked and not) kernels likewise, at CFNet's, GwcNet_GC's and
-   ACVNet's launch shapes and ragged cases;
+6. hold the sample-gather (K4), sampled gwc-volume (K5, its "direct"
+   design) and concat-volume (K6, masked and not, its "rows" design)
+   kernels likewise, at CFNet's, GwcNet_GC's and ACVNet's launch shapes
+   and ragged cases (K5: W not a multiple of the tile, blocks of a few
+   pixels, S = 1, odd G, a C/G without a compile-time count; K6: bfloat16
+   C = 12 rows of 24-byte halves, odd C, rows not a multiple of 16 bytes,
+   misaligned feature bases, W tiles);
 7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
    launch shape, vits' and MonSter's two-view shapes and ragged N (1, 15,
    64, 65, 77, 200, 1025, 2048), bfloat16 on its tensor-core design;
@@ -42,8 +46,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    library yardstick (device time of back-to-back calls) at the shapes and
    launch counts that the full-size forward recorded. Every forward
    requires its K2 and K7 launches to have run the design of its type:
-   "mma" in bfloat16, "simt" in float32; every K1 launch "stream" and every
-   (Co = 1) K3 launch "stencil";
+   "mma" in bfloat16, "simt" in float32; every K1 launch "stream", every
+   (Co = 1) K3 launch "stencil", every K5 launch "direct" and every K6
+   launch "rows";
 13. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
 14. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
@@ -275,9 +280,10 @@ FWD_ITERS, FWD_WARMUP = 10, 3
 TRACE_ITERS = 3        # forwards in the torch.profiler trace
 
 # The design each type's K2 and K7 launches must run, and the one design
-# every K1 and (Co = 1) K3 launch of a forward must run in both types
+# every K1, (Co = 1) K3, K5 and K6 launch of a forward must run in both types
 DESIGN = {F32: "simt", BF16: "mma"}
-ONE_DESIGN = {"K1": "stream", "K3": "stencil"}
+ONE_DESIGN = {"K1": "stream", "K3": "stencil", "K5": "direct", "K6": "rows"}
+DESIGN_TAGS = ("K1", "K2", "K3", "K5", "K6", "K7")   # wrappers with .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
 PLAIN_SWAP_MEAN_PX = 0.5
@@ -349,10 +355,12 @@ def reset_counts() -> None:
 
 
 def designs_of(tag) -> dict:
-    """Launches of K1, K2, K3 or K7 by design since the counts were reset,
-    as ``{"mma 128x64": n}``: the design and its tile (K2, K7: voxels or
-    queries x channels or keys of a block; K1: W tile x groups x
-    disparities x rows of a block; K3 "stencil": output planes a block)."""
+    """Launches of K1, K2, K3, K5, K6 or K7 by design since the counts were
+    reset, as ``{"mma 128x64": n}``: the design and its tile (K2, K7: voxels
+    or queries x channels or keys of a block; K1: W tile x groups x
+    disparities of a block; K3 "stencil": output planes a block; K5: pixels
+    x threads of a block x groups a thread item; K6: bytes a store x bytes
+    a shared word x W tile x disparities a run)."""
     return {" ".join([k[0], "x".join(map(str, k[1:]))]).strip(): n
             for k, n in sorted(KERNELS[tag][0].designs.items())}
 
@@ -507,13 +515,17 @@ def check_conv3d(gen) -> dict:
 
 # ---------------------------------------------------------------- phase 6
 def check_samples(gen) -> tuple[dict, dict]:
-    """K4 and K5 at CFNet's launch shapes and ragged cases (W % 32, odd C,
-    C/G = 3, a window past a block's shared memory), with samples in
-    [-3, max_shift + 4] so that both clamps and the x < 0 zeros are met."""
+    """K4 and K5 at CFNet's launch shapes and ragged cases, with samples in
+    [-3, max_shift + 4] so that both clamps and the x < 0 zeros are met. K4:
+    W % 32, odd C, a window past a block's shared memory. K5, on its
+    "direct" design: W not a multiple of the tile (45, 70), C/G = 3 with odd
+    G (one group a bfloat16 thread), C/G = 5 (no compile-time count), S = 1,
+    blocks of 2 (float32) or 4 (bfloat16) pixels (W 40, C 320), B = 2."""
     errs4, errs5 = {}, {}
     k4_cases = [*CF_K4_MIX, (2, 3, 45, 5, 7, 20), (1, 2, 40, 320, 3, 200)]
     k5_cases = [*CF_K5_MIX, (2, 3, 45, 12, 7, 4, 20),
-                (1, 2, 40, 320, 3, 40, 200)]
+                (1, 2, 40, 320, 3, 40, 200), (1, 3, 70, 15, 1, 3, 9),
+                (1, 4, 70, 160, 16, 40, 48), (2, 2, 19, 10, 4, 2, 25)]
     for dtype in (F32, BF16):
         errs4[dtype] = errs5[dtype] = 0.0
         for b, h, w, c, s, ms in k4_cases:
@@ -528,39 +540,57 @@ def check_samples(gen) -> tuple[dict, dict]:
             left = randn((b, h, w, c), dtype, gen)
             right = randn((b, h, w, c), dtype, gen)
             smp = samples_for(b, s, h, w, -3, ms + 4, gen)
-            err = held("K5", dtype,
-                       gwc_volume_from_samples(left, right, smp, g, ms),
+            reset_counts()
+            got = gwc_volume_from_samples(left, right, smp, g, ms)
+            design = require_design("K5", ONE_DESIGN["K5"],
+                                    DTYPE_NAME[dtype])
+            err = held("K5", dtype, got,
                        gwc_volume_from_samples_reference(
                            left.float(), right.float(), smp, g, ms),
-                       f"{(b, h, w, c)} S={s} G={g} max_shift={ms}")
+                       f"{(b, h, w, c)} S={s} G={g} max_shift={ms} "
+                       f"[{design}]")
             if (b, h, w, c, s, g, ms) in CF_K5_MIX:
                 errs5[dtype] = max(errs5[dtype], err)
     return errs4, errs5
 
 
 def check_concat(gen) -> dict:
-    """K6 at the stereo models' launch shapes (masked: CFNet, GwcNet_GC;
-    unmasked: ACVNet), D > W (zero planes, or zero right halves unmasked)
-    and odd C, with the left half masked and not."""
+    """K6 on its "rows" design at the stereo models' launch shapes (masked:
+    CFNet, GwcNet_GC; unmasked: ACVNet) and ragged cases, with the left half
+    masked and not: D > W (zero planes, or zero right halves unmasked), odd
+    C (rows of 8- and 4-byte stores: W x C odd in bfloat16), bfloat16 C = 12
+    (24-byte halves, vectors that straddle them), a row past the plan's
+    shared memory (W tiles); and feature bases one element past 16-byte
+    alignment (narrow staging)."""
     errs = {}
     model_cases = all_shapes("K6")
     cases = [*sorted(model_cases)]
-    for ragged in ((2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 2, 10, 32, 14)):
+    for ragged in ((2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 2, 10, 32, 14),
+                   (1, 3, 11, 3, 7), (1, 4, 160, 12, 48), (1, 2, 20, 700, 3)):
         cases += [(*ragged, True), (*ragged, False)]
     for dtype in (F32, BF16):
         errs[dtype] = 0.0
         for b, h, w, c, d, mask_left in cases:
-            left = randn((b, h, w, c), dtype, gen)
-            right = randn((b, h, w, c), dtype, gen)
-            got = build_concat_volume(left, right, d, mask_left)
-            err = held("K6", dtype, got,
-                       concat_volume_reference(left, right, d, mask_left),
-                       f"{(b, h, w, c)} D={d} mask_left={mask_left}")
-            zero = got[:, w:] if mask_left else got[:, w:, ..., c:]
-            require(d <= w or not zero.any(),
-                    f"K6 planes d >= W not zero at {(b, h, w, c, d)}")
-            if (b, h, w, c, d, mask_left) in model_cases:
-                errs[dtype] = max(errs[dtype], err)
+            for shifted in (False, True):
+                if shifted and (b, h, w, c, d, mask_left) in model_cases:
+                    continue
+                n = b * h * w * c
+                left, right = (randn((n + shifted,), dtype, gen)[
+                    int(shifted):].view(b, h, w, c) for _ in range(2))
+                reset_counts()
+                got = build_concat_volume(left, right, d, mask_left)
+                design = require_design("K6", ONE_DESIGN["K6"],
+                                        DTYPE_NAME[dtype])
+                err = held("K6", dtype, got,
+                           concat_volume_reference(left, right, d, mask_left),
+                           f"{(b, h, w, c)} D={d} mask_left={mask_left}"
+                           f"{' misaligned bases' if shifted else ''} "
+                           f"[{design}]")
+                zero = got[:, w:] if mask_left else got[:, w:, ..., c:]
+                require(d <= w or not zero.any(),
+                        f"K6 planes d >= W not zero at {(b, h, w, c, d)}")
+                if (b, h, w, c, d, mask_left) in model_cases:
+                    errs[dtype] = max(errs[dtype], err)
     return errs
 
 
@@ -665,7 +695,7 @@ def forward_counted(name, model, *inputs, by_shape=False, **kwargs):
     if by_shape:
         require(shapes == want, f"{name} launches by shape {shapes} differ "
                                 f"from {want}")
-    designs = {tag: designs_of(tag) for tag in ("K1", "K2", "K3", "K7")}
+    designs = {tag: designs_of(tag) for tag in DESIGN_TAGS}
     for tag, got in designs.items():
         kind = ONE_DESIGN.get(tag) or DESIGN[inputs[0].dtype]
         ran = sum(n for key, n in got.items() if key.split()[0] == kind)
@@ -1063,8 +1093,8 @@ def kernel_family(name: str) -> str:
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_stream_kernel", "K1 gwc_volume"),
                       ("::gather_kernel<", "K4 sample gather"),
-                      ("::gwc_kernel<", "K5 gwc volume from samples"),
-                      ("concat_volume_kernel", "K6 concat volume"),
+                      ("gwc_direct_kernel", "K5 gwc volume from samples"),
+                      ("concat_rows_kernel", "K6 concat volume"),
                       ("vit_attention_kernel", "K7 vit attention")):
         if mark in name:
             return fam
@@ -1237,8 +1267,10 @@ def time_gwc_samples(mix, dtype, gen):
         left = randn((b, h, w, c), dtype, gen)
         right = randn((b, h, w, c), dtype, gen)
         smp = samples_for(b, s, h, w, 0, mshift, gen)
+        reset_counts()
         t = device_ms(lambda: gwc_volume_from_samples(left, right, smp, g,
                                                     mshift), 20)
+        design = " ".join(designs_of("K5"))
         tp = device_ms(lambda: gwc_volume_from_samples_reference(
             left, right, smp, g, mshift), 5)
         ms, plain = ms + n * t, plain + n * tp
@@ -1248,8 +1280,8 @@ def time_gwc_samples(mix, dtype, gen):
         inside = (torch.arange(w, device=DEV) >= smp).sum().item()
         flops += n * 2 * c * inside
         shapes.append({"bhwc": [b, h, w, c], "s": s, "g": g,
-                       "max_shift": mshift, "launches": n, "ms": t,
-                       "plain_ms": tp})
+                       "max_shift": mshift, "launches": n, "design": design,
+                       "ms": t, "plain_ms": tp})
     return ms, plain, None, nbytes, flops, shapes
 
 
@@ -1261,15 +1293,18 @@ def time_concat(mix, dtype, gen):
     for (b, h, w, c, d, mask_left), n in mix.items():
         left = randn((b, h, w, c), dtype, gen)
         right = randn((b, h, w, c), dtype, gen)
+        reset_counts()
         t = device_ms(lambda: build_concat_volume(left, right, d, mask_left),
                       20)
+        design = " ".join(designs_of("K6"))
         tp = device_ms(lambda: concat_volume_reference(left, right, d,
                                                        mask_left), 5)
         ms, plain = ms + n * t, plain + n * tp
         nbytes += n * (2 * b * h * w * c + 2 * b * d * h * w * c) * \
             left.element_size()
         shapes.append({"bhwc": [b, h, w, c], "d": d, "mask_left": mask_left,
-                       "launches": n, "ms": t, "plain_ms": tp})
+                       "launches": n, "design": design, "ms": t,
+                       "plain_ms": tp})
     return ms, plain, None, nbytes, 0, shapes
 
 

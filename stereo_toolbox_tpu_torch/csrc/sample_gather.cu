@@ -5,32 +5,54 @@
 // gather_right_by_samples_pallas (kernel body `_gather_kernel`) and
 // gwc_volume_from_samples_pallas (kernel body `_gwc_kernel`).
 //
-//   d = (int) clamp(samples[b, s, h, w], 0, max_shift)
+//   d = (int) clamp(samples[b, s, h, w], 0, max_shift)    (NaN -> 0)
 //   K4: out[b, s, h, w, c] = right[b, h, w - d, c]
 //   K5: out[b, s, h, w, g] = mean_{c in group g} left[b, h, w, c] * right[b, h, w - d, c]
 //   both 0 where w < d
 //
 // Layouts are channels-last: left/right [B, H, W, C], samples [B, S, H, W]
-// float32 (integer-valued in CFNet), out [B, S, H, W, C] (K4) or
-// [B, S, H, W, G] (K5), float32 or bfloat16, K5 accumulating in float32.
+// float32 (integer-valued in CFNet, but any values are taken), out
+// [B, S, H, W, C] (K4) or [B, S, H, W, G] (K5), float32 or bfloat16, K5
+// accumulating in float32.
 //
-// What bounds it: bytes. K4 copies; K5 does C/G multiply-adds per output (4
+// What bounds both: bytes. K4 copies; K5 does C/G multiply-adds per output (4
 // at both of CFNet's stages) against 4 or 2 bytes stored, far below the
-// card's ridge point. So the point is to store each output once, in long
-// contiguous runs, and to read each input row from device memory once; K5
-// never writes the gathered [B, S, H, W, C] tensor at all.
+// card's ridge point, and its output is S*G/(2*C) times its two inputs. So
+// the point is to store each output once, in long contiguous runs, at the
+// memory's rate; K5 never writes the gathered [B, S, H, W, C] tensor at all.
 //
-// Design: the TPU kernel turns the gather into a one-hot [S*Wt, 2Wt] matmul
-// on the MXU over a 128-lane-padded W, a TPU workaround for gathers. On
-// Hopper the gather is a load from shared memory. One block per (b, h, W-tile
-// of kTileW pixels, channel chunk) stages the right window
-// [kTileW + max_shift, Cc] (pixels w0 - max_shift .. w0 + kTileW - 1, zero
-// off the image, as K1 does) and the tile's [S, kTileW] samples, clamped and
-// truncated to int; K5 also stages the left tile [kTileW, Cc]. Threads walk
-// the (s, w, c) outputs (K5: (s, w, g)) with the channel fastest, so for each
-// sample the block's stores are one contiguous run. Where the window would
-// pass the 227 KB a block may have, the channels are split into chunks (whole
-// groups for K5, since groups are independent) over grid.z.
+// The TPU kernels turn the gather into a one-hot [S*Wt, 2Wt] matmul on the
+// MXU over a 128-lane-padded W, a TPU workaround for gathers. On Hopper the
+// gather is a load.
+//
+// K4 design: one block per (b, h, W-tile of kTileW pixels, channel chunk)
+// stages the right window [kTileW + max_shift, Cc] (pixels w0 - max_shift ..
+// w0 + kTileW - 1, zero off the image) and the tile's [S, kTileW] samples,
+// clamped and truncated to int. Threads walk the (s, w, c) outputs with the
+// channel fastest, so for each sample the block's stores are one contiguous
+// run. Where the window would pass the 227 KB a block may have, the channels
+// are split into chunks over grid.z. (Staging is scalar, one element a
+// thread, with a division per element, and the halo is re-read 2.5-4x.)
+//
+// K5 design ("direct", plan ops/volume.py::sample_gwc_plan): a block owns
+// `tw` pixels of one row (b, h) and every group (16 pixels in float32, 32 in
+// bfloat16: 600-4800 short blocks, 4.5-36 an SM, at CFNet's stages). A thread
+// item is one pixel and one slot of NG groups, as many as make one 8-byte
+// store (2 in float32, 4 in bfloat16, where they divide G): it loads the
+// slot's left values into registers as float32, scaled by 1/cpg, once, then
+// loops over the S samples. Each step reads the sample (one float a pixel,
+// shared by its lanes) and, where w >= d, the slot's right values at w - d
+// straight from device memory through L1 (16-byte loads where the row
+// allows): the lanes of one pixel read one contiguous run of the right row
+// whatever d is, the rows a block reads over its samples stay in L1, and
+// the right map of a CFNet stage (12-25 MB) fits the 50 MB L2. A step costs
+// no division. Items run with the slot fastest, so a warp's store at one s
+// covers whole pixels in one contiguous run. (Staging the block's right
+// window in shared memory with cp.async first, the other way tried, was
+// slower in float32 and no faster in bfloat16 on the H100: each block then
+// waits for its window before its first store.) C/G of 1, 2, 3, 4, 6, 8, 12
+// or 16 keeps the left values in registers at a compile-time count; any
+// other C/G runs the same loop with the left values read at each step.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, allocates nothing, synchronises nothing and returns
@@ -40,10 +62,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileW = 32;                  // pixels of W per block
+constexpr int kTileW = 32;                  // K4: pixels of W per block
 constexpr size_t kSmemLimit = 232448;       // 227 KB, a block's most on sm_90
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -58,37 +82,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Dot product of 4 consecutive elements (16-byte / 8-byte aligned).
-__device__ __forceinline__ float dot4(const float* a, const float* b) {
-  const float4 x = *reinterpret_cast<const float4*>(a);
-  const float4 y = *reinterpret_cast<const float4*>(b);
-  return x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
-}
-__device__ __forceinline__ float dot4(const __nv_bfloat16* a, const __nv_bfloat16* b) {
-  const uint2 x = *reinterpret_cast<const uint2*>(a);
-  const uint2 y = *reinterpret_cast<const uint2*>(b);
-  const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 x1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  const float2 y0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y.x));
-  const float2 y1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y.y));
-  return x0.x * y0.x + x0.y * y0.y + x1.x * y1.x + x1.y * y1.y;
-}
-
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-// Byte offsets of a block's shared arrays for a chunk of cc channels: right
-// window [kTileW + max_shift][cc], left tile [kTileW][cc] (K5 only), samples
-// [S][kTileW] int.
+// K4: byte offsets of a block's shared arrays for a chunk of cc channels:
+// right window [kTileW + max_shift][cc], samples [S][kTileW] int.
 struct Layout {
-  size_t left, samples, total;
+  size_t samples, total;
 };
-__host__ __device__ inline Layout layout(int cc, int max_shift, int S, size_t elem,
-                                         bool with_left) {
+__host__ __device__ inline Layout layout(int cc, int max_shift, int S, size_t elem) {
   Layout l;
-  l.left = align16((size_t)(kTileW + max_shift) * cc * elem);
-  l.samples = l.left + (with_left ? align16((size_t)kTileW * cc * elem) : 0);
+  l.samples = align16((size_t)(kTileW + max_shift) * cc * elem);
   l.total = l.samples + (size_t)S * kTileW * sizeof(int);
   return l;
+}
+
+// d of a sample: clamped to [0, max_shift] and truncated (NaN -> 0).
+__device__ __forceinline__ int shift_of(float v, int max_shift) {
+  return (int)fminf(fmaxf(v, 0.f), (float)max_shift);
 }
 
 // dst[p][c] = src[b, h, x0 + p, c0 + c] for p < n_px, c < cc; 0 off the image.
@@ -105,19 +115,14 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, T* dst, si
   }
 }
 
-// dst[s][w] = (int) clamp(samples[b, s, h, w0 + w], 0, max_shift); 0 past W.
+// dst[s][w] = d of samples[b, s, h, w0 + w]; 0 past W.
 __device__ __forceinline__ void stage_samples(const float* __restrict__ samples, int* dst,
                                               int b, int h, int w0, int H, int W, int S,
                                               int max_shift) {
   for (int i = threadIdx.x; i < S * kTileW; i += kThreads) {
     const int s = i / kTileW;
     const int w = w0 + i - s * kTileW;
-    int d = 0;
-    if (w < W) {
-      const float v = samples[(((size_t)b * S + s) * H + h) * W + w];
-      d = (int)fminf(fmaxf(v, 0.f), (float)max_shift);  // NaN -> 0
-    }
-    dst[i] = d;
+    dst[i] = w < W ? shift_of(samples[(((size_t)b * S + s) * H + h) * W + w], max_shift) : 0;
   }
 }
 
@@ -132,7 +137,7 @@ gather_kernel(const T* __restrict__ right, const float* __restrict__ samples,
   const int b = blockIdx.z / chunks;
   const int c0 = (blockIdx.z % chunks) * cc;
   const int n = min(cc, C - c0);  // channels of this chunk
-  const Layout l = layout(cc, max_shift, S, sizeof(T), false);
+  const Layout l = layout(cc, max_shift, S, sizeof(T));
   T* sr = reinterpret_cast<T*>(smem);                  // [kTileW + max_shift][n]
   int* sd = reinterpret_cast<int*>(smem + l.samples);  // [S][kTileW]
 
@@ -154,65 +159,15 @@ gather_kernel(const T* __restrict__ right, const float* __restrict__ samples,
   }
 }
 
-template <typename T, bool kVec4>
-__global__ void __launch_bounds__(kThreads)
-gwc_kernel(const T* __restrict__ left, const T* __restrict__ right,
-           const float* __restrict__ samples, T* __restrict__ out, int H, int W, int C,
-           int S, int G, int max_shift, int gc, int chunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cpg = C / G;
-  const int w0 = blockIdx.x * kTileW;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z / chunks;
-  const int g0 = (blockIdx.z % chunks) * gc;
-  const int ng = min(gc, G - g0);  // groups of this chunk
-  const int n = ng * cpg;          // channels of this chunk
-  const Layout l = layout(gc * cpg, max_shift, S, sizeof(T), true);
-  T* sr = reinterpret_cast<T*>(smem);                  // [kTileW + max_shift][n]
-  T* sl = reinterpret_cast<T*>(smem + l.left);         // [kTileW][n]
-  int* sd = reinterpret_cast<int*>(smem + l.samples);  // [S][kTileW]
-
-  const size_t row = ((size_t)b * H + h) * W;
-  stage_rows(right, sr, row, (long long)w0 - max_shift, kTileW + max_shift, W, C,
-             g0 * cpg, n);
-  stage_rows(left, sl, row, (long long)w0, kTileW, W, C, g0 * cpg, n);
-  stage_samples(samples, sd, b, h, w0, H, W, S, max_shift);
-  __syncthreads();
-
-  const float inv_cpg = 1.f / (float)cpg;
-  const int per_s = kTileW * ng;
-  for (int i = threadIdx.x; i < S * per_s; i += kThreads) {
-    const int s = i / per_s;
-    const int r = i - s * per_s;
-    const int w = r / ng;
-    const int g = r - w * ng;
-    if (w0 + w >= W) continue;
-    const int j = w + max_shift - sd[s * kTileW + w];
-    const T* a = sl + w * n + g * cpg;
-    const T* c = sr + j * n + g * cpg;
-    float acc = 0.f;
-    if constexpr (kVec4) {
-      for (int k = 0; k < cpg; k += 4) acc += dot4(a + k, c + k);
-    } else {
-      for (int k = 0; k < cpg; ++k) acc += to_f(a[k]) * to_f(c[k]);
-    }
-    out[((((size_t)b * S + s) * H + h) * W + w0 + w) * G + g0 + g] =
-        from_f<T>(acc * inv_cpg);
-  }
-}
-
-// The most units (channels for K4, groups for K5) of `unit` channels that one
-// block can stage, spread evenly over the fewest chunks; 0 if one unit does
-// not fit.
-inline int chunk_units(int units, int unit, int max_shift, int S, size_t elem,
-                       bool with_left, int* chunks) {
-  int fit = units;
-  while (fit > 0 && layout(fit * unit, max_shift, S, elem, with_left).total > kSmemLimit)
-    --fit;
+// The most channels of a K4 chunk that one block can stage, spread evenly
+// over the fewest chunks; 0 if one channel does not fit.
+inline int chunk_channels(int C, int max_shift, int S, size_t elem, int* chunks) {
+  int fit = C;
+  while (fit > 0 && layout(fit, max_shift, S, elem).total > kSmemLimit) --fit;
   if (fit == 0) return 0;
-  *chunks = (units + fit - 1) / fit;
-  const int per = (units + *chunks - 1) / *chunks;
-  *chunks = (units + per - 1) / per;  // every chunk holds at least one unit
+  *chunks = (C + fit - 1) / fit;
+  const int per = (C + *chunks - 1) / *chunks;
+  *chunks = (C + per - 1) / per;  // every chunk holds at least one channel
   return per;
 }
 
@@ -220,9 +175,9 @@ template <typename T>
 int launch_gather(const void* right, const void* samples, void* out, int B, int H, int W,
                   int C, int S, int max_shift, cudaStream_t stream) {
   int chunks = 1;
-  const int cc = chunk_units(C, 1, max_shift, S, sizeof(T), false, &chunks);
+  const int cc = chunk_channels(C, max_shift, S, sizeof(T), &chunks);
   if (cc == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(cc, max_shift, S, sizeof(T), false).total;
+  const size_t smem = layout(cc, max_shift, S, sizeof(T)).total;
   cudaError_t err = cudaFuncSetAttribute(
       gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -233,22 +188,182 @@ int launch_gather(const void* right, const void* samples, void* out, int B, int 
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kVec4>
+// ---------------------------------------------------------------- K5
+
+// N consecutive elements at p (device memory) as float32, read in `vb`-byte
+// words (16, 8 or 4; anything else reads element by element). vb divides
+// N * sizeof(T) and p's alignment.
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* __restrict__ p, int vb, float (&dst)[N]) {
+  constexpr int kBytes = N * (int)sizeof(T);
+  if constexpr (sizeof(T) == 4) {
+    if (kBytes % 16 == 0 && vb == 16) {
+#pragma unroll
+      for (int k = 0; k < N / 4; ++k) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
+        dst[4 * k] = v.x, dst[4 * k + 1] = v.y, dst[4 * k + 2] = v.z, dst[4 * k + 3] = v.w;
+      }
+      return;
+    }
+    if (kBytes % 8 == 0 && vb >= 8) {
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(p) + k);
+        dst[2 * k] = v.x, dst[2 * k + 1] = v.y;
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) dst[k] = __ldg(p + k);
+  } else {
+    // bfloat16: two a 32-bit word, the first in its low half
+    if (kBytes % 16 == 0 && vb == 16) {
+#pragma unroll
+      for (int k = 0; k < N / 8; ++k) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + k);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dst[8 * k + 2 * i] = __uint_as_float(w[i] << 16);
+          dst[8 * k + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        }
+      }
+      return;
+    }
+    if (kBytes % 4 == 0 && vb >= 4) {
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        const uint32_t w = __ldg(reinterpret_cast<const unsigned int*>(p) + k);
+        dst[2 * k] = __uint_as_float(w << 16);
+        dst[2 * k + 1] = __uint_as_float(w & 0xffff0000u);
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) dst[k] = __bfloat162float(p[k]);
+  }
+}
+
+// NG float32 results stored as T at p (NG * sizeof(T) bytes, aligned to it).
+template <typename T, int NG>
+__device__ __forceinline__ void store_groups(T* p, const float (&a)[NG]) {
+  if constexpr (sizeof(T) == 4 && NG == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+  } else if constexpr (sizeof(T) == 4) {
+    *p = a[0];
+  } else if constexpr (NG == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(mma::pack_bf16(a[0], a[1]), mma::pack_bf16(a[2], a[3]));
+  } else if constexpr (NG == 2) {
+    *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(a[0], a[1]);
+  } else {
+    *p = __float2bfloat16(a[0]);
+  }
+}
+
+// CPG > 0: C/G at compile time, the left values in registers. CPG == 0: C/G
+// is `cpg`, and the left values are read at each step.
+template <typename T, int CPG, int NG>
+__global__ void __launch_bounds__(kThreads)
+gwc_direct_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                  const float* __restrict__ samples, T* __restrict__ out, int H, int W, int C,
+                  int S, int G, int max_shift, int tw, int tiles, int cpg, int vb) {
+  constexpr int NV = (CPG > 0 ? CPG : 1) * NG;
+  const int w0 = (blockIdx.x % tiles) * tw;
+  const int h = blockIdx.x / tiles;
+  const int b = blockIdx.y;
+  const int nw = min(tw, W - w0);
+  const int slots = G / NG;
+  const int items = nw * slots;
+  const float inv = 1.f / (float)cpg;
+  const size_t plane = (size_t)H * W;                   // pixels of a sample plane
+  const size_t row = ((size_t)b * H + h) * W;           // pixel (b, h, 0)
+  const float* smp = samples + (size_t)b * S * plane + (size_t)h * W;
+  T* o = out + ((size_t)b * S * plane + (size_t)h * W) * G;
+  const T* rrow = right + row * C;
+
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int p = item / slots;
+    const int slot = item - p * slots;
+    const int c0 = slot * NG * cpg;
+    const int w = w0 + p;
+    const T* lp = left + (row + w) * C + c0;
+    float lf[NV];
+    if constexpr (CPG > 0) {
+      load_f32<T, NV>(lp, vb, lf);
+#pragma unroll
+      for (int e = 0; e < NV; ++e) lf[e] *= inv;
+    }
+    T* op = o + (size_t)w * G + slot * NG;
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) {
+      const int d = shift_of(__ldg(smp + s * plane + w), max_shift);
+      float a[NG];
+#pragma unroll
+      for (int n = 0; n < NG; ++n) a[n] = 0.f;
+      if (w >= d) {
+        const T* rp = rrow + (size_t)(w - d) * C + c0;
+        if constexpr (CPG > 0) {
+          float rv[NV];
+          load_f32<T, NV>(rp, vb, rv);
+#pragma unroll
+          for (int n = 0; n < NG; ++n) {
+#pragma unroll
+            for (int e = 0; e < CPG; ++e) a[n] = fmaf(lf[n * CPG + e], rv[n * CPG + e], a[n]);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NG; ++n) {
+            for (int e = 0; e < cpg; ++e)
+              a[n] = fmaf(to_f(lp[n * cpg + e]), to_f(rp[n * cpg + e]), a[n]);
+            a[n] *= inv;
+          }
+        }
+      }
+      store_groups<T, NG>(op + s * plane * G, a);
+    }
+  }
+}
+
+template <typename T, int CPG, int NG>
 int launch_gwc(const void* left, const void* right, const void* samples, void* out, int B,
-               int H, int W, int C, int S, int G, int max_shift, cudaStream_t stream) {
-  int chunks = 1;
-  const int gc = chunk_units(G, C / G, max_shift, S, sizeof(T), true, &chunks);
-  if (gc == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(gc * (C / G), max_shift, S, sizeof(T), true).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      gwc_kernel<T, kVec4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kTileW - 1) / kTileW, H, B * chunks);
-  gwc_kernel<T, kVec4><<<grid, kThreads, smem, stream>>>(
+               int H, int W, int C, int S, int G, int max_shift, int tw, int threads,
+               cudaStream_t stream) {
+  // the widest word that divides a slot's bytes, the row's and both bases
+  const uintptr_t a = reinterpret_cast<uintptr_t>(left) | reinterpret_cast<uintptr_t>(right);
+  int vb = 0;
+  for (int v = 16; v >= 4 && !vb; v /= 2)
+    if ((NG * (C / G) * sizeof(T)) % v == 0 && (C * sizeof(T)) % v == 0 && a % v == 0) vb = v;
+  const int tiles = (W + tw - 1) / tw;
+  gwc_direct_kernel<T, CPG, NG><<<dim3(tiles * H, B), threads, 0, stream>>>(
       static_cast<const T*>(left), static_cast<const T*>(right),
-      static_cast<const float*>(samples), static_cast<T*>(out), H, W, C, S, G, max_shift,
-      gc, chunks);
+      static_cast<const float*>(samples), static_cast<T*>(out), H, W, C, S, G, max_shift, tw,
+      tiles, C / G, vb);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NG>
+int gwc_by_cpg(const void* left, const void* right, const void* samples, void* out, int B,
+               int H, int W, int C, int S, int G, int max_shift, int tw, int threads,
+               cudaStream_t s) {
+#define GWC_CASE(n)                                                                           \
+  case n:                                                                                     \
+    return launch_gwc<T, n, NG>(left, right, samples, out, B, H, W, C, S, G, max_shift, tw, \
+                                threads, s);
+  switch (C / G) {
+    GWC_CASE(1)
+    GWC_CASE(2)
+    GWC_CASE(3)
+    GWC_CASE(4)
+    GWC_CASE(6)
+    GWC_CASE(8)
+    GWC_CASE(12)
+    GWC_CASE(16)
+    default:
+      return launch_gwc<T, 0, NG>(left, right, samples, out, B, H, W, C, S, G, max_shift, tw,
+                                  threads, s);
+  }
+#undef GWC_CASE
 }
 
 }  // namespace
@@ -268,21 +383,24 @@ int gather_right_by_samples(const void* right, const void* samples, void* out, i
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (left, right and out); samples are float32.
+// The plan (pixels a block tw, threads a block, groups a thread item ng: 1 or
+// 2 in float32, 1, 2 or 4 in bfloat16, dividing G) comes from
+// ops/volume.py::sample_gwc_plan.
 int gwc_volume_from_samples(const void* left, const void* right, const void* samples,
                             void* out, int B, int H, int W, int C, int S, int G,
-                            int max_shift, int dtype, void* stream) {
+                            int max_shift, int dtype, int tw, int threads, int ng,
+                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = (C / G) % 4 == 0;
-  if (dtype == 0)
-    return vec4 ? launch_gwc<float, true>(left, right, samples, out, B, H, W, C, S, G,
-                                          max_shift, s)
-                : launch_gwc<float, false>(left, right, samples, out, B, H, W, C, S, G,
-                                           max_shift, s);
-  if (dtype == 1)
-    return vec4 ? launch_gwc<__nv_bfloat16, true>(left, right, samples, out, B, H, W, C,
-                                                  S, G, max_shift, s)
-                : launch_gwc<__nv_bfloat16, false>(left, right, samples, out, B, H, W, C,
-                                                   S, G, max_shift, s);
+  if (B < 1 || H < 1 || W < 1 || S < 1 || G < 1 || C % G || tw < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 || max_shift < 0 || ng < 1 || G % ng)
+    return (int)cudaErrorInvalidValue;
+#define GWC_ARGS left, right, samples, out, B, H, W, C, S, G, max_shift, tw, threads, s
+  if (dtype == 0 && ng == 1) return gwc_by_cpg<float, 1>(GWC_ARGS);
+  if (dtype == 0 && ng == 2) return gwc_by_cpg<float, 2>(GWC_ARGS);
+  if (dtype == 1 && ng == 1) return gwc_by_cpg<__nv_bfloat16, 1>(GWC_ARGS);
+  if (dtype == 1 && ng == 2) return gwc_by_cpg<__nv_bfloat16, 2>(GWC_ARGS);
+  if (dtype == 1 && ng == 4) return gwc_by_cpg<__nv_bfloat16, 4>(GWC_ARGS);
+#undef GWC_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

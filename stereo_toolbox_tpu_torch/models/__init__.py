@@ -4,8 +4,9 @@
 `create_model(name, device=None, dtype=torch.float32)` builds an eval-mode
 model on the card (``device=None`` means ``"cuda"``) and raises when there
 is no card; the CPU runs only when asked for with ``device="cpu"``. A float32
-forward computes in full float32 (no TF32), a bfloat16 model keeps its
-BatchNorm values in float32 (`stereo_toolbox_tpu_torch.utils.precision`).
+forward computes in full float32 (no TF32), a bfloat16 model keeps in
+float32 what the JAX package keeps and computes with in float32
+(`F32_MODULES`, `F32_PARAMS`; `stereo_toolbox_tpu_torch.utils.precision`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from stereo_toolbox_tpu_torch.models.cfnet import CFNet
 from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 from stereo_toolbox_tpu_torch.models.gwcnet import (GwcNet, GwcNet_G,
                                                     GwcNet_GC)
+from stereo_toolbox_tpu_torch.nn.vit import DINOv2, LayerScale
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "ACVNet": ACVNet,
@@ -28,10 +30,22 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "GwcNet_GC": GwcNet_GC,
 }
 
-# Layers whose values a bfloat16 model keeps in float32. LayerNorm is not one:
-# on the card F.layer_norm takes no float32 weight with a bfloat16 input
-# (PyTorch 2.11, "expected scalar type BFloat16 but found Float").
-NORMS = (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)
+# What a bfloat16 model keeps in float32: what the JAX package keeps as a
+# float32 param and computes with in float32 (flax's ``param_dtype`` for the
+# norms; JAX's type promotion where a raw ``self.param`` meets a bfloat16
+# value). Every value of these modules ...
+F32_MODULES = (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d, torch.nn.LayerNorm)
+# ... and these parameters, by the module that holds them: DINOv2's token
+# stream (``x + pos``, ``x + h * ls``) and CFNet's search-range scales.
+F32_PARAMS = {DINOv2: ("cls_token", "pos_embed"), LayerScale: ("gamma",),
+              CFNet: ("gamma_s3", "beta_s3", "gamma_s2", "beta_s2")}
+
+
+def keeps_float32(module: torch.nn.Module, name: str) -> bool:
+    """Whether a bfloat16 model keeps `module`'s value `name` in float32."""
+    return isinstance(module, F32_MODULES) or any(
+        isinstance(module, kind) and name in names
+        for kind, names in F32_PARAMS.items())
 
 
 def create_model(name: str, device=None, dtype: torch.dtype = torch.float32,
@@ -41,9 +55,11 @@ def create_model(name: str, device=None, dtype: torch.dtype = torch.float32,
     eval mode, on `device`, computing in `dtype`.
 
     ``dtype=torch.bfloat16`` is the JAX package's ``dtype=jnp.bfloat16``:
-    every conv, linear and attention parameter in bfloat16 (and the
-    LayerNorms'), every BatchNorm's values (`NORMS`: weight, bias, running
-    statistics) kept in float32, as flax's ``param_dtype``.
+    every conv, linear and attention parameter in bfloat16; kept in float32
+    (`keeps_float32`) every BatchNorm's values (weight, bias, running
+    statistics) and every LayerNorm's, as flax's ``param_dtype``, DINOv2's
+    ``cls_token``, ``pos_embed`` and LayerScale ``gamma`` (its token stream
+    is then float32) and CFNet's ``gamma_s*`` / ``beta_s*``.
     ``model.to(torch.bfloat16)`` rounds those too and is not that model."""
     if name not in MODEL_REGISTRY:
         raise KeyError(
@@ -56,13 +72,22 @@ def create_model(name: str, device=None, dtype: torch.dtype = torch.float32,
             "no CUDA device: the port runs on the GPU; pass device='cpu' to "
             "run the plain PyTorch paths on the CPU")
     model = MODEL_REGISTRY[name](**kwargs).eval()
-    if dtype != torch.float32:
-        for m in model.modules():
-            if not isinstance(m, NORMS):
-                m._apply(lambda t: t.to(dtype) if t.is_floating_point()
-                         else t, recurse=False)
-    return model.to(device)
+    return cast_model(model, dtype).to(device)
 
 
-__all__ = ["ACVNet", "CFNet", "DepthAnythingV2", "GwcNet", "GwcNet_G",
-           "GwcNet_GC", "MODEL_REGISTRY", "NORMS", "create_model"]
+def cast_model(model: torch.nn.Module, dtype: torch.dtype
+               ) -> torch.nn.Module:
+    """`model` (or one of its layers) cast in place to compute in `dtype`:
+    every floating value in `dtype` but those `keeps_float32` names."""
+    for m in model.modules():
+        for group in (m._parameters, m._buffers):
+            for key, t in group.items():
+                if (t is not None and t.is_floating_point()
+                        and not keeps_float32(m, key)):
+                    t.data = t.data.to(dtype)
+    return model
+
+
+__all__ = ["ACVNet", "CFNet", "DepthAnythingV2", "F32_MODULES",
+           "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "MODEL_REGISTRY",
+           "cast_model", "create_model", "keeps_float32"]

@@ -360,7 +360,7 @@ class CFNet(nn.Module):
             return interpolate(d * 2.0, (d.shape[1] * 2, d.shape[2] * 2),
                                (1, 2), align_corners=True)
 
-        gamma, beta = gamma[0].float(), beta[0].float()
+        gamma, beta = gamma[0], beta[0]          # float32 in every model
         lo = upx2(pred - (gamma + 1) * var - beta)
         hi = upx2(pred + (gamma + 1) * var + beta)
         lo, hi = self._search_range(count + 1, lo, hi, scale)

@@ -15,6 +15,16 @@ every tap, as the original's ``get_intermediate_layers(norm=True)``.
 The attention core is `ops.attention` (K7 on the card); the Linear layers
 run on cuBLAS and LayerNorm and GELU in ATen, as the JAX package leaves them
 to XLA. LayerNorm's eps is DINOv2's (and flax's) 1e-6; GELU is exact.
+
+In a bfloat16 model (``models.create_model(..., dtype=torch.bfloat16)``) the
+token stream is float32, as in the JAX package, where the float32
+``pos_embed``, ``cls_token`` and LayerScale params promote it: the
+patch embedding (bfloat16) plus the float32 position embedding gives float32
+tokens, each LayerNorm normalises the float32 stream with float32 weights
+and rounds once to bfloat16 (flax's ``LayerNorm(dtype=bfloat16)``), the
+attention and MLP branches compute in bfloat16, and each residual add
+``x + h * gamma`` is one float32 ``addcmul``. The working type is the patch
+embedding's weight's; a float32 model computes in float32 throughout.
 """
 
 from __future__ import annotations
@@ -62,12 +72,12 @@ class Attention(nn.Module):
 
 
 class LayerScale(nn.Module):
+    """The per-channel ``gamma`` of a residual branch; `Block` adds
+    ``x + h * gamma`` in one ``addcmul``."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.gamma = nn.Parameter(torch.ones(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma
 
 
 class Mlp(nn.Module):
@@ -93,8 +103,13 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        """The stream `x` (float32 in a bfloat16 model) → the stream; each
+        branch runs in the Linear layers' type."""
+        dtype = self.attn.qkv.weight.dtype
+        x = torch.addcmul(x, self.attn(self.norm1(x).to(dtype)),
+                          self.ls1.gamma)
+        return torch.addcmul(x, self.mlp(self.norm2(x).to(dtype)),
+                             self.ls2.gamma)
 
 
 class DINOv2(nn.Module):
@@ -130,9 +145,10 @@ class DINOv2(nn.Module):
                                 ) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """Channels-last image ``[B, H, W, 3]`` → for each block index in
         `taps`, the normed ``(patch_tokens [B, ph · pw, dim], cls [B,
-        dim])`` after that block."""
+        dim])`` after that block, in the patch embedding's type."""
         b, h, w, _ = x.shape
         ph, pw = h // PATCH, w // PATCH
+        dtype = self.patch_embed.proj.weight.dtype
         tokens = self.patch_embed(x) + self.position_embedding(ph, pw)
         cls = (self.cls_token + self.pos_embed[:, :1]).expand(b, -1, -1)
         x = torch.cat([cls, tokens], dim=1)
@@ -141,6 +157,6 @@ class DINOv2(nn.Module):
         for i, block in enumerate(self.blocks):
             x = block(x)
             if i in tapset:
-                n = self.norm(x)
+                n = self.norm(x).to(dtype)
                 outputs.append((n[:, 1:], n[:, 0]))
         return outputs

@@ -42,11 +42,13 @@ SIGNATURES = {
     "sample_gather": {
         # right, samples, out, B, H, W, C, S, max_shift, dtype, stream
         "gather_right_by_samples": [_P] * 3 + [_I] * 7 + [_P],
-        # left, right, samples, out, B, H, W, C, S, G, max_shift, dtype, stream
-        "gwc_volume_from_samples": [_P] * 4 + [_I] * 8 + [_P]},
+        # left, right, samples, out, B, H, W, C, S, G, max_shift, dtype, tw,
+        # threads, ng, stream
+        "gwc_volume_from_samples": [_P] * 4 + [_I] * 11 + [_P]},
     "concat_volume": {
-        # left, right, out, B, H, W, C, D, mask_left, dtype, stream
-        "concat_volume": [_P] * 3 + [_I] * 7 + [_P]},
+        # left, right, out, B, H, W, C, D, mask_left, dtype, vb, sb, tw, dr,
+        # threads, stream
+        "concat_volume": [_P] * 3 + [_I] * 12 + [_P]},
     "conv3d": {
         # x, w, out, B, D, H, W, Ci, dtype, run, stream
         "conv3d_stencil": [_P] * 3 + [_I] * 7 + [_P],

@@ -14,7 +14,9 @@ and runs its plain PyTorch version, named ``*_reference``, on a CPU tensor:
     ``csrc/sample_gather.cu`` (K4, K5).
 
 Each wrapper counts its launches, in all (``.launches``) and by shape
-(``.shapes``).
+(``.shapes``); the K1, K5 and K6 wrappers also by design and plan
+(``.designs``), the plan coming from `gwc_plan`, `sample_gwc_plan` and
+`concat_plan`.
 """
 
 from __future__ import annotations
@@ -227,6 +229,61 @@ def concat_volume_reference(left: torch.Tensor, right: torch.Tensor,
     return torch.cat([left_b, shifted_right_stack(right, max_disp)], dim=-1)
 
 
+CONCAT_THREADS = 256            # the K6 kernel's most threads a block
+CONCAT_MAX_SMEM = 96 * 1024     # bytes of a block's two staged rows, at most
+
+
+class ConcatPlan(NamedTuple):
+    """How the K6 kernel cuts a launch: bytes a store `vb`, bytes a shared
+    word `sb`, W tile `tw`, disparities a run `dr`, threads a block
+    `threads` (see ``csrc/concat_volume.cu``)."""
+    vb: int
+    sb: int
+    tw: int
+    dr: int
+    threads: int
+
+
+def concat_smem(tw: int, dr: int, w: int, c: int, size: int) -> int:
+    """Shared bytes of a K6 block: the left tile (16-byte padded) and the
+    right pixels its run of disparities reaches."""
+    return -(-tw * c * size // 16) * 16 + min(w, tw + dr - 1) * c * size
+
+
+def concat_plan(b: int, h: int, w: int, c: int, d: int, dtype: torch.dtype,
+                sms: int) -> ConcatPlan:
+    """The K6 kernel's plan for a ``[b, d, h, w, 2c]`` volume of `dtype` on
+    a card of `sms` SMs. A block stages one row's left and right pixels (a
+    W tile of 8k pixels where the row passes `CONCAT_MAX_SMEM`) and writes
+    a run of disparities of it. Runs are cut short enough for 2 blocks an
+    SM where D allows, or 1 where a half pixel is a multiple of 16 bytes
+    (the rows are then staged with 16-byte copies, and longer runs amortise
+    them); a run of one plane reads its rows from device memory unstaged.
+    (On the H100 these runs were as fast as 4 blocks an SM at GwcNet_GC's
+    and ACVNet's volumes, and faster at CFNet's three.) Stores are 16 bytes
+    where the row's bytes (and the tile's) are a multiple of 16, else 8 or
+    4, assembled from the widest shared words that divide a half pixel. The
+    block's stores are spread evenly over the fewest rounds of at most
+    `CONCAT_THREADS`."""
+    size = 4 if dtype == torch.float32 else 2
+    tw = w
+    while concat_smem(tw, 1, w, c, size) > CONCAT_MAX_SMEM:
+        if tw <= 8:
+            raise ValueError(f"no K6 plan fits shared memory at C={c}")
+        tw = max(8, tw // 2 // 8 * 8)
+    rows = b * h * -(-w // tw)
+    per_sm = 1 if (c * size) % 16 == 0 else 2
+    dr = max(1, d // min(d, -(-per_sm * sms // rows)))
+    while concat_smem(tw, dr, w, c, size) > CONCAT_MAX_SMEM:
+        dr = -(-dr // 2)
+    vb = next(v for v in (16, 8, 4)
+              if (w * 2 * c * size) % v == 0 and (tw * 2 * c * size) % v == 0)
+    sb = next(v for v in (16, 8, 4, 2) if v <= vb and (c * size) % v == 0)
+    stores = tw * 2 * c * size // vb
+    per_round = -(-stores // -(-stores // CONCAT_THREADS))
+    return ConcatPlan(vb, sb, tw, dr, -(-per_round // 32) * 32)
+
+
 def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
                         max_disp: int, mask_left: bool = True
                         ) -> torch.Tensor:
@@ -237,7 +294,7 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
 
     CPU tensors take `concat_volume_reference`; CUDA tensors launch the
     kernel, with either `mask_left` (float32 or bfloat16, contiguous
-    ``[B, H, W, C]``), or raise.
+    ``[B, H, W, C]``), cut as `concat_plan` says, or raise.
     """
     if left.device.type == "cpu":
         return concat_volume_reference(left, right, max_disp, mask_left)
@@ -250,20 +307,27 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
                       device=left.device)
     if out.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(left.device).multi_processor_count
+    plan = concat_plan(b, h, w, c, max_disp, left.dtype, sms)
     lib = _cuda.library("concat_volume")
     with torch.cuda.device(left.device):
         rc = lib.concat_volume(left.data_ptr(), right.data_ptr(),
                                out.data_ptr(), b, h, w, c, max_disp,
-                               int(mask_left), code, _cuda.stream_of(left))
+                               int(mask_left), code, *plan,
+                               _cuda.stream_of(left))
     _cuda.check(lib, rc, "concat_volume")
     build_concat_volume.launches += 1
     build_concat_volume.shapes[(b, h, w, c, max_disp, bool(mask_left))] += 1
+    build_concat_volume.designs[("rows", *plan[:4])] += 1
     return out
 
 
-# launches of the kernel, in all and by (B, H, W, C, D, mask_left)
+# launches of the kernel, in all, by (B, H, W, C, D, mask_left) and by
+# design ("rows", bytes a store, bytes a shared word, W tile, disparities a
+# run)
 build_concat_volume.launches = 0
 build_concat_volume.shapes = Counter()
+build_concat_volume.designs = Counter()
 
 
 def gather_right_by_samples_reference(right: torch.Tensor,
@@ -345,6 +409,53 @@ def gwc_volume_from_samples_reference(left: torch.Tensor,
         num_groups)
 
 
+SAMPLE_GWC_THREADS = 256   # the K5 kernel's most threads a block
+SAMPLE_GWC_ROW_BYTES = 64  # bytes of one channel's row a K5 block covers
+
+
+class SampleGwcPlan(NamedTuple):
+    """How the K5 kernel cuts a launch: pixels of a row a block `tw`,
+    threads a block `threads`, groups a thread item `ng` (see
+    ``csrc/sample_gather.cu``)."""
+    tw: int
+    threads: int
+    ng: int
+
+
+def sample_gwc_slot(g: int, dtype: torch.dtype) -> int:
+    """Groups a K5 thread item takes: as many as make one 8-byte store (2
+    in float32, 4 in bfloat16) where they divide G, else 2 or 1."""
+    for ng in (2,) if dtype == torch.float32 else (4, 2):
+        if g % ng == 0:
+            return ng
+    return 1
+
+
+def sample_gwc_plan(b: int, h: int, w: int, c: int, s: int, g: int,
+                    dtype: torch.dtype, sms: int) -> SampleGwcPlan:
+    """The K5 kernel's plan for a ``[b, s, h, w, g]`` volume from ``[b, h,
+    w, c]`` features of `dtype` on a card of `sms` SMs. A block is `tw`
+    pixels of one row with every group: 16 in float32, 32 in bfloat16
+    (`SAMPLE_GWC_ROW_BYTES` of a channel's row; on the H100 this was the
+    fastest at both of CFNet's stages, whose grids are then 600-4800
+    short blocks, 4.5-36 an SM), halved while the grid has under 4 blocks an
+    SM, but at least a warp's thread items and at most the row. A thread
+    item is one pixel and `sample_gwc_slot` groups; the block's items are
+    spread evenly over the fewest rounds of at most `SAMPLE_GWC_THREADS`
+    threads. The kernel stages nothing in shared memory, so every shape has
+    a plan."""
+    slots = g // sample_gwc_slot(g, dtype)
+    size = 4 if dtype == torch.float32 else 2
+    tw = SAMPLE_GWC_ROW_BYTES // size
+    while tw > 1 and b * h * -(-w // tw) < 4 * sms:
+        tw //= 2
+    tw = min(max(tw, -(-32 // slots)), w)       # a warp's items at least
+    items = tw * slots
+    per_round = -(-items // -(-items // SAMPLE_GWC_THREADS))
+    return SampleGwcPlan(tw, -(-per_round // 32) * 32,
+                         sample_gwc_slot(g, dtype))
+
+
 def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
                             samples: torch.Tensor, num_groups: int,
                             max_shift: int | None = None) -> torch.Tensor:
@@ -354,8 +465,8 @@ def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
 
     CPU tensors take `gwc_volume_from_samples_reference`; CUDA tensors launch
     the kernel, which never writes the gathered ``[B, S, H, W, C]`` tensor
-    (features float32 or bfloat16, samples float32, `max_shift` given), or
-    raise.
+    (features float32 or bfloat16, samples float32, `max_shift` given), cut
+    as `sample_gwc_plan` says, or raise.
     """
     if left.device.type == "cpu":
         return gwc_volume_from_samples_reference(left, right, samples,
@@ -371,22 +482,27 @@ def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
                       device=left.device)
     if out.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(left.device).multi_processor_count
+    plan = sample_gwc_plan(b, h, w, c, s, num_groups, left.dtype, sms)
     lib = _cuda.library("sample_gather")
     with torch.cuda.device(left.device):
         rc = lib.gwc_volume_from_samples(
             left.data_ptr(), right.data_ptr(), samples.data_ptr(),
             out.data_ptr(), b, h, w, c, s, num_groups, max_shift, code,
-            _cuda.stream_of(left))
+            *plan, _cuda.stream_of(left))
     _cuda.check(lib, rc, "gwc_volume_from_samples")
     gwc_volume_from_samples.launches += 1
     gwc_volume_from_samples.shapes[(b, h, w, c, s, num_groups,
                                     max_shift)] += 1
+    gwc_volume_from_samples.designs[("direct", *plan)] += 1
     return out
 
 
-# launches of the kernel, in all and by (B, H, W, C, S, G, max_shift)
+# launches of the kernel, in all, by (B, H, W, C, S, G, max_shift) and by
+# design ("direct", pixels a block, threads a block, groups a thread item)
 gwc_volume_from_samples.launches = 0
 gwc_volume_from_samples.shapes = Counter()
+gwc_volume_from_samples.designs = Counter()
 
 
 def disparity_regression(prob: torch.Tensor, max_disp: int | None = None,

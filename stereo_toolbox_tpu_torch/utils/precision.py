@@ -10,10 +10,16 @@ hand-written kernels never use TF32.
 
 bfloat16 is the other half of the contract: ``create_model(...,
 dtype=torch.bfloat16)`` casts the conv, linear and attention parameters and
-keeps every BatchNorm's weight, bias and running statistics in float32, as
-the JAX package's ``param_dtype`` does, so that the folded BatchNorm is the
-float32 model's. (LayerNorm stays in the model's type: on the card
-``F.layer_norm`` takes no float32 weight with a bfloat16 input.)
+keeps in float32 what the JAX package keeps and computes with in float32
+(``models.keeps_float32``): every BatchNorm's weight, bias and running
+statistics, so that the folded BatchNorm is the float32 model's; every
+LayerNorm's weight and bias, which normalise a float32 input and round once
+to bfloat16 (flax's ``LayerNorm(dtype=bfloat16)``; the card's
+``F.layer_norm`` takes float32 weights with a float32 input, not with a
+bfloat16 one); DINOv2's ``cls_token``, ``pos_embed`` and LayerScale
+``gamma``, so that its token stream and residual adds are float32 as JAX's
+type promotion makes them; and CFNet's ``gamma_s*`` / ``beta_s*``, which
+set its search ranges in float32.
 """
 
 from __future__ import annotations

@@ -23,7 +23,8 @@ from stereo_toolbox_tpu_torch.ops import (
 from stereo_toolbox_tpu_torch.ops.conv3d import stencil_run
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (MMA_TILES, mma_tile,
                                                        pack_conv3d_weight)
-from stereo_toolbox_tpu_torch.ops.volume import gwc_plan
+from stereo_toolbox_tpu_torch.ops.volume import (concat_plan, gwc_plan,
+                                                 sample_gwc_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -219,6 +220,65 @@ def test_gwc_from_samples_kernel_matches_plain(dev, b, h, w, c, s, g,
     want = gwc_volume_from_samples_reference(left.float(), right.float(),
                                              samples, g, max_shift)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+# (b, h, w, c, s, g, max_shift): CFNet's s3 widths at 4 rows (a tile
+# boundary inside the row), W not a multiple of the tile, S = 1 with odd G
+# (one group a thread), C/G = 5 (no compile-time count), one-pixel blocks
+DIRECT_SAMPLE_CASES = [(1, 4, 160, 160, 16, 40, 48), (2, 3, 45, 12, 7, 4, 20),
+                       (1, 3, 70, 15, 1, 3, 9), (2, 2, 19, 10, 4, 2, 25),
+                       (1, 2, 40, 320, 3, 40, 200)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,g,max_shift", DIRECT_SAMPLE_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gwc_from_samples_direct_design_matches_plain(dev, b, h, w, c, s, g,
+                                                      max_shift, dtype, rel):
+    """K5 runs its "direct" design with the plan `sample_gwc_plan` makes;
+    within rel · max|ref|."""
+    left, right, samples = _sample_inputs(dev, dtype, b, h, w, c, s,
+                                          max_shift, 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    design = ("direct", *sample_gwc_plan(b, h, w, c, s, g, dtype, sms))
+    before = gwc_volume_from_samples.designs[design]
+    got = _counted(gwc_volume_from_samples, (b, h, w, c, s, g, max_shift),
+                   left, right, samples, g, max_shift)
+    assert gwc_volume_from_samples.designs[design] == before + 1
+    want = gwc_volume_from_samples_reference(left.float(), right.float(),
+                                             samples, g, max_shift)
+    assert got.dtype == dtype
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item()
+
+
+# (b, h, w, c, d): GwcNet_GC's row (bfloat16: 24-byte halves, two words a
+# store), odd C (8- and 4-byte stores, 2-byte words), W x C odd in bfloat16
+# (a row not a multiple of 16 bytes), a row past the plan's shared memory
+ROWS_CASES = [(1, 3, 160, 12, 48), (1, 2, 9, 5, 4), (1, 3, 11, 3, 7),
+              (1, 2, 20, 700, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d", ROWS_CASES)
+@pytest.mark.parametrize("mask_left", [True, False])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_concat_volume_rows_design_matches_plain(dev, b, h, w, c, d,
+                                                 mask_left, shifted, dtype):
+    """K6 runs its "rows" design with the plan `concat_plan` makes, exactly,
+    also with feature bases one element past 16-byte alignment."""
+    gen = torch.Generator().manual_seed(8)
+    n = b * h * w * c
+    left, right = (torch.randn(n + shifted, generator=gen).to(dev, dtype)[
+        int(shifted):].view(b, h, w, c) for _ in range(2))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    design = ("rows", *concat_plan(b, h, w, c, d, dtype, sms)[:4])
+    before = build_concat_volume.designs[design]
+    got = _counted(build_concat_volume, (b, h, w, c, d, mask_left), left,
+                   right, d, mask_left)
+    assert build_concat_volume.designs[design] == before + 1
+    assert torch.equal(got, concat_volume_reference(left, right, d,
+                                                    mask_left))
 
 
 # (b, h, w, c, d): D > W; odd C (4- and 2-byte copies); CFNet's C=12

@@ -1,14 +1,19 @@
-"""The plans of the K1 (gwc volume) and K3 (Co = 1 conv) kernels, and a walk
-of each kernel's blocks in numpy against the plain versions.
+"""The plans of the K1 (gwc volume), K3 (Co = 1 conv), K5 (gwc volume over
+samples) and K6 (concat volume) kernels, and a walk of each kernel's blocks
+in numpy against the plain versions.
 
 The CUDA kernels run only on the card. What decides their result besides
 the arithmetic is how they cut the work: the wrapper's plan (tiles, slices,
-disparity chunks, rows or runs of planes a block) and each block's walk
-(K1: a thread's strip and its sliding window of right pixels; K3: the tap
-partials of each staged plane and the 27-point stencil over them, with
-rolling output planes). The walks below follow ``csrc/gwc_volume.cu`` and
-``csrc/conv3d.cu`` block by block, index by index, on the plans the
-wrappers compute, and must give the plain versions' output on every voxel.
+disparity chunks or runs, rows or runs of planes a block, store width) and
+each block's walk (K1: a thread's strip and its sliding window of right
+pixels; K3: the tap partials of each staged plane and the 27-point stencil
+over them, with rolling output planes; K5: a thread's (pixel, slot) items
+over the samples; K6: a thread's vectors over the flat output row, stepped
+without division, over a run of planes). The walks below follow
+``csrc/gwc_volume.cu``, ``csrc/conv3d.cu``, ``csrc/sample_gather.cu`` and
+``csrc/concat_volume.cu`` block by block, index by index, on the plans the
+wrappers compute, and must give the plain versions' output on every voxel,
+written once.
 """
 
 import math
@@ -21,9 +26,11 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (STENCIL_MAX_SMEM,
                                                  STENCIL_TILE,
                                                  conv3d_reference,
                                                  stencil_run, stencil_smem)
-from stereo_toolbox_tpu_torch.ops.volume import (GWC_MAX_SMEM, gwc_plan,
-                                                 gwc_strip,
-                                                 gwc_volume_reference)
+from stereo_toolbox_tpu_torch.ops.volume import (
+    CONCAT_MAX_SMEM, CONCAT_THREADS, GWC_MAX_SMEM, SAMPLE_GWC_THREADS,
+    concat_plan, concat_smem, concat_volume_reference, gwc_plan, gwc_strip,
+    gwc_volume_from_samples_reference, gwc_volume_reference,
+    sample_gwc_plan, sample_gwc_slot)
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -217,3 +224,213 @@ def test_stencil_plan_at_the_forwards_shapes(shape, dtype):
     th, tw = STENCIL_TILE
     assert 1 <= run <= d
     assert b * -(-h // th) * -(-w // tw) * -(-d // run) >= 0.75 * 132
+
+
+def walk_sample_gwc(left, right, samples, g_num, max_shift, plan):
+    """K5's blocks (`tw` pixels of one row each) and thread items (pixel,
+    slot of `ng` groups) over the samples, in numpy (float64). Returns the
+    output (NaN where not written) and the count of writes of each
+    output."""
+    b_num, h_num, w_num, c = left.shape
+    s_num = samples.shape[1]
+    tw, threads, ng = plan
+    cpg, slots = c // g_num, g_num // ng
+    tiles = -(-w_num // tw)
+    out = np.full((b_num, s_num, h_num, w_num, g_num), np.nan)
+    writes = np.zeros(out.shape, np.int64)
+    for b in range(b_num):
+        for bx in range(tiles * h_num):
+            w0, h = (bx % tiles) * tw, bx // tiles
+            nw = min(tw, w_num - w0)
+            items = nw * slots
+            for t in range(threads):
+                for item in range(t, items, threads):
+                    p = item // slots
+                    slot = item - p * slots
+                    c0, w = slot * ng * cpg, w0 + p
+                    lf = left[b, h, w, c0:c0 + ng * cpg] * (1.0 / cpg)
+                    for s in range(s_num):
+                        v = samples[b, s, h, w]
+                        d = 0 if np.isnan(v) else int(min(max(v, 0),
+                                                          max_shift))
+                        a = np.zeros(ng)
+                        if w >= d:
+                            rv = right[b, h, w - d, c0:c0 + ng * cpg]
+                            a = (lf * rv).reshape(ng, cpg).sum(1)
+                        gs = slice(slot * ng, slot * ng + ng)
+                        out[b, s, h, w, gs] = a
+                        writes[b, s, h, w, gs] += 1
+    return out, writes
+
+
+# (b, h, w, c, s, g, max_shift): CFNet's s3 and s2 widths at a few rows;
+# W not a multiple of the tile, C/G = 3 (odd G), 8 and 5 (no compile-time
+# C/G), S = 1, B = 2
+SAMPLE_GWC_CASES = [(1, 2, 160, 160, 16, 40, 48), (1, 2, 320, 80, 12, 20, 96),
+                    (2, 3, 45, 12, 7, 4, 20), (1, 2, 40, 96, 3, 12, 30),
+                    (1, 2, 37, 15, 1, 3, 9), (2, 2, 19, 10, 4, 2, 25)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,g,ms", SAMPLE_GWC_CASES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_sample_gwc_kernel_walk_matches_plain(b, h, w, c, s, g, ms, dtype):
+    """Every output written once, equal to the plain version, for the plan
+    the wrapper makes on an H100 for the full shape (120 or 240 rows at
+    CFNet's widths), walked on inputs of two or three rows, with samples in
+    [-3, max_shift + 4] and a NaN."""
+    rng = np.random.RandomState(2)
+    left, right = (rng.randn(b, h, w, c) for _ in range(2))
+    samples = rng.randint(-3, ms + 5, (b, s, h, w)).astype(np.float64)
+    samples[0, 0, 0, -1] = np.nan
+    full_h = {160: 120, 320: 240}.get(w, h)
+    plan = sample_gwc_plan(b, full_h, w, c, s, g, dtype, 132)
+    assert plan.ng == sample_gwc_slot(g, dtype) and g % plan.ng == 0
+    got, writes = walk_sample_gwc(left, right, samples, g, ms, plan)
+    want = gwc_volume_from_samples_reference(
+        torch.from_numpy(left), torch.from_numpy(right),
+        torch.from_numpy(np.nan_to_num(samples, nan=0.0)), g, ms).numpy()
+    assert (writes == 1).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(1, 120, 160, 160, 16, 40, 48),
+                                   (1, 240, 320, 80, 12, 20, 96)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_sample_gwc_plan_at_cfnets_shapes(shape, dtype):
+    """CFNet's two K5 launches: 16-pixel (float32) or 32-pixel (bfloat16)
+    blocks, at least 4 blocks an SM on 132 SMs, whole warps within the
+    kernel's threads, and no shared memory, so the plan always fits."""
+    b, h, w, c, s, g, _ = shape
+    tw, threads, ng = sample_gwc_plan(b, h, w, c, s, g, dtype, 132)
+    assert tw == (16 if dtype == F32 else 32)
+    assert b * h * -(-w // tw) >= 4 * 132
+    assert threads % 32 == 0 and 32 <= threads <= SAMPLE_GWC_THREADS
+    # one 8-byte store a thread item: 2 groups in float32, 4 in bfloat16
+    assert ng * (4 if dtype == F32 else 2) == 8
+    items = tw * g // ng
+    assert threads >= -(-items // -(-items // SAMPLE_GWC_THREADS))
+
+
+def walk_concat(left, right, d_max, mask_left, plan, size):
+    """K6's blocks (one row's W tile and a run of disparities each) and
+    thread stores over the flat output row, each assembled from shared
+    words, in numpy, with the kernel's division-free stepping of a store's
+    (pixel, channel). `size`: bytes an element (4 or 2). Returns the output
+    and the writes of each element."""
+    b_num, h_num, w_num, c = left.shape
+    vb, sb, tw, dr, threads = plan
+    epv, eps, c2 = vb // size, sb // size, 2 * c
+    assert (c * size) % sb == 0 and vb % sb == 0
+    tiles = -(-w_num // tw)
+    out = np.full((b_num, d_max, h_num, w_num, c2), np.nan)
+    writes = np.zeros(out.shape, np.int64)
+    flat, flat_writes = (a.reshape(b_num, d_max, h_num, w_num * c2)
+                         for a in (out, writes))
+    for b in range(b_num):
+        for by in range(-(-d_max // dr)):
+            dlo = by * dr
+            dhi = min(dlo + dr, d_max)
+            ds = np.arange(dlo, dhi)
+            for bx in range(tiles * h_num):
+                w0, h = (bx % tiles) * tw, bx // tiles
+                nw = min(tw, w_num - w0)
+                x0 = max(w0 - (dhi - 1), 0)
+                nr = max(w0 + nw - dlo - x0, 0)
+                assert (-(-nw * c * size // 16) * 16 + nr * c * size
+                        <= concat_smem(tw, dr, w_num, c, size))
+                sl = left[b, h, w0:w0 + nw].reshape(-1)
+                # the staged right pixels, then NaN (read by no written word)
+                sr = np.concatenate([right[b, h, x0:x0 + nr].reshape(-1),
+                                     np.full(sb // size, np.nan)])
+                nvec = nw * c2 // epv
+                step = threads * epv
+                sq, sm = step // c2, step % c2
+                for t in range(threads):
+                    pw, pk = t * epv // c2, t * epv - (t * epv // c2) * c2
+                    for v in range(t, nvec, threads):
+                        x, k = w0 + pw, pk
+                        for j in range(vb // sb):
+                            e = w0 * c2 + v * epv + j * eps + np.arange(eps)
+                            if k < c:
+                                word = sl[(x - w0) * c + k + np.arange(eps)]
+                                val = np.where(
+                                    (mask_left & (x < ds))[:, None], 0.0,
+                                    word[None])
+                            else:
+                                ro = (x - x0) * c + k - c
+                                ok = x >= ds
+                                idx = np.where(ok, ro - ds * c, 0)
+                                assert (idx[ok] >= 0).all() and (
+                                    idx[ok] + eps <= nr * c).all()
+                                val = np.where(
+                                    ok[:, None],
+                                    sr[idx[:, None] + np.arange(eps)], 0.0)
+                            flat[b, dlo:dhi, h][:, e] = val
+                            flat_writes[b, dlo:dhi, h][:, e] += 1
+                            k += eps
+                            if k == c2:
+                                k, x = 0, x + 1
+                        pk, pw = pk + sm, pw + sq
+                        if pk >= c2:
+                            pk, pw = pk - c2, pw + 1
+    return out, writes
+
+
+# (b, h, w, c, d): GwcNet_GC's and ACVNet's rows (two of 120) and CFNet's
+# 1/8 rows; D > W; odd C (8- and 4-byte stores); a row not a multiple of 16
+# bytes; W tiles (a 700-channel float32 row past the shared-memory cap)
+CONCAT_CASES = [(1, 2, 160, 12, 48), (1, 2, 160, 32, 48), (1, 2, 80, 12, 24),
+                (2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 3, 11, 3, 7),
+                (1, 2, 10, 32, 14), (1, 1, 20, 700, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d", CONCAT_CASES)
+@pytest.mark.parametrize("mask_left", [True, False])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_concat_kernel_walk_matches_plain(b, h, w, c, d, mask_left, dtype):
+    """Every element written once, equal to the plain version, for the plan
+    the wrapper makes on an H100 for the full shape (GwcNet_GC's and
+    ACVNet's 120 rows, CFNet's 60), walked on inputs of one to three rows."""
+    rng = np.random.RandomState(3)
+    left, right = (rng.randn(b, h, w, c) for _ in range(2))
+    full_h = {160: 120, 80: 60}.get(w, h)
+    plan = concat_plan(b, full_h, w, c, d, dtype, 132)
+    size = 4 if dtype == F32 else 2
+    got, writes = walk_concat(left, right, d, mask_left, plan, size)
+    want = concat_volume_reference(torch.from_numpy(left),
+                                   torch.from_numpy(right), d,
+                                   mask_left).numpy()
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 120, 160, 12, 48),
+                                   (1, 120, 160, 32, 48),
+                                   (1, 60, 80, 12, 24), (1, 30, 40, 12, 12),
+                                   (1, 15, 20, 12, 6), (1, 64, 640, 320, 48)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_concat_plan_fits_the_kernel(shape, dtype):
+    """Stores of 16 bytes at the forwards' rows (bfloat16 C = 12 from two
+    8-byte words, the rest from one), within shared memory, whole warps
+    within the kernel's threads, and at least 1 block an SM (2 where the
+    rows stage in words under 16 bytes) where D allows: runs of several
+    planes at GwcNet_GC's, ACVNet's and CFNet's 1/8 volumes (and CFNet's
+    1/16 in float32), one plane at CFNet's 1/32."""
+    b, h, w, c, d = shape
+    size = 4 if dtype == F32 else 2
+    vb, sb, tw, dr, threads = concat_plan(b, h, w, c, d, dtype, 132)
+    assert (w * 2 * c * size) % vb == 0 and (tw * 2 * c * size) % vb == 0
+    assert vb % sb == 0 and (c * size) % sb == 0 and sb >= size
+    assert concat_smem(tw, dr, w, c, size) <= CONCAT_MAX_SMEM
+    assert threads % 32 == 0 and 32 <= threads <= CONCAT_THREADS
+    blocks = b * h * -(-w // tw) * -(-d // dr)
+    per_sm = 1 if (c * size) % 16 == 0 else 2
+    if b * h * d >= 2 * per_sm * 132:
+        assert blocks >= per_sm * 132 and dr > 1
+    else:                       # one d a block
+        assert dr == 1
+    if (h, d) == (30, 12):      # CFNet's 1/16
+        assert dr == (2 if dtype == F32 else 1)
+    if c in (12, 32):
+        assert vb == 16 and tw == w
+        assert sb == (8 if (c, dtype) == (12, BF16) else 16)

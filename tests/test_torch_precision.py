@@ -6,8 +6,10 @@
   (`utils.precision.full_float32`).
 - bfloat16: ``create_model(..., dtype=torch.bfloat16)`` is the JAX package's
   ``dtype=jnp.bfloat16``: conv, linear and attention parameters in bfloat16,
-  every BatchNorm's values (`models.NORMS`) in float32, so the folded
-  BatchNorm is the float32 model's bit for bit. GwcNet_G in bfloat16
+  what ``models.keeps_float32`` names in float32 (every BatchNorm's values,
+  so the folded BatchNorm is the float32 model's bit for bit; LayerNorms,
+  DINOv2's token-stream params, CFNet's search-range scales:
+  ``tests/test_torch_bf16_contract.py`` holds those against JAX). GwcNet_G in bfloat16
   is held against JAX ``GwcNet_G(dtype=jnp.bfloat16)`` on the same carried
   variables (the fixture of ``tests/test_torch_gwcnet.py``).
 """
@@ -20,12 +22,14 @@ import torch
 
 import test_torch_gwcnet as gwcnet_fixture
 from stereo_toolbox_tpu.models import GwcNet_G as JaxGwcNet_G
-from stereo_toolbox_tpu_torch.models import NORMS, create_model
+from stereo_toolbox_tpu_torch.models import create_model, keeps_float32
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct
 from stereo_toolbox_tpu_torch.utils.precision import full_float32
 from stereo_toolbox_tpu_torch.utils.weights import from_jax_variables
 
 torch.set_num_threads(2)
+
+BATCHNORMS = (torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)
 
 # small sizes each model takes: (constructor arguments, input H, W)
 SMALL = {
@@ -156,7 +160,7 @@ def _perturb_norms(model, seed):
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, NORMS):
+            if isinstance(m, BATCHNORMS):
                 for t in (m.weight, m.bias):
                     t.copy_(1 + 0.3 * torch.randn(t.shape, generator=gen))
                 m.running_mean.copy_(
@@ -176,27 +180,43 @@ def test_bfloat16_model_keeps_batchnorm_values_in_float32(name):
     bf16 = create_model(name, device="cpu", dtype=torch.bfloat16, **kw)
     bf16.load_state_dict(f32.state_dict())
     norms = [(a, b) for a, b in zip(f32.modules(), bf16.modules())
-             if isinstance(a, NORMS)]
+             if isinstance(a, BATCHNORMS)]
     assert norms
     for a, b in norms:
         for key, t in b.state_dict().items():
             if t.is_floating_point():
                 assert t.dtype == torch.float32, key
                 assert torch.equal(t, a.state_dict()[key]), key
-    rest = [p for m in bf16.modules() if not isinstance(m, NORMS)
-            for p in m.parameters(recurse=False)]
-    assert rest and all(p.dtype == torch.bfloat16 for p in rest)
+    rest = [(key, p) for m in bf16.modules()
+            for key, p in m.named_parameters(recurse=False)
+            if not keeps_float32(m, key)]
+    assert rest and all(p.dtype == torch.bfloat16 for _, p in rest)
+    kept = {key for m in bf16.modules()
+            for key, p in m.named_parameters(recurse=False)
+            if keeps_float32(m, key) and not isinstance(m, BATCHNORMS)}
+    assert kept == ({"gamma_s3", "beta_s3", "gamma_s2", "beta_s2"}
+                    if name == "CFNet" else set())
 
 
-def test_bfloat16_depth_anything_v2_is_all_bfloat16():
-    """DepthAnythingV2 has no BatchNorm; its LayerNorms take the model's
-    type, because the card's ``F.layer_norm`` takes no float32 weight with a
-    bfloat16 input."""
+def test_bfloat16_depth_anything_v2_keeps_its_stream_params_in_float32():
+    """DepthAnythingV2 has no BatchNorm. Its LayerNorms, ``cls_token``,
+    ``pos_embed`` and LayerScale ``gamma`` stay float32, as the JAX
+    package's params (its token stream is float32); every other parameter
+    is bfloat16, and the depth comes out in bfloat16."""
     kw, h, w = SMALL["DepthAnythingV2"]
     model = create_model("DepthAnythingV2", device="cpu",
                          dtype=torch.bfloat16, **kw)
-    assert not any(isinstance(m, NORMS) for m in model.modules())
-    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    assert not any(isinstance(m, BATCHNORMS) for m in model.modules())
+    f32 = {key for key, p in model.named_parameters()
+           if p.dtype == torch.float32}
+    depth = len(model.pretrained.blocks)
+    # per block norm1, norm2 (weight, bias), ls1, ls2; the final norm
+    assert len(f32) == 2 + 6 * depth + 2
+    for key, p in model.named_parameters():
+        want = ("norm" in key or key.endswith(("cls_token", "pos_embed",
+                                               ".gamma")))
+        assert (key in f32) == want, key
+        assert p.dtype in (torch.float32, torch.bfloat16), key
     with torch.no_grad():
         depth = model(*_inputs("DepthAnythingV2", h, w))
     assert depth.dtype == torch.bfloat16
