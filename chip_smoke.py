@@ -16,44 +16,53 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Ci
    5, 16; Co 8 and 33, odd H and W, D < 3): Co = 1 on its "stencil"
    design, Co > 1 on the "direct" one;
-6. hold the sample-gather (K4), sampled gwc-volume (K5, its "direct"
-   design) and concat-volume (K6, masked and not, its "rows" design)
-   kernels likewise, at CFNet's, GwcNet_GC's and ACVNet's launch shapes
-   and ragged cases (K5: W not a multiple of the tile, blocks of a few
-   pixels, S = 1, odd G, a C/G without a compile-time count; K6: bfloat16
-   C = 12 rows of 24-byte halves, odd C, rows not a multiple of 16 bytes,
-   misaligned feature bases, W tiles);
+6. hold the sample-gather (K4) and sampled gwc-volume (K5) kernels, both
+   on their "direct" designs, and the concat-volume kernel (K6, masked and
+   not, its "rows" design) likewise, at CFNet's, GwcNet_GC's and ACVNet's
+   launch shapes and ragged cases (K4: W not a multiple of the tile, C 1,
+   5, 6 (12-byte bfloat16 pixels), 7 and 12, S = 1, a NaN sample, a right
+   map one element past 16-byte alignment; K5: W not a multiple of the
+   tile, blocks of a few pixels, S = 1, odd G, a C/G without a
+   compile-time count; K6: bfloat16 C = 12 rows of 24-byte halves, odd C,
+   rows not a multiple of 16 bytes, misaligned feature bases, W tiles);
 7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
    launch shape, vits' and MonSter's two-view shapes and ragged N (1, 15,
    64, 65, 77, 200, 1025, 2048), bfloat16 on its tensor-core design;
-8. GwcNet_G, 9. GwcNet_GC, 10. CFNet and 11. ACVNet (max_disp 192, seeded
-   random weights, settled and perturbed BatchNorm statistics), one after
-   the other: the card against the port's CPU paths at 256x512 (ACVNet at
-   288x512, where its bottleneck attention pads H, and also in its
-   ``attn_weights_only`` mode; GwcNet_G with both global TF32 flags set
-   True, which the float32 forward must ignore), then in bfloat16 (built
-   with ``create_model(..., dtype=torch.bfloat16)``) at the same size the card
-   forward as the model runs against the card forward with K2 and K7
-   swapped for their plain versions, then the 480x640 forward in float32
-   and bfloat16, with every kernel's launches by shape read around each
-   forward; 12. DepthAnythingV2 (vitl, seeded random weights): the card
-   against the CPU at 266x350 on the depth and the pre-ReLU ``out``, then
-   the 518x518 forward in float32 and bfloat16, launches by shape read
-   likewise. For each model: time the whole forward and each of its stages
-   with CUDA events recorded at the stage boundaries (one timed pass), sum
-   the device time of each kernel family over a ``torch.profiler`` trace of
-   the same forward, and time each kernel, its plain version and the
-   library yardstick (device time of back-to-back calls) at the shapes and
-   launch counts that the full-size forward recorded. Every forward
-   requires its K2 and K7 launches to have run the design of its type:
-   "mma" in bfloat16, "simt" in float32; every K1 launch "stream", every
-   (Co = 1) K3 launch "stencil", every K5 launch "direct" and every K6
-   launch "rows";
-13. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
+8. PSMNet, 9. GwcNet_G, 10. GwcNet_GC, 11. CFNet and 12. ACVNet (max_disp
+   192, seeded random weights, settled and perturbed BatchNorm
+   statistics), one after the other: the card against the port's CPU
+   paths at 256x512 (ACVNet at 288x512, where its bottleneck attention pads
+   H, and also in its ``attn_weights_only`` mode; GwcNet_G with both global
+   TF32 flags set True, which the float32 forward must ignore), then in
+   bfloat16 (built with ``create_model(..., dtype=torch.bfloat16)``) at the
+   same size the card forward as the model runs against the card forward
+   with K2 and K7 swapped for their plain versions (PSMNet and CFNet held
+   by the costs before their soft argmax and first floor, ``classif3.2``
+   and ``classif2.2``), then the 480x640 forward in float32 and bfloat16,
+   with every kernel's launches by shape read around each forward
+   (PSMNet: K2 x12 and K3 x3, no other kernel); PSMNet's phase also times
+   its first 3D layer (`ConcatVolumeConvBNAct`, two 2D convs and strided
+   copies, never building the concat volume) with its device launches
+   against the layer it replaces, K6 (masked, C = 32, D 48) then K2 at Ci
+   64 -> Co 32, in both types, first of all the traces (``torch.profiler``
+   loses the events of short traces after long ones); 13. DepthAnythingV2
+   (vitl, seeded random weights): the card against the CPU at 266x350 on
+   the depth and the pre-ReLU ``out``, then the 518x518 forward in float32
+   and bfloat16, launches by shape read likewise. For each model: time the
+   whole forward and each of its stages with CUDA events recorded at the
+   stage boundaries (one timed pass), sum the device time of each kernel
+   family over a ``torch.profiler`` trace of the same forward, and time
+   each kernel, its plain version and the library yardstick (device time
+   of back-to-back calls) at the shapes and launch counts that the
+   full-size forward recorded. Every forward requires its K2 and K7
+   launches to have run the design of its type: "mma" in bfloat16, "simt"
+   in float32; every K1 launch "stream", every (Co = 1) K3 launch
+   "stencil", every K4 and K5 launch "direct" and every K6 launch "rows";
+14. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
-14. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
+15. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
     line;
-15. print ``{"ok": true, "device": {...}}`` as the last line.
+16. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -199,6 +208,16 @@ ACV_K2_MIX = {
 }
 # DepthAnythingV2-vitl at 518x518: one K7 per block, (B, heads, N, head_dim)
 DAV2_K7_MIX = {(1, 16, 1370, 64): 24}
+# PSMNet: no volume kernel (its first 3D layer never builds the volume)
+PS_K2_MIX = {
+    # dres0.2, dres1.0, classif1..3
+    (1, 48, 120, 160, 32, 32, False, True): 5,
+    (1, 48, 120, 160, 32, 32, True, False): 1,   # dres1.2 (+ cost0)
+    (1, 24, 60, 80, 64, 64, False, True): 1,     # dres2.conv2
+    (1, 24, 60, 80, 64, 64, True, True): 2,      # dres3/4.conv2 (+ postsqu)
+    (1, 12, 30, 40, 64, 64, False, True): 3,     # hourglass conv4 x3
+}
+PS_K3_MIX = {(1, 48, 120, 160, 32, 1): 3}        # classif1..3's last conv
 MIXES = {
     "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX, "K3": K3_MIX},
     "GwcNet_GC": {"K1": K1_MIX, "K2": GC_K2_MIX, "K3": K3_MIX,
@@ -208,6 +227,7 @@ MIXES = {
     "ACVNet": {"K1": K1_MIX, "K2": ACV_K2_MIX, "K3": ACV_K3_MIX,
                "K6": ACV_K6_MIX},
     "DepthAnythingV2": {"K7": DAV2_K7_MIX},
+    "PSMNet": {"K2": PS_K2_MIX, "K3": PS_K3_MIX},
 }
 
 # Stages of each forward, as (stage, first module, last module, label of the
@@ -274,16 +294,30 @@ STAGES = {
         ("DPT output head", "depth_head.scratch.output_conv1",
          "depth_head.scratch.output_conv2", "path_1 upsample"),
     ], "glue"),
+    "PSMNet": ([
+        ("2D trunk (SPP)", "feature_extraction", "feature_extraction",
+         "input cast + view batching"),
+        ("dres0.0 (concat-volume conv)", "dres0.0", "dres0.0", "glue"),
+        ("dres0.2 + dres1", "dres0.2", "dres1.2", "glue"),
+        ("dres2", "dres2", "dres2", "glue"),
+        ("dres3", "dres3", "dres3", "glue (+ cost0)"),
+        ("dres4", "dres4", "dres4", "glue (+ cost0)"),
+        ("classif1", "classif1.0", "classif1.2", "glue (+ cost0)"),
+        ("classif2", "classif2.0", "classif2.2", "glue"),
+        ("classif3", "classif3.0", "classif3.2", "glue (cascade adds)"),
+    ], "cascade add + head (upsample, softmax, regression)"),
 }
 GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
 TRACE_ITERS = 3        # forwards in the torch.profiler trace
 
 # The design each type's K2 and K7 launches must run, and the one design
-# every K1, (Co = 1) K3, K5 and K6 launch of a forward must run in both types
+# every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward must run in both
+# types
 DESIGN = {F32: "simt", BF16: "mma"}
-ONE_DESIGN = {"K1": "stream", "K3": "stencil", "K5": "direct", "K6": "rows"}
-DESIGN_TAGS = ("K1", "K2", "K3", "K5", "K6", "K7")   # wrappers with .designs
+ONE_DESIGN = {"K1": "stream", "K3": "stencil", "K4": "direct", "K5": "direct",
+              "K6": "rows"}
+DESIGN_TAGS = tuple(KERNELS)                  # every wrapper has .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
 PLAIN_SWAP_MEAN_PX = 0.5
@@ -350,15 +384,15 @@ def reset_counts() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
         fn.shapes.clear()
-        if hasattr(fn, "designs"):
-            fn.designs.clear()
+        fn.designs.clear()
 
 
 def designs_of(tag) -> dict:
-    """Launches of K1, K2, K3, K5, K6 or K7 by design since the counts were
-    reset, as ``{"mma 128x64": n}``: the design and its tile (K2, K7: voxels
-    or queries x channels or keys of a block; K1: W tile x groups x
-    disparities of a block; K3 "stencil": output planes a block; K5: pixels
+    """Launches of a kernel by design since the counts were reset, as
+    ``{"mma 128x64": n}``: the design and its tile (K2, K7: voxels or
+    queries x channels or keys of a block; K1: W tile x groups x
+    disparities of a block; K3 "stencil": output planes a block; K4: pixels
+    x threads of a block x bytes a word x samples a thread item; K5: pixels
     x threads of a block x groups a thread item; K6: bytes a store x bytes
     a shared word x W tile x disparities a run)."""
     return {" ".join([k[0], "x".join(map(str, k[1:]))]).strip(): n
@@ -516,26 +550,43 @@ def check_conv3d(gen) -> dict:
 # ---------------------------------------------------------------- phase 6
 def check_samples(gen) -> tuple[dict, dict]:
     """K4 and K5 at CFNet's launch shapes and ragged cases, with samples in
-    [-3, max_shift + 4] so that both clamps and the x < 0 zeros are met. K4:
-    W % 32, odd C, a window past a block's shared memory. K5, on its
-    "direct" design: W not a multiple of the tile (45, 70), C/G = 3 with odd
-    G (one group a bfloat16 thread), C/G = 5 (no compile-time count), S = 1,
-    blocks of 2 (float32) or 4 (bfloat16) pixels (W 40, C 320), B = 2."""
+    [-3, max_shift + 4] so that both clamps and the x < 0 zeros are met. K4,
+    on its "direct" design: W not a multiple of the tile (45, 37, 70, 19,
+    40), C 1, 5 and 7 (2-byte bfloat16 words), 6 (12-byte bfloat16 pixels)
+    and 12, S = 1, a wide row (C 320), B = 2, a NaN sample, and each case
+    also on a right map one element past 16-byte alignment (narrower
+    words). K5, on its "direct" design: W not a multiple of the tile (45,
+    70), C/G = 3 with odd G (one group a bfloat16 thread), C/G = 5 (no
+    compile-time count), S = 1, blocks of 2 (float32) or 4 (bfloat16)
+    pixels (W 40, C 320), B = 2."""
     errs4, errs5 = {}, {}
-    k4_cases = [*CF_K4_MIX, (2, 3, 45, 5, 7, 20), (1, 2, 40, 320, 3, 200)]
+    k4_cases = [*CF_K4_MIX, (2, 3, 45, 5, 7, 20), (1, 2, 40, 320, 3, 200),
+                (1, 2, 37, 1, 3, 9), (1, 3, 70, 6, 1, 30),
+                (2, 2, 19, 12, 4, 25), (1, 2, 40, 7, 5, 50)]
     k5_cases = [*CF_K5_MIX, (2, 3, 45, 12, 7, 4, 20),
                 (1, 2, 40, 320, 3, 40, 200), (1, 3, 70, 15, 1, 3, 9),
                 (1, 4, 70, 160, 16, 40, 48), (2, 2, 19, 10, 4, 2, 25)]
     for dtype in (F32, BF16):
         errs4[dtype] = errs5[dtype] = 0.0
         for b, h, w, c, s, ms in k4_cases:
-            right = randn((b, h, w, c), dtype, gen)
-            smp = samples_for(b, s, h, w, -3, ms + 4, gen)
-            err = held("K4", dtype, gather_right_by_samples(right, smp, ms),
-                       gather_right_by_samples_reference(right, smp, ms),
-                       f"{(b, h, w, c)} S={s} max_shift={ms}")
-            if (b, h, w, c, s, ms) in CF_K4_MIX:
-                errs4[dtype] = max(errs4[dtype], err)
+            for shifted in (False, True):
+                n = b * h * w * c
+                right = randn((n + shifted,), dtype, gen)[
+                    int(shifted):].view(b, h, w, c)
+                smp = samples_for(b, s, h, w, -3, ms + 4, gen)
+                smp[0, 0, 0, -1] = float("nan")
+                reset_counts()
+                got = gather_right_by_samples(right, smp, ms)
+                design = require_design("K4", ONE_DESIGN["K4"],
+                                        DTYPE_NAME[dtype])
+                err = held("K4", dtype, got,
+                           gather_right_by_samples_reference(
+                               right, smp.nan_to_num(0.0), ms),
+                           f"{(b, h, w, c)} S={s} max_shift={ms}"
+                           f"{' misaligned base' if shifted else ''} "
+                           f"[{design}]")
+                if (b, h, w, c, s, ms) in CF_K4_MIX and not shifted:
+                    errs4[dtype] = max(errs4[dtype], err)
         for b, h, w, c, s, g, ms in k5_cases:
             left = randn((b, h, w, c), dtype, gen)
             right = randn((b, h, w, c), dtype, gen)
@@ -625,7 +676,7 @@ def check_attention(gen) -> dict:
     return errs
 
 
-# ------------------------------------------------------------ phases 8-12
+# ------------------------------------------------------------ phases 8-13
 def texture(b, h, w, gen):
     """Smooth random texture in [0, 1.1), ``[B, 3, H, W]``."""
     base = torch.rand(b, 3, h // 8, w // 8, generator=gen)
@@ -746,12 +797,18 @@ def bf16_vs_plain(name, model, size, hook=None) -> dict:
     kernel runs and each bf16 forward's mean |d| from `model`'s float32
     forward beside it.
 
-    With `hook` (CFNet's ``classif2.2``, the costs before its first floor)
-    the mean |d| of the output is printed, not required: CFNet floors its
-    search bounds into integer samples, and in bfloat16 two correct
-    roundings move enough samples to put the output's mean |d| near 1 px
-    (0.91 px, and 1.18 px between its bf16 and f32 forwards); there the
-    costs are required within K2's bf16 tolerance · max|ref| instead."""
+    With `hook` the mean |d| of the output is printed, not required, and
+    the hooked costs are required within K2's bf16 tolerance · max|ref|
+    instead: CFNet's ``classif2.2``, the costs before its first floor (it
+    floors its search bounds into integer samples, and in bfloat16 two
+    correct roundings move enough samples to put the output's mean |d|
+    near 1 px: 0.91 px, and 1.18 px between its bf16 and f32 forwards);
+    PSMNet's ``classif3.2``, its last costs before the soft argmax (its
+    random-weight costs reach |cost| ~35, where a bf16 ulp is 0.25, and the
+    soft argmax over 192 planes turns one-ulp differences at near-ties into
+    jumps of many px: two correct roundings of K2 put the output 0.65 px
+    apart on the card and 0.95 px apart on the CPU, where no CUDA kernel
+    runs, and each bf16 forward ~1.7 px from the f32 one)."""
     m = create_model(name, max_disp=MAX_DISP, dtype=BF16)
     m.load_state_dict(model.state_dict())
     left, right = (t.to(DEV, BF16) for t in stereo_pair(1, *size, seed=1))
@@ -955,6 +1012,79 @@ def check_cfnet():
     return runs, check
 
 
+# PSMNet's first 3D layer at 480x640: [1, 120, 160, 32] features of each
+# view to a [1, 48, 120, 160, 32] cost
+PS_FEATURE = (1, H // 4, W // 4, 32)
+
+
+def launches_of(fn) -> int:
+    """Device kernels one call of `fn` launches (a ``torch.profiler``
+    trace)."""
+    return round(sum(n for _, n in trace(fn, 1)[0].values()))
+
+
+def time_concat_layer(model, dtype, gen) -> dict:
+    """PSMNet's ``dres0.0`` (`ConcatVolumeConvBNAct`: two 2D convs on cuDNN,
+    then strided copies and adds) on random features of PS_FEATURE,
+    against what it replaces: the masked concat volume (K6, C = 32, D 48)
+    then K2 at Ci 64 -> Co 32 with the same folded BatchNorm and ReLU.
+    Device ms of each call and of K6 and K2 apart, device launches a call,
+    and max|layer - (K6 + K2)| required within K2's tolerance."""
+    layer = model.dres0[0]
+    d = model.max_disp // 4
+    left, right = (randn(PS_FEATURE, dtype, gen) for _ in range(2))
+    kp = pack_conv3d_weight(layer[0].weight.permute(2, 3, 4, 1, 0).to(dtype))
+    scale, bias = layer.folded_affine()
+
+    def replaced():
+        return conv3d_fused(build_concat_volume(left, right, d), kp, scale,
+                            bias, None, True)
+    with torch.no_grad():
+        got, want = layer(left, right), replaced()
+        vol = build_concat_volume(left, right, d)
+        row = {
+            "ms": device_ms(lambda: layer(left, right), 20),
+            "launches": launches_of(lambda: layer(left, right)),
+            "replaced_ms": device_ms(replaced, 10),
+            "replaced_launches": launches_of(replaced),
+            "k6_ms": device_ms(lambda: build_concat_volume(left, right, d),
+                               20),
+            "k2_ms": device_ms(lambda: conv3d_fused(vol, kp, scale, bias,
+                                                    None, True), 10)}
+    err = (got.float() - want.float()).abs().max().item()
+    tol = REL_TOL["K2"][dtype] * want.float().abs().max().item()
+    row.update(max_abs_err=err, tolerance=tol)
+    print(f"  PSMNet dres0.0 (ConcatVolumeConvBNAct) {DTYPE_NAME[dtype]} at "
+          f"{PS_FEATURE} x2, D={d}: {row['ms']:.4f} ms, {row['launches']} "
+          f"launches; K6 + K2 at Ci 64: {row['replaced_ms']:.4f} ms (K6 "
+          f"{row['k6_ms']:.4f}, K2 {row['k2_ms']:.4f}), "
+          f"{row['replaced_launches']} launches; max|d| {err:.3e} (tol "
+          f"{tol:.3e})")
+    require(row["launches"] > 0 and row["replaced_launches"] > 0,
+            "torch.profiler saw no launch of the concat layer")
+    require(err <= tol, f"PSMNet {DTYPE_NAME[dtype]} concat layer differs "
+                        f"from K6 + K2")
+    return row
+
+
+def check_psmnet():
+    """PSMNet card vs CPU at 256x512; bf16 against its plain K2 swap, held
+    by its ``classif3.2`` costs (`bf16_vs_plain`); the 480x640 runs; then
+    its first 3D layer against K6 + K2."""
+    model, d, _, _ = card_vs_cpu("PSMNet")
+    require(d.mean().item() < 5e-3 and d.max().item() < 0.1,
+            "PSMNet card output differs from the CPU port")
+    check = {"mean_abs": d.mean().item(), "max_abs": d.max().item(),
+             "bf16_vs_plain": bf16_vs_plain("PSMNet", model,
+                                            (CHECK_H, CHECK_W),
+                                            hook="classif3.2")}
+    runs = full_size_runs("PSMNet", model)
+    gen = torch.Generator().manual_seed(4321)
+    check["concat_layer"] = {DTYPE_NAME[dtype]: time_concat_layer(
+        runs[dtype][0], dtype, gen) for dtype in (F32, BF16)}
+    return runs, check
+
+
 def dav2_gates(got, want, what) -> dict:
     """The JAX package's cross-framework bounds for DepthAnythingV2
     (its ``tests/test_torch_import.py``): mean |d| < 5e-3 · scale and max |d|
@@ -1032,7 +1162,7 @@ def check_dav2():
     return runs, check
 
 
-# ----------------------------------------------------- timing (phases 8-12)
+# ----------------------------------------------------- timing (phases 8-13)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
     forwards) and ms per stage, from CUDA events that hooks record on the
@@ -1092,7 +1222,7 @@ def kernel_family(name: str) -> str:
                       ("conv3d_stencil_kernel", "K3 conv3d"),
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_stream_kernel", "K1 gwc_volume"),
-                      ("::gather_kernel<", "K4 sample gather"),
+                      ("gather_direct_kernel", "K4 sample gather"),
                       ("gwc_direct_kernel", "K5 gwc volume from samples"),
                       ("concat_rows_kernel", "K6 concat volume"),
                       ("vit_attention_kernel", "K7 vit attention")):
@@ -1240,8 +1370,10 @@ def time_gather(mix, dtype, gen):
     for (b, h, w, c, s, mshift), n in mix.items():
         right = randn((b, h, w, c), dtype, gen)
         smp = samples_for(b, s, h, w, 0, mshift, gen)
+        reset_counts()
         t = device_ms(lambda: gather_right_by_samples(right, smp, mshift),
                       20)
+        design = " ".join(designs_of("K4"))
         tp = device_ms(lambda: gather_right_by_samples_reference(right, smp,
                                                                mshift), 5)
         padded = F.pad(right, (0, 0, mshift, 0))[:, None].expand(
@@ -1253,8 +1385,8 @@ def time_gather(mix, dtype, gen):
         nbytes += n * ((b * h * w * c + b * s * h * w * c)
                        * right.element_size() + b * s * h * w * 4)
         shapes.append({"bhwc": [b, h, w, c], "s": s, "max_shift": mshift,
-                       "launches": n, "ms": t, "plain_ms": tp,
-                       "library_ms": tl})
+                       "launches": n, "design": design, "ms": t,
+                       "plain_ms": tp, "library_ms": tl})
     return ms, plain, lib, nbytes, 0, shapes
 
 
@@ -1439,6 +1571,7 @@ def main() -> None:
     forward = {}
     stereo = {"shape": [1, H, W, 3], "max_disp": MAX_DISP}
     for phase, (model_name, check, meta) in enumerate((
+            ("PSMNet", check_psmnet, stereo),
             ("GwcNet_G", check_gwcnet, stereo),
             ("GwcNet_GC", lambda: check_gwcnet("GwcNet_GC"), stereo),
             ("CFNet", check_cfnet, stereo),
@@ -1464,7 +1597,7 @@ def main() -> None:
         del runs, m, inputs   # the next model's peak memory is its own
         torch.cuda.empty_cache()
 
-    print("phase 13: cuDNN float32 probe")
+    print("phase 14: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))

@@ -25,14 +25,21 @@
 // MXU over a 128-lane-padded W, a TPU workaround for gathers. On Hopper the
 // gather is a load.
 //
-// K4 design: one block per (b, h, W-tile of kTileW pixels, channel chunk)
-// stages the right window [kTileW + max_shift, Cc] (pixels w0 - max_shift ..
-// w0 + kTileW - 1, zero off the image) and the tile's [S, kTileW] samples,
-// clamped and truncated to int. Threads walk the (s, w, c) outputs with the
-// channel fastest, so for each sample the block's stores are one contiguous
-// run. Where the window would pass the 227 KB a block may have, the channels
-// are split into chunks over grid.z. (Staging is scalar, one element a
-// thread, with a division per element, and the halo is re-read 2.5-4x.)
+// K4 design ("direct", plan ops/volume.py::gather_plan): a copy, so the
+// kernel moves words and never looks at their type. A block owns `tw`
+// pixels of one row (b, h) and a run of `sc` samples; a thread item is one
+// pixel and one word of its row of channels, as wide as the row's bytes
+// and the bases allow (16, 8, 4 or 2 bytes: CFNet's rows are 48 and 24
+// bytes in float32, 24 and 12 in bfloat16, three words a pixel). An item
+// loops over its samples: each step reads the sample (one float a pixel,
+// shared by the pixel's lanes), then one word of right[b, h, w - d] straight
+// from device memory through L1 (the right map of a CFNet stage, 0.9-1.8
+// MB, sits in L2), and stores it, or zero where w < d. A step costs no
+// division (an item divides once, for its pixel). Items run with the word
+// fastest, so a warp's store at one sample covers whole pixels in one
+// contiguous run. No shared memory: a block's window of right pixels, staged
+// there, would be read 2.5-4 times over its halo at CFNet's shapes, and the
+// copy made no store before the whole window had arrived.
 //
 // K5 design ("direct", plan ops/volume.py::sample_gwc_plan): a block owns
 // `tw` pixels of one row (b, h) and every group (16 pixels in float32, 32 in
@@ -67,124 +74,70 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileW = 32;                  // K4: pixels of W per block
-constexpr size_t kSmemLimit = 232448;       // 227 KB, a block's most on sm_90
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-// K4: byte offsets of a block's shared arrays for a chunk of cc channels:
-// right window [kTileW + max_shift][cc], samples [S][kTileW] int.
-struct Layout {
-  size_t samples, total;
-};
-__host__ __device__ inline Layout layout(int cc, int max_shift, int S, size_t elem) {
-  Layout l;
-  l.samples = align16((size_t)(kTileW + max_shift) * cc * elem);
-  l.total = l.samples + (size_t)S * kTileW * sizeof(int);
-  return l;
-}
 
 // d of a sample: clamped to [0, max_shift] and truncated (NaN -> 0).
 __device__ __forceinline__ int shift_of(float v, int max_shift) {
   return (int)fminf(fmaxf(v, 0.f), (float)max_shift);
 }
 
-// dst[p][c] = src[b, h, x0 + p, c0 + c] for p < n_px, c < cc; 0 off the image.
-// `row` is the pixel index of (b, h, 0).
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, T* dst, size_t row,
-                                           long long x0, int n_px, int W, int C, int c0,
-                                           int cc) {
-  const T zero = from_f<T>(0.f);
-  for (int i = threadIdx.x; i < n_px * cc; i += kThreads) {
-    const int p = i / cc;
-    const long long x = x0 + p;
-    dst[i] = (x >= 0 && x < W) ? src[((long long)row + x) * C + c0 + (i - p * cc)] : zero;
-  }
-}
+// A word of `VB` bytes.
+template <int VB> struct WordOf;
+template <> struct WordOf<16> { using type = uint4; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<4> { using type = unsigned int; };
+template <> struct WordOf<2> { using type = unsigned short; };
 
-// dst[s][w] = d of samples[b, s, h, w0 + w]; 0 past W.
-__device__ __forceinline__ void stage_samples(const float* __restrict__ samples, int* dst,
-                                              int b, int h, int w0, int H, int W, int S,
-                                              int max_shift) {
-  for (int i = threadIdx.x; i < S * kTileW; i += kThreads) {
-    const int s = i / kTileW;
-    const int w = w0 + i - s * kTileW;
-    dst[i] = w < W ? shift_of(samples[(((size_t)b * S + s) * H + h) * W + w], max_shift) : 0;
-  }
-}
-
-template <typename T>
+template <int VB>
 __global__ void __launch_bounds__(kThreads)
-gather_kernel(const T* __restrict__ right, const float* __restrict__ samples,
-              T* __restrict__ out, int H, int W, int C, int S, int max_shift, int cc,
-              int chunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int w0 = blockIdx.x * kTileW;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z / chunks;
-  const int c0 = (blockIdx.z % chunks) * cc;
-  const int n = min(cc, C - c0);  // channels of this chunk
-  const Layout l = layout(cc, max_shift, S, sizeof(T));
-  T* sr = reinterpret_cast<T*>(smem);                  // [kTileW + max_shift][n]
-  int* sd = reinterpret_cast<int*>(smem + l.samples);  // [S][kTileW]
+gather_direct_kernel(const typename WordOf<VB>::type* __restrict__ right,
+                     const float* __restrict__ samples,
+                     typename WordOf<VB>::type* __restrict__ out, int H, int W, int S,
+                     int max_shift, int wpp, int tw, int tiles, int sc) {
+  using V = typename WordOf<VB>::type;
+  const int w0 = (blockIdx.x % tiles) * tw;
+  const int h = blockIdx.x / tiles;
+  const int s0 = blockIdx.y * sc;
+  const int s1 = min(s0 + sc, S);
+  const int b = blockIdx.z;
+  const int items = min(tw, W - w0) * wpp;
+  const size_t plane = (size_t)H * W;                    // pixels of a sample plane
+  const size_t px0 = (size_t)h * W + w0;                 // pixel (h, w0) of a plane
+  const float* smp = samples + (size_t)b * S * plane + px0;
+  const V* rrow = right + ((size_t)b * plane + px0) * wpp;  // word 0 of (b, h, w0)
+  V* o = out + ((size_t)b * S * plane + px0) * wpp;
 
-  const size_t row = ((size_t)b * H + h) * W;
-  stage_rows(right, sr, row, (long long)w0 - max_shift, kTileW + max_shift, W, C, c0, n);
-  stage_samples(samples, sd, b, h, w0, H, W, S, max_shift);
-  __syncthreads();
-
-  const int per_s = kTileW * n;
-  for (int i = threadIdx.x; i < S * per_s; i += kThreads) {
-    const int s = i / per_s;
-    const int r = i - s * per_s;
-    const int w = r / n;
-    const int c = r - w * n;
-    if (w0 + w >= W) continue;
-    // window row of pixel w0 + w - d: (w - d) + max_shift
-    const int j = w + max_shift - sd[s * kTileW + w];
-    out[((((size_t)b * S + s) * H + h) * W + w0 + w) * C + c0 + c] = sr[j * n + c];
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int p = item / wpp;
+    const int w = w0 + p;
+#pragma unroll 4
+    for (int s = s0; s < s1; ++s) {
+      const int d = shift_of(__ldg(smp + s * plane + p), max_shift);
+      V v;
+      if (w >= d) {
+        v = __ldg(rrow + item - d * wpp);
+      } else {
+        v = V{};
+      }
+      o[s * plane * wpp + item] = v;
+    }
   }
 }
 
-// The most channels of a K4 chunk that one block can stage, spread evenly
-// over the fewest chunks; 0 if one channel does not fit.
-inline int chunk_channels(int C, int max_shift, int S, size_t elem, int* chunks) {
-  int fit = C;
-  while (fit > 0 && layout(fit, max_shift, S, elem).total > kSmemLimit) --fit;
-  if (fit == 0) return 0;
-  *chunks = (C + fit - 1) / fit;
-  const int per = (C + *chunks - 1) / *chunks;
-  *chunks = (C + per - 1) / per;  // every chunk holds at least one channel
-  return per;
-}
-
-template <typename T>
+template <int VB>
 int launch_gather(const void* right, const void* samples, void* out, int B, int H, int W,
-                  int C, int S, int max_shift, cudaStream_t stream) {
-  int chunks = 1;
-  const int cc = chunk_channels(C, max_shift, S, sizeof(T), &chunks);
-  if (cc == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(cc, max_shift, S, sizeof(T)).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + kTileW - 1) / kTileW, H, B * chunks);
-  gather_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(right), static_cast<const float*>(samples),
-      static_cast<T*>(out), H, W, C, S, max_shift, cc, chunks);
+                  int S, int max_shift, int row_bytes, int tw, int threads, int sc,
+                  cudaStream_t stream) {
+  using V = typename WordOf<VB>::type;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(right) | reinterpret_cast<uintptr_t>(out);
+  if (row_bytes % VB || a % VB) return (int)cudaErrorInvalidValue;
+  const int tiles = (W + tw - 1) / tw;
+  const dim3 grid(tiles * H, (S + sc - 1) / sc, B);
+  gather_direct_kernel<VB><<<grid, threads, 0, stream>>>(
+      static_cast<const V*>(right), static_cast<const float*>(samples), static_cast<V*>(out),
+      H, W, S, max_shift, row_bytes / VB, tw, tiles, sc);
   return (int)cudaGetLastError();
 }
 
@@ -371,14 +324,25 @@ int gwc_by_cpg(const void* left, const void* right, const void* samples, void* o
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (right and out); samples are float32.
+// The plan (pixels a block tw, threads a block, bytes a word vb: 16, 8, 4
+// or 2, dividing the row's bytes C * size and both bases; samples a thread
+// item sc) comes from ops/volume.py::gather_plan.
 int gather_right_by_samples(const void* right, const void* samples, void* out, int B,
-                            int H, int W, int C, int S, int max_shift, int dtype,
-                            void* stream) {
+                            int H, int W, int C, int S, int max_shift, int dtype, int tw,
+                            int threads, int vb, int sc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_gather<float>(right, samples, out, B, H, W, C, S, max_shift, s);
-  if (dtype == 1)
-    return launch_gather<__nv_bfloat16>(right, samples, out, B, H, W, C, S, max_shift, s);
+  if (B < 1 || H < 1 || W < 1 || C < 1 || S < 1 || tw < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 || max_shift < 0 || sc < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int row_bytes = C * (dtype == 0 ? 4 : 2);
+#define GATHER_ARGS right, samples, out, B, H, W, S, max_shift, row_bytes, tw, threads, sc, s
+  switch (vb) {
+    case 16: return launch_gather<16>(GATHER_ARGS);
+    case 8: return launch_gather<8>(GATHER_ARGS);
+    case 4: return launch_gather<4>(GATHER_ARGS);
+    case 2: return launch_gather<2>(GATHER_ARGS);
+  }
+#undef GATHER_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

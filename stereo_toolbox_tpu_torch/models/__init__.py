@@ -20,6 +20,7 @@ from stereo_toolbox_tpu_torch.models.cfnet import CFNet
 from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 from stereo_toolbox_tpu_torch.models.gwcnet import (GwcNet, GwcNet_G,
                                                     GwcNet_GC)
+from stereo_toolbox_tpu_torch.models.psmnet import PSMNet
 from stereo_toolbox_tpu_torch.nn.vit import DINOv2, LayerScale
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
@@ -28,6 +29,7 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "DepthAnythingV2": DepthAnythingV2,
     "GwcNet_G": GwcNet_G,
     "GwcNet_GC": GwcNet_GC,
+    "PSMNet": PSMNet,
 }
 
 # What a bfloat16 model keeps in float32: what the JAX package keeps as a
@@ -90,4 +92,4 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype
 
 __all__ = ["ACVNet", "CFNet", "DepthAnythingV2", "F32_MODULES",
            "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "MODEL_REGISTRY",
-           "cast_model", "create_model", "keeps_float32"]
+           "PSMNet", "cast_model", "create_model", "keeps_float32"]

@@ -62,12 +62,15 @@ class GwcFeature(nn.Module):
                  for _ in range(1, blocks)]
         return nn.Sequential(*mods)
 
-    def forward(self, x: torch.Tensor) -> dict:
-        x = self.layer1(self.firstconv(x))
-        l2 = self.layer2(x)
+    def trunk(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """``layer2``, ``layer3`` and ``layer4``'s outputs (64, 128 and 128
+        channels at 1/4 resolution)."""
+        l2 = self.layer2(self.layer1(self.firstconv(x)))
         l3 = self.layer3(l2)
-        l4 = self.layer4(l3)
-        gwc = torch.cat([l2, l3, l4], dim=-1)
+        return l2, l3, self.layer4(l3)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        gwc = torch.cat(self.trunk(x), dim=-1)
         if self.lastconv is None:
             return {"gwc_feature": gwc}
         cf = self.lastconv[1](channels_first(self.lastconv[0](gwc)))

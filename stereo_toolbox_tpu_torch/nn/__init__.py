@@ -1,12 +1,14 @@
 """Layers of the PyTorch port (counterpart of ``stereo_toolbox_tpu.nn``)."""
 
 from stereo_toolbox_tpu_torch.nn.dpt import DPTHead
-from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock, Conv3dSame,
-                                                ConvBNAct, ConvTransposeBN,
+from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock,
+                                                ConcatVolumeConvBNAct,
+                                                Conv3dSame, ConvBNAct,
+                                                ConvTransposeBN,
                                                 HourglassRedir, avg_pool,
                                                 dual_view_apply, init_weights)
 from stereo_toolbox_tpu_torch.nn.vit import DINOv2
 
-__all__ = ["BasicResBlock", "Conv3dSame", "ConvBNAct", "ConvTransposeBN",
-           "DINOv2", "DPTHead", "HourglassRedir", "avg_pool",
+__all__ = ["BasicResBlock", "ConcatVolumeConvBNAct", "Conv3dSame",
+           "ConvBNAct", "ConvTransposeBN", "DINOv2", "DPTHead", "HourglassRedir", "avg_pool",
            "dual_view_apply", "init_weights"]

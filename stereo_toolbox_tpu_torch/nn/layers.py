@@ -12,10 +12,12 @@ BatchNorm into a per-channel affine and runs `ops.conv3d_fused` (the CUDA
 kernel on the card): the same condition under which the JAX package takes
 its fused lowering. The kernel's epilogue applies ReLU; Mish runs after it,
 as in the JAX package's fused lowering. The bias-free 3×3×3 classifier convs
-(`Conv3dSame`) run `ops.conv3d` in eval mode. Both keep what they derive
-from their parameters for the kernels (the folded affine, the packed or
-permuted weight) per (device, dtype) between eval forwards
-(`DerivedCache`), so a warm forward refolds and copies nothing.
+(`Conv3dSame`) run `ops.conv3d` in eval mode. PSMNet's first 3D layer
+(`ConcatVolumeConvBNAct`) runs `ops.conv3d_concat_volume` on the features,
+never building the concat volume. All three keep what they derive from
+their parameters (the folded affine, the packed or permuted weight) per
+(device, dtype) between eval forwards (`DerivedCache`), so a warm forward
+refolds and copies nothing.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stereo_toolbox_tpu_torch.ops.conv3d import conv3d
+from stereo_toolbox_tpu_torch.ops.conv3d import (conv3d,
+                                                 conv3d_concat_volume,
+                                                 pack_concat_conv3d_weight)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
                                                        pack_conv3d_weight)
 
@@ -153,6 +157,39 @@ class ConvBNAct(DerivedCache, nn.Sequential):
         if residual is not None:
             y = y + channels_first(residual)
         return channels_last(activate(y, self.act))
+
+
+class ConcatVolumeConvBNAct(ConvBNAct):
+    """ReLU(BatchNorm(3×3×3 conv)) over the masked concat volume of two
+    ``[B, H, W, channels]`` feature maps at depth `max_disp`, computed
+    without building the volume (`ops.conv3d_concat_volume`): PSMNet's
+    first 3D layer. Its parameters are ``ConvBNAct(2 · channels,
+    out_channels, 3, dims=3)``'s, the original's ``convbn_3d``. In eval
+    mode the BatchNorm is folded into the layer's 2D kernels, packed for
+    the depth per (device, dtype) and kept between forwards
+    (`DerivedCache`)."""
+
+    def __init__(self, channels: int, out_channels: int, max_disp: int):
+        super().__init__(2 * channels, out_channels, 3, 1, dims=3)
+        self.max_disp = max_disp
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor
+                ) -> torch.Tensor:
+        conv, bn = self[0], self[1]
+        if self.training:
+            y = conv3d_concat_volume(left, right,
+                                     conv.weight.permute(2, 3, 4, 1, 0),
+                                     self.max_disp)
+            return channels_last(F.relu(bn(channels_first(y))))
+        packed = self.derived(
+            (left.device, left.dtype),
+            (conv.weight, bn.weight, bn.bias, bn.running_mean,
+             bn.running_var),
+            lambda: pack_concat_conv3d_weight(
+                conv.weight.permute(2, 3, 4, 1, 0), self.max_disp,
+                *self.folded_affine(), dtype=left.dtype))
+        return conv3d_concat_volume(left, right, packed, self.max_disp,
+                                    relu=True)
 
 
 class Conv3dSame(DerivedCache, nn.Conv3d):

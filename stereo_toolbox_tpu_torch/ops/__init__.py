@@ -2,7 +2,9 @@
 
 from stereo_toolbox_tpu_torch.ops.attention import (attention,
                                                     attention_reference)
-from stereo_toolbox_tpu_torch.ops.conv3d import conv3d, conv3d_reference
+from stereo_toolbox_tpu_torch.ops.conv3d import (
+    conv3d, conv3d_concat_volume, conv3d_concat_volume_reference,
+    conv3d_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
                                                        conv3d_fused_reference)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate, resize_nearest
@@ -17,7 +19,9 @@ from stereo_toolbox_tpu_torch.ops.volume import (
 __all__ = ["attention", "attention_reference", "build_concat_volume",
            "build_gwc_volume",
            "concat_volume_from_samples", "concat_volume_reference",
-           "conv3d", "conv3d_fused", "conv3d_fused_reference",
+           "conv3d", "conv3d_concat_volume",
+           "conv3d_concat_volume_reference", "conv3d_fused",
+           "conv3d_fused_reference",
            "conv3d_reference", "disparity_regression",
            "disparity_variance", "disparity_variance_confidence",
            "gather_right_by_samples", "gather_right_by_samples_reference",

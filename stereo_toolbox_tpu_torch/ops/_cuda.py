@@ -40,8 +40,9 @@ SIGNATURES = {
         # relu, stream
         "conv3d_fused_simt": [_P] * 6 + [_I] * 9 + [_P]},
     "sample_gather": {
-        # right, samples, out, B, H, W, C, S, max_shift, dtype, stream
-        "gather_right_by_samples": [_P] * 3 + [_I] * 7 + [_P],
+        # right, samples, out, B, H, W, C, S, max_shift, dtype, tw, threads,
+        # vb, sc, stream
+        "gather_right_by_samples": [_P] * 3 + [_I] * 11 + [_P],
         # left, right, samples, out, B, H, W, C, S, G, max_shift, dtype, tw,
         # threads, ng, stream
         "gwc_volume_from_samples": [_P] * 4 + [_I] * 11 + [_P]},

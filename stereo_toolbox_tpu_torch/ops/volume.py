@@ -13,10 +13,9 @@ and runs its plain PyTorch version, named ``*_reference``, on a CPU tensor:
   * `gather_right_by_samples` and `gwc_volume_from_samples` →
     ``csrc/sample_gather.cu`` (K4, K5).
 
-Each wrapper counts its launches, in all (``.launches``) and by shape
-(``.shapes``); the K1, K5 and K6 wrappers also by design and plan
-(``.designs``), the plan coming from `gwc_plan`, `sample_gwc_plan` and
-`concat_plan`.
+Each wrapper counts its launches, in all (``.launches``), by shape
+(``.shapes``) and by design and plan (``.designs``), the plan coming from
+`gwc_plan`, `gather_plan`, `sample_gwc_plan` and `concat_plan`.
 """
 
 from __future__ import annotations
@@ -349,6 +348,49 @@ def gather_right_by_samples_reference(right: torch.Tensor,
     return torch.gather(src, 3, idx) * valid[..., None].to(right.dtype)
 
 
+GATHER_THREADS = 256        # the K4 kernel's most threads a block
+GATHER_TILE_W = 32          # pixels of a row a K4 block
+GATHER_ITEMS_PER_SM = 512   # thread items a K4 launch keeps an SM, at least
+
+
+class GatherPlan(NamedTuple):
+    """How the K4 kernel cuts a launch: pixels of a row a block `tw`,
+    threads a block `threads`, bytes a word `vb`, samples a thread item
+    `sc` (see ``csrc/sample_gather.cu``)."""
+    tw: int
+    threads: int
+    vb: int
+    sc: int
+
+
+def gather_plan(b: int, h: int, w: int, c: int, s: int, dtype: torch.dtype,
+                sms: int, align: int = 16) -> GatherPlan:
+    """The K4 kernel's plan for a ``[b, s, h, w, c]`` gather from ``[b, h,
+    w, c]`` features of `dtype` on a card of `sms` SMs, with both bases
+    aligned to `align` bytes. A thread item is one pixel and one word of
+    its row: the widest of 16, 8, 4 or 2 bytes that divides the row's bytes
+    and `align`. A block is `GATHER_TILE_W` pixels of one row (at least a
+    warp's items, at most the row), its items spread evenly over the fewest
+    rounds of at most `GATHER_THREADS` threads. An item copies its word at
+    `sc` samples: all S, halved while the launch has under
+    `GATHER_ITEMS_PER_SM` items an SM (at CFNet's 1/4 stage: 8 samples an
+    item). On the H100 this was the fastest, or within the noise of it, of
+    blocks of 8-128 pixels and runs of 1-16 samples at both of CFNet's
+    stages in both types. The kernel stages nothing in shared memory, so
+    every shape has a plan."""
+    size = 4 if dtype == torch.float32 else 2
+    vb = next(v for v in (16, 8, 4, 2)
+              if (c * size) % v == 0 and align % v == 0)
+    wpp = c * size // vb
+    tw = min(max(GATHER_TILE_W, -(-32 // wpp)), w)
+    sc = s
+    while sc > 1 and b * h * w * wpp * -(-s // sc) < GATHER_ITEMS_PER_SM * sms:
+        sc = -(-sc // 2)
+    items = tw * wpp
+    per_round = -(-items // -(-items // GATHER_THREADS))
+    return GatherPlan(tw, -(-per_round // 32) * 32, vb, sc)
+
+
 def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
                             max_shift: int | None = None) -> torch.Tensor:
     """Right features at integer disparity samples ``[B, S, H, W]``:
@@ -358,7 +400,7 @@ def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
     Samples are clamped to ``[0, max_shift]`` and truncated to integers.
     CPU tensors take `gather_right_by_samples_reference`; CUDA tensors launch
     the kernel (features float32 or bfloat16, samples float32, `max_shift`
-    given) or raise.
+    given), cut as `gather_plan` says, or raise.
     """
     if right.device.type == "cpu":
         return gather_right_by_samples_reference(right, samples, max_shift)
@@ -370,20 +412,28 @@ def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
     out = torch.empty((b, s, h, w, c), dtype=right.dtype, device=right.device)
     if out.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(right.device).multi_processor_count
+    bits = right.data_ptr() | out.data_ptr() | 16
+    align = bits & -bits           # the bases' alignment, at most 16 bytes
+    plan = gather_plan(b, h, w, c, s, right.dtype, sms, align)
     lib = _cuda.library("sample_gather")
     with torch.cuda.device(right.device):
         rc = lib.gather_right_by_samples(
             right.data_ptr(), samples.data_ptr(), out.data_ptr(), b, h, w, c,
-            s, max_shift, code, _cuda.stream_of(right))
+            s, max_shift, code, *plan, _cuda.stream_of(right))
     _cuda.check(lib, rc, "gather_right_by_samples")
     gather_right_by_samples.launches += 1
     gather_right_by_samples.shapes[(b, h, w, c, s, max_shift)] += 1
+    gather_right_by_samples.designs[("direct", *plan)] += 1
     return out
 
 
-# launches of the kernel, in all and by (B, H, W, C, S, max_shift)
+# launches of the kernel, in all, by (B, H, W, C, S, max_shift) and by
+# design ("direct", pixels a block, threads a block, bytes a word, samples a
+# thread item)
 gather_right_by_samples.launches = 0
 gather_right_by_samples.shapes = Counter()
+gather_right_by_samples.designs = Counter()
 
 
 def concat_volume_from_samples(left: torch.Tensor, right: torch.Tensor,

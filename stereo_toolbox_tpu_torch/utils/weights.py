@@ -154,9 +154,9 @@ def _hourglass(t: JaxToTorch, path: str, key: str) -> None:
     t.convbn(f"{path}/ConvBNAct_5", f"{key}.redir1.0", f"{key}.redir1.1")
 
 
-def _gwc_trunk(t: JaxToTorch) -> None:
-    """GwcNet's feature trunk (also ACVNet's), with GwcNet_GC's ``lastconv``
-    where the variables have it."""
+def _res_trunk(t: JaxToTorch) -> None:
+    """The residual trunk of GwcNet, ACVNet and PSMNet: ``firstconv`` and
+    ``layer1..4``."""
     fe = "feature_extraction"
     for i in range(3):
         t.convbn(f"{fe}/ConvBNAct_{i}", f"{fe}.firstconv.{2 * i}.0",
@@ -172,10 +172,22 @@ def _gwc_trunk(t: JaxToTorch) -> None:
                 t.convbn(f"{f}/ConvBNAct_2", f"{k}.downsample.0",
                          f"{k}.downsample.1")
             n += 1
-    if t.has(f"{fe}/ConvBNAct_3"):
-        t.convbn(f"{fe}/ConvBNAct_3", f"{fe}.lastconv.0.0",
-                 f"{fe}.lastconv.0.1")
-        t.conv(f"{fe}/Conv_0", f"{fe}.lastconv.2")
+
+
+def _lastconv(t: JaxToTorch, convbn: str) -> None:
+    """``lastconv``: the ConvBNAct `convbn` of the JAX feature extractor,
+    then its bias-free 1×1 ``Conv_0``."""
+    fe = "feature_extraction"
+    t.convbn(f"{fe}/{convbn}", f"{fe}.lastconv.0.0", f"{fe}.lastconv.0.1")
+    t.conv(f"{fe}/Conv_0", f"{fe}.lastconv.2")
+
+
+def _gwc_trunk(t: JaxToTorch) -> None:
+    """GwcNet's feature trunk (also ACVNet's), with GwcNet_GC's ``lastconv``
+    where the variables have it."""
+    _res_trunk(t)
+    if t.has("feature_extraction/ConvBNAct_3"):
+        _lastconv(t, "ConvBNAct_3")
 
 
 def _gwcnet(t: JaxToTorch) -> None:
@@ -185,6 +197,30 @@ def _gwcnet(t: JaxToTorch) -> None:
     for i, dres in enumerate(("dres2", "dres3", "dres4")):
         _hourglass(t, f"HourglassRedir_{i}", dres)
     for i in range(4):
+        t.convbn(f"classif{i}_conv", f"classif{i}.0.0", f"classif{i}.0.1")
+        t.conv(f"classif{i}_out", f"classif{i}.2")
+
+
+def _psmnet(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_psmnet``."""
+    _res_trunk(t)
+    for i in range(4):        # branch{i}.0 is the parameter-free pool
+        t.convbn(f"feature_extraction/ConvBNAct_{3 + i}",
+                 f"feature_extraction.branch{i + 1}.1.0",
+                 f"feature_extraction.branch{i + 1}.1.1")
+    _lastconv(t, "ConvBNAct_7")
+    for i, key in enumerate(("dres0.0", "dres0.2", "dres1.0", "dres1.2")):
+        t.convbn(f"ConvBNAct_{i}", f"{key}.0", f"{key}.1")
+    for i, dres in enumerate(("dres2", "dres3", "dres4")):
+        hg = f"Hourglass3D_{i}"
+        for j, key in enumerate(("conv1.0", "conv2", "conv3.0", "conv4.0")):
+            t.convbn(f"{hg}/ConvBNAct_{j}", f"{dres}.{key}.0",
+                     f"{dres}.{key}.1")
+        for j, conv in enumerate(("conv5", "conv6")):
+            t.conv_transpose(f"{hg}/ConvTransposeBN_{j}/ConvTranspose_0",
+                             f"{dres}.{conv}.0")
+            t.bn(f"{hg}/ConvTransposeBN_{j}/BatchNorm_0", f"{dres}.{conv}.1")
+    for i in (1, 2, 3):
         t.convbn(f"classif{i}_conv", f"classif{i}.0.0", f"classif{i}.0.1")
         t.conv(f"classif{i}_out", f"classif{i}.2")
 
@@ -326,7 +362,7 @@ def _depth_anything_v2(t: JaxToTorch) -> None:
 
 CONVERTERS = {"ACVNet": _acvnet, "CFNet": _cfnet,
               "DepthAnythingV2": _depth_anything_v2, "GwcNet_G": _gwcnet,
-              "GwcNet_GC": _gwcnet}
+              "GwcNet_GC": _gwcnet, "PSMNet": _psmnet}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:

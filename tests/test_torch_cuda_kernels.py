@@ -20,11 +20,12 @@ from stereo_toolbox_tpu_torch.ops import (
     gather_right_by_samples, gather_right_by_samples_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference)
-from stereo_toolbox_tpu_torch.ops.conv3d import stencil_run
+from stereo_toolbox_tpu_torch.ops.conv3d import (
+    conv3d_concat_volume, conv3d_concat_volume_reference, stencil_run)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (MMA_TILES, mma_tile,
                                                        pack_conv3d_weight)
-from stereo_toolbox_tpu_torch.ops.volume import (concat_plan, gwc_plan,
-                                                 sample_gwc_plan)
+from stereo_toolbox_tpu_torch.ops.volume import (concat_plan, gather_plan,
+                                                 gwc_plan, sample_gwc_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -184,8 +185,37 @@ def _sample_inputs(dev, dtype, b, h, w, c, s, max_shift, seed):
     return left, right, samples
 
 
-# (b, h, w, c, s, max_shift): ragged W, odd C; CFNet's s3 widths; a window
-# past a block's shared memory, which splits the channels
+# (b, d, h, w, c, co): PSMNet's first 3D layer at a few rows; D > W + 2;
+# D = 1 and 2
+CONCAT_CONV_CASES = [(1, 48, 4, 160, 32, 32), (2, 9, 3, 5, 4, 3),
+                     (1, 1, 4, 6, 3, 2), (1, 2, 5, 7, 8, 1)]
+
+
+@pytest.mark.parametrize("b,d,h,w,c,co", CONCAT_CONV_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_conv3d_concat_volume_matches_plain(dev, b, d, h, w, c, co, dtype,
+                                            rel):
+    """PSMNet's concat-volume conv on the card (cuDNN's 2D convs with TF32
+    off, strided copies and adds) with a folded scale, bias and ReLU,
+    against the volume built and convolved in float32; within rel ·
+    max|ref|."""
+    gen = torch.Generator().manual_seed(7)
+    left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+                   for _ in range(2))
+    k = (0.2 * torch.randn(3, 3, 3, 2 * c, co, generator=gen)).to(dev, dtype)
+    scale = (torch.rand(co, generator=gen) + 0.5).to(dev)
+    bias = torch.randn(co, generator=gen).to(dev)
+    got = conv3d_concat_volume(left, right, k, d, scale, bias, True)
+    want = conv3d_concat_volume_reference(left.float(), right.float(),
+                                          k.float(), d, scale, bias, True)
+    assert got.dtype == dtype and got.shape == (b, d, h, w, co)
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * want.abs().max().item()
+
+
+# (b, h, w, c, s, max_shift): ragged W, odd C; CFNet's s3 widths; a wide
+# row (C 320) and a long shift
 SAMPLE_CASES = [(2, 3, 45, 5, 7, 20), (1, 2, 70, 12, 16, 48),
                 (1, 2, 40, 320, 3, 200)]
 
@@ -200,6 +230,41 @@ def test_sample_gather_kernel_matches_plain(dev, b, h, w, c, s, max_shift,
                    right, samples, max_shift)
     want = gather_right_by_samples_reference(right, samples, max_shift)
     assert torch.equal(got, want)
+
+
+# (b, h, w, c, s, max_shift): CFNet's s3 and s2 widths at 4 rows; W not a
+# multiple of the tile; C = 1, 5, 6 (12-byte bfloat16 pixels), odd C; S = 1
+DIRECT_GATHER_CASES = [(1, 4, 160, 12, 16, 48), (1, 4, 320, 6, 12, 96),
+                       (2, 3, 45, 5, 7, 20), (1, 2, 37, 1, 3, 9),
+                       (1, 3, 70, 6, 1, 30), (1, 2, 40, 7, 5, 50)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,max_shift", DIRECT_GATHER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_sample_gather_direct_design_matches_plain(dev, b, h, w, c, s,
+                                                   max_shift, dtype, shifted):
+    """K4 runs its "direct" design with the plan `gather_plan` makes, also
+    on a right map one element past 16-byte alignment (narrower words);
+    exactly equal to the plain version, with a NaN sample."""
+    _, right, samples = _sample_inputs(dev, dtype, b, h, w, c, s, max_shift,
+                                       6)
+    if shifted:
+        flat = torch.zeros(right.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = right.flatten()
+        right = flat[1:].view(b, h, w, c)
+    samples[0, 0, 0, -1] = float("nan")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bits = right.data_ptr() | 16
+    plan = gather_plan(b, h, w, c, s, dtype, sms, bits & -bits)
+    design = ("direct", *plan)
+    before = gather_right_by_samples.designs[design]
+    got = _counted(gather_right_by_samples, (b, h, w, c, s, max_shift),
+                   right, samples, max_shift)
+    assert gather_right_by_samples.designs[design] == before + 1
+    want = gather_right_by_samples_reference(right, samples.nan_to_num(0.0),
+                                             max_shift)
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 # (b, h, w, c, s, g, max_shift): C/G = 3 (scalar sums); CFNet's s2 and s3

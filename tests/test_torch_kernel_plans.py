@@ -1,15 +1,16 @@
-"""The plans of the K1 (gwc volume), K3 (Co = 1 conv), K5 (gwc volume over
-samples) and K6 (concat volume) kernels, and a walk of each kernel's blocks
-in numpy against the plain versions.
+"""The plans of the K1 (gwc volume), K3 (Co = 1 conv), K4 (sample gather),
+K5 (gwc volume over samples) and K6 (concat volume) kernels, and a walk of
+each kernel's blocks in numpy against the plain versions.
 
 The CUDA kernels run only on the card. What decides their result besides
 the arithmetic is how they cut the work: the wrapper's plan (tiles, slices,
 disparity chunks or runs, rows or runs of planes a block, store width) and
 each block's walk (K1: a thread's strip and its sliding window of right
 pixels; K3: the tap partials of each staged plane and the 27-point stencil
-over them, with rolling output planes; K5: a thread's (pixel, slot) items
-over the samples; K6: a thread's vectors over the flat output row, stepped
-without division, over a run of planes). The walks below follow
+over them, with rolling output planes; K4: a thread's (pixel, word) items
+over its run of samples; K5: a thread's (pixel, slot) items over the
+samples; K6: a thread's vectors over the flat output row, stepped without
+division, over a run of planes). The walks below follow
 ``csrc/gwc_volume.cu``, ``csrc/conv3d.cu``, ``csrc/sample_gather.cu`` and
 ``csrc/concat_volume.cu`` block by block, index by index, on the plans the
 wrappers compute, and must give the plain versions' output on every voxel,
@@ -27,10 +28,11 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (STENCIL_MAX_SMEM,
                                                  conv3d_reference,
                                                  stencil_run, stencil_smem)
 from stereo_toolbox_tpu_torch.ops.volume import (
-    CONCAT_MAX_SMEM, CONCAT_THREADS, GWC_MAX_SMEM, SAMPLE_GWC_THREADS,
-    concat_plan, concat_smem, concat_volume_reference, gwc_plan, gwc_strip,
-    gwc_volume_from_samples_reference, gwc_volume_reference,
-    sample_gwc_plan, sample_gwc_slot)
+    CONCAT_MAX_SMEM, CONCAT_THREADS, GATHER_ITEMS_PER_SM, GATHER_THREADS,
+    GWC_MAX_SMEM, SAMPLE_GWC_THREADS, concat_plan, concat_smem,
+    concat_volume_reference, gather_plan, gather_right_by_samples_reference,
+    gwc_plan, gwc_strip, gwc_volume_from_samples_reference,
+    gwc_volume_reference, sample_gwc_plan, sample_gwc_slot)
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -224,6 +226,108 @@ def test_stencil_plan_at_the_forwards_shapes(shape, dtype):
     th, tw = STENCIL_TILE
     assert 1 <= run <= d
     assert b * -(-h // th) * -(-w // tw) * -(-d // run) >= 0.75 * 132
+
+
+def walk_gather(right, samples, max_shift, plan, size):
+    """K4's blocks (`tw` pixels of one row and a run of `sc` samples each)
+    and thread items (pixel, word of `vb` bytes) over their samples, in
+    numpy. `size`: bytes an element (4 or 2). Returns the output (NaN where
+    not written) and the count of writes of each output."""
+    b_num, h_num, w_num, c = right.shape
+    s_num = samples.shape[1]
+    tw, threads, vb, sc = plan
+    epw = vb // size                    # elements a word
+    assert (c * size) % vb == 0
+    wpp = c // epw
+    tiles = -(-w_num // tw)
+    out = np.full((b_num, s_num, h_num, w_num, c), np.nan)
+    writes = np.zeros(out.shape, np.int64)
+    for b in range(b_num):
+        for by in range(-(-s_num // sc)):
+            s0, s1 = by * sc, min(by * sc + sc, s_num)
+            for bx in range(tiles * h_num):
+                w0, h = (bx % tiles) * tw, bx // tiles
+                items = min(tw, w_num - w0) * wpp
+                for t in range(threads):
+                    for item in range(t, items, threads):
+                        p = item // wpp
+                        w, word = w0 + p, item - p * wpp
+                        cs = slice(word * epw, word * epw + epw)
+                        for s in range(s0, s1):
+                            v = samples[b, s, h, w]
+                            d = 0 if np.isnan(v) else int(min(max(v, 0),
+                                                              max_shift))
+                            out[b, s, h, w, cs] = (right[b, h, w - d, cs]
+                                                   if w >= d else 0)
+                            writes[b, s, h, w, cs] += 1
+    return out, writes
+
+
+# (b, h, w, c, s, max_shift): CFNet's s3 and s2 widths at a few rows; W not
+# a multiple of the tile; C = 1, 5 and odd C (2-byte words in bfloat16), 6
+# (12-byte bfloat16 pixels) and 12; S = 1; B = 2
+GATHER_CASES = [(1, 2, 160, 12, 16, 48), (1, 2, 320, 6, 12, 96),
+                (2, 3, 45, 5, 7, 20), (1, 2, 37, 1, 3, 9),
+                (1, 3, 70, 6, 1, 30), (2, 2, 19, 12, 4, 25),
+                (1, 2, 40, 7, 5, 50)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,ms", GATHER_CASES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gather_kernel_walk_matches_plain(b, h, w, c, s, ms, dtype):
+    """Every output written once and exactly equal to the plain version,
+    for the plan the wrapper makes on an H100 for the full shape (120 or
+    240 rows at CFNet's widths), walked on inputs of two or three rows,
+    with samples in [-3, max_shift + 4] (both clamps and w < d) and a
+    NaN."""
+    rng = np.random.RandomState(3)
+    right = rng.randn(b, h, w, c)
+    samples = rng.randint(-3, ms + 5, (b, s, h, w)).astype(np.float64)
+    samples[0, 0, 0, -1] = np.nan
+    full_h = {160: 120, 320: 240}.get(w, h)
+    size = 4 if dtype == F32 else 2
+    plan = gather_plan(b, full_h, w, c, s, dtype, 132)
+    got, writes = walk_gather(right, samples, ms, plan, size)
+    want = gather_right_by_samples_reference(
+        torch.from_numpy(right),
+        torch.from_numpy(np.nan_to_num(samples, nan=0.0)), ms).numpy()
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("align", [16, 8, 4, 2])
+def test_gather_plan_words_divide_the_row_and_the_bases(align):
+    """A word divides the row's bytes and the bases' alignment: a base one
+    element past 16 bytes takes narrower words, never a split pixel."""
+    for c in (1, 2, 3, 5, 6, 12, 32):
+        for dtype, size in ((F32, 4), (BF16, 2)):
+            if align < size:
+                continue
+            vb = gather_plan(1, 8, 40, c, 4, dtype, 132, align).vb
+            assert (c * size) % vb == 0 and align % vb == 0
+            assert vb == max(v for v in (16, 8, 4, 2)
+                             if (c * size) % v == 0 and align % v == 0)
+
+
+@pytest.mark.parametrize("shape,want_vb", [
+    ((1, 120, 160, 12, 16, 48), {F32: 16, BF16: 8}),
+    ((1, 240, 320, 6, 12, 96), {F32: 8, BF16: 4})])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gather_plan_at_cfnets_shapes(shape, want_vb, dtype):
+    """CFNet's two K4 launches: three words a pixel (16 or 8 bytes in
+    float32, 8 or 4 in bfloat16), 32-pixel blocks of whole warps within
+    the kernel's threads, every sample of a pixel in one item unless the
+    launch would keep an SM under `GATHER_ITEMS_PER_SM` items."""
+    b, h, w, c, s, _ = shape
+    tw, threads, vb, sc = gather_plan(b, h, w, c, s, dtype, 132)
+    assert vb == want_vb[dtype]
+    wpp = c * (4 if dtype == F32 else 2) // vb
+    assert wpp == 3 and tw == 32
+    assert threads % 32 == 0 and 32 <= threads <= GATHER_THREADS
+    assert threads >= tw * wpp
+    items = b * h * w * wpp
+    assert items * -(-s // sc) >= GATHER_ITEMS_PER_SM * 132 or sc == 1
+    assert sc == s or items * -(-s // (2 * sc)) < GATHER_ITEMS_PER_SM * 132
 
 
 def walk_sample_gwc(left, right, samples, g_num, max_shift, plan):

@@ -16,6 +16,7 @@ from stereo_toolbox_tpu_torch.nn import (BasicResBlock, ConvBNAct,
                                          ConvTransposeBN, HourglassRedir,
                                          dual_view_apply, layers)
 from stereo_toolbox_tpu_torch.nn.layers import Conv3dSame, DerivedCache
+from stereo_toolbox_tpu_torch.ops.conv3d import pack_concat_conv3d_weight
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
                                                        pack_conv3d_weight)
 from stereo_toolbox_tpu_torch.utils.weights import _hourglass
@@ -263,12 +264,14 @@ def test_conv3d_same_keeps_its_kernel_until_the_weight_changes():
 
 @pytest.mark.parametrize("name,h,w,max_disp", [
     ("GwcNet_G", 64, 128, 48), ("GwcNet_GC", 64, 128, 48),
-    ("CFNet", 64, 128, 64), ("ACVNet", 80, 144, 48)])
+    ("CFNet", 64, 128, 64), ("ACVNet", 80, 144, 48),
+    ("PSMNet", 64, 128, 48)])
 def test_warm_forward_refolds_and_copies_no_weight(monkeypatch, name, h, w,
                                                    max_disp):
-    """Over two eval forwards, each fused layer folds its BatchNorm and
-    packs its kernel once, and each classifier conv copies its kernel once:
-    the second forward derives nothing."""
+    """Over two eval forwards, each fused layer (and PSMNet's concat-volume
+    layer) folds its BatchNorm and packs its kernel once, and each
+    classifier conv copies its kernel once: the second forward derives
+    nothing."""
     m = create_model(name, max_disp=max_disp, device="cpu")
     calls = {"fold": 0, "pack": 0}
     fold = ConvBNAct.folded_affine
@@ -280,8 +283,13 @@ def test_warm_forward_refolds_and_copies_no_weight(monkeypatch, name, h, w,
     def counted_pack(kernel):
         calls["pack"] += 1
         return pack_conv3d_weight(kernel)
+    def counted_concat_pack(*args, **kwargs):
+        calls["pack"] += 1
+        return pack_concat_conv3d_weight(*args, **kwargs)
     monkeypatch.setattr(ConvBNAct, "folded_affine", counted_fold)
     monkeypatch.setattr(layers, "pack_conv3d_weight", counted_pack)
+    monkeypatch.setattr(layers, "pack_concat_conv3d_weight",
+                        counted_concat_pack)
     rng = np.random.RandomState(12)
     left, right = (torch.from_numpy(rng.randn(1, h, w, 3).astype(np.float32))
                    for _ in range(2))
