@@ -8,7 +8,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 2. build the CUDA kernels from ``stereo_toolbox_tpu_torch/csrc`` (nvcc);
 3. hold the gwc-volume kernel (K1, its "stream" design) against its plain
    PyTorch version at every launch shape of the stereo models' forwards and
-   ragged cases;
+   train steps and ragged cases, and its backward kernel (K1-bwd, its
+   "window" design) against ``torch.autograd`` of the plain forward at
+   GwcNet_G's eval and train launch shapes, CFNet's three and ragged cases
+   (W not a multiple of the tile, D > W, B 1 and 3, C/G 1 and 16), both in
+   float32 and bfloat16;
 4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
    shapes also with both epilogue options on and off, and ragged cases (Ci
    1, 3, 33, 65; Co 8, 33; odd H and W; D 1 and 2); bfloat16 runs the
@@ -58,11 +62,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launches to have run the design of its type: "mma" in bfloat16, "simt"
    in float32; every K1 launch "stream", every (Co = 1) K3 launch
    "stencil", every K4 and K5 launch "direct" and every K6 launch "rows";
-14. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
+14. train PSMNet and GwcNet_G (float32, max_disp 192, seeded random
+    weights): one train step (``trainer.make_train_step``) on the card
+    against the same step on the port's CPU paths at 64x128, B 2, from the
+    same weights and `SyntheticStereoDataset` batch (the loss, every
+    gradient, the updated BatchNorm running statistics); the original's
+    training crop, 256x512, B 4, through the port's `DataLoader`: one warm
+    step and TRAIN_STEPS timed ones, each with its launches by shape
+    required to be TRAIN_MIXES (GwcNet_G: K1 and K1-bwd once a step;
+    PSMNet: no kernel of the port); then 12 steps on one fixed 256x512, B 2
+    batch (lr 1e-3, the multi-head loss, clip 1.0) whose losses must be
+    finite and fall below 0.9 x the first;
+15. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
-15. print one ``{"forward": {...}}`` line and one ``{"kernels": [...]}``
-    line;
-16. print ``{"ok": true, "device": {...}}`` as the last line.
+16. print one ``{"forward": {...}}``, one ``{"train": {...}}`` and one
+    ``{"kernels": [...]}`` line;
+17. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -73,6 +88,7 @@ import sys
 import time
 from collections import Counter, defaultdict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,6 +97,8 @@ if not torch.cuda.is_available():
              "needs an NVIDIA GPU")
 
 from stereo_toolbox_tpu_torch import nn as port_nn  # noqa: E402
+from stereo_toolbox_tpu_torch.datasets import (  # noqa: E402
+    DataLoader, SyntheticStereoDataset)
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
@@ -94,8 +112,12 @@ from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
     build_concat_volume, build_gwc_volume, concat_volume_reference,
     gather_right_by_samples, gather_right_by_samples_reference,
+    gwc_volume_backward, gwc_volume_backward_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference)
+from stereo_toolbox_tpu_torch.train import LOSS_WEIGHTS  # noqa: E402
+from stereo_toolbox_tpu_torch.trainer import (  # noqa: E402
+    TrainConfig, TrainState, init_train_state, make_train_step, to_device)
 
 DEV = torch.device("cuda")
 MAX_DISP = 192
@@ -112,11 +134,17 @@ DTYPE_NAME = {F32: "float32", BF16: "bfloat16"}
 # memory bytes/s, float32 FLOP/s outside the tensor cores, bfloat16 FLOP/s
 PEAK = (3.35e12, 67e12, 989e12)
 
-# The kernels: wrapper, source, the TPU kernel it replaces (pallas_call site)
+# The kernels: wrapper (its counts), source, the TPU kernel it replaces
+# (pallas_call site; for K1's backward, which no TPU kernel has, the XLA
+# path whose gradient JAX takes)
 KERNELS = {
     "K1": (build_gwc_volume, "gwc_volume",
            "stereo_toolbox_tpu_torch/csrc/gwc_volume.cu",
            "stereo_toolbox_tpu/ops/pallas/volume.py:87"),
+    "K1-bwd": (gwc_volume_backward, "gwc_volume_backward",
+               "stereo_toolbox_tpu_torch/csrc/gwc_volume.cu",
+               "stereo_toolbox_tpu/ops/volume.py:168 (no TPU kernel: the "
+               "gradient of the XLA path)"),
     "K2": (conv3d_fused, "conv3d_fused",
            "stereo_toolbox_tpu_torch/csrc/conv3d_fused.cu",
            "stereo_toolbox_tpu/ops/pallas/conv3d_fused.py:159"),
@@ -218,6 +246,30 @@ PS_K2_MIX = {
     (1, 12, 30, 40, 64, 64, False, True): 3,     # hourglass conv4 x3
 }
 PS_K3_MIX = {(1, 48, 120, 160, 32, 1): 3}        # classif1..3's last conv
+# Train steps: GwcNet_G at the original's crop 256x512, B 4 (K1 forward and
+# backward once a step), and at the card-vs-CPU check's 64x128, B 2; PSMNet
+# launches no kernel of the port in a train step (every conv on cuDNN)
+TRAIN_H, TRAIN_W, TRAIN_B = 256, 512, 4
+TRAIN_CHECK_H, TRAIN_CHECK_W, TRAIN_CHECK_B = 64, 128, 2
+OVERFIT_B, OVERFIT_STEPS = 2, 12
+TRAIN_STEPS, TRAIN_WARMUP = 5, 1
+K1_TRAIN = (TRAIN_B, TRAIN_H // 4, TRAIN_W // 4, 320, MAX_DISP // 4, 40)
+K1_TRAIN_CHECK = (TRAIN_CHECK_B, TRAIN_CHECK_H // 4, TRAIN_CHECK_W // 4, 320,
+                  MAX_DISP // 4, 40)
+TRAIN_MIXES = {"GwcNet_G": {"K1": {K1_TRAIN: 1}, "K1-bwd": {K1_TRAIN: 1}},
+               "PSMNet": {}}
+# card vs CPU train step at 64x128: the loss and the running statistics
+# within TRAIN_REL (relative; a mean in units of its channel's spread), the
+# gradients within TRAIN_GRAD_L2 (global relative L2) and TRAIN_GRAD_LEAF
+# (each leaf's max|d| / its max|ref|). The float32 gradient is no better
+# determined at this size, where a ReLU input within rounding of 0 takes
+# the other side of its kink and BatchNorm's batch statistics spread its
+# gradient: on the CPU the port's float32 gradients are 2.5e-3 (PSMNet)
+# and 2.4e-2 (GwcNet_G) from float64, worst leaves 4.5e-2 and 7.9e-2.
+# `chip_train_faults.py` plants faults into the card's step against these
+# limits.
+TRAIN_REL, TRAIN_GRAD_L2, TRAIN_GRAD_LEAF = 1e-4, 3e-2, 0.2
+
 MIXES = {
     "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX, "K3": K3_MIX},
     "GwcNet_GC": {"K1": K1_MIX, "K2": GC_K2_MIX, "K3": K3_MIX,
@@ -315,15 +367,16 @@ TRACE_ITERS = 3        # forwards in the torch.profiler trace
 # every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward must run in both
 # types
 DESIGN = {F32: "simt", BF16: "mma"}
-ONE_DESIGN = {"K1": "stream", "K3": "stencil", "K4": "direct", "K5": "direct",
-              "K6": "rows"}
+ONE_DESIGN = {"K1": "stream", "K1-bwd": "window", "K3": "stencil",
+              "K4": "direct", "K5": "direct", "K6": "rows"}
 DESIGN_TAGS = tuple(KERNELS)                  # every wrapper has .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
 PLAIN_SWAP_MEAN_PX = 0.5
 
 # max|err| limits against the plain version, as a share of max|ref|
-REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K2": {F32: 1e-4, BF16: 2e-2},
+REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K1-bwd": {F32: 1e-5, BF16: 1e-2},
+           "K2": {F32: 1e-4, BF16: 2e-2},
            "K3": {F32: 1e-4, BF16: 2e-2},
            "K4": {F32: 0.0, BF16: 0.0}, "K5": {F32: 1e-5, BF16: 1e-2},
            "K6": {F32: 0.0, BF16: 0.0}, "K7": {F32: 1e-5, BF16: 1e-2}}
@@ -334,12 +387,13 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def trace(fn, iters: int) -> tuple[dict, dict]:
+def trace(fn, iters: int, grad: bool = False) -> tuple[dict, dict]:
     """Device ms and launches per call of each kernel that `fn` launches
     (the forward's kernel families), and host ms and calls per call of each
-    operator, from a ``torch.profiler`` trace of `iters` calls."""
+    operator, from a ``torch.profiler`` trace of `iters` calls (with
+    autograd off unless `grad`)."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -436,7 +490,7 @@ def all_shapes(tag):
 # ---------------------------------------------------------------- phase 3
 def check_gwc(gen) -> dict:
     errs = {}
-    model_cases = all_shapes("K1")
+    model_cases = all_shapes("K1") | {K1_TRAIN, K1_TRAIN_CHECK}
     # W not a multiple of the tile, W < D, C/G = 3, B = 2; odd G (one group
     # a bf16 thread); a row of 6 channels (plain staging, no 16-byte copies)
     cases = [*sorted(model_cases), (2, 5, 37, 48, 48, 16),
@@ -457,6 +511,44 @@ def check_gwc(gen) -> dict:
                        f"{(b, h, w, c)} D={d} G={g} [{design}]")
             if (b, h, w, c, d, g) in model_cases:
                 worst = max(worst, err)
+        errs[dtype] = worst
+    return errs
+
+
+def check_gwc_backward(gen) -> dict:
+    """K1's backward at GwcNet_G's eval and train launch shapes (and the
+    card-vs-CPU train check's), CFNet's three and ragged cases, against
+    ``torch.autograd.grad`` of `gwc_volume_reference` in float32 on the
+    same inputs, with K1's tolerances; every launch on the "window"
+    design."""
+    errs = {}
+    model_cases = sorted(all_shapes("K1") | {K1_TRAIN, K1_TRAIN_CHECK})
+    # W not a multiple of the tile with D > W and B = 1, C/G = 3; B = 3 with
+    # C/G = 1; C/G = 16 with D > W; W 70, B 2 at GwcNet's widths
+    cases = [*model_cases, (1, 3, 37, 48, 48, 16), (3, 2, 21, 24, 9, 24),
+             (1, 2, 9, 32, 13, 2), (2, 3, 70, 320, 48, 40)]
+    for dtype in (F32, BF16):
+        worst = 0.0
+        for b, h, w, c, d, g in cases:
+            left = randn((b, h, w, c), dtype, gen)
+            right = randn((b, h, w, c), dtype, gen)
+            grad = randn((b, d, h, w, g), dtype, gen)
+            reset_counts()
+            dl, dr = gwc_volume_backward(left, right, grad, d, g)
+            design = require_design("K1-bwd", ONE_DESIGN["K1-bwd"],
+                                    DTYPE_NAME[dtype])
+            lf = left.float().requires_grad_()
+            rf = right.float().requires_grad_()
+            want = torch.autograd.grad(gwc_volume_reference(lf, rf, d, g),
+                                       (lf, rf), grad.float())
+            for name, got, ref in (("dl", dl, want[0]), ("dr", dr, want[1])):
+                require(got.dtype == dtype and got.shape == left.shape,
+                        f"K1-bwd {name} {got.dtype} {tuple(got.shape)}")
+                err = held("K1-bwd", dtype, got, ref,
+                           f"{name} {(b, h, w, c)} D={d} G={g} [{design}]")
+                if (b, h, w, c, d, g) in model_cases:
+                    worst = max(worst, err)
+            del want, lf, rf
         errs[dtype] = worst
     return errs
 
@@ -1162,6 +1254,215 @@ def check_dav2():
     return runs, check
 
 
+# --------------------------------------------------------------- phase 14
+def train_config(name, **kw) -> TrainConfig:
+    """The port's entry point's config for `name`: the multi-head loss on
+    the model's heads, max_disp 192."""
+    return TrainConfig(max_disp=MAX_DISP, loss="multihead",
+                       loss_weights=LOSS_WEIGHTS[name], **kw)
+
+
+def synthetic_loader(h, w, b, batches, seed, workers=4) -> DataLoader:
+    """The port's `DataLoader` over `SyntheticStereoDataset` training crops
+    of h x w (the dataset's images 64 px larger each way, disparities up to
+    96), `batches` batches of `b`."""
+    return DataLoader(SyntheticStereoDataset(
+        num_samples=b * batches, height=h + 64, width=w + 64, max_disp=96,
+        training=True, crop_size=(h, w), seed=seed), batch_size=b,
+        shuffle=True, seed=seed, drop_last=True, num_workers=workers)
+
+
+class GradRecorder:
+    """An optimizer stand-in that keeps the gradients a step gives it."""
+    count = 0
+
+    def step(self, grads):
+        self.grads = [g.detach().float().cpu() for g in grads]
+
+
+def bn_buffers(model) -> dict:
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def compare_train_step(name) -> dict:
+    """One train step on the card and on the port's CPU paths at 64x128, B
+    2, from the same weights and batch: the loss, every gradient and the
+    updated running statistics, each as far apart as it reads (the card's
+    step launching K1 and K1-bwd once for GwcNet_G, no kernel for
+    PSMNet)."""
+    model = create_model(name, max_disp=MAX_DISP,
+                         generator=torch.Generator().manual_seed(0))
+    cpu = create_model(name, max_disp=MAX_DISP, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    batch = next(iter(synthetic_loader(TRAIN_CHECK_H, TRAIN_CHECK_W,
+                                       TRAIN_CHECK_B, 1, seed=5, workers=0)))
+    got = {}
+    for m, dev in ((cpu, "cpu"), (model, DEV)):
+        rec = GradRecorder()
+        reset_counts()
+        _, loss = make_train_step(m, train_config(name))(
+            TrainState(m, rec), to_device(batch, dev))
+        got[dev] = (loss.item(), rec.grads, bn_buffers(m))
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = got["cpu"], got[DEV]
+    want = ({K1_TRAIN_CHECK: 1} if name == "GwcNet_G" else {})
+    for tag in ("K1", "K1-bwd"):
+        require(Counter(KERNELS[tag][0].shapes) == Counter(want),
+                f"{name} card train step {tag} launches "
+                f"{dict(KERNELS[tag][0].shapes)}, not {want}")
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    num = sum(((a - b) ** 2).sum().item() for a, b in zip(g_gpu, g_cpu))
+    den = sum((b ** 2).sum().item() for b in g_cpu)
+    grad_l2 = (num / den) ** 0.5
+    leaf = max((a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(g_gpu, g_cpu) if b.abs().max() > 0)
+    stats = 0.0
+    for k, v in s_cpu.items():
+        if k.endswith("running_mean"):
+            var = s_cpu[k.replace("running_mean", "running_var")]
+            stats = max(stats, ((s_gpu[k] - v).abs() / var.sqrt()).max()
+                        .item())
+        else:
+            stats = max(stats, ((s_gpu[k] - v).abs() / v).max().item())
+    print(f"  {name} train step {TRAIN_CHECK_H}x{TRAIN_CHECK_W} B "
+          f"{TRAIN_CHECK_B} f32, card vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f}"
+          f" (rel {loss_rel:.3e}, tol {TRAIN_REL}), gradients' relative L2 "
+          f"{grad_l2:.3e} (tol {TRAIN_GRAD_L2}), worst leaf {leaf:.3e} (tol "
+          f"{TRAIN_GRAD_LEAF}), running statistics {stats:.3e} (tol "
+          f"{TRAIN_REL})")
+    return {"shape": [TRAIN_CHECK_B, TRAIN_CHECK_H, TRAIN_CHECK_W, 3],
+            "loss_cpu": l_cpu, "loss_card": l_gpu, "loss_rel": loss_rel,
+            "grad_rel_l2": grad_l2, "grad_worst_leaf": leaf,
+            "running_stats_rel": stats}
+
+
+def train_step_within_limits(row) -> bool:
+    """Whether a `compare_train_step` reading is within TRAIN_REL,
+    TRAIN_GRAD_L2 and TRAIN_GRAD_LEAF."""
+    return (row["loss_rel"] <= TRAIN_REL
+            and row["running_stats_rel"] <= TRAIN_REL
+            and row["grad_rel_l2"] <= TRAIN_GRAD_L2
+            and row["grad_worst_leaf"] <= TRAIN_GRAD_LEAF)
+
+
+def train_card_vs_cpu(name) -> dict:
+    """`compare_train_step`, required within the limits."""
+    row = compare_train_step(name)
+    require(train_step_within_limits(row),
+            f"{name} card train step differs from the CPU port")
+    return row
+
+
+def train_full_size(name) -> tuple[dict, dict]:
+    """make_train_step at 256x512, B 4, on batches of the port's
+    DataLoader (moved from pinned memory): TRAIN_WARMUP warm steps, then
+    TRAIN_STEPS timed ones (host clock around the step and a synchronize),
+    each step's launches by shape required to be TRAIN_MIXES[name]; the
+    peak memory of the timed steps."""
+    model = create_model(name, max_disp=MAX_DISP,
+                         generator=torch.Generator().manual_seed(0))
+    loader = synthetic_loader(TRAIN_H, TRAIN_W, TRAIN_B,
+                              TRAIN_WARMUP + TRAIN_STEPS, seed=6)
+    config = train_config(name)
+    state = init_train_state(model, config, len(loader))
+    step = make_train_step(model, config)
+    want = {tag: Counter(TRAIN_MIXES[name].get(tag, {})) for tag in KERNELS}
+    times, losses = [], []
+    for i, batch in enumerate(loader):
+        batch = to_device(batch, DEV)
+        torch.cuda.synchronize()
+        if i == TRAIN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        shapes = {tag: Counter(fn.shapes) for tag, (fn, *_) in
+                  KERNELS.items()}
+        require(shapes == want, f"{name} train step {i} launches by shape "
+                                f"{shapes} differ from {want}")
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    designs = {tag: designs_of(tag) for tag in ("K1", "K1-bwd")}
+    require(all(np.isfinite(losses)), f"{name} train losses {losses}")
+    # device time by kernel family of one more step (forward, backward and
+    # optimizer), from a torch.profiler trace
+    families: dict = defaultdict(float)
+    kernels, _ = trace(lambda: step(state, batch), 1, grad=True)
+    for key, (ms, _) in kernels.items():
+        families[kernel_family(key)] += ms
+    timed = sorted(times[TRAIN_WARMUP:])
+    row = {"shape": [TRAIN_B, TRAIN_H, TRAIN_W, 3], "max_disp": MAX_DISP,
+           "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "step_ms_median": timed[len(timed) // 2], "step_ms": times,
+           "peak_mib": peak / 2**20, "losses": losses,
+           "launches_per_step": {tag: {str(k): n for k, n in c.items()}
+                                 for tag, c in want.items() if c},
+           "designs_last_step": designs,
+           "traced_step_families_ms": dict(families) or None,
+           "traced_step_launches": sum(n for _, n in kernels.values())}
+    print(f"  {name} train {TRAIN_H}x{TRAIN_W} B {TRAIN_B} f32: median step "
+          f"{row['step_ms_median']:.1f} ms over {TRAIN_STEPS} (all "
+          + ", ".join(f"{t:.1f}" for t in times) + f" ms), peak "
+          f"{row['peak_mib']:.1f} MiB, losses "
+          + ", ".join(f"{v:.3f}" for v in losses) + "; launches a step: "
+          + (", ".join(f"{tag} {dict(c)}" for tag, c in want.items() if c)
+             or "none"))
+    if families:
+        busy = sum(families.values())
+        print(f"    traced step: device busy {busy:.1f} ms in "
+              f"{row['traced_step_launches']:g} launches")
+        for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            print(f"    family {fam:40s} {ms:9.3f} ms")
+        for key, (ms, n) in sorted(kernels.items(),
+                                   key=lambda kv: -kv[1][0])[:8]:
+            print(f"    kernel {ms:9.3f} ms x{n:g}  {key[:100]}")
+    else:
+        print("    torch.profiler saw no device time: the step's kernel "
+              "families not measured")
+    del state, step, model
+    return row, want
+
+
+def train_overfit(name) -> dict:
+    """OVERFIT_STEPS steps on one fixed 256x512 batch of OVERFIT_B with the
+    configuration of the JAX package's overfit test (lr 1e-3, the multi-head
+    loss, clip 1.0, 30 scheduled steps): every loss finite and the last
+    below 0.9 x the first."""
+    model = create_model(name, max_disp=MAX_DISP,
+                         generator=torch.Generator().manual_seed(0))
+    config = train_config(name, lr=1e-3, clip_grad=1.0)
+    state = init_train_state(model, config, 30)
+    step = make_train_step(model, config)
+    batch = to_device(next(iter(synthetic_loader(
+        TRAIN_H, TRAIN_W, OVERFIT_B, 1, seed=7, workers=0))), DEV)
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+    print(f"  {name} overfit {TRAIN_H}x{TRAIN_W} B {OVERFIT_B}: losses "
+          + ", ".join(f"{v:.3f}" for v in losses))
+    require(all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0],
+            f"{name} overfit losses {losses}")
+    del state, step, model
+    return {"shape": [OVERFIT_B, TRAIN_H, TRAIN_W, 3], "losses": losses}
+
+
+def check_training(name) -> tuple[dict, dict]:
+    """Phase 14 for `name`: card vs CPU, the full-size steps, the overfit.
+    Returns the train line's row and the launches a full-size step made."""
+    t0 = time.perf_counter()
+    row = {"card_vs_cpu": train_card_vs_cpu(name)}
+    row["full_size"], mix = train_full_size(name)
+    torch.cuda.empty_cache()
+    row["overfit"] = train_overfit(name)
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    print(f"  {name} training phase: {row['seconds']:.1f} s")
+    return row, mix
+
+
 # ----------------------------------------------------- timing (phases 8-13)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
@@ -1222,6 +1523,7 @@ def kernel_family(name: str) -> str:
                       ("conv3d_stencil_kernel", "K3 conv3d"),
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_stream_kernel", "K1 gwc_volume"),
+                      ("gwc_backward_kernel", "K1-bwd gwc_volume_backward"),
                       ("gather_direct_kernel", "K4 sample gather"),
                       ("gwc_direct_kernel", "K5 gwc volume from samples"),
                       ("concat_rows_kernel", "K6 concat volume"),
@@ -1240,7 +1542,7 @@ def kernel_family(name: str) -> str:
     if "nvjet" in low or ("_gemm_" in low and not any(
             s in low for s in ("fprop", "dgrad", "implicit", "cf32"))):
         return "GEMM (cuBLAS, cuDNN)"
-    if any(s in low for s in ("conv", "xmma", "implicit", "dgrad",
+    if any(s in low for s in ("conv", "xmma", "implicit", "dgrad", "wgrad",
                               "winograd", "fft", "gemm")):
         return "cuDNN conv"
     return "other (elementwise, copies, reductions)"
@@ -1496,7 +1798,44 @@ def cudnn_probe(gen) -> list:
     return rows
 
 
-TIMERS = {"K1": time_gwc, "K2": time_conv, "K3": time_conv3d,
+def time_gwc_backward(mix, dtype, gen):
+    """Times and work of a train step's K1 backward launches, weighted by
+    `mix`: the kernel, its plain version, and (the yardstick, beside the
+    shapes) ``torch.autograd.grad`` of `gwc_volume_reference` through a
+    kept graph (the backward alone)."""
+    ms = plain = 0.0
+    nbytes = flops = 0
+    shapes = []
+    for (b, h, w, c, d, g), n in mix.items():
+        left = randn((b, h, w, c), dtype, gen)
+        right = randn((b, h, w, c), dtype, gen)
+        grad = randn((b, d, h, w, g), dtype, gen)
+        reset_counts()
+        t = device_ms(lambda: gwc_volume_backward(left, right, grad, d, g),
+                      20)
+        design = " ".join(designs_of("K1-bwd"))
+        tp = device_ms(lambda: gwc_volume_backward_reference(
+            left, right, grad, d, g), 3)
+        lf, rf = (x.detach().requires_grad_() for x in (left, right))
+        vol = gwc_volume_reference(lf, rf, d, g)
+        ta = device_ms(lambda: torch.autograd.grad(
+            vol, (lf, rf), grad, retain_graph=True), 3)
+        del vol
+        ms, plain = ms + n * t, plain + n * tp
+        # read grad, left and right once, write dl and dr once
+        nbytes += n * (b * d * h * w * g + 4 * b * h * w * c) * \
+            left.element_size()
+        # this data's work: dl[w] takes min(D, w + 1) products a channel,
+        # dr[u] min(D, W - u), a multiply-add each
+        flops += n * 2 * 2 * b * h * c * sum(min(d, x + 1) for x in range(w))
+        shapes.append({"bhwc": [b, h, w, c], "d": d, "g": g, "launches": n,
+                       "design": design, "ms": t, "plain_ms": tp,
+                       "autograd_ms": ta})
+    return ms, plain, None, nbytes, flops, shapes
+
+
+TIMERS = {"K1": time_gwc, "K1-bwd": time_gwc_backward, "K2": time_conv,
+          "K3": time_conv3d,
           "K4": time_gather,
           "K5": time_gwc_samples, "K6": time_concat, "K7": time_attention}
 
@@ -1556,8 +1895,9 @@ def main() -> None:
 
     gen = torch.Generator().manual_seed(1234)
     errs = {}
-    print("phase 3: K1 gwc_volume kernel vs plain")
+    print("phase 3: K1 gwc_volume kernel and its backward vs plain")
     errs["K1"] = check_gwc(gen)
+    errs["K1-bwd"] = check_gwc_backward(gen)
     print("phase 4: K2 conv3d_fused kernel vs plain")
     errs["K2"] = check_conv(gen)
     print("phase 5: K3 conv3d kernel vs plain")
@@ -1597,10 +1937,27 @@ def main() -> None:
         del runs, m, inputs   # the next model's peak memory is its own
         torch.cuda.empty_cache()
 
-    print("phase 14: cuDNN float32 probe")
+    print(f"phase 14: training ({time.perf_counter() - t_start:.1f} s)")
+    train = {}
+    for model_name in ("PSMNet", "GwcNet_G"):
+        train[model_name], mix = check_training(model_name)
+        if mix["K1-bwd"]:
+            designs = train[model_name]["full_size"]["designs_last_step"]
+            entry = time_kernel(f"{model_name} (train step)", "K1-bwd", F32,
+                                mix["K1-bwd"], designs, errs["K1-bwd"][F32],
+                                gen)
+            entry["autograd_ms"] = sum(r["autograd_ms"] * r["launches"]
+                                       for r in entry["shapes"])
+            kernels.append(entry)
+            # the same launch in bfloat16 (its plan and time; no train step
+            # runs bfloat16 yet)
+            train[model_name]["k1_backward_bf16"] = time_gwc_backward(
+                mix["K1-bwd"], BF16, gen)[-1]
+    print("phase 15: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -327,6 +327,292 @@ int by_cpg(const void* left, const void* right, void* out, int B, int H, int W, 
 #undef GWC_CASE
 }
 
+// ------------------------------------------------------------ the backward
+//
+// Replaces the gradient that JAX takes through the XLA path of
+// ops/volume.py::build_gwc_volume (groupwise_correlation over
+// shifted_right_stack); the Pallas K1 has no reverse-mode rule. With g the
+// group of channel c and cpg = C / G, given the output's gradient gd:
+//
+//   dl[b, h, w, c] = 1/cpg * sum_{d <= min(D - 1, w)}         gd[b, d, h, w, g]     * right[b, h, w - d, c]
+//   dr[b, h, u, c] = 1/cpg * sum_{d <= min(D - 1, W - 1 - u)} gd[b, d, h, u + d, g] * left[b, h, u + d, c]
+//
+// What bounds it: bytes. gd is D * G / (2 * C) = 3x the four feature maps
+// together at GwcNet's D = 48, and each of its values feeds cpg products
+// into each output, so the goal is to read gd once at the card's memory
+// rate.
+//
+// Design ("window"): a block owns one row h of one W tile of TW pixels and
+// one of the two outputs (blockIdx.z = 2 * b + output). A thread owns NG
+// groups (1; 2 in bfloat16 where G is even, read as one bf16x2 word) of a
+// strip of S consecutive pixels, keeps the strip's sums in registers as
+// float32 and steps d from 0, as the forward does: a window of S feature
+// pixels slides through its registers (one new pixel's groups a step, read
+// through the read-only cache; the window's slot is a compile-time index of
+// the d loop unrolled by S) and S gd values a step come straight from
+// device memory. Neighbouring lanes own neighbouring groups, so a warp's gd
+// loads and its stores cover whole pixels. dl's strip reads gd[d, ws + j]
+// and right[ws + j - d]; dr's reads gd[d, ws + j + d] (the next tiles' gd,
+// which their dl blocks read too, through L2) and left[ws + j + d]. No
+// shared memory, no atomics: every output is written once, by one thread,
+// and the result is the same in every run. The plan (tile, strip, groups a
+// thread) comes from ops/volume.py::gwc_backward_plan.
+
+template <typename T>
+struct Word;
+template <>
+struct Word<float> {
+  static __device__ __forceinline__ float get(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void put(float* p, float v) { *p = v; }
+};
+template <>
+struct Word<__nv_bfloat16> {
+  static __device__ __forceinline__ float get(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16(v);
+  }
+};
+
+// Bytes a vector access of N values of T: the widest of 16, 8 and 4 that
+// divides N * sizeof(T), else one value at a time.
+template <typename T, int N>
+__host__ __device__ constexpr int vec_bytes() {
+  constexpr int b = N * (int)sizeof(T);
+  return b % 16 == 0 ? 16 : b % 8 == 0 ? 8 : b % 4 == 0 ? 4 : (int)sizeof(T);
+}
+
+// N values of T at p as float32: with VEC, in vec_bytes words (p aligned to
+// them), else one value at a time.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void load_vals(const T* __restrict__ p, float (&dst)[N]) {
+  constexpr int VB = vec_bytes<T, N>();
+  if constexpr (VEC && VB >= 4) {
+    constexpr int WORDS = VB / 4, PER = 4 / (int)sizeof(T);
+#pragma unroll
+    for (int k = 0; k < N * (int)sizeof(T) / VB; ++k) {
+      uint32_t w[WORDS];
+      if constexpr (WORDS == 4) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + k);
+        w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+      } else if constexpr (WORDS == 2) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + k);
+        w[0] = v.x, w[1] = v.y;
+      } else {
+        w[0] = __ldg(reinterpret_cast<const uint32_t*>(p) + k);
+      }
+#pragma unroll
+      for (int i = 0; i < WORDS; ++i) Elem<T>::unpack(w[i], dst + (k * WORDS + i) * PER);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = Word<T>::get(p + i);
+  }
+}
+
+// N float32 values to p as T: with VEC, in vec_bytes words, else one at a
+// time.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void store_vals(T* p, const float (&v)[N]) {
+  constexpr int VB = vec_bytes<T, N>();
+  if constexpr (VEC && VB >= 4) {
+    constexpr int WORDS = VB / 4, PER = 4 / (int)sizeof(T);
+#pragma unroll
+    for (int k = 0; k < N * (int)sizeof(T) / VB; ++k) {
+      uint32_t w[WORDS];
+#pragma unroll
+      for (int i = 0; i < WORDS; ++i) {
+        const float* s = v + (k * WORDS + i) * PER;
+        if constexpr (sizeof(T) == 4) {
+          w[i] = __float_as_uint(s[0]);
+        } else {
+          w[i] = mma::pack_bf16(s[0], s[1]);
+        }
+      }
+      if constexpr (WORDS == 4) {
+        reinterpret_cast<uint4*>(p)[k] = make_uint4(w[0], w[1], w[2], w[3]);
+      } else if constexpr (WORDS == 2) {
+        reinterpret_cast<uint2*>(p)[k] = make_uint2(w[0], w[1]);
+      } else {
+        reinterpret_cast<uint32_t*>(p)[k] = w[0];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) Word<T>::put(p + i, v[i]);
+  }
+}
+
+template <typename T, int CPG, int NG, int S, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+gwc_backward_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                    const T* __restrict__ gd, T* __restrict__ dl, T* __restrict__ dr, int H,
+                    int W, int C, int D, int G, int TW) {
+  constexpr int NV = NG * CPG;
+  const int w0 = blockIdx.x * TW;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z >> 1;
+  const bool is_dr = blockIdx.z & 1;
+  const int slots = G / NG;
+  const int items = slots * (TW / S);
+  const float inv = 1.f / (float)CPG;
+  const size_t row = ((size_t)b * H + h) * W;          // pixel index of (b, h, 0)
+  const size_t dstride = (size_t)H * W * G;            // gd's d planes
+  const T* gdrow = gd + ((size_t)b * D * H + h) * W * G;
+  // dl reads right, dr reads left
+  const T* feat = (is_dr ? left : right) + row * C;
+  T* outp = (is_dr ? dr : dl) + row * C;
+
+  for (int item = threadIdx.x; item < items; item += blockDim.x) {
+    const int slot = item % slots, strip = item / slots;
+    const int ws = w0 + strip * S;
+    if (ws >= W) continue;
+    const int c0 = slot * NV, g0 = slot * NG;
+    float acc[S][NV], win[S][NV];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+#pragma unroll
+      for (int e = 0; e < NV; ++e) acc[j][e] = 0.f;
+      // slot j of the window holds feature pixel ws + j (d = 0)
+      if (ws + j < W) {
+        load_vals<T, NV, VEC>(feat + (size_t)(ws + j) * C + c0, win[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < NV; ++e) win[j][e] = 0.f;
+      }
+    }
+    // the last d that reaches any pixel of the strip
+    const int dmax = is_dr ? min(D - 1, W - 1 - ws) : min(D - 1, ws + S - 1);
+    for (int d0 = 0; d0 <= dmax; d0 += S) {
+#pragma unroll
+      for (int u = 0; u < S; ++u) {
+        const int d = d0 + u;
+        if (d <= dmax) {
+          const T* gdd = gdrow + (size_t)d * dstride + g0;
+          if (!is_dr) {
+            // dl: pixel ws + j takes right[ws + j - d], which sits in slot
+            // (j - u) mod S; right[ws - d] enters in place of ws - d + S
+            if (d > 0) {
+              if (ws - d >= 0) {
+                load_vals<T, NV, VEC>(feat + (size_t)(ws - d) * C + c0, win[(S - u) % S]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < NV; ++e) win[(S - u) % S][e] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+              const int w = ws + j;
+              if (w < W && d <= w) {
+                float g[NG];
+                load_vals<T, NG, true>(gdd + (size_t)w * G, g);
+                const float* r = win[(j - u + S) % S];
+#pragma unroll
+                for (int n = 0; n < NG; ++n)
+#pragma unroll
+                  for (int e = 0; e < CPG; ++e)
+                    acc[j][n * CPG + e] = fmaf(g[n], r[n * CPG + e], acc[j][n * CPG + e]);
+              }
+            }
+          } else {
+            // dr: pixel ws + j takes left[ws + j + d], which sits in slot
+            // (j + u) mod S; left[ws + d + S - 1] enters in place of ws + d - 1
+            if (d > 0) {
+              const int x = ws + d + S - 1;
+              if (x < W) {
+                load_vals<T, NV, VEC>(feat + (size_t)x * C + c0, win[(u + S - 1) % S]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < NV; ++e) win[(u + S - 1) % S][e] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < S; ++j) {
+              const int x = ws + j + d;
+              if (x < W) {
+                float g[NG];
+                load_vals<T, NG, true>(gdd + (size_t)x * G, g);
+                const float* l = win[(j + u) % S];
+#pragma unroll
+                for (int n = 0; n < NG; ++n)
+#pragma unroll
+                  for (int e = 0; e < CPG; ++e)
+                    acc[j][n * CPG + e] = fmaf(g[n], l[n * CPG + e], acc[j][n * CPG + e]);
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      if (ws + j < W) {
+#pragma unroll
+        for (int e = 0; e < NV; ++e) acc[j][e] *= inv;
+        store_vals<T, NV, VEC>(outp + (size_t)(ws + j) * C + c0, acc[j]);
+      }
+    }
+  }
+}
+
+template <typename T, int CPG, int NG, int S>
+int launch_backward(const void* left, const void* right, const void* gd, void* dl, void* dr,
+                    int B, int H, int W, int C, int D, int G, int TW, cudaStream_t stream) {
+  if (TW < S || TW % S || G % NG) return (int)cudaErrorInvalidValue;
+  // gd is read NG values a word (a bf16x2 word where NG = 2); the features
+  // and outputs in vector words where every base and row is on their
+  // boundaries, else one value at a time
+  constexpr int VF = vec_bytes<T, NG * CPG>(), VG = vec_bytes<T, NG>();
+  if (reinterpret_cast<uintptr_t>(gd) % VG) return (int)cudaErrorInvalidValue;
+  const bool vec = (C * (int)sizeof(T)) % VF == 0 &&
+                   reinterpret_cast<uintptr_t>(left) % VF == 0 &&
+                   reinterpret_cast<uintptr_t>(right) % VF == 0 &&
+                   reinterpret_cast<uintptr_t>(dl) % VF == 0 &&
+                   reinterpret_cast<uintptr_t>(dr) % VF == 0;
+  const int tiles = (W + TW - 1) / TW;
+  const int items = (G / NG) * (TW / S);
+  int threads = (items + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  const dim3 grid(tiles, H, 2 * B);
+  const T* l = static_cast<const T*>(left);
+  const T* r = static_cast<const T*>(right);
+  const T* g = static_cast<const T*>(gd);
+  T* ol = static_cast<T*>(dl);
+  T* orr = static_cast<T*>(dr);
+  if (vec) {
+    gwc_backward_kernel<T, CPG, NG, S, true><<<grid, threads, 0, stream>>>(l, r, g, ol, orr, H, W, C, D, G, TW);
+  } else {
+    gwc_backward_kernel<T, CPG, NG, S, false><<<grid, threads, 0, stream>>>(l, r, g, ol, orr, H, W, C, D, G, TW);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NG>
+int backward_by_cpg(const void* left, const void* right, const void* gd, void* dl, void* dr,
+                    int B, int H, int W, int C, int D, int G, int TW, int strip,
+                    cudaStream_t s) {
+#define GWC_BWD_CASE(n)                                                                    \
+  case n:                                                                                  \
+    return strip == strip_len<n, NG>()                                                     \
+               ? launch_backward<T, n, NG, strip_len<n, NG>()>(left, right, gd, dl, dr, B, \
+                                                               H, W, C, D, G, TW, s)        \
+               : (int)cudaErrorInvalidValue;
+  switch (C / G) {
+    GWC_BWD_CASE(1)
+    GWC_BWD_CASE(2)
+    GWC_BWD_CASE(3)
+    GWC_BWD_CASE(4)
+    GWC_BWD_CASE(6)
+    GWC_BWD_CASE(8)
+    GWC_BWD_CASE(12)
+    GWC_BWD_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef GWC_BWD_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -346,6 +632,26 @@ int gwc_volume(const void* left, const void* right, void* out, int B, int H, int
                                           s)
                : by_cpg<__nv_bfloat16, 1>(left, right, out, B, H, W, C, D, G, TW, GS, DC, strip,
                                           s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dl, dr of gwc_volume given its output's gradient gd ([B, D, H, W, G], in
+// the features' type). dtype: 0 = float32, 1 = bfloat16. The plan (tile TW,
+// strip S, groups a thread NG: 2 only in bfloat16 with G even) comes from
+// ops/volume.py::gwc_backward_plan; C / G as for gwc_volume.
+int gwc_volume_backward(const void* left, const void* right, const void* gd, void* dl, void* dr,
+                        int B, int H, int W, int C, int D, int G, int dtype, int TW, int strip,
+                        int ng, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || D < 1 || G < 1 || C % G) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && ng == 1)
+    return backward_by_cpg<float, 1>(left, right, gd, dl, dr, B, H, W, C, D, G, TW, strip, s);
+  if (dtype == 1 && ng == 2)
+    return backward_by_cpg<__nv_bfloat16, 2>(left, right, gd, dl, dr, B, H, W, C, D, G, TW,
+                                             strip, s);
+  if (dtype == 1 && ng == 1)
+    return backward_by_cpg<__nv_bfloat16, 1>(left, right, gd, dl, dr, B, H, W, C, D, G, TW,
+                                             strip, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,12 +7,17 @@ toolbox's ``models/GwcNet/gwcnet.py``, so ``state_dict`` keys are its
 PyTorch names and published checkpoints load with ``load_state_dict``.
 
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
-W]`` disparity (float32). Eval only: only ``classif3`` runs, but all four
-classifiers are registered so the parameter set is the original's whole.
+W]`` disparity (float32). In eval only ``classif3`` runs; in train mode
+(GwcNet_G, float32) the forward returns the four heads ``[classif0(cost0),
+classif1(out1), classif2(out2), classif3(out3)]``, each regressed at full
+resolution, as JAX's ``train=True`` does, with per-view BatchNorm batch
+statistics in the 2D trunk. GwcNet_GC raises in train mode: its concat
+volume's kernel (K6) has no backward.
 
-On the card the forward launches K1 once (the gwc volume), K6 once for
+On the card the eval forward launches K1 once (the gwc volume), K6 once for
 GwcNet_GC (the masked concat volume), K2 on each stride-1 3×3×3 ConvBN of
-the 3D stack and K3 once (``classif3``'s last conv).
+the 3D stack and K3 once (``classif3``'s last conv). A train step launches
+K1 once forward and its backward kernel once; every conv runs on cuDNN.
 """
 
 from __future__ import annotations
@@ -102,19 +107,22 @@ class GwcNet(nn.Module):
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor
-                ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("GwcNet runs in eval mode only; call "
-                                      ".eval() first")
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
         dtype = self.classif3[0][0].weight.dtype
+        if self.training:
+            if self.use_concat_volume:
+                raise NotImplementedError(
+                    "GwcNet_GC does not train yet: its concat volume (K6, "
+                    "csrc/concat_volume.cu) has no backward kernel (ROADMAP "
+                    "Queue 1, item 1)")
+            refuse_bfloat16_training(dtype)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 
     def _forward(self, left, right, dtype):
         _, h, w, _ = left.shape
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
-                                 right.to(dtype))
+                                 right.to(dtype), self.training)
         d4 = self.max_disp // 4
         volume = build_gwc_volume(fl["gwc_feature"].contiguous(),
                                   fr["gwc_feature"].contiguous(), d4,
@@ -126,12 +134,40 @@ class GwcNet(nn.Module):
         cost0 = self.dres0(volume)
         c = self.dres1[0](cost0)
         cost0 = self.dres1[1](c, residual=cost0)
-        out3 = self.dres4(self.dres3(self.dres2(cost0)))
-        cost = self.classif3[1](self.classif3[0](out3))
-        cost = interpolate(cost[..., 0], (self.max_disp, h, w), (1, 2, 3),
-                           align_corners=False)
-        prob = torch.softmax(cost.float(), dim=1)
-        return disparity_regression(prob, self.max_disp)
+        if not self.training:     # no hourglass output is kept
+            out3 = self.dres4(self.dres3(self.dres2(cost0)))
+            return regress(classify(self.classif3, out3), self.max_disp, h, w)
+        out1 = self.dres2(cost0)
+        out2 = self.dres3(out1)
+        out3 = self.dres4(out2)
+        return [regress(classify(head, x), self.max_disp, h, w)
+                for head, x in ((self.classif0, cost0), (self.classif1, out1),
+                                (self.classif2, out2), (self.classif3, out3))]
+
+
+def classify(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """A classifier's 3×3×3 ConvBN-ReLU, then its conv to one channel."""
+    return head[1](head[0](x))
+
+
+def regress(cost: torch.Tensor, max_disp: int, h: int, w: int
+            ) -> torch.Tensor:
+    """``[B, D/4, H/4, W/4, 1]`` costs → ``[B, H, W]`` disparity: trilinear
+    upsampling to ``(max_disp, h, w)``, the softmax over D in float32 and
+    the disparity regression."""
+    cost = interpolate(cost[..., 0], (max_disp, h, w), (1, 2, 3),
+                       align_corners=False)
+    return disparity_regression(torch.softmax(cost.float(), dim=1), max_disp)
+
+
+def refuse_bfloat16_training(dtype: torch.dtype) -> None:
+    """Train mode takes no bfloat16 model (a float64 copy, ``.double()``,
+    trains as the float32 model does, its head in float32)."""
+    if dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bfloat16 training is not ported yet: it needs float32 master "
+            "parameters cast at use, as flax keeps them (ROADMAP Queue 1, "
+            "item 1)")
 
 
 def GwcNet_G(max_disp: int = 192, **kw) -> GwcNet:

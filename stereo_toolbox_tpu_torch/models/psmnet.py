@@ -7,15 +7,19 @@ names follow the original toolbox's ``models/PSMNet/stackhourglass.py`` and
 checkpoints load with ``load_state_dict``.
 
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
-W]`` disparity (float32). Eval only. The three classifiers run in eval too,
-cascaded (``cost2 = classif2 + cost1``, ``cost3 = classif3 + cost2``), and
-``cost3`` is regressed.
+W]`` disparity (float32). The three classifiers run in both modes,
+cascaded (``cost2 = classif2 + cost1``, ``cost3 = classif3 + cost2``); eval
+regresses ``cost3``, train mode (float32) returns all three heads
+regressed at full resolution, as JAX's ``train=True`` does, with per-view
+BatchNorm batch statistics in the 2D trunk.
 
 The concat volume is never built: its one consumer, ``dres0``'s first conv,
 runs as `nn.layers.ConcatVolumeConvBNAct` (two 2D convs, then strided
 copies and adds). On
-the card the forward launches K2 on each stride-1 3×3×3 ConvBN of the 3D
-stack (12) and K3 on each classifier's last conv (3).
+the card the eval forward launches K2 on each stride-1 3×3×3 ConvBN of the
+3D stack (12) and K3 on each classifier's last conv (3); a train step
+launches no kernel of the port (every conv on cuDNN), as JAX's train step
+reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stereo_toolbox_tpu_torch.models.gwcnet import GwcFeature
+from stereo_toolbox_tpu_torch.models.gwcnet import (GwcFeature, regress,
+                                                    refuse_bfloat16_training)
 from stereo_toolbox_tpu_torch.nn.layers import (ConcatVolumeConvBNAct,
                                                 ConvBNAct, ConvTransposeBN,
                                                 avg_pool, channels_first,
@@ -32,7 +37,6 @@ from stereo_toolbox_tpu_torch.nn.layers import (ConcatVolumeConvBNAct,
                                                 dual_view_apply, every_other,
                                                 init_weights)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate
-from stereo_toolbox_tpu_torch.ops.volume import disparity_regression
 from stereo_toolbox_tpu_torch.utils.precision import full_float32
 
 
@@ -122,19 +126,17 @@ class PSMNet(nn.Module):
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor
-                ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("PSMNet runs in eval mode only; call "
-                                      ".eval() first")
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
         dtype = self.classif3[0][0].weight.dtype
+        if self.training:
+            refuse_bfloat16_training(dtype)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 
     def _forward(self, left, right, dtype):
         _, h, w, _ = left.shape
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
-                                 right.to(dtype))
+                                 right.to(dtype), self.training)
         cost0 = self.dres0[1](self.dres0[0](fl["feature"], fr["feature"]))
         cost0 = self.dres1[1](self.dres1[0](cost0), residual=cost0)
         out1, pre1, post1 = self.dres2(cost0, None, None)
@@ -146,7 +148,6 @@ class PSMNet(nn.Module):
         cost1 = self.classif1(out1)
         cost2 = self.classif2(out2) + cost1
         cost3 = self.classif3(out3) + cost2
-        cost = interpolate(cost3[..., 0], (self.max_disp, h, w), (1, 2, 3),
-                           align_corners=False)
-        prob = torch.softmax(cost.float(), dim=1)
-        return disparity_regression(prob, self.max_disp)
+        if not self.training:
+            return regress(cost3, self.max_disp, h, w)
+        return [regress(c, self.max_disp, h, w) for c in (cost1, cost2, cost3)]

@@ -18,6 +18,11 @@ never building the concat volume. All three keep what they derive from
 their parameters (the folded affine, the packed or permuted weight) per
 (device, dtype) between eval forwards (`DerivedCache`), so a warm forward
 refolds and copies nothing.
+
+In train mode every conv runs on cuDNN (the kernels have no backward) and
+every BatchNorm normalises with its batch statistics and updates its
+running statistics by flax's rule (`FlaxRunningStats`: the biased batch
+variance), as the JAX package trains.
 """
 
 from __future__ import annotations
@@ -38,8 +43,48 @@ from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
+
+class FlaxRunningStats:
+    """Mixin for a BatchNorm whose train-mode update is flax's: normalise
+    with the batch statistics, then ``running = (1 − m) · running + m ·
+    batch`` with the **biased** batch variance, where PyTorch's own
+    BatchNorm writes the unbiased one (``n / (n − 1)`` larger: 0.5% at 200
+    values a channel). ``momentum=None`` is PyTorch's cumulative average.
+    Eval mode, the parameters and the buffers are PyTorch's.
+
+    PyTorch's own update runs inside ``F.batch_norm``, in one pass over
+    `x`; the unbiased part ``m · var · n / (n − 1)`` is then scaled back to
+    ``m · var`` per channel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked += 1
+        m = (self.momentum if self.momentum is not None
+             else 1.0 / int(self.num_batches_tracked))
+        # the op keeps the variance it updates for its backward: update a
+        # copy, then write the corrected value into the buffer
+        kept = (1.0 - m) * self.running_var
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
+        return y
+
+
+class BatchNorm2d(FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(FlaxRunningStats, nn.BatchNorm3d):
+    pass
+
+
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
-_BN = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+_BN = {2: BatchNorm2d, 3: BatchNorm3d}
 
 
 def _tuple(v, n: int) -> tuple:
@@ -236,7 +281,7 @@ class ConvTransposeBN(nn.Sequential):
         super().__init__(
             nn.ConvTranspose3d(in_channels, out_channels, 3, stride=2,
                                padding=1, output_padding=1, bias=False),
-            nn.BatchNorm3d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM))
+            BatchNorm3d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return channels_last(super().forward(channels_first(x)))
@@ -299,10 +344,16 @@ class HourglassRedir(nn.Module):
         return activate(self.conv6(c5) + self.redir1(x), self.act)
 
 
-def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor):
-    """Run a shared feature trunk on both views in eval: one call on the
+def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor,
+                    train: bool = False):
+    """Run a shared feature trunk on both views. In train mode: two calls,
+    left then right, so that each view gets its own BatchNorm batch
+    statistics and the running statistics are updated twice, in that
+    order (JAX's ``nn.layers.dual_view_apply``). In eval: one call on the
     views batched together, which gives the same result as two calls with
     running BatchNorm statistics. `feat_fn` returns a dict of tensors."""
+    if train:
+        return feat_fn(left), feat_fn(right)
     b = left.shape[0]
     both = feat_fn(torch.cat([left, right], dim=0))
     return ({k: v[:b] for k, v in both.items()},

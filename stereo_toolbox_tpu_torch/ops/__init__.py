@@ -13,6 +13,7 @@ from stereo_toolbox_tpu_torch.ops.volume import (
     concat_volume_reference, disparity_regression, disparity_variance,
     disparity_variance_confidence, gather_right_by_samples,
     gather_right_by_samples_reference, groupwise_correlation,
+    gwc_volume_backward, gwc_volume_backward_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference, shifted_right_stack, soft_argmax)
 
@@ -25,7 +26,8 @@ __all__ = ["attention", "attention_reference", "build_concat_volume",
            "conv3d_reference", "disparity_regression",
            "disparity_variance", "disparity_variance_confidence",
            "gather_right_by_samples", "gather_right_by_samples_reference",
-           "groupwise_correlation", "gwc_volume_from_samples",
+           "groupwise_correlation", "gwc_volume_backward",
+           "gwc_volume_backward_reference", "gwc_volume_from_samples",
            "gwc_volume_from_samples_reference", "gwc_volume_reference",
            "interpolate", "resize_nearest", "shifted_right_stack",
            "soft_argmax"]

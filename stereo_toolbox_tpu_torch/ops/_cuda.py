@@ -31,7 +31,10 @@ SIGNATURES = {
     "gwc_volume": {
         # left, right, out, B, H, W, C, D, G, dtype, tw, gs, dc, strip,
         # stream
-        "gwc_volume": [_P, _P, _P] + [_I] * 11 + [_P]},
+        "gwc_volume": [_P, _P, _P] + [_I] * 11 + [_P],
+        # left, right, grad, dl, dr, B, H, W, C, D, G, dtype, tw, strip, ng,
+        # stream
+        "gwc_volume_backward": [_P] * 5 + [_I] * 10 + [_P]},
     "conv3d_fused": {
         # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
         # relu, tile, stream
@@ -138,6 +141,24 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(
             f"{what}: CUDA error {rc}: {lib.error_string(rc).decode()}")
+
+
+def on_cpu(t) -> bool:
+    """Whether a wrapper takes its plain version for `t`: only a tensor on
+    the CPU does; any other goes to the kernel or raises."""
+    return t.device.type == "cpu"
+
+
+def refuse_grad(what: str, instead: str, *tensors) -> None:
+    """Raise where a kernel without a backward would drop a gradient: its
+    output is a fresh tensor with no ``grad_fn``, so with autograd on an
+    input that requires grad would lose its gradient without an error.
+    `instead` names the path that trains through cuDNN or autograd."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: its CUDA kernel has no backward, and an input requires "
+            f"grad. {instead}. Run an eval forward under torch.no_grad()")
 
 
 def dtype_code(t) -> int:

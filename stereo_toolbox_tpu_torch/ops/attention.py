@@ -43,8 +43,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of their type (contiguous bfloat16: tensor cores; float32: CUDA cores;
     all three of one shape, head_dim 64, 16-byte aligned) or raise.
     """
-    if q.device.type == "cpu":
+    if _cuda.on_cpu(q):
         return attention_reference(q, k, v, scale)
+    _cuda.refuse_grad("attention (K7)", "DepthAnythingV2 has no train path "
+                      "in the port yet (ROADMAP Queue 1); autograd "
+                      "differentiates attention_reference", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:

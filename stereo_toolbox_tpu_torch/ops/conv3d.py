@@ -103,8 +103,10 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     CPU tensors take `conv3d_reference`; CUDA tensors launch the kernel
     (contiguous float32 or bfloat16 `x`, `kernel` in x's type) or raise.
     """
-    if x.device.type == "cpu":
+    if _cuda.on_cpu(x):
         return conv3d_reference(x, kernel)
+    _cuda.refuse_grad("conv3d (K3)", "Train mode's Conv3dSame runs F.conv3d "
+                      "on cuDNN (model.train())", x, kernel)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dim() != 5 or not x.is_contiguous() or 0 in x.shape:

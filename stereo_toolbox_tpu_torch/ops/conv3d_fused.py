@@ -150,8 +150,13 @@ def conv3d_fused(x: torch.Tensor, kernel: torch.Tensor | PackedConv3dWeight,
     `PackedConv3dWeight`, in x's type; residual in x's type; scale and bias
     float32.
     """
-    if x.device.type == "cpu":
+    if _cuda.on_cpu(x):
         return conv3d_fused_reference(x, kernel, scale, bias, residual, relu)
+    _cuda.refuse_grad(
+        "conv3d_fused (K2)", "Train mode's ConvBNAct runs its conv on cuDNN "
+        "and its BatchNorm on batch statistics (model.train())", x,
+        kernel.data if isinstance(kernel, PackedConv3dWeight) else kernel,
+        scale, bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _cuda.dtype_code(x)          # raises on a type no kernel takes

@@ -168,26 +168,60 @@ def gwc_plan(b: int, h: int, w: int, c: int, d: int, g: int,
     return GwcPlan(tw, gs, dc, s)
 
 
+def _check_gwc(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+               num_groups: int) -> None:
+    """What both K1 kernels take: `_check_features`, and C / G in
+    `GWC_CPG`."""
+    _check_features(left, right)
+    c = left.shape[-1]
+    if num_groups < 1 or c % num_groups or max_disp < 1:
+        raise ValueError(f"bad groups {num_groups} / max_disp {max_disp} "
+                         f"for C={c}")
+    if c // num_groups not in GWC_CPG:
+        raise ValueError(f"the K1 kernels take C/G in {GWC_CPG}, got "
+                         f"{c}/{num_groups}")
+
+
+class _GwcVolume(torch.autograd.Function):
+    """K1 with its gradient: the forward kernel, and the backward kernel
+    (`gwc_volume_backward`) for the features' gradients."""
+
+    @staticmethod
+    def forward(ctx, left, right, max_disp, num_groups):
+        ctx.save_for_backward(left, right)
+        ctx.volume = (max_disp, num_groups)
+        return _launch_gwc_volume(left, right, max_disp, num_groups)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        left, right = ctx.saved_tensors
+        dl, dr = gwc_volume_backward(left, right, grad.contiguous(),
+                                     *ctx.volume)
+        return dl, dr, None, None
+
+
 def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
                      num_groups: int) -> torch.Tensor:
     """Group-wise correlation cost volume ``[B, D, H, W, G]`` (GwcNet):
     ``out[b,d,h,w,g] = mean_{c in g} left[b,h,w,c] * right[b,h,w-d,c]``,
     zero for w < d.
 
-    CPU tensors take `gwc_volume_reference`; CUDA tensors launch the kernel
-    (float32 or bfloat16, contiguous ``[B, H, W, C]``, C / G in `GWC_CPG`),
-    cut as `gwc_plan` says, or raise.
+    CPU tensors take `gwc_volume_reference` (autograd differentiates it);
+    CUDA tensors launch the kernel (float32 or bfloat16, contiguous ``[B,
+    H, W, C]``, C / G in `GWC_CPG`), cut as `gwc_plan` says, or raise. On
+    the card the volume is differentiable: its backward launches the
+    backward kernel (`gwc_volume_backward`).
     """
-    if left.device.type == "cpu":
+    if _cuda.on_cpu(left):
         return gwc_volume_reference(left, right, max_disp, num_groups)
-    _check_features(left, right)
+    _check_gwc(left, right, max_disp, num_groups)
+    return _GwcVolume.apply(left, right, max_disp, num_groups)
+
+
+def _launch_gwc_volume(left: torch.Tensor, right: torch.Tensor,
+                       max_disp: int, num_groups: int) -> torch.Tensor:
     b, h, w, c = left.shape
-    if num_groups < 1 or c % num_groups or max_disp < 1:
-        raise ValueError(f"bad groups {num_groups} / max_disp {max_disp} "
-                         f"for C={c}")
-    if c // num_groups not in GWC_CPG:
-        raise ValueError(f"the K1 kernel takes C/G in {GWC_CPG}, got "
-                         f"{c}/{num_groups}")
     code = _cuda.dtype_code(left)
     out = torch.empty((b, max_disp, h, w, num_groups), dtype=left.dtype,
                       device=left.device)
@@ -212,6 +246,107 @@ def build_gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disp: int,
 build_gwc_volume.launches = 0
 build_gwc_volume.shapes = Counter()
 build_gwc_volume.designs = Counter()
+
+
+def gwc_volume_backward_reference(left: torch.Tensor, right: torch.Tensor,
+                                  grad: torch.Tensor, max_disp: int,
+                                  num_groups: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain gradients of the gwc volume given its gradient ``grad [B, D,
+    H, W, G]``: with g the group of channel c and cpg = C / G,
+    ``dl[b,h,w,c] = 1/cpg · Σ_{d ≤ w} grad[b,d,h,w,g] · right[b,h,w-d,c]``
+    and ``dr[b,h,u,c] = 1/cpg · Σ_{u+d < W} grad[b,d,h,u+d,g] ·
+    left[b,h,u+d,c]``, summed in float32 (float64 for float64
+    features), in the features' type."""
+    b, h, w, c = left.shape
+    cpg = c // num_groups
+    acc = torch.promote_types(left.dtype, torch.float32)
+    gx = grad.to(acc).repeat_interleave(cpg, dim=-1) / cpg   # [B, D, H, W, C]
+    lf, rf = left.to(acc), right.to(acc)
+    dl, dr = torch.zeros_like(lf), torch.zeros_like(rf)
+    for d in range(min(max_disp, w)):
+        dl[:, :, d:] += gx[:, d, :, d:] * rf[:, :, :w - d]
+        dr[:, :, :w - d] += gx[:, d, :, d:] * lf[:, :, d:]
+    return dl.to(left.dtype), dr.to(right.dtype)
+
+
+class GwcBackwardPlan(NamedTuple):
+    """How the K1 backward kernel cuts a launch: W tile `tw`, pixels a
+    thread's strip `strip`, groups a thread `ng` (see
+    ``csrc/gwc_volume.cu``)."""
+    tw: int
+    strip: int
+    ng: int
+
+
+def gwc_backward_plan(c: int, g: int, dtype: torch.dtype,
+                      grad_align: int = 16) -> GwcBackwardPlan:
+    """The K1 backward kernel's plan for ``[.., C]`` features of `dtype` in
+    `g` groups, with the gradient's base aligned to `grad_align` bytes: a
+    block is one row of a `GWC_TILE_W`-pixel W tile and one of the two
+    outputs; a thread owns 2 groups in bfloat16 where G is even (one
+    bf16x2 word of the gradient a load, on a 4-byte aligned base), else 1,
+    and a strip of `gwc_strip` pixels, as in the forward."""
+    ng = (2 if dtype == torch.bfloat16 and g % 2 == 0 and grad_align % 4 == 0
+          else 1)
+    return GwcBackwardPlan(GWC_TILE_W, gwc_strip(c // g, ng), ng)
+
+
+def gwc_volume_backward(left: torch.Tensor, right: torch.Tensor,
+                        grad: torch.Tensor, max_disp: int, num_groups: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients ``(dl, dr)`` of `build_gwc_volume`'s features given the
+    volume's gradient ``grad [B, D, H, W, G]``.
+
+    CPU tensors take `gwc_volume_backward_reference`; CUDA tensors launch
+    the backward kernel (the forward's types, layouts and C / G; `grad`
+    contiguous in the features' type), cut as `gwc_backward_plan` says, or
+    raise. Every output is written once, without atomics: the same inputs
+    give the same bits in every run.
+    """
+    if _cuda.on_cpu(left):
+        return gwc_volume_backward_reference(left, right, grad, max_disp,
+                                             num_groups)
+    _check_gwc(left, right, max_disp, num_groups)
+    b, h, w, c = left.shape
+    if (grad.shape != (b, max_disp, h, w, num_groups)
+            or grad.dtype != left.dtype or grad.device != left.device
+            or not grad.is_contiguous()):
+        raise ValueError(f"grad must be a contiguous {left.dtype} [B, D, H, "
+                         f"W, G] = {(b, max_disp, h, w, num_groups)} tensor "
+                         f"on {left.device}, got {grad.dtype} "
+                         f"{tuple(grad.shape)}")
+    return _launch_gwc_backward(left, right, grad, max_disp, num_groups)
+
+
+def _launch_gwc_backward(left: torch.Tensor, right: torch.Tensor,
+                         grad: torch.Tensor, max_disp: int, num_groups: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, h, w, c = left.shape
+    code = _cuda.dtype_code(left)
+    dl, dr = torch.empty_like(left), torch.empty_like(right)
+    if dl.numel() == 0:
+        return dl, dr
+    bits = grad.data_ptr() | 16
+    plan = gwc_backward_plan(c, num_groups, left.dtype, bits & -bits)
+    lib = _cuda.library("gwc_volume")
+    with torch.cuda.device(left.device):
+        rc = lib.gwc_volume_backward(
+            left.data_ptr(), right.data_ptr(), grad.data_ptr(), dl.data_ptr(),
+            dr.data_ptr(), b, h, w, c, max_disp, num_groups, code, *plan,
+            _cuda.stream_of(left))
+    _cuda.check(lib, rc, "gwc_volume_backward")
+    gwc_volume_backward.launches += 1
+    gwc_volume_backward.shapes[(b, h, w, c, max_disp, num_groups)] += 1
+    gwc_volume_backward.designs[("window", *plan)] += 1
+    return dl, dr
+
+
+# launches of the backward kernel, in all, by (B, H, W, C, D, G) and by
+# design ("window", W tile, strip, groups a thread)
+gwc_volume_backward.launches = 0
+gwc_volume_backward.shapes = Counter()
+gwc_volume_backward.designs = Counter()
 
 
 def concat_volume_reference(left: torch.Tensor, right: torch.Tensor,
@@ -295,8 +430,12 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
     kernel, with either `mask_left` (float32 or bfloat16, contiguous
     ``[B, H, W, C]``), cut as `concat_plan` says, or raise.
     """
-    if left.device.type == "cpu":
+    if _cuda.on_cpu(left):
         return concat_volume_reference(left, right, max_disp, mask_left)
+    _cuda.refuse_grad("build_concat_volume (K6)", "GwcNet_GC, CFNet and "
+                      "ACVNet raise in train mode until K6 has a backward "
+                      "kernel (ROADMAP Queue 1, item 1); autograd "
+                      "differentiates concat_volume_reference", left, right)
     _check_features(left, right)
     b, h, w, c = left.shape
     if max_disp < 1:
@@ -402,8 +541,12 @@ def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
     the kernel (features float32 or bfloat16, samples float32, `max_shift`
     given), cut as `gather_plan` says, or raise.
     """
-    if right.device.type == "cpu":
+    if _cuda.on_cpu(right):
         return gather_right_by_samples_reference(right, samples, max_shift)
+    _cuda.refuse_grad("gather_right_by_samples (K4)", "CFNet raises in train "
+                      "mode until K4 has a backward kernel (ROADMAP Queue 1, "
+                      "item 1); autograd differentiates "
+                      "gather_right_by_samples_reference", right, samples)
     _check_features(right)
     _check_samples(right, samples, max_shift)
     b, h, w, c = right.shape
@@ -518,9 +661,14 @@ def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
     (features float32 or bfloat16, samples float32, `max_shift` given), cut
     as `sample_gwc_plan` says, or raise.
     """
-    if left.device.type == "cpu":
+    if _cuda.on_cpu(left):
         return gwc_volume_from_samples_reference(left, right, samples,
                                                  num_groups, max_shift)
+    _cuda.refuse_grad("gwc_volume_from_samples (K5)", "CFNet raises in train "
+                      "mode until K5 has a backward kernel (ROADMAP Queue 1, "
+                      "item 1); autograd differentiates "
+                      "gwc_volume_from_samples_reference", left, right,
+                      samples)
     _check_features(left, right)
     _check_samples(right, samples, max_shift)
     b, h, w, c = left.shape

@@ -18,6 +18,7 @@ from stereo_toolbox_tpu_torch.ops import (
     concat_volume_reference, conv3d, conv3d_fused, conv3d_fused_reference,
     conv3d_reference,
     gather_right_by_samples, gather_right_by_samples_reference,
+    gwc_volume_backward, gwc_volume_backward_reference,
     gwc_volume_from_samples, gwc_volume_from_samples_reference,
     gwc_volume_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d import (
@@ -64,6 +65,81 @@ def test_gwc_volume_kernel_matches_plain(dev, b, h, w, c, d, g, dtype, rel):
     assert build_gwc_volume.designs[design] == before + 1
     want = gwc_volume_reference(left.float(), right.float(), d, g)
     assert (got - want).abs().max().item() <= rel * want.abs().max().item()
+
+
+# (b, h, w, c, d, g): GwcNet_G's train launch at 4 rows, CFNet's 1/16
+# volume, W not a multiple of the tile, D > W, B 3, C/G 1, 16 and 3
+GWC_BWD_CASES = [(4, 2, 128, 320, 48, 40), (1, 4, 40, 320, 12, 40),
+                 (3, 2, 37, 48, 48, 16), (1, 2, 9, 6, 13, 6),
+                 (1, 3, 33, 32, 5, 2), (2, 2, 21, 24, 9, 8)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d,g", GWC_BWD_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gwc_volume_backward_kernel_matches_plain(dev, b, h, w, c, d, g,
+                                                  dtype, rel):
+    """The backward kernel ("window") against its plain version and
+    against torch.autograd of `gwc_volume_reference`, within rel ·
+    max|ref|; the same bits when run twice (no atomics)."""
+    gen = torch.Generator().manual_seed(1)
+    left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+                   for _ in range(2))
+    grad = torch.randn(b, d, h, w, g, generator=gen).to(dev, dtype)
+    before = gwc_volume_backward.launches
+    dl, dr = gwc_volume_backward(left, right, grad, d, g)
+    again = gwc_volume_backward(left, right, grad, d, g)
+    assert gwc_volume_backward.launches == before + 2
+    assert torch.equal(dl, again[0]) and torch.equal(dr, again[1])
+    want = gwc_volume_backward_reference(left.float(), right.float(),
+                                         grad.float(), d, g)
+    lf = left.float().requires_grad_()
+    rf = right.float().requires_grad_()
+    gwc_volume_reference(lf, rf, d, g).backward(grad.float())
+    for got, plain, auto in zip((dl, dr), want, (lf.grad, rf.grad)):
+        assert got.dtype == dtype and got.shape == left.shape
+        tol = rel * plain.abs().max().item()
+        assert (got.float() - plain).abs().max().item() <= tol
+        assert (got.float() - auto).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gwc_volume_is_differentiable_on_the_card(dev, dtype):
+    """`build_gwc_volume` on CUDA tensors that require grad: one forward
+    and one backward launch, the features' gradients the backward
+    kernel's."""
+    gen = torch.Generator().manual_seed(2)
+    left, right = (torch.randn(2, 3, 40, 320, generator=gen).to(dev, dtype)
+                   .requires_grad_() for _ in range(2))
+    grad = torch.randn(2, 12, 3, 40, 40, generator=gen).to(dev, dtype)
+    before = (build_gwc_volume.launches, gwc_volume_backward.launches)
+    build_gwc_volume(left, right, 12, 40).backward(grad)
+    assert (build_gwc_volume.launches,
+            gwc_volume_backward.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    dl, dr = gwc_volume_backward(left.detach(), right.detach(), grad, 12, 40)
+    assert torch.equal(left.grad, dl) and torch.equal(right.grad, dr)
+
+
+def test_kernels_without_a_backward_refuse_grad(dev):
+    """K2-K7 given a CUDA input that requires grad raise, naming the train
+    path; under torch.no_grad() the same calls launch."""
+    x = torch.randn(1, 2, 3, 4, 8, device=dev, requires_grad=True)
+    k = torch.randn(3, 3, 3, 8, 8, device=dev)
+    f = torch.randn(1, 2, 5, 8, device=dev, requires_grad=True)
+    samples = torch.zeros(1, 3, 2, 5, device=dev)
+    q = torch.randn(1, 2, 4, 64, device=dev, requires_grad=True)
+    calls = [lambda: conv3d_fused(x, k),
+             lambda: conv3d(x, torch.randn(3, 3, 3, 8, 1, device=dev)),
+             lambda: gather_right_by_samples(f, samples, 4),
+             lambda: gwc_volume_from_samples(f, f, samples, 2, 4),
+             lambda: build_concat_volume(f, f, 3),
+             lambda: attention(q, q, q, 0.125)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert call().grad_fn is None
 
 
 @pytest.mark.parametrize("ci,co,residual,relu", [(40, 32, False, True),

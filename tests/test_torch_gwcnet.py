@@ -174,10 +174,18 @@ def test_create_model_defaults_to_cuda_and_raises_without_it():
 
 
 def test_train_mode_is_not_implemented():
+    """Train mode of GwcNet_G in float32 returns its four heads
+    (``classif0``-``classif3``) at full resolution; in bfloat16 it is not
+    implemented (GwcNet_GC's train mode: see above)."""
     m = create_model("GwcNet_G", max_disp=MAX_DISP, device="cpu").train()
     x = torch.zeros(1, 32, 64, 3)
-    with pytest.raises(NotImplementedError):
-        m(x, x)
+    heads = m(x, x)
+    assert isinstance(heads, list) and len(heads) == 4
+    assert all(h.shape == (1, 32, 64) and h.requires_grad for h in heads)
+    bf16 = create_model("GwcNet_G", max_disp=MAX_DISP, device="cpu",
+                        dtype=torch.bfloat16).train()
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        bf16(x, x)
 
 
 def test_port_imports_no_jax():
@@ -188,6 +196,8 @@ def test_port_imports_no_jax():
         "import stereo_toolbox_tpu_torch.models, stereo_toolbox_tpu_torch.utils\n"
         "import stereo_toolbox_tpu_torch.models.cfnet\n"
         "import stereo_toolbox_tpu_torch.models.acvnet\n"
+        "import stereo_toolbox_tpu_torch.trainer, stereo_toolbox_tpu_torch.train\n"
+        "import stereo_toolbox_tpu_torch.datasets\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stereo_toolbox_tpu')]\n"
         "print(bad)\n"

@@ -1,4 +1,5 @@
-"""The plans of the K1 (gwc volume), K3 (Co = 1 conv), K4 (sample gather),
+"""The plans of the K1 (gwc volume) forward and backward, K3 (Co = 1 conv),
+K4 (sample gather),
 K5 (gwc volume over samples) and K6 (concat volume) kernels, and a walk of
 each kernel's blocks in numpy against the plain versions.
 
@@ -6,7 +7,8 @@ The CUDA kernels run only on the card. What decides their result besides
 the arithmetic is how they cut the work: the wrapper's plan (tiles, slices,
 disparity chunks or runs, rows or runs of planes a block, store width) and
 each block's walk (K1: a thread's strip and its sliding window of right
-pixels; K3: the tap partials of each staged plane and the 27-point stencil
+pixels; K1's backward: a thread's strip of one output and its window of
+feature pixels sliding the other way for dr; K3: the tap partials of each staged plane and the 27-point stencil
 over them, with rolling output planes; K4: a thread's (pixel, word) items
 over its run of samples; K5: a thread's (pixel, slot) items over the
 samples; K6: a thread's vectors over the flat output row, stepped without
@@ -29,9 +31,10 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (STENCIL_MAX_SMEM,
                                                  stencil_run, stencil_smem)
 from stereo_toolbox_tpu_torch.ops.volume import (
     CONCAT_MAX_SMEM, CONCAT_THREADS, GATHER_ITEMS_PER_SM, GATHER_THREADS,
-    GWC_MAX_SMEM, SAMPLE_GWC_THREADS, concat_plan, concat_smem,
+    GWC_MAX_SMEM, GWC_TILE_W, SAMPLE_GWC_THREADS, concat_plan, concat_smem,
     concat_volume_reference, gather_plan, gather_right_by_samples_reference,
-    gwc_plan, gwc_strip, gwc_volume_from_samples_reference,
+    gwc_backward_plan, gwc_plan, gwc_strip,
+    gwc_volume_backward_reference, gwc_volume_from_samples_reference,
     gwc_volume_reference, sample_gwc_plan, sample_gwc_slot)
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -145,6 +148,108 @@ def test_gwc_plan_fits_the_kernel(shape, dtype):
         assert blocks >= 132
     if shape == (1, 120, 160, 320, 48, 40):
         assert gs == g and dc == d
+
+
+def walk_gwc_backward(left, right, gd, d_max, g_num, plan):
+    """K1 backward's blocks (a row, a W tile, one output each), thread items
+    and d steps with their sliding windows, in numpy (float64)."""
+    b_num, h_num, w_num, c = left.shape
+    cpg = c // g_num
+    tw, s, ng = plan
+    nv = ng * cpg
+    outs = {0: np.full(left.shape, np.nan), 1: np.full(left.shape, np.nan)}
+    slots = g_num // ng
+    for bx in range(-(-w_num // tw)):
+        w0 = bx * tw
+        for h in range(h_num):
+            for bz in range(2 * b_num):
+                b, is_dr = bz >> 1, bz & 1
+                feat = (left if is_dr else right)[b, h]
+                for item in range(slots * (tw // s)):
+                    slot, strip = item % slots, item // slots
+                    ws = w0 + strip * s
+                    if ws >= w_num:
+                        continue
+                    cols = slice(slot * nv, (slot + 1) * nv)
+                    g0 = slot * ng
+                    acc = np.zeros((s, nv))
+                    win = [feat[ws + j, cols] if ws + j < w_num
+                           else np.zeros(nv) for j in range(s)]
+                    dmax = (min(d_max - 1, w_num - 1 - ws) if is_dr
+                            else min(d_max - 1, ws + s - 1))
+                    for d0 in range(0, dmax + 1, s):
+                        for u in range(s):
+                            d = d0 + u
+                            if d > dmax:
+                                continue
+                            if not is_dr:
+                                if d > 0:
+                                    win[(s - u) % s] = (
+                                        feat[ws - d, cols] if ws - d >= 0
+                                        else np.zeros(nv))
+                                for j in range(s):
+                                    w = ws + j
+                                    if w < w_num and d <= w:
+                                        g = gd[b, d, h, w, g0:g0 + ng]
+                                        acc[j] += (np.repeat(g, cpg)
+                                                   * win[(j - u + s) % s])
+                            else:
+                                if d > 0:
+                                    x = ws + d + s - 1
+                                    win[(u + s - 1) % s] = (
+                                        feat[x, cols] if x < w_num
+                                        else np.zeros(nv))
+                                for j in range(s):
+                                    x = ws + j + d
+                                    if x < w_num:
+                                        g = gd[b, d, h, x, g0:g0 + ng]
+                                        acc[j] += (np.repeat(g, cpg)
+                                                   * win[(j + u) % s])
+                    for j in range(s):
+                        if ws + j < w_num:
+                            outs[is_dr][b, h, ws + j, cols] = acc[j] / cpg
+    return outs[0], outs[1]
+
+
+# (b, h, w, c, d, g): W not a multiple of the tile, D > W, C/G = 8, 3, 1,
+# 16 and 12, B = 3
+GWC_BWD_CASES = [(1, 2, 40, 320, 12, 40), (2, 2, 37, 48, 48, 16),
+                 (1, 2, 9, 6, 13, 6), (3, 1, 33, 32, 5, 2),
+                 (1, 2, 20, 36, 7, 3)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d,g", GWC_BWD_CASES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gwc_backward_kernel_walk_matches_plain(b, h, w, c, d, g, dtype):
+    """Every dl and dr value written once, equal to the plain backward, on
+    the plan the wrapper makes (and with one group a thread in bfloat16
+    where the gradient's base is only 2-byte aligned)."""
+    rng = np.random.RandomState(1)
+    left, right = (rng.randn(b, h, w, c) for _ in range(2))
+    gd = rng.randn(b, d, h, w, g)
+    want = gwc_volume_backward_reference(
+        *(torch.from_numpy(a) for a in (left, right, gd)), d, g)
+    for align in (16, 2):
+        plan = gwc_backward_plan(c, g, dtype, align)
+        got = walk_gwc_backward(left, right, gd, d, g, plan)
+        for got_t, want_t in zip(got, want):
+            assert not np.isnan(got_t).any()
+            np.testing.assert_allclose(got_t, want_t.numpy(), rtol=0,
+                                       atol=1e-12)
+
+
+@pytest.mark.parametrize("c,g", [(320, 40), (160, 40), (48, 16), (6, 6),
+                                 (32, 2)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gwc_backward_plan_fits_the_kernel(c, g, dtype):
+    """A tile of whole strips; the forward's strip; two groups a thread only
+    in bfloat16 with G even and a 4-byte aligned gradient."""
+    for align in (16, 4, 2):
+        tw, s, ng = gwc_backward_plan(c, g, dtype, align)
+        assert tw == GWC_TILE_W and tw % s == 0
+        assert s == gwc_strip(c // g, ng) and s * ng * (c // g) <= 32
+        assert ng == (2 if dtype == BF16 and g % 2 == 0 and align >= 4
+                      else 1)
 
 
 def walk_stencil(x, k, run):

@@ -113,3 +113,92 @@ def test_interpolate_matches_torch_trilinear(align_corners):
     want = torch.nn.functional.interpolate(
         x, (12, 10, 24), mode="trilinear", align_corners=align_corners)[:, 0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (b, h, w, c, max_disp, groups, seed) for the gradient: GwcNet's C/G = 8,
+# D > W, C/G = 1 (G = C), C/G = 3, B = 3
+GWC_GRAD_CASES = [(1, 3, 20, 320, 12, 40, 0), (2, 2, 9, 16, 13, 2, 1),
+                  (1, 2, 11, 6, 4, 6, 2), (3, 2, 17, 24, 7, 8, 3),
+                  (1, 2, 5, 9, 8, 3, 4)]
+
+
+def _grad_inputs(b, h, w, c, d, g, seed):
+    left, right = _feats(b, h, w, c, seed)
+    grad = np.random.RandomState(seed + 100).randn(
+        b, d, h, w, g).astype(np.float32)
+    return left, right, grad
+
+
+@pytest.mark.parametrize("b,h,w,c,d,g,seed", GWC_GRAD_CASES)
+def test_gwc_volume_backward_reference_matches_autograd_and_jax(
+        b, h, w, c, d, g, seed):
+    """The backward's plain version (the two sums over d) against
+    torch.autograd of `gwc_volume_reference` and jax.grad of JAX's
+    `build_gwc_volume` (its XLA path, which JAX differentiates: the Pallas
+    K1 has no reverse-mode rule)."""
+    import jax
+    left, right, grad = _grad_inputs(b, h, w, c, d, g, seed)
+    dl, dr = ops.gwc_volume_backward_reference(
+        torch.from_numpy(left), torch.from_numpy(right),
+        torch.from_numpy(grad), d, g)
+    lt = torch.from_numpy(left).requires_grad_()
+    rt = torch.from_numpy(right).requires_grad_()
+    ops.gwc_volume_reference(lt, rt, d, g).backward(torch.from_numpy(grad))
+    torch.testing.assert_close(dl, lt.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dr, rt.grad, rtol=1e-5, atol=1e-5)
+    _, vjp = jax.vjp(lambda a, bb: jops.build_gwc_volume(a, bb, d, g),
+                     jnp.asarray(left), jnp.asarray(right))
+    jl, jr = vjp(jnp.asarray(grad))
+    np.testing.assert_allclose(dl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(dr.numpy(), np.asarray(jr), **TOL)
+    if d > w:   # right pixels reach no output past W - 1 - u
+        assert dl.shape == lt.shape
+
+
+def test_build_gwc_volume_is_differentiable_on_the_cpu():
+    left, right, grad = _grad_inputs(1, 2, 10, 8, 6, 2, 5)
+    lt = torch.from_numpy(left).requires_grad_()
+    rt = torch.from_numpy(right).requires_grad_()
+    before = ops.gwc_volume_backward.launches
+    ops.build_gwc_volume(lt, rt, 6, 2).backward(torch.from_numpy(grad))
+    dl, dr = ops.gwc_volume_backward(torch.from_numpy(left),
+                                     torch.from_numpy(right),
+                                     torch.from_numpy(grad), 6, 2)
+    torch.testing.assert_close(lt.grad, dl, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rt.grad, dr, rtol=1e-5, atol=1e-5)
+    assert ops.gwc_volume_backward.launches == before
+
+
+def test_gwc_volume_function_routes_the_gradients(monkeypatch):
+    """The card's path without a card: with the device checks passed and
+    both launches replaced by the plain versions, `build_gwc_volume` is the
+    autograd Function whose backward launches the backward once, with the
+    saved features and the volume's gradient, and hands dl to left and dr
+    to right."""
+    from stereo_toolbox_tpu_torch.ops import _cuda
+    from stereo_toolbox_tpu_torch.ops import volume as vol
+    calls = []
+
+    def fake_backward(left, right, grad, d, g):
+        calls.append((left.shape, grad.shape, grad.is_contiguous()))
+        return vol.gwc_volume_backward_reference(left, right, grad, d, g)
+    monkeypatch.setattr(_cuda, "on_cpu", lambda t: False)
+    monkeypatch.setattr(vol, "_check_features", lambda *f: None)
+    monkeypatch.setattr(vol, "_launch_gwc_volume",
+                        lambda l, r, d, g: vol.gwc_volume_reference(
+                            l, r, d, g).detach())
+    monkeypatch.setattr(vol, "_launch_gwc_backward", fake_backward)
+    left, right, grad = _grad_inputs(2, 2, 9, 12, 5, 3, 6)
+    lt = torch.from_numpy(left).requires_grad_()
+    rt = torch.from_numpy(right).requires_grad_()
+    out = vol.build_gwc_volume(lt, rt, 5, 3)
+    assert out.grad_fn is not None
+    # a non-contiguous gradient arrives contiguous
+    g_t = torch.from_numpy(grad).transpose(2, 3).contiguous().transpose(2, 3)
+    out.backward(g_t)
+    assert calls == [((2, 2, 9, 12), (2, 5, 2, 9, 3), True)]
+    want_l, want_r = vol.gwc_volume_backward_reference(
+        torch.from_numpy(left), torch.from_numpy(right),
+        torch.from_numpy(grad), 5, 3)
+    torch.testing.assert_close(lt.grad, want_l, rtol=0, atol=0)
+    torch.testing.assert_close(rt.grad, want_r, rtol=0, atol=0)

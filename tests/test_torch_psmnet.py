@@ -116,13 +116,22 @@ def test_psmnet_state_dict_has_original_torch_names():
 
 
 def test_psmnet_defaults_to_cuda_and_train_mode_raises():
+    """CUDA by default; in train mode the float32 model returns its three
+    heads at full resolution, and a bfloat16 model raises."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             create_model("PSMNet")
     m = create_model("PSMNet", max_disp=MAX_DISP, device="cpu").train()
-    x = torch.zeros(1, 64, 128, 3)
-    with pytest.raises(NotImplementedError):
-        m(x, x)
+    # B = 2: the 1/4-resolution SPP window pools each image to one pixel,
+    # and a train BatchNorm needs more than one value a channel
+    x = torch.zeros(2, 64, 128, 3)
+    heads = m(x, x)
+    assert isinstance(heads, list) and len(heads) == 3
+    assert all(h.shape == (2, 64, 128) and h.requires_grad for h in heads)
+    bf16 = create_model("PSMNet", max_disp=MAX_DISP, device="cpu",
+                        dtype=torch.bfloat16).train()
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        bf16(x, x)
 
 
 def test_psmnet_runs_no_concat_volume_and_no_3d_conv_over_it():
