@@ -2,12 +2,12 @@
 
     python3 chip_train_faults.py
 
-Phase 14 of `chip_smoke.py` holds one float32 train step of PSMNet and
-GwcNet_G on the card against the same step on the port's CPU paths
-(64x128, B 2, max_disp 192) within its limits on the loss, the gradients
-and the BatchNorm running statistics. This script runs that comparison
-clean, where it must hold, and then with one fault planted into the card's
-step at a time, and prints for each run its readings and whether the limits
+Phase 14 of `chip_smoke.py` holds one float32 train step of each model it
+trains on the card against the same step on the port's CPU paths (64x128,
+B 2, max_disp 192) within its limits on the loss, the gradients and the
+BatchNorm running statistics. This script runs that comparison clean,
+where it must hold, and then with one fault planted into the card's step
+at a time, and prints for each run its readings and whether the limits
 caught it:
 
 - ``k1_bwd_dr_dropped``: K1's backward kernel returns dr = 0 (GwcNet_G);
@@ -15,7 +15,13 @@ caught it:
   as a kernel whose loop stops one disparity short would (GwcNet_G);
 - ``bn_unbiased_running_var``: the card's BatchNorms update their running
   variance by PyTorch's rule (the unbiased batch variance) instead of
-  flax's (both models).
+  flax's (PSMNet, GwcNet_G);
+- ``k6_bwd_dr_dropped``: K6's backward kernel returns dr = 0 (GwcNet_GC,
+  ACVNet, CFNet);
+- ``k5_bwd_scatter_dropped``: K5's backward kernel returns dr = 0, its
+  scatter (CFNet);
+- ``k4_bwd_shifted``: K4's backward kernel writes each right pixel's
+  gradient one pixel to the right (CFNet).
 
 The last line is one JSON object ``{"faults": [...]}``. Exits with code 1
 if a clean run is outside the limits; a fault that passes is reported, not
@@ -73,13 +79,46 @@ def bn_unbiased_running_var():
     return patched(FlaxRunningStats, "forward", faulty)
 
 
+def k6_bwd_dr_dropped():
+    launch = volume._launch_concat_backward
+
+    def faulty(grad, max_disp, mask_left):
+        dl, dr = launch(grad, max_disp, mask_left)
+        return dl, torch.zeros_like(dr)
+    return patched(volume, "_launch_concat_backward", faulty)
+
+
+def k5_bwd_scatter_dropped():
+    launch = volume._launch_gwc_samples_backward
+
+    def faulty(*args):
+        dl, dr = launch(*args)
+        return dl, torch.zeros_like(dr)
+    return patched(volume, "_launch_gwc_samples_backward", faulty)
+
+
+def k4_bwd_shifted():
+    launch = volume._launch_gather_backward
+
+    def faulty(*args):
+        dright = launch(*args)
+        shifted = torch.zeros_like(dright)
+        shifted[:, :, 1:] = dright[:, :, :-1]
+        return shifted
+    return patched(volume, "_launch_gather_backward", faulty)
+
+
 RUNS = (
-    ("clean", None, ("PSMNet", "GwcNet_G")),
+    ("clean", None, chip_smoke.TRAIN_MODELS),
     ("k1_bwd_dr_dropped", k1_bwd_dr_dropped, ("GwcNet_G",)),
     ("k1_bwd_last_disparity_dropped", k1_bwd_last_disparity_dropped,
      ("GwcNet_G",)),
     ("bn_unbiased_running_var", bn_unbiased_running_var,
      ("PSMNet", "GwcNet_G")),
+    ("k6_bwd_dr_dropped", k6_bwd_dr_dropped,
+     ("GwcNet_GC", "ACVNet", "CFNet")),
+    ("k5_bwd_scatter_dropped", k5_bwd_scatter_dropped, ("CFNet",)),
+    ("k4_bwd_shifted", k4_bwd_shifted, ("CFNet",)),
 )
 
 
@@ -87,8 +126,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"limits: loss and running statistics {chip_smoke.TRAIN_REL}, "
-          f"gradients {chip_smoke.TRAIN_GRAD_L2} (global relative L2) and "
-          f"{chip_smoke.TRAIN_GRAD_LEAF} (worst leaf)")
+          f"gradients (global relative L2, worst leaf) by model "
+          f"{chip_smoke.TRAIN_GRAD}")
     rows, clean_ok = [], True
     for fault, plant, models in RUNS:
         for name in models:

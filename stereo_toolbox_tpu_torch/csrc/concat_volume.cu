@@ -35,9 +35,12 @@
 // the run, one store instruction a plane, so a warp writes 512 contiguous
 // bytes of one plane at a time.
 //
-// C interface (loaded with ctypes): concat_volume(...) launches on the given
-// stream, allocates nothing, synchronises nothing and returns
-// cudaGetLastError() (cudaErrorInvalidValue for a plan it does not take).
+// The backward (K6-bwd, concat_volume_backward): see below.
+//
+// C interface (loaded with ctypes): concat_volume(...) and
+// concat_volume_backward(...) launch on the given stream, allocate nothing,
+// synchronise nothing and return cudaGetLastError() (cudaErrorInvalidValue
+// for a plan they do not take).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -226,6 +229,130 @@ int by_vector(const void* left, const void* right, void* out, int B, int H, int 
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------------------------ the backward
+//
+// Replaces the gradient that JAX takes through the XLA path of
+// ops/volume.py::build_concat_volume (a broadcast, a mask, the shifted
+// right stack and a concatenation); the Pallas K6 has no reverse-mode
+// rule. Given the volume's gradient gd [B, D, H, W, 2C]:
+//
+//   dl[b, h, w, c] = sum_{d < D, d <= w or !mask_left} gd[b, d, h, w, c]
+//   dr[b, h, u, c] = sum_{d < D, u + d < W}            gd[b, d, h, u + d, C + c]
+//
+// What bounds it: bytes. gd is 2 * D times the two outputs together, every
+// one of its values feeds exactly one output, so the goal is to read gd
+// once at the card's memory rate.
+//
+// Design ("direct", plan ops/volume.py::concat_backward_plan): a thread
+// item is VEC channels of one output pixel, and it owns them: it reads the
+// matching word of gd in each of its planes (down the d axis for dl, down
+// the diagonal w = u + d for dr), sums in float32 registers and writes its
+// word once. No shared memory, no atomics: the result is the same in every
+// run. Items run with the channel word fastest, a row's dl items before its
+// dr items, so a warp takes one branch and, at one d, reads whole pixels'
+// halves of one gd plane (dr's reach one pixel further each d); each gd
+// value is read by one item. The d loop is unrolled for loads in flight.
+
+// The float32 value of E's bits (E: uint32_t for float32, uint16_t for
+// bfloat16), and back, rounded to nearest even.
+__device__ __forceinline__ float bits_to_f(uint32_t v) { return __uint_as_float(v); }
+__device__ __forceinline__ float bits_to_f(uint16_t v) {
+  return __uint_as_float((uint32_t)v << 16);
+}
+__device__ __forceinline__ void f_to_bits(float v, uint32_t* p) { *p = __float_as_uint(v); }
+__device__ __forceinline__ void f_to_bits(float v, uint16_t* p) {
+  const __nv_bfloat16 r = __float2bfloat16(v);
+  *p = *reinterpret_cast<const uint16_t*>(&r);
+}
+
+// acc[i] += the N values of E at p (aligned to their bytes), read as one
+// word of N * sizeof(E) bytes (16, 8, 4 or 2).
+template <typename E, int N>
+__device__ __forceinline__ void add_word(const E* __restrict__ p, float (&acc)[N]) {
+  using V = typename Vec<N * (int)sizeof(E)>::type;
+  union {
+    V v;
+    E e[N];
+  } u;
+  u.v = __ldg(reinterpret_cast<const V*>(p));
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += bits_to_f(u.e[i]);
+}
+
+template <typename E, int N>
+__device__ __forceinline__ void store_word(E* p, const float (&acc)[N]) {
+  using V = typename Vec<N * (int)sizeof(E)>::type;
+  union {
+    V v;
+    E e[N];
+  } u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) f_to_bits(acc[i], &u.e[i]);
+  *reinterpret_cast<V*>(p) = u.v;
+}
+
+template <typename E, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+concat_backward_kernel(const E* __restrict__ gd, E* __restrict__ dl, E* __restrict__ dr, int H,
+                       int W, int C, int D, int mask_left, long long items) {
+  const long long item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= items) return;
+  const int half = W * (C / VEC);               // one output's items of a row
+  const long long row = item / (2 * half);      // b * H + h
+  int i = (int)(item - row * 2 * half);
+  const bool is_dr = i >= half;
+  if (is_dr) i -= half;
+  const int w = i / (C / VEC);                  // the output pixel
+  const int c = (i - w * (C / VEC)) * VEC;      // its first channel
+  const long long b = row / H;
+  const long long h = row - b * H;
+  const size_t c2 = 2 * (size_t)C;
+  const size_t plane = (size_t)H * W * c2;      // gd's d planes
+  // gd[b, 0, h, w, c] (dl) or gd[b, 0, h, w, C + c] (dr: its d-th term sits
+  // d planes and d pixels further)
+  const E* g = gd + (((size_t)b * D * H + h) * W + w) * c2 + c + (is_dr ? C : 0);
+  const size_t step = is_dr ? plane + c2 : plane;
+  const int dend = is_dr ? min(D, W - w) : (mask_left ? min(D, w + 1) : D);
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < dend; ++d) add_word<E, VEC>(g + d * step, acc);
+  store_word<E, VEC>((is_dr ? dr : dl) + (size_t)(row * W + w) * C + c, acc);
+}
+
+template <typename E, int VEC>
+int launch_backward(const void* gd, void* dl, void* dr, int B, int H, int W, int C, int D,
+                    int mask_left, int threads, cudaStream_t stream) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(gd) | reinterpret_cast<uintptr_t>(dl) |
+                      reinterpret_cast<uintptr_t>(dr);
+  if (C % VEC || a % (VEC * sizeof(E))) return (int)cudaErrorInvalidValue;
+  const long long items = 2LL * B * H * W * (C / VEC);
+  const long long blocks = (items + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  concat_backward_kernel<E, VEC><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const E*>(gd), static_cast<E*>(dl), static_cast<E*>(dr), H, W, C, D,
+      mask_left, items);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int backward_by_vec(const void* gd, void* dl, void* dr, int B, int H, int W, int C, int D,
+                    int mask_left, int vec, int threads, cudaStream_t s) {
+#define CONCAT_BWD_CASE(N)                                                                      \
+  if (vec == N)                                                                                 \
+    return launch_backward<E, N>(gd, dl, dr, B, H, W, C, D, mask_left, threads, s);
+  CONCAT_BWD_CASE(1)
+  CONCAT_BWD_CASE(2)
+  CONCAT_BWD_CASE(4)
+  if constexpr (sizeof(E) == 2) {
+    CONCAT_BWD_CASE(8)
+  }
+#undef CONCAT_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -247,6 +374,25 @@ int concat_volume(const void* left, const void* right, void* out, int B, int H, 
   if (dtype == 1)
     return by_vector<uint16_t>(left, right, out, B, H, W, C, D, mask_left, vb, sb, tw, dr,
                                threads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dl, dr of concat_volume given its output's gradient gd ([B, D, H, W, 2C],
+// in the features' type). dtype: 0 = float32, 1 = bfloat16; mask_left: 0
+// or 1. The plan (channels a thread item vec: 1, 2, 4, or 8 in bfloat16,
+// dividing C and the bases' alignment in elements; threads a block) comes
+// from ops/volume.py::concat_backward_plan.
+int concat_volume_backward(const void* gd, void* dl, void* dr, int B, int H, int W, int C,
+                           int D, int mask_left, int dtype, int vec, int threads,
+                           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || C < 1 || D < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return backward_by_vec<uint32_t>(gd, dl, dr, B, H, W, C, D, mask_left, vec, threads, s);
+  if (dtype == 1)
+    return backward_by_vec<uint16_t>(gd, dl, dr, B, H, W, C, D, mask_left, vec, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 

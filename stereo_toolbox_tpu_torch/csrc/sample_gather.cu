@@ -61,6 +61,8 @@
 // or 16 keeps the left values in registers at a compile-time count; any
 // other C/G runs the same loop with the left values read at each step.
 //
+// The backward kernels (K4-bwd, K5-bwd): see below.
+//
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, allocates nothing, synchronises nothing and returns
 // cudaGetLastError().
@@ -319,6 +321,254 @@ int gwc_by_cpg(const void* left, const void* right, const void* samples, void* o
 #undef GWC_CASE
 }
 
+
+// ------------------------------------------------------------ the backward
+//
+// Replace the gradients that JAX takes through the XLA paths of
+// ops/volume.py::gather_right_by_samples (take_along_axis, whose transpose
+// is a scatter-add) and gwc_volume_from_samples (that gather and the
+// group-wise correlation); the Pallas K4 and K5 have no reverse-mode rule.
+// The samples get no gradient: JAX casts them to int32. With d = d(s, w) the
+// clamped, truncated sample at (b, s, h, w), g the group of channel c and
+// cpg = C / G, given the output's gradient gd:
+//
+//   K4-bwd: dright[b, h, u, c] = sum_{(s, w): w - d = u} gd[b, s, h, w, c]
+//   K5-bwd: dl[b, h, w, c] = 1/cpg * sum_{s: d <= w} gd[b, s, h, w, g] * right[b, h, w - d, c]
+//           dr[b, h, u, c] = 1/cpg * sum_{(s, w): w - d = u} gd[b, s, h, w, g] * left[b, h, w, c]
+//
+// What bounds them: bytes (gd, the features, the samples read once, the
+// outputs written once). dl is a gather, like the forward. dright and dr
+// are scatters: many (s, w) can read one right pixel u (every w of a row
+// whose sample reaches back to it), and which do depends on the data.
+//
+// Design ("sort", plan ops/volume.py::sample_backward_plan): a block owns
+// one row (b, h). It stages the row's shifts d[s][w] in shared memory and
+// sorts the row's (s, w) by the right pixel u = w - d they read, into one
+// list a pixel, in a fixed order: a counting sort whose counts are integer
+// atomics on shared memory (the same in every run), whose offsets are an
+// exclusive scan of the counts, and whose fill is one warp walking the
+// entries in order, 32 at a time: the lanes that read one u find each
+// other (__match_any_sync) and take consecutive places in its list by
+// lane. So each list holds its entries in (s, w) order, whatever the
+// scheduling. Then each output (u, c) is one thread's: it walks its list
+// and sums gd (times left, for K5) in float32 registers, and writes once.
+// No atomics on data: the same inputs give the same bits in every run.
+// K5-bwd's dl items, a gather, read the staged shifts directly. Shared
+// memory: 4 bytes a shift, 4 an entry, 8 a pixel for its list's offset and
+// fill cursor (26 KB a row at CFNet's 1/2 stage in training).
+
+__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
+
+// The row's lists: d [S * W] shifts, off [W + 1] offsets into list [S * W]
+// entries (s << 16 | w), cursor [W] scratch. smp points at samples[b, 0, h,
+// 0]; sample planes lie `plane` apart. The fill's warp stride is the
+// block's width up to 32 (a block of one thread, as a serial run of the
+// kernel has, fills one entry at a time in the same order).
+__device__ __forceinline__ void stage_lists(const float* __restrict__ smp, size_t plane, int S,
+                                            int W, int max_shift, int* d, int* off, int* list,
+                                            int* cursor) {
+  for (int u = threadIdx.x; u <= W; u += blockDim.x) off[u] = 0;
+  __syncthreads();
+  const int n = S * W;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int s = i / W, w = i - s * W;
+    const int v = shift_of(__ldg(smp + s * plane + w), max_shift);
+    d[i] = v;
+    if (v <= w) atomicAdd(off + w - v + 1, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int u = 0; u < W; ++u) off[u + 1] += off[u];
+  __syncthreads();
+  for (int u = threadIdx.x; u < W; u += blockDim.x) cursor[u] = off[u];
+  __syncthreads();
+  const int lanes = min(32, (int)blockDim.x);
+  const int lane = threadIdx.x;
+  if (lane < lanes) {
+    for (int base = 0; base < n; base += lanes) {
+      const int i = base + lane;
+      const int s = i / W, w = i - s * W;
+      const int u = i < n && d[i] <= w ? w - d[i] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu >> (32 - lanes), u);
+      if (u >= 0) list[cursor[u] + __popc(peers & ((1u << lane) - 1))] = s << 16 | w;
+      __syncwarp();
+      if (u >= 0 && lane == __ffs(peers) - 1) cursor[u] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather_backward_kernel(const T* __restrict__ gd, const float* __restrict__ samples,
+                       T* __restrict__ dright, int H, int W, int C, int S, int max_shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* d = reinterpret_cast<int*>(smem);
+  int* off = d + S * W;
+  int* list = off + W + 1;
+  int* cursor = list + S * W;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t plane = (size_t)H * W;                  // pixels of a sample plane
+  stage_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, d, off,
+              list, cursor);
+  const T* g = gd + ((size_t)b * S * plane + (size_t)h * W) * C;  // gd[b, 0, h, 0, 0]
+  T* out = dright + ((size_t)b * H + h) * W * C;
+  for (int i = threadIdx.x; i < W * C; i += blockDim.x) {
+    const int u = i / C, c = i - u * C;
+    float acc = 0.f;
+    for (int p = off[u]; p < off[u + 1]; ++p) {
+      const int e = list[p];
+      acc += to_f(__ldg(g + ((e >> 16) * plane + (e & 0xffff)) * C + c));
+    }
+    from_f(acc, out + i);
+  }
+}
+
+// CPG > 0: C/G at compile time; a thread item is one pixel and one group:
+// it reads the group's gd value once a term and the group's CPG feature
+// values in `vb`-byte words (16, 8 or 4; else one at a time). CPG == 0: a
+// thread item is one pixel and one channel. A block takes the groups [g0,
+// g0 + gc) of its row (the blockIdx.z-th chunk), so that a launch has
+// blocks enough to fill the card; each chunk builds the row's lists
+// itself.
+template <typename T, int CPG>
+__global__ void __launch_bounds__(kThreads)
+gwc_samples_backward_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                            const float* __restrict__ samples, const T* __restrict__ gd,
+                            T* __restrict__ dl, T* __restrict__ dr, int H, int W, int C, int S,
+                            int G, int max_shift, int gc, int vb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* d = reinterpret_cast<int*>(smem);
+  int* off = d + S * W;
+  int* list = off + W + 1;
+  int* cursor = list + S * W;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t plane = (size_t)H * W;                  // pixels of a sample plane
+  stage_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, d, off,
+              list, cursor);
+  const int cpg = C / G;
+  const float inv = 1.f / (float)cpg;
+  const int g0 = blockIdx.z * gc, ng = min(G, g0 + gc) - g0;
+  const size_t row = ((size_t)b * H + h) * W * C;      // left/right/dl/dr [b, h, 0, 0]
+  const T* g = gd + ((size_t)b * S * plane + (size_t)h * W) * G;  // gd[b, 0, h, 0, 0]
+  if constexpr (CPG > 0) {
+    // dl: a gather over the samples of pixel w
+    for (int i = threadIdx.x; i < W * ng; i += blockDim.x) {
+      const int w = i / ng, grp = g0 + (i - w * ng);
+      float acc[CPG];
+#pragma unroll
+      for (int e = 0; e < CPG; ++e) acc[e] = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const int sh = d[s * W + w];
+        if (sh <= w) {
+          const float gv = to_f(__ldg(g + (s * plane + w) * G + grp));
+          float v[CPG];
+          load_f32<T, CPG>(right + row + (size_t)(w - sh) * C + grp * CPG, vb, v);
+#pragma unroll
+          for (int e = 0; e < CPG; ++e) acc[e] = fmaf(gv, v[e], acc[e]);
+        }
+      }
+      T* o = dl + row + (size_t)w * C + grp * CPG;
+#pragma unroll
+      for (int e = 0; e < CPG; ++e) from_f(acc[e] * inv, o + e);
+    }
+    // dr: a scatter, as the sum over the list of u
+    for (int i = threadIdx.x; i < W * ng; i += blockDim.x) {
+      const int u = i / ng, grp = g0 + (i - u * ng);
+      float acc[CPG];
+#pragma unroll
+      for (int e = 0; e < CPG; ++e) acc[e] = 0.f;
+      for (int p = off[u]; p < off[u + 1]; ++p) {
+        const int e0 = list[p], w = e0 & 0xffff;
+        const float gv = to_f(__ldg(g + ((e0 >> 16) * plane + w) * G + grp));
+        float v[CPG];
+        load_f32<T, CPG>(left + row + (size_t)w * C + grp * CPG, vb, v);
+#pragma unroll
+        for (int e = 0; e < CPG; ++e) acc[e] = fmaf(gv, v[e], acc[e]);
+      }
+      T* o = dr + row + (size_t)u * C + grp * CPG;
+#pragma unroll
+      for (int e = 0; e < CPG; ++e) from_f(acc[e] * inv, o + e);
+    }
+  } else {
+    const int c0 = g0 * cpg, nc = ng * cpg;
+    for (int i = threadIdx.x; i < W * nc; i += blockDim.x) {
+      const int w = i / nc, c = c0 + (i - w * nc), grp = c / cpg;
+      float acc = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const int sh = d[s * W + w];
+        if (sh <= w)
+          acc = fmaf(to_f(__ldg(g + (s * plane + w) * G + grp)),
+                     to_f(__ldg(right + row + (size_t)(w - sh) * C + c)), acc);
+      }
+      from_f(acc * inv, dl + row + (size_t)w * C + c);
+    }
+    for (int i = threadIdx.x; i < W * nc; i += blockDim.x) {
+      const int u = i / nc, c = c0 + (i - u * nc), grp = c / cpg;
+      float acc = 0.f;
+      for (int p = off[u]; p < off[u + 1]; ++p) {
+        const int e = list[p], w = e & 0xffff;
+        acc = fmaf(to_f(__ldg(g + ((e >> 16) * plane + w) * G + grp)),
+                   to_f(__ldg(left + row + (size_t)w * C + c)), acc);
+      }
+      from_f(acc * inv, dr + row + (size_t)u * C + c);
+    }
+  }
+}
+
+// Shared bytes of a block: d, list [S * W], off [W + 1], cursor [W]
+int backward_smem(int W, int S) { return 4 * (2 * S * W + 2 * W + 1); }
+
+template <typename K>
+int set_smem(K kernel, int smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <typename T, int CPG>
+int launch_gwc_backward(const void* left, const void* right, const void* samples,
+                        const void* gd, void* dl, void* dr, int B, int H, int W, int C, int S,
+                        int G, int max_shift, int threads, int smem, int gc, cudaStream_t stream) {
+  const int err = set_smem(gwc_samples_backward_kernel<T, CPG>, smem);
+  if (err) return err;
+  // the widest word that divides a group's bytes, the row's and both bases
+  const uintptr_t a = reinterpret_cast<uintptr_t>(left) | reinterpret_cast<uintptr_t>(right);
+  int vb = 0;
+  for (int v = 16; v >= 4 && !vb; v /= 2)
+    if ((CPG * sizeof(T)) % v == 0 && (C * sizeof(T)) % v == 0 && a % v == 0) vb = v;
+  const dim3 grid(H, B, (G + gc - 1) / gc);
+  gwc_samples_backward_kernel<T, CPG><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(left), static_cast<const T*>(right),
+      static_cast<const float*>(samples), static_cast<const T*>(gd), static_cast<T*>(dl),
+      static_cast<T*>(dr), H, W, C, S, G, max_shift, gc, vb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int gwc_backward_by_cpg(const void* left, const void* right, const void* samples,
+                        const void* gd, void* dl, void* dr, int B, int H, int W, int C, int S,
+                        int G, int max_shift, int threads, int smem, int gc, cudaStream_t s) {
+#define GWC_BWD_CASE(n)                                                                     \
+  case n:                                                                                   \
+    return launch_gwc_backward<T, n>(left, right, samples, gd, dl, dr, B, H, W, C, S, G,  \
+                                     max_shift, threads, smem, gc, s);
+  switch (C / G) {
+    GWC_BWD_CASE(1)
+    GWC_BWD_CASE(2)
+    GWC_BWD_CASE(3)
+    GWC_BWD_CASE(4)
+    GWC_BWD_CASE(6)
+    GWC_BWD_CASE(8)
+    GWC_BWD_CASE(12)
+    GWC_BWD_CASE(16)
+    default:
+      return launch_gwc_backward<T, 0>(left, right, samples, gd, dl, dr, B, H, W, C, S, G,
+                                       max_shift, threads, smem, gc, s);
+  }
+#undef GWC_BWD_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -366,6 +616,55 @@ int gwc_volume_from_samples(const void* left, const void* right, const void* sam
   if (dtype == 1 && ng == 4) return gwc_by_cpg<__nv_bfloat16, 4>(GWC_ARGS);
 #undef GWC_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// dright of gather_right_by_samples given its output's gradient gd ([B, S,
+// H, W, C], in the features' type). dtype: 0 = float32, 1 = bfloat16;
+// samples are float32. The plan (threads a block, shared bytes a block)
+// comes from ops/volume.py::sample_backward_plan.
+int gather_right_by_samples_backward(const void* gd, const void* samples, void* dright, int B,
+                                     int H, int W, int C, int S, int max_shift, int dtype,
+                                     int threads, int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || W > 0xffff || C < 1 || S < 1 || S > 0x7fff ||
+      max_shift < 0 || threads < 32 || threads > kThreads || threads % 32 ||
+      smem != backward_smem(W, S) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(H, B);
+  if (dtype == 0) {
+    const int err = set_smem(gather_backward_kernel<float>, smem);
+    if (err) return err;
+    gather_backward_kernel<float><<<grid, threads, smem, s>>>(
+        static_cast<const float*>(gd), static_cast<const float*>(samples),
+        static_cast<float*>(dright), H, W, C, S, max_shift);
+  } else {
+    const int err = set_smem(gather_backward_kernel<__nv_bfloat16>, smem);
+    if (err) return err;
+    gather_backward_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(gd), static_cast<const float*>(samples),
+        static_cast<__nv_bfloat16*>(dright), H, W, C, S, max_shift);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dl, dr of gwc_volume_from_samples given its output's gradient gd ([B, S,
+// H, W, G], in the features' type). dtype: 0 = float32, 1 = bfloat16;
+// samples are float32. The plan (threads a block, shared bytes a block,
+// groups a block) comes from ops/volume.py::sample_backward_plan.
+int gwc_volume_from_samples_backward(const void* left, const void* right, const void* samples,
+                                     const void* gd, void* dl, void* dr, int B, int H, int W,
+                                     int C, int S, int G, int max_shift, int dtype, int threads,
+                                     int smem, int gc, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || W > 0xffff || S < 1 || S > 0x7fff || G < 1 || C % G ||
+      max_shift < 0 || threads < 32 || threads > kThreads || threads % 32 || gc < 1 ||
+      smem != backward_smem(W, S) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return gwc_backward_by_cpg<float>(left, right, samples, gd, dl, dr, B, H, W, C, S, G,
+                                      max_shift, threads, smem, gc, s);
+  return gwc_backward_by_cpg<__nv_bfloat16>(left, right, samples, gd, dl, dr, B, H, W, C, S,
+                                            G, max_shift, threads, smem, gc, s);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,8 +1,8 @@
 """ACVNet (CVPR'22): attention concatenation volume.
 
-Counterpart of ``stereo_toolbox_tpu/models/acvnet.py``, eval forward only.
-Modules and their names follow the original toolbox's ``models/ACVNet/
-acv.py``, so ``state_dict`` keys are its PyTorch names:
+Counterpart of ``stereo_toolbox_tpu/models/acvnet.py``. Modules and their
+names follow the original toolbox's ``models/ACVNet/acv.py``, so
+``state_dict`` keys are its PyTorch names:
 
   * ``feature_extraction``: GwcNet's trunk, gwc feature only (320 channels);
   * attention branch: the 40-group correlation volume (K1), the ``patch``
@@ -18,13 +18,22 @@ acv.py``, so ``state_dict`` keys are its PyTorch names:
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32): ``pred2``, or with `attn_weights_only` the
 attention branch's ``pred_attention``. All heads are registered, so the
-parameter set is the original's whole; the training flag
-``freeze_attn_weights`` has no effect in eval and is not taken.
+parameter set is the original's whole. In train mode (float32) the forward
+returns ``[pred_attention, pred0, pred1, pred2]`` (``classif_att_``,
+``classif0`` on ``cost0``, ``classif1`` on ``dres2``'s output, ``classif2``),
+each regressed at full resolution, with per-view BatchNorm batch statistics
+in the 2D trunk and ``concatconv``; with `attn_weights_only`,
+``[pred_attention]``. The staged-training flag `freeze_attn_weights` detaches
+``att_weights`` (JAX's ``stop_gradient``): the attention branch gets no
+gradient, and train mode drops ``pred_attention``.
 
 On the card the full forward launches K1 and K6 once each, K2 on each
 stride-1 3×3×3 ConvBN (14) and K3 on the last conv of ``classif_att_`` and
-``classif2``. The depthwise ``patch`` convs and the block attention stay
-plain PyTorch (cuDNN, cuBLAS), as the JAX package leaves them to XLA.
+``classif2``. A train step launches K1 and K6 once each and their backward
+kernels once each (no K1 backward with `freeze_attn_weights`, no K6 with
+`attn_weights_only`); every conv runs on cuDNN. The depthwise ``patch``
+convs and the block attention stay plain PyTorch (cuDNN, cuBLAS), as the
+JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stereo_toolbox_tpu_torch.models.gwcnet import GwcFeature
+from stereo_toolbox_tpu_torch.models.gwcnet import (GwcFeature,
+                                                    refuse_bfloat16_training)
 from stereo_toolbox_tpu_torch.nn.layers import (ConvBNAct, HourglassRedir,
                                                 channels_first, channels_last,
                                                 classifier, dual_view_apply,
@@ -107,10 +117,12 @@ class ACVNet(nn.Module):
     NUM_GROUPS, CONCAT_CHANNELS = 40, 32
 
     def __init__(self, max_disp: int = 192, attn_weights_only: bool = False,
+                 freeze_attn_weights: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.max_disp = max_disp
         self.attn_weights_only = attn_weights_only
+        self.freeze_attn_weights = freeze_attn_weights
         cc = self.CONCAT_CHANNELS
         self.feature_extraction = GwcFeature()
         self.patch = _depthwise(self.NUM_GROUPS, 1)
@@ -151,19 +163,17 @@ class ACVNet(nn.Module):
         return disparity_regression(torch.softmax(cost.float(), dim=1),
                                     self.max_disp)
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor
-                ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("ACVNet runs in eval mode only; call "
-                                      ".eval() first")
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
         dtype = self.classif2[0][0].weight.dtype
+        if self.training:
+            refuse_bfloat16_training(dtype)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 
     def _forward(self, left, right, dtype):
         _, h, w, _ = left.shape
         fl, fr = dual_view_apply(self._features, left.to(dtype),
-                                 right.to(dtype))
+                                 right.to(dtype), self.training)
         d4 = self.max_disp // 4
 
         # attention branch
@@ -177,8 +187,11 @@ class ACVNet(nn.Module):
              self.patch_l3(gwc[:, 24:40])], dim=1))
         ca = self.dres2_att_(self.dres1_att_(patch_volume))
         att_weights = self.classif_att_[1](self.classif_att_[0](ca))
+        if self.freeze_attn_weights:
+            att_weights = att_weights.detach()
         if self.attn_weights_only:
-            return self._regress(att_weights, h, w)
+            pred_attention = self._regress(att_weights, h, w)
+            return [pred_attention] if self.training else pred_attention
 
         # main branch: the attention-filtered concat volume
         volume = build_concat_volume(fl["concat_feature"].contiguous(),
@@ -187,5 +200,15 @@ class ACVNet(nn.Module):
         volume = torch.softmax(att_weights, dim=1) * volume
         cost0 = self.dres0(volume)
         cost0 = self.dres1[1](self.dres1[0](cost0), residual=cost0)
-        out2 = self.dres3(self.dres2(cost0))
-        return self._regress(self.classif2[1](self.classif2[0](out2)), h, w)
+        if not self.training:     # no hourglass output is kept
+            out2 = self.dres3(self.dres2(cost0))
+            return self._regress(self.classif2[1](self.classif2[0](out2)),
+                                 h, w)
+        out1 = self.dres2(cost0)
+        out2 = self.dres3(out1)
+        preds = [self._regress(head[1](head[0](x)), h, w)
+                 for head, x in ((self.classif0, cost0), (self.classif1, out1),
+                                 (self.classif2, out2))]
+        if not self.freeze_attn_weights:
+            preds = [self._regress(att_weights, h, w)] + preds
+        return preds

@@ -1,9 +1,9 @@
 """CFNet (CVPR'21): fused multi-scale cost volumes and an uncertainty-driven
 cascade over per-pixel disparity samples.
 
-Counterpart of ``stereo_toolbox_tpu/models/cfnet.py``, eval forward only.
-Modules and their names follow the original toolbox's
-``models/CFNet/cfnet.py``, so ``state_dict`` keys are its PyTorch names. The
+Counterpart of ``stereo_toolbox_tpu/models/cfnet.py``. Modules and their
+names follow the original toolbox's ``models/CFNet/cfnet.py``, so
+``state_dict`` keys are its PyTorch names. The
 original's ``combine1.combine3`` and ``combine1.redir3`` are registered
 there but never used by its forward; they are not registered here, so an
 original checkpoint loads once those keys are dropped.
@@ -12,13 +12,23 @@ Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32). H and W must be multiples of 32. Only the heads
 of the eval path run (``classif2`` and ``confidence_classif1_s{3,2}``), but
 every head and the cascade's ``gamma_s*``/``beta_s*`` are registered, so the
-parameter set is the original's whole.
+parameter set is the original's whole. In train mode (float32) the forward
+returns JAX's nine predictions at full resolution: ``classif0`` and
+``classif1`` regressed over the full range (trilinear upsampling with
+``align_corners=True``), the 1/8 stage's ``pred2``, then each cascade
+stage's ``confidence_classif0``, ``confidence_classifmid`` and
+``confidence_classif1`` over its samples. The search range of the next
+stage takes the prediction detached (JAX's ``stop_gradient``), in the
+variance too; the samples are floored, so nothing reaches ``gamma_s*`` /
+``beta_s*`` through them (zero gradients, as in JAX).
 
 On the card the forward launches K1 three times (the gwc volumes at 1/8,
 1/16, 1/32), K6 three times (the concat volumes), K5 and K4 once per
 cascade stage (the sampled gwc and concat volumes at 1/4 and 1/2), K2 on
 each stride-1 3×3×3 ConvBN of the 3D stacks and K3 on the last conv of each
-of the three classifiers that run.
+of the three classifiers that run. A train step launches K1, K6, K4 and K5
+as the forward does and each of their backward kernels as often; every
+conv runs on cuDNN.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereo_toolbox_tpu_torch.models.gwcnet import refuse_bfloat16_training
 from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock, ConvBNAct,
                                                 ConvTransposeBN,
                                                 HourglassRedir, avg_pool,
@@ -306,30 +317,39 @@ class CFNet(nn.Module):
         return (torch.clamp(lo - widen, 0, cap),
                 torch.clamp(hi + widen, 0, cap))
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor
-                ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("CFNet runs in eval mode only; call "
-                                      ".eval() first")
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
         dtype = self.classif2[0][0].weight.dtype
+        if self.training:
+            refuse_bfloat16_training(dtype)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 
     def _forward(self, left, right, dtype):
         _, h, w, _ = left.shape
+        train = self.training
         fl, fr = dual_view_apply(self.feature_extraction, left.to(dtype),
-                                 right.to(dtype))
+                                 right.to(dtype), train)
+        preds = []    # the train-only heads, in JAX's order, as their inputs
+        #               are ready (an eval forward keeps no stage's output)
 
         v4, v5, v6 = self.volumes(fl, fr)
         cost0_4 = _run_dres(self.dres0, self.dres1, v4)
         cost0_5 = _run_dres(self.dres0_5, self.dres1_5, v5)
         cost0_6 = _run_dres(self.dres0_6, self.dres1_6, v6)
-        out2_4 = self.dres3(self.combine1(cost0_4, cost0_5, cost0_6))
+        out1_4 = self.combine1(cost0_4, cost0_5, cost0_6)
+        if train:
+            preds += [self._regress_full(self.classif0, cost0_4, h, w),
+                      self._regress_full(self.classif1, out1_4, h, w)]
+        out2_4 = self.dres3(out1_4)
+        del out1_4
 
         # stage s4 (1/8): the full-range volume
         d8 = self.max_disp // 8
         prob2_s4 = torch.softmax(_classify(self.classif2, out2_4).float(), 1)
         pred2_s4 = disparity_regression(prob2_s4, d8)
+        if train:
+            preds.append(_up_to(pred2_s4, 8, h, w))
+        pred2_s4 = pred2_s4.detach()
         var_s4 = torch.sqrt(disparity_variance(prob2_s4, pred2_s4) + 1e-12)
         samples_s3 = self._samples(pred2_s4, var_s4, self.gamma_s3,
                                    self.beta_s3, self.sample_count_s3, 2)
@@ -337,9 +357,19 @@ class CFNet(nn.Module):
         # stage s3 (1/4): volumes over the samples
         cost0_s3 = _run_dres(self.confidence0_s3, self.confidence1_s3,
                              self.volume_s3(fl, fr, samples_s3))
-        out2_s3 = self.confidence3_s3(self.confidence2_s3(cost0_s3))
+        out1_s3 = self.confidence2_s3(cost0_s3)
+        if train:
+            preds += [self._sampled(head, x, samples_s3, 4, h, w)
+                      for head, x in ((self.confidence_classif0_s3, cost0_s3),
+                                      (self.confidence_classifmid_s3,
+                                       out1_s3))]
+        out2_s3 = self.confidence3_s3(out1_s3)
+        del out1_s3
         pred1_s3, prob1_s3 = self._sample_regress(
             _classify(self.confidence_classif1_s3, out2_s3), samples_s3)
+        if train:
+            preds.append(_up_to(pred1_s3, 4, h, w))
+        pred1_s3 = pred1_s3.detach()
         var_s3 = torch.sqrt(disparity_variance_confidence(
             prob1_s3, samples_s3, pred1_s3) + 1e-12)
         samples_s2 = self._samples(pred1_s3, var_s3, self.gamma_s2,
@@ -348,10 +378,31 @@ class CFNet(nn.Module):
         # stage s2 (1/2)
         cost0_s2 = _run_dres(self.confidence0_s2, self.confidence1_s2,
                              self.volume_s2(fl, fr, samples_s2))
-        out2_s2 = self.confidence3_s2(self.confidence2_s2(cost0_s2))
+        out1_s2 = self.confidence2_s2(cost0_s2)
+        if train:
+            preds += [self._sampled(head, x, samples_s2, 2, h, w)
+                      for head, x in ((self.confidence_classif0_s2, cost0_s2),
+                                      (self.confidence_classifmid_s2,
+                                       out1_s2))]
+        out2_s2 = self.confidence3_s2(out1_s2)
+        del out1_s2
         pred1_s2, _ = self._sample_regress(
             _classify(self.confidence_classif1_s2, out2_s2), samples_s2)
-        return interpolate(pred1_s2 * 2, (h, w), (1, 2), align_corners=True)
+        pred1_s2 = _up_to(pred1_s2, 2, h, w)
+        return preds + [pred1_s2] if train else pred1_s2
+
+    def _regress_full(self, head, x, h, w):
+        """A full-range head: its costs trilinearly upsampled to
+        ``(max_disp, h, w)`` (``align_corners=True``, float32), the softmax
+        and the disparity regression."""
+        cost = interpolate(_classify(head, x).float(), (self.max_disp, h, w),
+                           (1, 2, 3), align_corners=True)
+        return disparity_regression(torch.softmax(cost, 1), self.max_disp)
+
+    def _sampled(self, head, x, samples, factor, h, w):
+        """A head over the samples, regressed and brought to ``(h, w)``."""
+        return _up_to(self._sample_regress(_classify(head, x), samples)[0],
+                      factor, h, w)
 
     def _samples(self, pred, var, gamma, beta, count, scale):
         """The next stage's samples: ``pred ∓ ((γ + 1)·σ + β)`` upsampled
@@ -360,7 +411,9 @@ class CFNet(nn.Module):
             return interpolate(d * 2.0, (d.shape[1] * 2, d.shape[2] * 2),
                                (1, 2), align_corners=True)
 
-        gamma, beta = gamma[0], beta[0]          # float32 in every model
+        # float32 in every model but a float64 copy, whose range then
+        # computes in float64, as JAX's does
+        gamma, beta = gamma[:1], beta[:1]
         lo = upx2(pred - (gamma + 1) * var - beta)
         hi = upx2(pred + (gamma + 1) * var + beta)
         lo, hi = self._search_range(count + 1, lo, hi, scale)
@@ -368,5 +421,12 @@ class CFNet(nn.Module):
 
     @staticmethod
     def _sample_regress(cost, samples):
+        """Softmax over the samples in float32 and the expected sample."""
         prob = torch.softmax(cost.float(), dim=1)
         return (prob * samples).sum(1), prob
+
+
+def _up_to(d: torch.Tensor, factor: int, h: int, w: int) -> torch.Tensor:
+    """``[B, h', w']`` disparities × `factor`, bilinearly resized to ``(h,
+    w)`` with ``align_corners=True``."""
+    return interpolate(d * factor, (h, w), (1, 2), align_corners=True)

@@ -8,16 +8,16 @@ PyTorch names and published checkpoints load with ``load_state_dict``.
 
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32). In eval only ``classif3`` runs; in train mode
-(GwcNet_G, float32) the forward returns the four heads ``[classif0(cost0),
+(float32) the forward returns the four heads ``[classif0(cost0),
 classif1(out1), classif2(out2), classif3(out3)]``, each regressed at full
 resolution, as JAX's ``train=True`` does, with per-view BatchNorm batch
-statistics in the 2D trunk. GwcNet_GC raises in train mode: its concat
-volume's kernel (K6) has no backward.
+statistics in the 2D trunk.
 
 On the card the eval forward launches K1 once (the gwc volume), K6 once for
 GwcNet_GC (the masked concat volume), K2 on each stride-1 3×3×3 ConvBN of
 the 3D stack and K3 once (``classif3``'s last conv). A train step launches
-K1 once forward and its backward kernel once; every conv runs on cuDNN.
+K1 once forward and its backward kernel once, and for GwcNet_GC K6 and its
+backward kernel once each; every conv runs on cuDNN.
 """
 
 from __future__ import annotations
@@ -110,11 +110,6 @@ class GwcNet(nn.Module):
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         dtype = self.classif3[0][0].weight.dtype
         if self.training:
-            if self.use_concat_volume:
-                raise NotImplementedError(
-                    "GwcNet_GC does not train yet: its concat volume (K6, "
-                    "csrc/concat_volume.cu) has no backward kernel (ROADMAP "
-                    "Queue 1, item 1)")
             refuse_bfloat16_training(dtype)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)

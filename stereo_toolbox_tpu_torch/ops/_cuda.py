@@ -48,11 +48,19 @@ SIGNATURES = {
         "gather_right_by_samples": [_P] * 3 + [_I] * 11 + [_P],
         # left, right, samples, out, B, H, W, C, S, G, max_shift, dtype, tw,
         # threads, ng, stream
-        "gwc_volume_from_samples": [_P] * 4 + [_I] * 11 + [_P]},
+        "gwc_volume_from_samples": [_P] * 4 + [_I] * 11 + [_P],
+        # grad, samples, dright, B, H, W, C, S, max_shift, dtype, threads,
+        # smem, stream
+        "gather_right_by_samples_backward": [_P] * 3 + [_I] * 9 + [_P],
+        # left, right, samples, grad, dl, dr, B, H, W, C, S, G, max_shift,
+        # dtype, threads, smem, groups, stream
+        "gwc_volume_from_samples_backward": [_P] * 6 + [_I] * 11 + [_P]},
     "concat_volume": {
         # left, right, out, B, H, W, C, D, mask_left, dtype, vb, sb, tw, dr,
         # threads, stream
-        "concat_volume": [_P] * 3 + [_I] * 12 + [_P]},
+        "concat_volume": [_P] * 3 + [_I] * 12 + [_P],
+        # grad, dl, dr, B, H, W, C, D, mask_left, dtype, vec, threads, stream
+        "concat_volume_backward": [_P] * 3 + [_I] * 9 + [_P]},
     "conv3d": {
         # x, w, out, B, D, H, W, Ci, dtype, run, stream
         "conv3d_stencil": [_P] * 3 + [_I] * 7 + [_P],

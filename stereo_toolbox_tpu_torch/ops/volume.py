@@ -13,9 +13,17 @@ and runs its plain PyTorch version, named ``*_reference``, on a CPU tensor:
   * `gather_right_by_samples` and `gwc_volume_from_samples` →
     ``csrc/sample_gather.cu`` (K4, K5).
 
+On the card each of them is differentiable: an autograd Function whose
+backward launches a backward kernel (`gwc_volume_backward`,
+`concat_volume_backward`, `gather_right_by_samples_backward`,
+`gwc_volume_from_samples_backward`; plain versions ``*_backward_reference``).
+The samples get no gradient, as in JAX, where they pass through an integer
+cast.
+
 Each wrapper counts its launches, in all (``.launches``), by shape
 (``.shapes``) and by design and plan (``.designs``), the plan coming from
-`gwc_plan`, `gather_plan`, `sample_gwc_plan` and `concat_plan`.
+`gwc_plan`, `gwc_backward_plan`, `gather_plan`, `sample_gwc_plan`,
+`sample_backward_plan`, `concat_plan` and `concat_backward_plan`.
 """
 
 from __future__ import annotations
@@ -426,20 +434,39 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
     right half zero where w < d. ``mask_left=False`` keeps the left features
     at every d (ACVNet, IGEV, FoundationStereo).
 
-    CPU tensors take `concat_volume_reference`; CUDA tensors launch the
-    kernel, with either `mask_left` (float32 or bfloat16, contiguous
-    ``[B, H, W, C]``), cut as `concat_plan` says, or raise.
+    CPU tensors take `concat_volume_reference` (autograd differentiates
+    it); CUDA tensors launch the kernel, with either `mask_left` (float32 or
+    bfloat16, contiguous ``[B, H, W, C]``), cut as `concat_plan` says, or
+    raise. On the card the volume is differentiable: its backward launches
+    the backward kernel (`concat_volume_backward`).
     """
     if _cuda.on_cpu(left):
         return concat_volume_reference(left, right, max_disp, mask_left)
-    _cuda.refuse_grad("build_concat_volume (K6)", "GwcNet_GC, CFNet and "
-                      "ACVNet raise in train mode until K6 has a backward "
-                      "kernel (ROADMAP Queue 1, item 1); autograd "
-                      "differentiates concat_volume_reference", left, right)
     _check_features(left, right)
-    b, h, w, c = left.shape
     if max_disp < 1:
         raise ValueError(f"bad max_disp {max_disp}")
+    return _ConcatVolume.apply(left, right, max_disp, bool(mask_left))
+
+
+class _ConcatVolume(torch.autograd.Function):
+    """K6 with its gradient: the forward kernel, and the backward kernel
+    (`concat_volume_backward`) for the features' gradients."""
+
+    @staticmethod
+    def forward(ctx, left, right, max_disp, mask_left):
+        ctx.volume = (max_disp, mask_left)
+        return _launch_concat_volume(left, right, max_disp, mask_left)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        dl, dr = concat_volume_backward(grad.contiguous(), *ctx.volume)
+        return dl, dr, None, None
+
+
+def _launch_concat_volume(left: torch.Tensor, right: torch.Tensor,
+                          max_disp: int, mask_left: bool) -> torch.Tensor:
+    b, h, w, c = left.shape
     code = _cuda.dtype_code(left)
     out = torch.empty((b, max_disp, h, w, 2 * c), dtype=left.dtype,
                       device=left.device)
@@ -466,6 +493,108 @@ def build_concat_volume(left: torch.Tensor, right: torch.Tensor,
 build_concat_volume.launches = 0
 build_concat_volume.shapes = Counter()
 build_concat_volume.designs = Counter()
+
+
+def concat_volume_backward_reference(grad: torch.Tensor, max_disp: int,
+                                     mask_left: bool = True
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain gradients of the concat volume's features given its gradient
+    ``grad [B, D, H, W, 2C]``: ``dl[b,h,w,c] = Σ_{d ≤ w} grad[b,d,h,w,c]``
+    (``Σ_d`` without `mask_left`) and ``dr[b,h,u,c] = Σ_{u+d < W}
+    grad[b,d,h,u+d,C+c]``, summed in float32 (float64 for a float64
+    gradient), in the gradient's type. ``[B, H, W, C]`` each."""
+    b, _, h, w, c2 = grad.shape
+    c = c2 // 2
+    g = grad.to(torch.promote_types(grad.dtype, torch.float32))
+    dl = g.new_zeros((b, h, w, c))
+    dr = g.new_zeros((b, h, w, c))
+    for d in range(max_disp):
+        if mask_left:
+            dl[:, :, d:] += g[:, d, :, d:, :c]
+        else:
+            dl += g[:, d, ..., :c]
+        if d < w:
+            dr[:, :, :w - d] += g[:, d, :, d:, c:]
+    return dl.to(grad.dtype), dr.to(grad.dtype)
+
+
+CONCAT_BWD_THREADS = 256     # the K6 backward kernel's threads a block
+
+
+class ConcatBackwardPlan(NamedTuple):
+    """How the K6 backward kernel cuts a launch: channels a thread item
+    `vec`, threads a block `threads` (see ``csrc/concat_volume.cu``)."""
+    vec: int
+    threads: int
+
+
+def concat_backward_plan(c: int, dtype: torch.dtype,
+                         align: int = 16) -> ConcatBackwardPlan:
+    """The K6 backward kernel's plan for ``[.., 2C]`` gradients of `dtype`
+    whose bases (the gradient's and both outputs') are aligned to `align`
+    bytes: a thread item is `vec` channels of one output pixel, read as one
+    word of each gradient plane: the widest of 16, 8, 4 or 2 bytes whose
+    channels divide C (so that a word never straddles the halves) and
+    whose bytes divide `align`."""
+    size = 4 if dtype == torch.float32 else 2
+    for v in (16, 8, 4, 2):
+        if v >= size and c % (v // size) == 0 and align % v == 0:
+            return ConcatBackwardPlan(v // size, CONCAT_BWD_THREADS)
+    return ConcatBackwardPlan(1, CONCAT_BWD_THREADS)
+
+
+def concat_volume_backward(grad: torch.Tensor, max_disp: int,
+                           mask_left: bool = True
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients ``(dl, dr)`` of `build_concat_volume`'s features given the
+    volume's gradient ``grad [B, D, H, W, 2C]``.
+
+    CPU tensors take `concat_volume_backward_reference`; CUDA tensors
+    launch the backward kernel (float32 or bfloat16, `grad` contiguous),
+    cut as `concat_backward_plan` says, or raise. Every output is written
+    once, without atomics: the same inputs give the same bits in every
+    run.
+    """
+    if _cuda.on_cpu(grad):
+        return concat_volume_backward_reference(grad, max_disp, mask_left)
+    if grad.device.type != "cuda":
+        raise ValueError(f"unsupported device {grad.device}")
+    if (grad.dim() != 5 or grad.shape[1] != max_disp or grad.shape[-1] % 2
+            or not grad.is_contiguous()):
+        raise ValueError(f"grad must be a contiguous [B, D={max_disp}, H, W, "
+                         f"2C] tensor, got {tuple(grad.shape)}")
+    return _launch_concat_backward(grad, max_disp, mask_left)
+
+
+def _launch_concat_backward(grad: torch.Tensor, max_disp: int,
+                            mask_left: bool
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, d, h, w, c2 = grad.shape
+    c = c2 // 2
+    code = _cuda.dtype_code(grad)
+    dl = torch.empty((b, h, w, c), dtype=grad.dtype, device=grad.device)
+    dr = torch.empty_like(dl)
+    if dl.numel() == 0:
+        return dl, dr
+    bits = grad.data_ptr() | dl.data_ptr() | dr.data_ptr() | 16
+    plan = concat_backward_plan(c, grad.dtype, bits & -bits)
+    lib = _cuda.library("concat_volume")
+    with torch.cuda.device(grad.device):
+        rc = lib.concat_volume_backward(
+            grad.data_ptr(), dl.data_ptr(), dr.data_ptr(), b, h, w, c, d,
+            int(mask_left), code, *plan, _cuda.stream_of(grad))
+    _cuda.check(lib, rc, "concat_volume_backward")
+    concat_volume_backward.launches += 1
+    concat_volume_backward.shapes[(b, h, w, c, d, bool(mask_left))] += 1
+    concat_volume_backward.designs[("direct", *plan)] += 1
+    return dl, dr
+
+
+# launches of the backward kernel, in all, by (B, H, W, C, D, mask_left) and
+# by design ("direct", channels a thread item, threads a block)
+concat_volume_backward.launches = 0
+concat_volume_backward.shapes = Counter()
+concat_volume_backward.designs = Counter()
 
 
 def gather_right_by_samples_reference(right: torch.Tensor,
@@ -539,16 +668,39 @@ def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
     Samples are clamped to ``[0, max_shift]`` and truncated to integers.
     CPU tensors take `gather_right_by_samples_reference`; CUDA tensors launch
     the kernel (features float32 or bfloat16, samples float32, `max_shift`
-    given), cut as `gather_plan` says, or raise.
+    given), cut as `gather_plan` says, or raise. On the card the output is
+    differentiable in `right`: its backward launches the backward kernel
+    (`gather_right_by_samples_backward`); the samples get no gradient.
     """
     if _cuda.on_cpu(right):
         return gather_right_by_samples_reference(right, samples, max_shift)
-    _cuda.refuse_grad("gather_right_by_samples (K4)", "CFNet raises in train "
-                      "mode until K4 has a backward kernel (ROADMAP Queue 1, "
-                      "item 1); autograd differentiates "
-                      "gather_right_by_samples_reference", right, samples)
     _check_features(right)
     _check_samples(right, samples, max_shift)
+    return _GatherRight.apply(right, samples, max_shift)
+
+
+class _GatherRight(torch.autograd.Function):
+    """K4 with its gradient: the forward kernel, and the backward kernel
+    (`gather_right_by_samples_backward`) for the right features'
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, right, samples, max_shift):
+        ctx.save_for_backward(samples)
+        ctx.max_shift = max_shift
+        return _launch_gather(right, samples, max_shift)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (samples,) = ctx.saved_tensors
+        dright = gather_right_by_samples_backward(grad.contiguous(), samples,
+                                                  ctx.max_shift)
+        return dright, None, None
+
+
+def _launch_gather(right: torch.Tensor, samples: torch.Tensor,
+                   max_shift: int) -> torch.Tensor:
     b, h, w, c = right.shape
     s = samples.shape[1]
     code = _cuda.dtype_code(right)
@@ -577,6 +729,121 @@ def gather_right_by_samples(right: torch.Tensor, samples: torch.Tensor,
 gather_right_by_samples.launches = 0
 gather_right_by_samples.shapes = Counter()
 gather_right_by_samples.designs = Counter()
+
+
+def gather_right_by_samples_backward_reference(grad: torch.Tensor,
+                                               samples: torch.Tensor,
+                                               max_shift: int | None = None
+                                               ) -> torch.Tensor:
+    """Plain gradient of the gather's right features given its gradient
+    ``grad [B, S, H, W, C]``: ``dright[b,h,u,c] = Σ_{s,x : x − d = u}
+    grad[b,s,h,x,c]`` with d the clamped, truncated sample at ``(b, s, h,
+    x)``, every ``(s, x)`` that read an on-image pixel scattered to the
+    pixel it read (`index_add_`), summed in float32 (float64 for a float64
+    gradient), in the gradient's type. ``[B, H, W, C]``."""
+    if max_shift is not None:
+        samples = samples.clamp(0, max_shift)
+    b, s, h, w, c = grad.shape
+    x = (torch.arange(w, device=grad.device)[None, None, None, :]
+         - samples.to(torch.int64))                                # [B,S,H,W]
+    valid = (x >= 0) & (x <= w - 1)
+    g = grad.to(torch.promote_types(grad.dtype, torch.float32))
+    g = g * valid[..., None].to(g.dtype)
+    row = (torch.arange(b, device=grad.device)[:, None, None, None] * h
+           + torch.arange(h, device=grad.device)[None, None, :, None]) * w
+    target = (row + x.clamp(0, w - 1)).reshape(-1)
+    out = g.new_zeros((b * h * w, c)).index_add_(0, target, g.reshape(-1, c))
+    return out.view(b, h, w, c).to(grad.dtype)
+
+
+SAMPLE_BWD_THREADS = 256              # the K4/K5 backward kernels' threads
+SAMPLE_BWD_MAX_SMEM = 200 * 1024      # a block's staged lists' bytes, at most
+
+
+class SampleBackwardPlan(NamedTuple):
+    """How the K4 and K5 backward kernels cut a launch: threads a block
+    `threads`, shared bytes a block `smem`, and (K5) groups a block
+    `groups` (see ``csrc/sample_gather.cu``)."""
+    threads: int
+    smem: int
+    groups: int
+
+
+def sample_backward_plan(b: int, h: int, w: int, s: int, g: int,
+                         sms: int) -> SampleBackwardPlan:
+    """The K4/K5 backward kernels' plan for `b` x `h` rows of `w` pixels and
+    `s` samples, K5's features in `g` groups, on a card of `sms` SMs: a
+    block is one row (b, h); it stages the row's shifts and the lists of
+    (s, x) that read each right pixel in shared memory, 4 bytes a shift, 4
+    an entry and 8 a pixel (its list's offset and fill cursor). K5's rows
+    are cut into chunks of whole groups, as few as give the launch 4
+    blocks an SM (K4 takes every channel of a row: pass g = 1)."""
+    smem = 4 * (2 * s * w + 2 * w + 1)
+    if smem > SAMPLE_BWD_MAX_SMEM or w > 0xFFFF or s > 0x7FFF:
+        raise ValueError(f"no K4/K5 backward plan for rows of W={w}, S={s}: "
+                         f"{smem} shared bytes")
+    chunks = min(g, -(-4 * sms // (b * h)))
+    return SampleBackwardPlan(SAMPLE_BWD_THREADS, smem, -(-g // chunks))
+
+
+def _check_sample_grad(grad: torch.Tensor, shape: tuple, dtype) -> None:
+    if (grad.shape != shape or grad.dtype != dtype
+            or not grad.is_contiguous()):
+        raise ValueError(f"grad must be a contiguous {dtype} {shape} tensor,"
+                         f" got {grad.dtype} {tuple(grad.shape)}")
+
+
+def gather_right_by_samples_backward(grad: torch.Tensor,
+                                     samples: torch.Tensor,
+                                     max_shift: int | None = None
+                                     ) -> torch.Tensor:
+    """Gradient of `gather_right_by_samples`'s right features given its
+    gradient ``grad [B, S, H, W, C]``.
+
+    CPU tensors take `gather_right_by_samples_backward_reference`; CUDA
+    tensors launch the backward kernel (the forward's types; `grad`
+    contiguous), cut as `sample_backward_plan` says, or raise. Each right
+    pixel's gradient is summed by one thread in a fixed order, without
+    atomics: the same inputs give the same bits in every run.
+    """
+    if _cuda.on_cpu(grad):
+        return gather_right_by_samples_backward_reference(grad, samples,
+                                                          max_shift)
+    b, s, h, w, c = grad.shape
+    right = grad.new_empty((b, h, w, c))
+    _check_features(right)
+    _check_samples(right, samples, max_shift)
+    _check_sample_grad(grad, (b, samples.shape[1], h, w, c), grad.dtype)
+    return _launch_gather_backward(grad, samples, right, max_shift)
+
+
+def _launch_gather_backward(grad: torch.Tensor, samples: torch.Tensor,
+                            right: torch.Tensor, max_shift: int
+                            ) -> torch.Tensor:
+    """`right` (empty, the features' shape) filled with the gradient."""
+    b, s, h, w, c = grad.shape
+    code = _cuda.dtype_code(grad)
+    if right.numel() == 0:
+        return right
+    sms = torch.cuda.get_device_properties(grad.device).multi_processor_count
+    plan = sample_backward_plan(b, h, w, s, 1, sms)
+    lib = _cuda.library("sample_gather")
+    with torch.cuda.device(grad.device):
+        rc = lib.gather_right_by_samples_backward(
+            grad.data_ptr(), samples.data_ptr(), right.data_ptr(), b, h, w, c,
+            s, max_shift, code, *plan[:2], _cuda.stream_of(grad))
+    _cuda.check(lib, rc, "gather_right_by_samples_backward")
+    gather_right_by_samples_backward.launches += 1
+    gather_right_by_samples_backward.shapes[(b, h, w, c, s, max_shift)] += 1
+    gather_right_by_samples_backward.designs[("sort", plan.threads)] += 1
+    return right
+
+
+# launches of the backward kernel, in all, by (B, H, W, C, S, max_shift) and
+# by design ("sort", threads a block)
+gather_right_by_samples_backward.launches = 0
+gather_right_by_samples_backward.shapes = Counter()
+gather_right_by_samples_backward.designs = Counter()
 
 
 def concat_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
@@ -659,21 +926,46 @@ def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
     CPU tensors take `gwc_volume_from_samples_reference`; CUDA tensors launch
     the kernel, which never writes the gathered ``[B, S, H, W, C]`` tensor
     (features float32 or bfloat16, samples float32, `max_shift` given), cut
-    as `sample_gwc_plan` says, or raise.
+    as `sample_gwc_plan` says, or raise. On the card the volume is
+    differentiable in the features: its backward launches the backward
+    kernel (`gwc_volume_from_samples_backward`); the samples get no
+    gradient.
     """
     if _cuda.on_cpu(left):
         return gwc_volume_from_samples_reference(left, right, samples,
                                                  num_groups, max_shift)
-    _cuda.refuse_grad("gwc_volume_from_samples (K5)", "CFNet raises in train "
-                      "mode until K5 has a backward kernel (ROADMAP Queue 1, "
-                      "item 1); autograd differentiates "
-                      "gwc_volume_from_samples_reference", left, right,
-                      samples)
     _check_features(left, right)
     _check_samples(right, samples, max_shift)
+    if left.shape[-1] % num_groups:
+        raise ValueError(f"channels {left.shape[-1]} not divisible by groups "
+                         f"{num_groups}")
+    return _GwcFromSamples.apply(left, right, samples, num_groups, max_shift)
+
+
+class _GwcFromSamples(torch.autograd.Function):
+    """K5 with its gradient: the forward kernel, and the backward kernel
+    (`gwc_volume_from_samples_backward`) for the features' gradients."""
+
+    @staticmethod
+    def forward(ctx, left, right, samples, num_groups, max_shift):
+        ctx.save_for_backward(left, right, samples)
+        ctx.volume = (num_groups, max_shift)
+        return _launch_gwc_samples(left, right, samples, num_groups,
+                                   max_shift)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        left, right, samples = ctx.saved_tensors
+        dl, dr = gwc_volume_from_samples_backward(
+            left, right, samples, grad.contiguous(), *ctx.volume)
+        return dl, dr, None, None, None
+
+
+def _launch_gwc_samples(left: torch.Tensor, right: torch.Tensor,
+                        samples: torch.Tensor, num_groups: int,
+                        max_shift: int) -> torch.Tensor:
     b, h, w, c = left.shape
-    if c % num_groups:
-        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     s = samples.shape[1]
     code = _cuda.dtype_code(left)
     out = torch.empty((b, s, h, w, num_groups), dtype=left.dtype,
@@ -701,6 +993,93 @@ def gwc_volume_from_samples(left: torch.Tensor, right: torch.Tensor,
 gwc_volume_from_samples.launches = 0
 gwc_volume_from_samples.shapes = Counter()
 gwc_volume_from_samples.designs = Counter()
+
+
+def gwc_volume_from_samples_backward_reference(
+        left: torch.Tensor, right: torch.Tensor, samples: torch.Tensor,
+        grad: torch.Tensor, num_groups: int, max_shift: int | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain gradients of the sampled gwc volume's features given its
+    gradient ``grad [B, S, H, W, G]``: with g the group of channel c, cpg =
+    C / G and d the clamped, truncated sample at ``(b, s, h, w)``,
+    ``dl[b,h,w,c] = 1/cpg · Σ_s grad[b,s,h,w,g] · right[b,h,w-d,c]`` (a
+    gather) and ``dr`` the gather's scatter
+    (`gather_right_by_samples_backward_reference`) of ``grad[b,s,h,w,g] ·
+    left[b,h,w,c] / cpg``, summed in float32 (float64 for float64
+    features), in the features' type."""
+    c = left.shape[3]
+    acc = torch.promote_types(left.dtype, torch.float32)
+    gx = grad.to(acc).repeat_interleave(c // num_groups, dim=-1) / (
+        c // num_groups)                                      # [B, S, H, W, C]
+    gathered = gather_right_by_samples_reference(right.to(acc), samples,
+                                                 max_shift)
+    dl = (gx * gathered).sum(1)
+    dr = gather_right_by_samples_backward_reference(
+        gx * left.to(acc)[:, None], samples, max_shift)
+    return dl.to(left.dtype), dr.to(right.dtype)
+
+
+def gwc_volume_from_samples_backward(left: torch.Tensor, right: torch.Tensor,
+                                     samples: torch.Tensor,
+                                     grad: torch.Tensor, num_groups: int,
+                                     max_shift: int | None = None
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients ``(dl, dr)`` of `gwc_volume_from_samples`'s features given
+    the volume's gradient ``grad [B, S, H, W, G]``.
+
+    CPU tensors take `gwc_volume_from_samples_backward_reference`; CUDA
+    tensors launch the backward kernel (the forward's types and layouts;
+    `grad` contiguous in the features' type), cut as `sample_backward_plan`
+    says, or raise. Every output is written once, by one thread summing in
+    a fixed order, without atomics: the same inputs give the same bits in
+    every run.
+    """
+    if _cuda.on_cpu(left):
+        return gwc_volume_from_samples_backward_reference(
+            left, right, samples, grad, num_groups, max_shift)
+    _check_features(left, right)
+    _check_samples(right, samples, max_shift)
+    b, h, w, c = left.shape
+    s = samples.shape[1]
+    if num_groups < 1 or c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    _check_sample_grad(grad, (b, s, h, w, num_groups), left.dtype)
+    return _launch_gwc_samples_backward(left, right, samples, grad,
+                                        num_groups, max_shift)
+
+
+def _launch_gwc_samples_backward(left: torch.Tensor, right: torch.Tensor,
+                                 samples: torch.Tensor, grad: torch.Tensor,
+                                 num_groups: int, max_shift: int
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    b, h, w, c = left.shape
+    s = samples.shape[1]
+    code = _cuda.dtype_code(left)
+    dl, dr = torch.empty_like(left), torch.empty_like(right)
+    if dl.numel() == 0:
+        return dl, dr
+    sms = torch.cuda.get_device_properties(left.device).multi_processor_count
+    plan = sample_backward_plan(b, h, w, s, num_groups, sms)
+    lib = _cuda.library("sample_gather")
+    with torch.cuda.device(left.device):
+        rc = lib.gwc_volume_from_samples_backward(
+            left.data_ptr(), right.data_ptr(), samples.data_ptr(),
+            grad.data_ptr(), dl.data_ptr(), dr.data_ptr(), b, h, w, c, s,
+            num_groups, max_shift, code, *plan, _cuda.stream_of(left))
+    _cuda.check(lib, rc, "gwc_volume_from_samples_backward")
+    gwc_volume_from_samples_backward.launches += 1
+    gwc_volume_from_samples_backward.shapes[(b, h, w, c, s, num_groups,
+                                             max_shift)] += 1
+    gwc_volume_from_samples_backward.designs[("sort", plan.threads,
+                                              plan.groups)] += 1
+    return dl, dr
+
+
+# launches of the backward kernel, in all, by (B, H, W, C, S, G, max_shift)
+# and by design ("sort", threads a block, groups a block)
+gwc_volume_from_samples_backward.launches = 0
+gwc_volume_from_samples_backward.shapes = Counter()
+gwc_volume_from_samples_backward.designs = Counter()
 
 
 def disparity_regression(prob: torch.Tensor, max_disp: int | None = None,

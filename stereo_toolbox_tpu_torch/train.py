@@ -2,13 +2,17 @@
 
     python -m stereo_toolbox_tpu_torch.train --model PSMNet --dataset synthetic
 
-Trains PSMNet or GwcNet_G on the card (``--device cpu`` runs the plain
-paths on the CPU; without it and without a card it raises), in float32,
-on the synthetic dataset. The flags are those of the JAX package's
-``examples/train.py`` that the port supports, with its defaults, plus
-``--device``; the synthetic dataset holds 64 samples, as there.
-``--bf16`` and ``--distributed`` are refused: bfloat16 training and data
-parallelism are not ported yet (ROADMAP Queue 1).
+Trains PSMNet, GwcNet_G, GwcNet_GC, ACVNet or CFNet on the card
+(``--device cpu`` runs the plain paths on the CPU; without it and without a
+card it raises), in float32, on the synthetic dataset. The flags are those
+of the JAX package's ``examples/train.py`` that the port supports, with its
+defaults, plus ``--device``; the synthetic dataset holds 64 samples, as
+there. The multi-head loss weighs PSMNet's three heads (0.5, 0.7, 1.0) and
+every other model's four (0.5, 0.5, 0.7, 1.0), as there: CFNet's nine heads
+train with ``--loss sequence`` (with the default ``multihead`` its step
+raises, as JAX's asserts). ``--bf16`` and ``--distributed`` are refused:
+bfloat16 training and data parallelism are not ported yet (ROADMAP Queue
+1).
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.trainer import (TrainConfig, Trainer,
                                               init_train_state)
 
-TRAINABLE = ("PSMNet", "GwcNet_G")
+TRAINABLE = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet")
 # the heads' weights of the multi-head loss (the JAX entry point's)
-LOSS_WEIGHTS = {"PSMNet": (0.5, 0.7, 1.0), "GwcNet_G": (0.5, 0.5, 0.7, 1.0)}
+LOSS_WEIGHTS = {name: (0.5, 0.7, 1.0) if name == "PSMNet"
+                else (0.5, 0.5, 0.7, 1.0) for name in TRAINABLE}
 SYNTHETIC_SAMPLES = 64
 
 

@@ -157,7 +157,19 @@ def test_create_model_defaults_to_cuda_and_raises_without_it():
 
 
 def test_train_mode_is_not_implemented():
-    m = create_model("ACVNet", max_disp=MAX_DISP, device="cpu").train()
+    """Train mode of ACVNet in float32 returns its four heads at full
+    resolution, three with `freeze_attn_weights` and one with
+    `attn_weights_only` (`tests/test_torch_train_acvnet.py` holds their
+    values); in bfloat16 it is not implemented."""
     x = torch.zeros(1, 32, 64, 3)
-    with pytest.raises(NotImplementedError):
-        m(x, x)
+    for kw, n in (({}, 4), ({"freeze_attn_weights": True}, 3),
+                  ({"attn_weights_only": True}, 1)):
+        m = create_model("ACVNet", max_disp=MAX_DISP, device="cpu",
+                         **kw).train()
+        heads = m(x, x)
+        assert isinstance(heads, list) and len(heads) == n, kw
+        assert all(h.shape == (1, 32, 64) and h.requires_grad for h in heads)
+    bf16 = create_model("ACVNet", max_disp=MAX_DISP, device="cpu",
+                        dtype=torch.bfloat16).train()
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        bf16(x, x)

@@ -141,7 +141,15 @@ def test_create_model_defaults_to_cuda_and_raises_without_it():
 
 
 def test_train_mode_is_not_implemented():
+    """Train mode of CFNet in float32 returns JAX's nine heads at full
+    resolution (`tests/test_torch_train_cfnet.py` holds their values); in
+    bfloat16 it is not implemented."""
     m = create_model("CFNet", max_disp=MAX_DISP, device="cpu").train()
     x = torch.zeros(1, 64, 128, 3)
-    with pytest.raises(NotImplementedError):
-        m(x, x)
+    heads = m(x, x)
+    assert isinstance(heads, list) and len(heads) == 9
+    assert all(h.shape == (1, 64, 128) and h.requires_grad for h in heads)
+    bf16 = create_model("CFNet", max_disp=MAX_DISP, device="cpu",
+                        dtype=torch.bfloat16).train()
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        bf16(x, x)

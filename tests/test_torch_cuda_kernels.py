@@ -15,12 +15,16 @@ import torch
 
 from stereo_toolbox_tpu_torch.ops import (
     attention, attention_reference, build_concat_volume, build_gwc_volume,
+    concat_volume_backward, concat_volume_backward_reference,
     concat_volume_reference, conv3d, conv3d_fused, conv3d_fused_reference,
     conv3d_reference,
-    gather_right_by_samples, gather_right_by_samples_reference,
+    gather_right_by_samples, gather_right_by_samples_backward,
+    gather_right_by_samples_backward_reference,
+    gather_right_by_samples_reference,
     gwc_volume_backward, gwc_volume_backward_reference,
-    gwc_volume_from_samples, gwc_volume_from_samples_reference,
-    gwc_volume_reference)
+    gwc_volume_from_samples, gwc_volume_from_samples_backward,
+    gwc_volume_from_samples_backward_reference,
+    gwc_volume_from_samples_reference, gwc_volume_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d import (
     conv3d_concat_volume, conv3d_concat_volume_reference, stencil_run)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (MMA_TILES, mma_tile,
@@ -122,24 +126,169 @@ def test_gwc_volume_is_differentiable_on_the_card(dev, dtype):
 
 
 def test_kernels_without_a_backward_refuse_grad(dev):
-    """K2-K7 given a CUDA input that requires grad raise, naming the train
-    path; under torch.no_grad() the same calls launch."""
+    """K2, K3 and K7 given a CUDA input that requires grad raise, naming
+    the train path; under torch.no_grad() the same calls launch."""
     x = torch.randn(1, 2, 3, 4, 8, device=dev, requires_grad=True)
     k = torch.randn(3, 3, 3, 8, 8, device=dev)
-    f = torch.randn(1, 2, 5, 8, device=dev, requires_grad=True)
-    samples = torch.zeros(1, 3, 2, 5, device=dev)
     q = torch.randn(1, 2, 4, 64, device=dev, requires_grad=True)
     calls = [lambda: conv3d_fused(x, k),
              lambda: conv3d(x, torch.randn(3, 3, 3, 8, 1, device=dev)),
-             lambda: gather_right_by_samples(f, samples, 4),
-             lambda: gwc_volume_from_samples(f, f, samples, 2, 4),
-             lambda: build_concat_volume(f, f, 3),
              lambda: attention(q, q, q, 0.125)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward"):
             call()
         with torch.no_grad():
             assert call().grad_fn is None
+
+
+# (b, h, w, c, d): GwcNet_GC's and ACVNet's train launches at 2 rows,
+# CFNet's 1/8 volume; D > W; odd C (one channel a thread item); C = 3
+CONCAT_BWD_CASES = [(4, 2, 128, 12, 48), (4, 2, 128, 32, 48),
+                    (4, 3, 64, 12, 24), (2, 3, 37, 12, 45), (1, 2, 9, 5, 4),
+                    (1, 3, 11, 3, 7)]
+
+
+@pytest.mark.parametrize("b,h,w,c,d", CONCAT_BWD_CASES)
+@pytest.mark.parametrize("mask_left", [True, False])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_concat_volume_backward_kernel_matches_plain(dev, b, h, w, c, d,
+                                                     mask_left, dtype, rel):
+    """K6's backward ("direct") against its plain version and against
+    torch.autograd of `concat_volume_reference`, within rel · max|ref|; the
+    same bits when run twice (no atomics)."""
+    gen = torch.Generator().manual_seed(11)
+    grad = torch.randn(b, d, h, w, 2 * c, generator=gen).to(dev, dtype)
+    before = concat_volume_backward.launches
+    dl, dr = concat_volume_backward(grad, d, mask_left)
+    again = concat_volume_backward(grad, d, mask_left)
+    assert concat_volume_backward.launches == before + 2
+    assert torch.equal(dl, again[0]) and torch.equal(dr, again[1])
+    want = concat_volume_backward_reference(grad.float(), d, mask_left)
+    lf, rf = (torch.zeros(b, h, w, c, device=dev, requires_grad=True)
+              for _ in range(2))
+    concat_volume_reference(lf, rf, d, mask_left).backward(grad.float())
+    for got, plain, auto in zip((dl, dr), want, (lf.grad, rf.grad)):
+        assert got.dtype == dtype and got.shape == (b, h, w, c)
+        tol = rel * plain.abs().max().item()
+        assert (got.float() - plain).abs().max().item() <= tol
+        assert (got.float() - auto).abs().max().item() <= tol
+
+
+def _backward_samples(dev, b, s, h, w, max_shift, gen):
+    """Samples in [-3, max_shift + 4] with a NaN, fractions in one plane
+    and a row whose every sample reads right pixel 0 where it can."""
+    samples = torch.randint(-3, max_shift + 5, (b, s, h, w),
+                            generator=gen).float()
+    samples[0, 0, 0, -1] = float("nan")
+    samples[-1, -1] += 0.5
+    samples[0, :, -1] = torch.arange(w).float()
+    return samples.to(dev)
+
+
+# (b, h, w, c, s, max_shift): CFNet's s3 and s2 train launches at 3 rows;
+# W not a multiple of 32, C 5 and 1, S = 1
+GATHER_BWD_CASES = [(4, 3, 128, 12, 16, 48), (4, 3, 256, 6, 12, 96),
+                    (2, 3, 45, 5, 7, 20), (1, 2, 37, 1, 3, 9),
+                    (1, 3, 70, 6, 1, 30)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,max_shift", GATHER_BWD_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gather_backward_kernel_matches_plain(dev, b, h, w, c, s, max_shift,
+                                              dtype, rel):
+    """K4's backward ("sort") against its plain version and torch.autograd
+    of the plain gather, within rel · max|ref|; the same bits twice."""
+    gen = torch.Generator().manual_seed(12)
+    samples = _backward_samples(dev, b, s, h, w, max_shift, gen)
+    grad = torch.randn(b, s, h, w, c, generator=gen).to(dev, dtype)
+    before = gather_right_by_samples_backward.launches
+    got = gather_right_by_samples_backward(grad, samples, max_shift)
+    again = gather_right_by_samples_backward(grad, samples, max_shift)
+    assert gather_right_by_samples_backward.launches == before + 2
+    assert torch.equal(got, again)
+    clean = samples.nan_to_num(0.0)
+    plain = gather_right_by_samples_backward_reference(grad.float(), clean,
+                                                       max_shift)
+    rf = torch.zeros(b, h, w, c, device=dev, requires_grad=True)
+    gather_right_by_samples_reference(rf, clean, max_shift).backward(
+        grad.float())
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    tol = rel * plain.abs().max().item()
+    assert (got.float() - plain).abs().max().item() <= tol
+    assert (got.float() - rf.grad).abs().max().item() <= tol
+
+
+# (b, h, w, c, s, g, max_shift): CFNet's s3 and s2 train launches at 2
+# rows; C/G 3 and 5 with odd G; S = 1
+GWC_SAMPLE_BWD_CASES = [(4, 2, 128, 160, 16, 40, 48),
+                        (4, 2, 256, 80, 12, 20, 96), (2, 3, 45, 12, 7, 4, 20),
+                        (1, 3, 70, 15, 1, 3, 9)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,g,max_shift", GWC_SAMPLE_BWD_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gwc_from_samples_backward_kernel_matches_plain(
+        dev, b, h, w, c, s, g, max_shift, dtype, rel):
+    """K5's backward ("sort") against its plain version and torch.autograd
+    of the plain forward, within rel · max|ref|; the same bits twice."""
+    gen = torch.Generator().manual_seed(13)
+    left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+                   for _ in range(2))
+    samples = _backward_samples(dev, b, s, h, w, max_shift, gen)
+    grad = torch.randn(b, s, h, w, g, generator=gen).to(dev, dtype)
+    before = gwc_volume_from_samples_backward.launches
+    dl, dr = gwc_volume_from_samples_backward(left, right, samples, grad, g,
+                                              max_shift)
+    again = gwc_volume_from_samples_backward(left, right, samples, grad, g,
+                                             max_shift)
+    assert gwc_volume_from_samples_backward.launches == before + 2
+    assert torch.equal(dl, again[0]) and torch.equal(dr, again[1])
+    clean = samples.nan_to_num(0.0)
+    want = gwc_volume_from_samples_backward_reference(
+        left.float(), right.float(), clean, grad.float(), g, max_shift)
+    lf = left.float().requires_grad_()
+    rf = right.float().requires_grad_()
+    gwc_volume_from_samples_reference(lf, rf, clean, g, max_shift).backward(
+        grad.float())
+    for got, plain, auto in zip((dl, dr), want, (lf.grad, rf.grad)):
+        assert got.dtype == dtype and got.shape == left.shape
+        tol = rel * plain.abs().max().item()
+        assert (got.float() - plain).abs().max().item() <= tol
+        assert (got.float() - auto).abs().max().item() <= tol
+
+
+def test_volume_kernels_are_differentiable_on_the_card(dev):
+    """K4, K5 and K6 on CUDA features that require grad (and samples that
+    do): one forward and one backward launch each; the features' gradients
+    the backward kernels', the samples' none."""
+    gen = torch.Generator().manual_seed(14)
+    left, right = (torch.randn(2, 3, 40, 24, generator=gen).to(dev)
+                   .requires_grad_() for _ in range(2))
+    samples = torch.randint(0, 12, (2, 4, 3, 40), generator=gen).float().to(
+        dev).requires_grad_()
+    wrappers = (build_concat_volume, concat_volume_backward,
+                gather_right_by_samples, gather_right_by_samples_backward,
+                gwc_volume_from_samples, gwc_volume_from_samples_backward)
+    before = [fn.launches for fn in wrappers]
+    vol = build_concat_volume(left, right, 12)
+    g6 = torch.randn(vol.shape, generator=gen).to(dev)
+    gat = gather_right_by_samples(right, samples, 12)
+    g4 = torch.randn(gat.shape, generator=gen).to(dev)
+    gwc = gwc_volume_from_samples(left, right, samples, 6, 12)
+    g5 = torch.randn(gwc.shape, generator=gen).to(dev)
+    dl, dr, ds = torch.autograd.grad((vol, gat, gwc), (left, right, samples),
+                                     (g6, g4, g5), allow_unused=True)
+    assert [fn.launches - n for fn, n in zip(wrappers, before)] == [1] * 6
+    assert ds is None
+    l6, r6 = concat_volume_backward(g6, 12)
+    r4 = gather_right_by_samples_backward(g4, samples.detach(), 12)
+    l5, r5 = gwc_volume_from_samples_backward(
+        left.detach(), right.detach(), samples.detach(), g5, 6, 12)
+    torch.testing.assert_close(dl, l6 + l5, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dr, r6 + r4 + r5, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("ci,co,residual,relu", [(40, 32, False, True),
@@ -540,6 +689,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     samples = torch.zeros(1, 4, 2, 3, device=dev)
     with pytest.raises(ValueError):        # no bound on the samples
         gather_right_by_samples(f, samples)
+    with pytest.raises(ValueError):        # a gradient of another shape
+        gather_right_by_samples_backward(
+            torch.zeros(1, 3, 2, 3, 8, device=dev), samples, 4)
+    with pytest.raises(ValueError):        # a gradient of another depth
+        concat_volume_backward(torch.zeros(1, 5, 2, 3, 16, device=dev), 4)
     with pytest.raises(ValueError):        # float64 samples
         gwc_volume_from_samples(f, f, samples.double(), 2, 4)
     with pytest.raises(TypeError):

@@ -157,13 +157,21 @@ def test_gwcnet_gc_state_dict_has_original_torch_names():
 
 
 def test_gwcnet_gc_defaults_to_cuda_and_train_mode_raises():
+    """GwcNet_GC needs a card unless asked for the CPU; its float32 train
+    mode returns the four heads (`tests/test_torch_train_gwcnet_gc.py`
+    holds their values), its bfloat16 train mode raises."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             create_model("GwcNet_GC")
     m = create_model("GwcNet_GC", max_disp=MAX_DISP, device="cpu").train()
     x = torch.zeros(1, 32, 64, 3)
-    with pytest.raises(NotImplementedError):
-        m(x, x)
+    heads = m(x, x)
+    assert isinstance(heads, list) and len(heads) == 4
+    assert all(h.shape == (1, 32, 64) and h.requires_grad for h in heads)
+    bf16 = create_model("GwcNet_GC", max_disp=MAX_DISP, device="cpu",
+                        dtype=torch.bfloat16).train()
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        bf16(x, x)
 
 
 def test_create_model_defaults_to_cuda_and_raises_without_it():
@@ -176,7 +184,7 @@ def test_create_model_defaults_to_cuda_and_raises_without_it():
 def test_train_mode_is_not_implemented():
     """Train mode of GwcNet_G in float32 returns its four heads
     (``classif0``-``classif3``) at full resolution; in bfloat16 it is not
-    implemented (GwcNet_GC's train mode: see above)."""
+    implemented (GwcNet_GC's: see above)."""
     m = create_model("GwcNet_G", max_disp=MAX_DISP, device="cpu").train()
     x = torch.zeros(1, 32, 64, 3)
     heads = m(x, x)

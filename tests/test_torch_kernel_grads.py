@@ -2,9 +2,10 @@
 
 A CUDA kernel's wrapper returns a fresh tensor without a ``grad_fn``: with
 autograd on, an input that requires grad would lose its gradient with no
-error. Every wrapper of K2-K7 raises instead (`ops._cuda.refuse_grad`),
-naming the path that trains through cuDNN or autograd; K1 has a backward
-kernel and is differentiable. On the CPU the wrappers run their plain
+error. The wrappers of K2, K3 and K7 raise instead (`ops._cuda.refuse_grad`),
+naming the path that trains through cuDNN or autograd; K1, K4, K5 and K6
+have backward kernels and are differentiable (the samples of K4 and K5 may
+require grad: they get none). On the CPU the wrappers run their plain
 versions, which autograd differentiates; here the device check is
 monkeypatched so that CPU tensors take the card's path up to the launch.
 """
@@ -24,14 +25,15 @@ from stereo_toolbox_tpu_torch.ops.volume import (build_concat_volume,
 
 
 def _calls(requires_grad):
-    """Each K2-K7 wrapper on small CPU tensors, the features requiring grad
-    or not; with the name its error gives and the train path it names."""
+    """Each K2-K7 wrapper on small CPU tensors, the features (and the
+    samples) requiring grad or not; with the name its error gives and the
+    train path it names, None for a kernel with a backward."""
     def feat(*shape):
         return torch.randn(*shape).requires_grad_(requires_grad)
     x = feat(1, 2, 3, 4, 8)
     k = torch.randn(3, 3, 3, 8, 8)
     f = feat(1, 2, 5, 8)
-    samples = torch.zeros(1, 3, 2, 5)
+    samples = torch.zeros(1, 3, 2, 5).requires_grad_(requires_grad)
     q = feat(1, 2, 4, 64)
     return [
         ("conv3d_fused (K2)", "ConvBNAct", lambda: conv3d_fused(x, k)),
@@ -39,11 +41,11 @@ def _calls(requires_grad):
          lambda: conv3d_fused(x, pack_conv3d_weight(k))),
         ("conv3d (K3)", "Conv3dSame",
          lambda: conv3d(x, torch.randn(3, 3, 3, 8, 1))),
-        ("gather_right_by_samples (K4)", "reference",
+        ("gather_right_by_samples (K4)", None,
          lambda: gather_right_by_samples(f, samples, 4)),
-        ("gwc_volume_from_samples (K5)", "reference",
+        ("gwc_volume_from_samples (K5)", None,
          lambda: gwc_volume_from_samples(f, f, samples, 2, 4)),
-        ("build_concat_volume (K6)", "concat_volume_reference",
+        ("build_concat_volume (K6)", None,
          lambda: build_concat_volume(f, f, 3)),
         ("attention (K7)", "attention_reference",
          lambda: attention(q, q, q, 0.125)),
@@ -58,7 +60,14 @@ def card_path(monkeypatch):
 
 @pytest.mark.parametrize("index", range(7))
 def test_wrappers_refuse_an_input_that_requires_grad(card_path, index):
+    """K2, K3 and K7 refuse; K4, K5 and K6, autograd Functions with a
+    backward kernel, take the input and stop at the device check, past
+    the point where the others refuse."""
     what, instead, call = _calls(True)[index]
+    if instead is None:
+        with pytest.raises(ValueError, match="device"):
+            call()
+        return
     with pytest.raises(RuntimeError, match="no backward") as err:
         call()
     assert what in str(err.value) and instead in str(err.value)

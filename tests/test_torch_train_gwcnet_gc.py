@@ -1,0 +1,63 @@
+"""GwcNet_GC's train step in the port against the JAX package's, on the
+CPU.
+
+One step of GwcNet_GC(max_disp=16) at 48×64, B 2, on the batch of
+``tests/test_trainer.py::_batch``, from JAX's ``init`` variables carried
+across, against JAX's loss function under ``value_and_grad``
+(`_torch_train_parity`): the loss, the gradients in float64 on both sides
+and in float32, the new running statistics, and three trainer steps. Its
+concat volume takes K6's plain version here; `tests/test_torch_ops_volume_
+grads.py` holds K6's backward against JAX's.
+"""
+
+import pytest
+import torch
+
+from _torch_train_parity import (check_gradients32, check_gradients64,
+                                 check_loss, check_statistics,
+                                 check_three_steps, one_step as parity_step)
+from stereo_toolbox_tpu.models import create_model as jax_create_model
+from stereo_toolbox_tpu_torch.train import LOSS_WEIGHTS
+from stereo_toolbox_tpu_torch.trainer import TrainConfig
+from test_trainer import _batch
+
+torch.set_num_threads(2)
+
+MAX_DISP = 16
+
+
+@pytest.fixture(scope="module")
+def one_step():
+    config = TrainConfig(lr=1e-3, max_disp=MAX_DISP, loss="multihead",
+                         clip_grad=1.0, loss_weights=LOSS_WEIGHTS["GwcNet_GC"])
+    return parity_step("GwcNet_GC",
+                       jax_create_model("GwcNet_GC", max_disp=MAX_DISP),
+                       config, _batch())
+
+
+def test_train_step_loss_matches_jax(one_step):
+    check_loss(one_step)
+
+
+def test_train_step_gradients_match_jax_in_float64(one_step):
+    check_gradients64(one_step)
+
+
+def test_train_step_gradients_match_jax(one_step):
+    """float32: global relative L2 ≤ 5e-2, each leaf ≤ 0.5 · its max|ref|,
+    GwcNet_G's floor (`tests/test_torch_trainer.py`): the same ReLU trunk
+    and 3D stack, whose kinks within rounding of 0 the train BatchNorm
+    spreads (measured 9.5e-3 / 0.125)."""
+    check_gradients32(one_step, 5e-2, 0.5)
+
+
+def test_train_step_batchnorm_statistics_match_jax(one_step):
+    check_statistics(one_step)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-4),
+                                        (torch.float32, 1e-2)])
+def test_three_steps_losses_match_jax(one_step, dtype, rtol):
+    """float32 at 1e-2: Adam's sign-like first update turns the float32
+    gradient's floor into full-size steps (measured 1.6e-3)."""
+    check_three_steps(one_step, dtype, rtol)

@@ -20,45 +20,39 @@ import json
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 
-from stereo_toolbox_tpu import metrics as jmetrics
+from _torch_train_parity import (Recorder, check_gradients32,
+                                 check_gradients64, check_loss,
+                                 check_statistics, check_three_steps,
+                                 one_step as parity_step, stats_errors)
 from stereo_toolbox_tpu import trainer as jtrainer
 from stereo_toolbox_tpu.models import create_model as jax_create_model
-from stereo_toolbox_tpu.utils.torch_import import import_torch_checkpoint
 from stereo_toolbox_tpu_torch.datasets import (DataLoader,
                                                SyntheticStereoDataset)
 from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.nn.layers import FlaxRunningStats
+from stereo_toolbox_tpu_torch.train import LOSS_WEIGHTS, TRAINABLE, parse_args
 from stereo_toolbox_tpu_torch.trainer import (Adam, TrainConfig, TrainState,
                                               Trainer, init_train_state,
                                               make_optimizer,
                                               make_train_step,
                                               onecycle_schedule, to_device)
-from stereo_toolbox_tpu_torch.utils.weights import from_jax_variables
 from test_trainer import _batch
 
 torch.set_num_threads(2)
 
 MAX_DISP = 16
 WEIGHTS = {"PSMNet": (0.5, 0.7, 1.0), "GwcNet_G": (0.5, 0.5, 0.7, 1.0)}
-BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 def _config(name, **kw):
     return TrainConfig(lr=1e-3, max_disp=MAX_DISP, loss="multihead",
                        clip_grad=1.0, loss_weights=WEIGHTS[name], **kw)
-
-
-def _jax_config(config):
-    return jtrainer.TrainConfig(lr=config.lr, max_disp=config.max_disp,
-                                loss=config.loss, clip_grad=config.clip_grad,
-                                loss_weights=config.loss_weights)
 
 
 # ------------------------------------------------------------- optimizer
@@ -124,136 +118,22 @@ def test_optimizer_takes_no_weight_decay():
 
 
 # ------------------------------------------------------- one train step
-def _grad_fn(model, config, batch, dtype=np.float32):
-    """The JAX trainer's loss function of ``(params, batch_stats)`` under
-    value_and_grad, on `batch` in `dtype`."""
-    left, right, gt = (jnp.asarray(batch[k].astype(dtype))
-                       for k in ("left", "right", "gt_disp"))
-    mask = jmetrics.valid_mask(gt, MAX_DISP)
-
-    def loss_fn(params, stats):
-        outputs, updates = model.apply(
-            {"params": params, "batch_stats": stats}, left, right,
-            train=True, mutable=["batch_stats"])
-        return (jtrainer.compute_loss(outputs, gt, mask, config),
-                updates["batch_stats"])
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-
-
-def _jax_side(name, batch, steps=3):
-    """JAX's init variables; for `steps` steps of the JAX trainer's loss
-    function under value_and_grad plus its optimizer: the loss and
-    gradients of the first, the new running statistics after it, the
-    losses of all; and the first step's gradients in float64."""
-    model = jax_create_model(name, max_disp=MAX_DISP)
-    config = _jax_config(_config(name))
-    x = jnp.asarray(batch["left"][:1])
-    variables = jax.jit(model.init, static_argnames="train")(
-        jax.random.PRNGKey(0), x, x, train=True)
-    variables = jax.tree_util.tree_map(np.asarray, variables)
-    tx, _ = jtrainer.make_optimizer(config, 30)
-
-    def run(grad_fn, variables):
-        params, stats = variables["params"], variables["batch_stats"]
-        opt_state = tx.init(params)
-        losses = []
-        for i in range(steps):
-            (loss, new_stats), grads = grad_fn(params, stats)
-            if i == 0:
-                first = (float(loss),
-                         jax.tree_util.tree_map(np.asarray, grads),
-                         jax.tree_util.tree_map(np.asarray, new_stats))
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            stats = new_stats
-            losses.append(float(loss))
-        return first, losses
-
-    with jax.enable_x64(True):
-        (_, grads64, _), losses64 = run(
-            _grad_fn(model, config, batch, np.float64),
-            jax.tree_util.tree_map(lambda a: a.astype(np.float64),
-                                   variables))
-    first, losses = run(_grad_fn(model, config, batch), variables)
-    return variables, first, losses, (grads64, losses64)
-
-
-class _Recorder:
-    """An optimizer that keeps the gradients it is given."""
-    count = 0
-
-    def step(self, grads):
-        self.grads = [g.detach().clone() for g in grads]
-
-
 @pytest.fixture(scope="module", params=["PSMNet", "GwcNet_G"])
 def one_step(request):
     name = request.param
-    batch = _batch()
-    variables, (loss, grads, stats), losses, (grads64, losses64) = \
-        _jax_side(name, batch)
-    got = {}
-    for dtype in (torch.float64, torch.float32):
-        model = create_model(name, max_disp=MAX_DISP, device="cpu")
-        model.load_state_dict(from_jax_variables(name, variables))
-        init = {k: v.clone() for k, v in model.state_dict().items()}
-        model.to(dtype)
-        recorder = _Recorder()
-        _, got_loss = make_train_step(model, _config(name))(
-            TrainState(model.train(), recorder),
-            {k: v.to(dtype) for k, v in to_device(batch, "cpu").items()})
-        got[dtype] = (float(got_loss), recorder.grads)
-    after = {k: v.clone() for k, v in model.state_dict().items()}
-    return dict(name=name, batch=batch, model=model, init=init, after=after,
-                got_loss=got[torch.float32][0],
-                got_grads=got[torch.float32][1],
-                got_grads64=got[torch.float64][1], loss=loss, grads=grads,
-                grads64=grads64, stats=stats, losses=losses,
-                losses64=losses64)
-
-
-def _to_jax_names(name, model, tensors):
-    """`tensors` (one per parameter of `model`, in order) as a JAX params
-    tree, through the JAX package's importer with the model's buffers."""
-    sd = {k: v.numpy() for k, v in model.state_dict().items()
-          if k.endswith(BUFFERS)}
-    for (k, _), t in zip(model.named_parameters(), tensors):
-        sd[k] = t.numpy()
-    return import_torch_checkpoint(name, sd)
-
-
-def _leaves(tree):
-    return dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    return parity_step(name, jax_create_model(name, max_disp=MAX_DISP),
+                       _config(name), _batch())
 
 
 def test_train_step_loss_matches_jax(one_step):
-    np.testing.assert_allclose(one_step["got_loss"], one_step["loss"],
-                               rtol=1e-5)
-
-
-def _gradient_errors(one_step, got, want):
-    """(global relative L2, worst leaf's max|Δ| / max|ref|) of the port's
-    gradients `got` (one per parameter) against JAX's tree `want`."""
-    got = _leaves(_to_jax_names(one_step["name"], one_step["model"],
-                                [g.float() for g in got])["params"])
-    want = _leaves(want)
-    assert set(got) == set(want)
-    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in want)
-    den = sum(float((want[k] ** 2).sum()) for k in want)
-    leaf = max(float(np.abs(got[k] - w).max() / np.abs(w).max())
-               for k, w in want.items())
-    return (num / den) ** 0.5, leaf
+    check_loss(one_step)
 
 
 def test_train_step_gradients_match_jax_in_float64(one_step):
     """The same step with float64 models on both sides (the heads' softmax
     and regression in float32 on both, as in the float32 step): global
     relative L2 ≤ 1e-4 and each leaf's max|Δ| ≤ 1e-3 · its max|ref|."""
-    rel, leaf = _gradient_errors(one_step, one_step["got_grads64"],
-                                 one_step["grads64"])
-    print(f"{one_step['name']} float64: gradients' global relative L2 "
-          f"{rel:.3e}, worst leaf {leaf:.3e}")
-    assert rel <= 1e-4 and leaf <= 1e-3
+    check_gradients64(one_step)
 
 
 def test_train_step_gradients_match_jax(one_step):
@@ -265,44 +145,13 @@ def test_train_step_gradients_match_jax(one_step):
     element's gradient over its channel and every layer above (the port's
     float32 gradient is 3.3e-3 (PSMNet) and 2.1e-2 (GwcNet_G) from its own
     float64 one, JAX's 1.6e-3 and 1.7e-2)."""
-    rel, leaf = _gradient_errors(one_step, one_step["got_grads"],
-                                 one_step["grads"])
-    print(f"{one_step['name']} float32: gradients' global relative L2 "
-          f"{rel:.3e}, worst leaf {leaf:.3e}")
-    assert rel <= 5e-2 and leaf <= 0.5
-
-
-def _stats_errors(one_step, state_dict):
-    """The running statistics of the port's `state_dict` against JAX's
-    after the step: the largest |Δmean| / √var and |Δvar| / var over every
-    channel (a mean in units of its channel's spread: a mean near 0 is
-    rounding noise)."""
-    back = import_torch_checkpoint(
-        one_step["name"], {k: v.numpy() for k, v in state_dict.items()}
-    )["batch_stats"]
-    errs = {"mean": 0.0, "var": 0.0}
-
-    def visit(got, want):
-        if "var" not in want:
-            for k in want:
-                visit(got[k], want[k])
-            return
-        var = np.asarray(want["var"], np.float64)
-        errs["mean"] = max(errs["mean"], float(
-            (np.abs(got["mean"] - want["mean"]) / np.sqrt(var)).max()))
-        errs["var"] = max(errs["var"], float(
-            (np.abs(got["var"] - var) / var).max()))
-    visit(back, one_step["stats"])
-    return errs
+    check_gradients32(one_step, 5e-2, 0.5)
 
 
 def test_train_step_batchnorm_statistics_match_jax(one_step):
     """Flax's update: momentum 0.1 on the biased batch variance; the 2D
     trunk updated twice a step, once per view, left first."""
-    errs = _stats_errors(one_step, one_step["after"])
-    print(f"{one_step['name']}: running statistics, max relative error "
-          f"{errs}")
-    assert errs["mean"] <= 1e-5 and errs["var"] <= 1e-5
+    check_statistics(one_step)
 
 
 def test_pytorch_batchnorm_update_misses_the_variance_bound(one_step,
@@ -316,8 +165,8 @@ def test_pytorch_batchnorm_update_misses_the_variance_bound(one_step,
                         lambda self, x: super(FlaxRunningStats,
                                               self).forward(x))
     step = make_train_step(model, _config(one_step["name"]))
-    step(TrainState(model, _Recorder()), to_device(one_step["batch"], "cpu"))
-    errs = _stats_errors(one_step, model.state_dict())
+    step(TrainState(model, Recorder()), to_device(one_step["batch"], "cpu"))
+    errs = stats_errors(one_step, model.state_dict())
     print(f"{one_step['name']}: PyTorch's own update, max relative error "
           f"{errs}")
     assert errs["mean"] <= 1e-5
@@ -332,22 +181,7 @@ def test_three_steps_losses_match_jax(one_step, dtype, rtol):
     first update is sign-like (lr · g / |g|) and turns the float32
     gradient's floor (see `test_train_step_gradients_match_jax`) into
     full-size steps of either sign on the elements it touches."""
-    model = one_step["model"]
-    model.load_state_dict(one_step["init"])
-    model.to(dtype)
-    state = init_train_state(model, _config(one_step["name"]), 30)
-    step = make_train_step(model, _config(one_step["name"]))
-    batch = {k: v.to(dtype) for k, v in
-             to_device(one_step["batch"], "cpu").items()}
-    losses = []
-    for _ in range(3):
-        state, loss = step(state, batch)
-        losses.append(float(loss))
-    want = one_step["losses64" if dtype == torch.float64 else "losses"]
-    print(f"{one_step['name']} {dtype}: losses {losses} vs JAX {want}")
-    model.to(torch.float32)
-    np.testing.assert_allclose(losses, want, rtol=rtol)
-    assert state.step == 3
+    check_three_steps(one_step, dtype, rtol)
 
 
 # ------------------------------------------------------------- training
@@ -505,10 +339,26 @@ def test_entry_point_trains_one_epoch_on_the_cpu(tmp_path):
     assert ckpt["step"] == 2
 
 
-def test_entry_point_refuses_what_is_not_ported():
+def test_entry_point_refuses_what_is_not_ported(tmp_path):
+    """bfloat16 training and data parallelism are refused, and so is the
+    card where there is none. Every model the port trains is taken, with
+    JAX's multi-head weights (PSMNet's three heads, four for the others);
+    CFNet's nine heads fail the default multi-head loss, as JAX's assert
+    does, and train with ``--loss sequence``."""
     for flag, item in (("--bf16", "item 1"), ("--distributed", "item 3")):
         r = _run_entry("--device", "cpu", flag, timeout=120)
         assert r.returncode != 0 and item in r.stderr, r.stderr
     if not torch.cuda.is_available():
         r = _run_entry("--epochs", "1", timeout=120)
         assert r.returncode != 0 and "CUDA" in r.stderr, r.stderr
+    assert TRAINABLE == ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet",
+                         "CFNet")
+    for name in TRAINABLE:
+        assert parse_args(["--model", name]).model == name
+        assert LOSS_WEIGHTS[name] == ((0.5, 0.7, 1.0) if name == "PSMNet"
+                                      else (0.5, 0.5, 0.7, 1.0))
+    cfnet = ("--device", "cpu", "--model", "CFNet", "--epochs", "1",
+             "--batch-size", "2", "--crop", "32", "64", "--maxdisp", "32",
+             "--num-workers", "0", "--ckpt-dir", str(tmp_path))
+    r = _run_entry(*cfnet)
+    assert r.returncode != 0 and "9 heads, 4 weights" in r.stderr, r.stderr
