@@ -17,7 +17,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
    shapes also with both epilogue options on and off, and ragged cases (Ci
    1, 3, 33, 65; Co 8, 33; odd H and W; D 1 and 2); bfloat16 runs the
-   tensor-core design ("mma"), float32 the CUDA-core one ("simt");
+   tensor-core design "mma", float32 the tensor-core design "tf32x3"
+   (3xTF32), each float32 launch twice for the same bits;
 5. hold the plain 3x3x3 conv kernel (K3) likewise, with ragged cases (Ci
    5, 16; Co 8 and 33, odd H and W, D < 3): Co = 1 on its "stencil"
    design, Co > 1 on the "direct" one;
@@ -39,7 +40,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    every sample reads one right pixel);
 7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
    launch shape, vits' and MonSter's two-view shapes and ragged N (1, 15,
-   64, 65, 77, 200, 1025, 2048), bfloat16 on its tensor-core design;
+   64, 65, 77, 200, 1025, 2048), bfloat16 on its design "mma", float32 on
+   "tf32x3" (each float32 launch twice for the same bits);
 8. PSMNet, 9. GwcNet_G, 10. GwcNet_GC, 11. CFNet and 12. ACVNet (max_disp
    192, seeded random weights, settled and perturbed BatchNorm
    statistics), one after the other: the card against the port's CPU
@@ -67,8 +69,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    each kernel, its plain version and the library yardstick (device time
    of back-to-back calls) at the shapes and launch counts that the
    full-size forward recorded. Every forward requires its K2 and K7
-   launches to have run the design of its type: "mma" in bfloat16, "simt"
-   in float32; every K1 launch "stream", every (Co = 1) K3 launch
+   launches to have run the design of its type: "mma" in bfloat16,
+   "tf32x3" in float32; every K1 launch "stream", every (Co = 1) K3 launch
    "stencil", every K4 and K5 launch "direct" and every K6 launch "rows";
 14. train PSMNet, GwcNet_G, GwcNet_GC, ACVNet and CFNet (float32,
     max_disp 192, seeded random weights; CFNet with the sequence loss over
@@ -148,8 +150,12 @@ F32, BF16 = torch.float32, torch.bfloat16
 DTYPE_NAME = {F32: "float32", BF16: "bfloat16"}
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W):
-# memory bytes/s, float32 FLOP/s outside the tensor cores, bfloat16 FLOP/s
-PEAK = (3.35e12, 67e12, 989e12)
+# memory bytes/s, float32 FLOP/s outside the tensor cores, bfloat16 FLOP/s,
+# TF32 FLOP/s on the tensor cores
+PEAK = (3.35e12, 67e12, 989e12, 494.7e12)
+# float32 designs that run three TF32 products a multiply-add (3xTF32):
+# their operations bound counts those at the TF32 peak
+TF32X3 = "tf32x3"
 
 # The kernels: wrapper (its counts), source, the TPU kernel it replaces
 # (pallas_call site; for the backward kernels, which no TPU kernel has, the
@@ -434,7 +440,7 @@ TRACE_ITERS = 3        # forwards in the torch.profiler trace
 # The design each type's K2 and K7 launches must run, and the one design
 # every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward must run in both
 # types
-DESIGN = {F32: "simt", BF16: "mma"}
+DESIGN = {F32: TF32X3, BF16: "mma"}
 ONE_DESIGN = {"K1": "stream", "K1-bwd": "window", "K3": "stencil",
               "K4": "direct", "K5": "direct", "K6": "rows",
               "K6-bwd": "direct", "K4-bwd": "sort", "K5-bwd": "sort"}
@@ -662,8 +668,14 @@ def check_conv(gen) -> dict:
         for b, d, h, w, ci, co, res, relu in cases:
             x, k, scale, bias, r = k2_inputs(ci, co, d, h, w, res, dtype, gen,
                                              b)
-            reset_counts()
-            got = conv3d_fused(x, pack_conv3d_weight(k), scale, bias, r, relu)
+            kp = pack_conv3d_weight(k)
+            if dtype == F32:          # the same bits twice
+                (got,), _ = repeat_bits(
+                    "K2", lambda: conv3d_fused(x, kp, scale, bias, r, relu),
+                    DESIGN[dtype])
+            else:
+                reset_counts()
+                got = conv3d_fused(x, kp, scale, bias, r, relu)
             design = designs_of("K2")
             require(list(design) and all(key.split()[0] == DESIGN[dtype]
                                          for key in design),
@@ -813,14 +825,14 @@ def check_concat(gen) -> dict:
     return errs
 
 
-def repeat_bits(tag, call) -> tuple:
-    """Two launches of backward kernel `tag` on the same inputs, required
-    to give the same bits (no atomics), on its one design."""
+def repeat_bits(tag, call, kind=None) -> tuple:
+    """Two launches of kernel `tag` on the same inputs, required to give the
+    same bits (no atomics), on design `kind` (default: its one design)."""
     reset_counts()
     first, again = call(), call()
     require(KERNELS[tag][0].launches == 2, f"{tag} launched "
                                            f"{KERNELS[tag][0].launches}x")
-    design = require_design(tag, ONE_DESIGN[tag], "")
+    design = require_design(tag, kind or ONE_DESIGN[tag], "")
     first = first if isinstance(first, tuple) else (first,)
     again = again if isinstance(again, tuple) else (again,)
     require(all(torch.equal(a, b) for a, b in zip(first, again)),
@@ -943,8 +955,12 @@ def check_attention(gen) -> dict:
         errs[dtype] = 0.0
         for b, heads, n, scale in cases:
             q, k, v = (randn((b, heads, n, 64), dtype, gen) for _ in range(3))
-            reset_counts()
-            got = attention(q, k, v, scale)
+            if dtype == F32:          # the same bits twice
+                (got,), _ = repeat_bits(
+                    "K7", lambda: attention(q, k, v, scale), DESIGN[dtype])
+            else:
+                reset_counts()
+                got = attention(q, k, v, scale)
             require(list(designs_of("K7")) == [f"{DESIGN[dtype]} 64x64"],
                     f"K7 {DTYPE_NAME[dtype]} ran {designs_of('K7')}")
             require(got.dtype == dtype and got.shape == q.shape,
@@ -2189,27 +2205,42 @@ def time_kernel(model_name, tag, dtype, mix, designs, err, gen) -> dict:
     that a forward of `model_name` recorded, with the designs they ran."""
     _, kname, source, replaces = KERNELS[tag]
     ms, plain, lib, nbytes, flops, per_shape = TIMERS[tag](mix, dtype, gen)
-    b_ms, b_by = bound(nbytes, flops, dtype)
-    kinds = sorted({k.split()[0] for k in designs.get(tag) or {}}) or [
-        "simt"]
+    kinds = sorted({k.split()[0] for k in designs.get(tag) or {}})
+    tf32x3 = kinds == [TF32X3]
+    b_ms, b_by = bound(nbytes, flops, dtype, tf32x3)
+    entry = {"name": f"{kname} ({DTYPE_NAME[dtype]})", "id": tag,
+             "model": model_name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": mix.total(),
+             "design": "/".join(kinds), "design_launches": designs.get(tag),
+             "max_abs_err": err,
+             "tolerance": f"{REL_TOL[tag][dtype]}*max|ref|",
+             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+             "shapes": per_shape}
+    bounds = f"bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f}% of it"
+    if tf32x3:
+        # the same float32 work on the CUDA cores, beside the bound of the
+        # three TF32 products the design computes
+        entry["bound_cuda_core_ms"] = bound(nbytes, flops, dtype)[0]
+        bounds = (f"3xTF32 {bounds}; CUDA-core bound "
+                  f"{entry['bound_cuda_core_ms']:.4f}, "
+                  f"{100 * entry['bound_cuda_core_ms'] / ms:.1f}% of it")
     print(f"  {model_name} {tag} {kname} ({DTYPE_NAME[dtype]}, "
-          f"{designs.get(tag) or 'simt'}): {ms:.4f} ms x{mix.total()} (plain "
-          f"{plain:.4f}, library {lib}, bound {b_ms:.4f} by {b_by})")
-    return {"name": f"{kname} ({DTYPE_NAME[dtype]})", "id": tag,
-            "model": model_name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": mix.total(),
-            "design": "/".join(kinds),
-            "design_launches": designs.get(tag) or {"simt": mix.total()},
-            "max_abs_err": err, "tolerance": f"{REL_TOL[tag][dtype]}*max|ref|",
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "shapes": per_shape}
+          f"{designs.get(tag)}): {ms:.4f} ms x{mix.total()} (plain "
+          f"{plain:.4f}, library {lib}, {bounds})")
+    return entry
 
 
-def bound(nbytes, flops, dtype):
-    mem, f32, bf16 = PEAK
+def bound(nbytes, flops, dtype, tf32x3=False):
+    """The least time for `nbytes` moved and `flops` of `dtype` computed:
+    float32 at the CUDA cores' peak, or with `tf32x3` as three TF32
+    products a multiply-add at the tensor cores' TF32 peak."""
+    mem, f32, bf16, tf32 = PEAK
     t_bytes = nbytes / mem * 1e3
-    t_ops = flops / (f32 if dtype == F32 else bf16) * 1e3
+    if tf32x3:
+        t_ops = 3 * flops / tf32 * 1e3
+    else:
+        t_ops = flops / (f32 if dtype == F32 else bf16) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2297,10 +2328,17 @@ def main() -> None:
             entry["autograd_ms"] = sum(r["autograd_ms"] * r["launches"]
                                        for r in entry["shapes"])
             kernels.append(entry)
-            # the same launches in bfloat16 (their plans and times; no
-            # train step runs bfloat16 yet)
-            train[model_name][f"{tag}_bf16"] = TIMERS[tag](
-                mix[tag], BF16, gen)[-1]
+            # the same launches in bfloat16 (their plans, times and bounds;
+            # no train step runs bfloat16 yet)
+            ms, _, _, nbytes, flops, shapes = TIMERS[tag](mix[tag], BF16,
+                                                          gen)
+            b_ms, b_by = bound(nbytes, flops, BF16)
+            print(f"  {model_name} (train step) {tag} bfloat16: {ms:.4f} ms "
+                  f"(bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f}% of "
+                  f"it)")
+            train[model_name][f"{tag}_bf16"] = {
+                "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                "mbytes": nbytes / 1e6, "shapes": shapes}
         torch.cuda.empty_cache()
     print("phase 15: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)

@@ -7,8 +7,9 @@
 //   give the row addresses of matrix i);
 // - mma.sync m16n8k16, bf16 inputs, float32 accumulators;
 // - mma.sync m16n8k8, tf32 inputs, float32 accumulators, and the float32 ->
-//   tf32 rounding (a float32 is its tf32 "high" part plus a tf32 remainder:
-//   three tf32 products keep about float32 accuracy);
+//   tf32 rounding and split (a float32 is its tf32 "high" part plus a tf32
+//   remainder: three tf32 products, lo*hi + hi*lo + hi*hi, keep about
+//   float32 accuracy: 3xTF32);
 // - packing two floats into a bf16x2 register.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
@@ -76,6 +77,23 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// x (as bits) rounded to tf32 like to_tf32, in two integer instructions:
+// half a tf32 unit added to the magnitude's bits, the 13 low bits cleared.
+// The same value as cvt.rna for every x but NaN (cvt, which keeps NaN a
+// NaN, takes about four instructions).
+__device__ __forceinline__ uint32_t tf32_bits(uint32_t x) { return (x + 0x1000u) & 0xffffe000u; }
+
+// Four float32 fragment elements (as bits) split into tf32 high parts and
+// tf32 remainders: x = hi + lo to about 2^-22 of |x|.
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = tf32_bits(x[i]);
+    lo[i] = tf32_bits(__float_as_uint(__uint_as_float(x[i]) - __uint_as_float(hi[i])));
+  }
 }
 
 // d += a * b, m16n8k8, tf32 x tf32 -> float32

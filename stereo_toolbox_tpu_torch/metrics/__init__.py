@@ -71,8 +71,10 @@ def epe_and_outliers(pred: torch.Tensor, gt: torch.Tensor,
 
 
 def occ_noc_split(mask: torch.Tensor, noc_mask: torch.Tensor):
-    """(all, noc, occ) masks; occ = all ∧ ¬noc. NaN noc (absent file) is
-    treated as all-visible."""
+    """(all, noc, occ) masks; noc = all ∧ (noc_mask > 0.5), occ = all ∧
+    ¬noc. A NaN in `noc_mask` (an absent noc file) counts as occluded: where
+    the whole mask is NaN, noc is empty and occ is every valid pixel, as
+    the JAX package's code computes (its docstring says the opposite)."""
     noc = torch.isfinite(noc_mask) & (noc_mask > 0.5) & mask
     return mask, noc, mask & ~noc
 

@@ -39,9 +39,7 @@ SIGNATURES = {
         # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
         # relu, tile, stream
         "conv3d_fused_mma": [_P] * 6 + [_I] * 10 + [_P],
-        # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
-        # relu, stream
-        "conv3d_fused_simt": [_P] * 6 + [_I] * 9 + [_P]},
+        "conv3d_fused_tf32x3": [_P] * 6 + [_I] * 10 + [_P]},
     "sample_gather": {
         # right, samples, out, B, H, W, C, S, max_shift, dtype, tw, threads,
         # vb, sc, stream
@@ -69,7 +67,7 @@ SIGNATURES = {
     "vit_attention": {
         # q, k, v, out, B*heads, N, scale, stream
         "vit_attention_mma": [_P] * 4 + [_I] * 2 + [_F, _P],
-        "vit_attention_simt": [_P] * 4 + [_I] * 2 + [_F, _P]},
+        "vit_attention_tf32x3": [_P] * 4 + [_I] * 2 + [_F, _P]},
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

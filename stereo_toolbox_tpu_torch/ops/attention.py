@@ -5,12 +5,19 @@ Counterpart of the attention core of
 the layout ``[B, heads, N, head_dim]``:
 
   * `attention` launches a hand-written CUDA kernel
-    (``csrc/vit_attention.cu``, K7) on a CUDA tensor, at every N, one design
-    per type: bfloat16 runs FlashAttention-2 on the tensor cores ("mma"),
-    float32 the online softmax on the CUDA cores ("simt", held to 1e-5 with
-    TF32 off). On a CPU tensor it runs `attention_reference`. It counts its
-    launches, in all (``.launches``), by ``(B, heads, N, head_dim)``
+    (``csrc/vit_attention.cu``, K7) on a CUDA tensor, at every N:
+    FlashAttention-2 on the tensor cores in both types, one design per
+    type. bfloat16 runs ``mma.sync`` m16n8k16 ("mma"); float32 runs 3xTF32
+    on ``mma.sync`` m16n8k8 ("tf32x3": each operand split into a TF32 high
+    part and a TF32 remainder, three products summed in float32, held to
+    1e-5 of the plain version with TF32 off, which one TF32 product would
+    miss). Bound on the card by operations (4·N²·64 FLOP a head; float32
+    three TF32 products each at 495 TF/s), then by the fragment loads from
+    shared memory. On a CPU tensor it runs `attention_reference`. It counts
+    its launches, in all (``.launches``), by ``(B, heads, N, head_dim)``
     (``.shapes``) and by design (``.designs``).
+  * `attention_tf32x3_reference` computes the float32 kernel's arithmetic
+    (the CPU tests use it; nothing on the main path does).
 """
 
 from __future__ import annotations
@@ -20,9 +27,13 @@ from collections import Counter
 import torch
 
 from stereo_toolbox_tpu_torch.ops import _cuda
+from stereo_toolbox_tpu_torch.utils.precision import tf32_split
 
 HEAD_DIM = 64   # the kernels' head dim; every DepthAnythingV2 encoder has it
 QUERY_TILE = KEY_TILE = 64   # both kernels' queries a block and keys a step
+# The design of each type ("mma": bf16 products; "tf32x3": three TF32
+# products of split float32 operands)
+DESIGNS = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,14 +45,39 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
 
 
+def attention_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, scale: float,
+                               terms: int = 3) -> torch.Tensor:
+    """Plain version in the float32 kernel's arithmetic: q, k, v, and the
+    softmax's unnormalised P, split into TF32 high parts and remainders
+    (`tf32_split`); S = Q·Kᵀ and P·V each as lo·hi + hi·lo + hi·hi in
+    float32; the softmax in log2 units in float32 and the row sum of the
+    unsplit P. ``terms=1`` keeps hi·hi alone (one TF32 product), which the
+    tests use to show that the float32 gate tells the two apart."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+
+    def product(a, b):
+        (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+        hh = ah @ bh
+        return (al @ bh + ah @ bl) + hh if terms == 3 else hh
+
+    logits = product(q.float(), k.float().transpose(-1, -2)) * (
+        scale * 1.4426950408889634)
+    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    out = product(p, v.float()) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """Non-causal softmax attention ``softmax(q · kᵀ · scale) · v`` over
     ``[B, heads, N, head_dim]`` → ``[B, heads, N, head_dim]``.
 
-    CPU tensors take `attention_reference`; CUDA tensors launch the kernel
-    of their type (contiguous bfloat16: tensor cores; float32: CUDA cores;
-    all three of one shape, head_dim 64, 16-byte aligned) or raise.
+    CPU tensors take `attention_reference`; CUDA tensors launch the
+    kernel's design for their type (bfloat16: "mma"; float32: "tf32x3";
+    all three contiguous, of one shape, head_dim 64, 16-byte aligned) or
+    raise.
     """
     if _cuda.on_cpu(q):
         return attention_reference(q, k, v, scale)
@@ -67,7 +103,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _cuda.library("vit_attention")
-    design = "mma" if q.dtype == torch.bfloat16 else "simt"
+    design = DESIGNS[q.dtype]
     with torch.cuda.device(q.device):
         rc = getattr(lib, f"vit_attention_{design}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -80,7 +116,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # launches of the kernels, in all, by (B, heads, N, head_dim) and by design
-# ("mma" | "simt", queries of a block, keys a step)
+# ("mma" | "tf32x3", queries of a block, keys a step)
 attention.launches = 0
 attention.shapes = Counter()
 attention.designs = Counter()

@@ -6,7 +6,10 @@ decimal digits. Every model's ``forward`` enters `full_float32` when it
 computes in float32, so that the 2D trunk, the stride-2 and transposed 3D
 convs, the 1×1 and depthwise convs and the Linear layers compute what the
 CPU reference computes, whatever the process-global flags say. The
-hand-written kernels never use TF32.
+hand-written float32 kernels on the tensor cores (K2, K3's "stencil", K7)
+never take one TF32 product: they split each operand into a TF32 high part
+and a TF32 remainder (`tf32_split`) and sum three products, lo·hi + hi·lo +
+hi·hi ("3xTF32"), which keeps a product to about 2⁻²² of itself.
 
 bfloat16 is the other half of the contract: ``create_model(...,
 dtype=torch.bfloat16)`` casts the conv, linear and attention parameters and
@@ -27,6 +30,22 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32 (10 fraction bits), to nearest with ties
+    away from zero, as the card's ``cvt.rna.tf32.f32`` rounds: half a TF32
+    unit added to the magnitude's bits, the 13 low bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: x's TF32 high part and its remainder rounded to TF32,
+    as the 3xTF32 kernels split an operand; ``hi + lo`` is x to about 2⁻²²
+    of |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
 
 
 @contextlib.contextmanager

@@ -334,6 +334,34 @@ MMA_CASES = [(1, 3, 7, 19, 1, 8, False, True),
 
 
 @pytest.mark.parametrize("b,d,h,w,ci,co,residual,relu", MMA_CASES)
+def test_conv3d_fused_tf32x3_kernel_matches_plain(dev, b, d, h, w, ci, co,
+                                                  residual, relu):
+    """float32 launches the 3xTF32 design, with the tile `mma_tile` picks
+    for float32, on a raw or a packed kernel alike; within 1e-4 · max|ref|
+    of the plain version with TF32 off, the same bits twice."""
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(b, d, h, w, ci, generator=gen).to(dev)
+    k = (torch.randn(3, 3, 3, ci, co, generator=gen)
+         * (2.0 / (27 * ci)) ** 0.5).to(dev)
+    scale = (torch.rand(co, generator=gen) + 0.5).to(dev)
+    bias = torch.randn(co, generator=gen).to(dev)
+    res = (torch.randn(b, d, h, w, co, generator=gen).to(dev)
+           if residual else None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, n = MMA_TILES[mma_tile(b, d, h, w, co, sms, torch.float32)]
+    want = conv3d_fused_reference(x, k, scale, bias, res, relu)
+    for kernel in (k, pack_conv3d_weight(k)):
+        before = conv3d_fused.designs[("tf32x3", rows * 32, n)]
+        got = conv3d_fused(x, kernel, scale, bias, res, relu)
+        again = conv3d_fused(x, kernel, scale, bias, res, relu)
+        assert conv3d_fused.designs[("tf32x3", rows * 32, n)] == before + 2
+        assert torch.equal(got, again)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,d,h,w,ci,co,residual,relu", MMA_CASES)
 def test_conv3d_fused_mma_kernel_matches_plain(dev, b, d, h, w, ci, co,
                                                residual, relu):
     """bfloat16 launches the tensor-core design, with the tile `mma_tile`
@@ -649,17 +677,35 @@ def test_attention_mma_kernel_matches_plain(dev, b, heads, n, scale):
     assert err <= 1e-2 * want.abs().max().item(), err
 
 
-def test_float32_launches_the_simt_designs(dev):
+@pytest.mark.parametrize("b,heads,n,scale", ATTENTION_CASES
+                         + MMA_ATTENTION_CASES)
+def test_attention_tf32x3_kernel_matches_plain(dev, b, heads, n, scale):
+    """float32 launches the 3xTF32 design; within 1e-5 · max|ref| of the
+    plain version with TF32 off, the same bits twice."""
+    gen = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn(b, heads, n, 64, generator=gen).to(dev)
+               for _ in range(3))
+    before = attention.designs[("tf32x3", 64, 64)]
+    out = _counted(attention, (b, heads, n, 64), q, k, v, scale)
+    again = attention(q, k, v, scale)
+    assert attention.designs[("tf32x3", 64, 64)] == before + 2
+    assert torch.equal(out, again)
+    want = attention_reference(q, k, v, scale)
+    err = (out - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def test_float32_launches_the_tf32x3_designs(dev):
     x = torch.zeros(1, 2, 3, 4, 8, device=dev)
     before = sum(n for key, n in conv3d_fused.designs.items()
-                 if key[0] == "simt")
+                 if key[0] == "tf32x3")
     conv3d_fused(x, torch.zeros(3, 3, 3, 8, 8, device=dev))
     assert sum(n for key, n in conv3d_fused.designs.items()
-               if key[0] == "simt") == before + 1
+               if key[0] == "tf32x3") == before + 1
     q = torch.zeros(1, 2, 10, 64, device=dev)
-    before = attention.designs[("simt", 64, 64)]
+    before = attention.designs[("tf32x3", 64, 64)]
     attention(q, q, q, 0.1)
-    assert attention.designs[("simt", 64, 64)] == before + 1
+    assert attention.designs[("tf32x3", 64, 64)] == before + 1
 
 
 def test_attention_rejects_what_the_kernel_does_not_take(dev):

@@ -1,5 +1,5 @@
-"""The plans of the K1 (gwc volume) forward and backward, K3 (Co = 1 conv),
-K4 (sample gather),
+"""The plans of the K1 (gwc volume) forward and backward, K2 (fused 3×3×3
+conv), K3 (Co = 1 conv), K4 (sample gather),
 K5 (gwc volume over samples) and K6 (concat volume) kernels, and a walk of
 each kernel's blocks in numpy against the plain versions.
 
@@ -8,13 +8,17 @@ the arithmetic is how they cut the work: the wrapper's plan (tiles, slices,
 disparity chunks or runs, rows or runs of planes a block, store width) and
 each block's walk (K1: a thread's strip and its sliding window of right
 pixels; K1's backward: a thread's strip of one output and its window of
-feature pixels sliding the other way for dr; K3: the tap partials of each staged plane and the 27-point stencil
+feature pixels sliding the other way for dr; K2: a block's voxel x channel
+tile, its K loop over (kd, 32-byte channel chunk, tap) reading a halo plane
+at shifted pixels, each warp's m16 x n8 fragments into the staged sums and
+the epilogue's masked stores of 8 channels;
+K3: the tap partials of each staged plane and the 27-point stencil
 over them, with rolling output planes; K4: a thread's (pixel, word) items
 over its run of samples; K5: a thread's (pixel, slot) items over the
 samples; K6: a thread's vectors over the flat output row, stepped without
 division, over a run of planes). The walks below follow
-``csrc/gwc_volume.cu``, ``csrc/conv3d.cu``, ``csrc/sample_gather.cu`` and
-``csrc/concat_volume.cu`` block by block, index by index, on the plans the
+``csrc/gwc_volume.cu``, ``csrc/conv3d_fused.cu``, ``csrc/conv3d.cu``,
+``csrc/sample_gather.cu`` and ``csrc/concat_volume.cu`` block by block, index by index, on the plans the
 wrappers compute, and must give the plain versions' output on every voxel,
 written once.
 """
@@ -25,6 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+from stereo_toolbox_tpu_torch.ops.conv3d_fused import (
+    CI_ALIGN, CO_ALIGN, MMA_TILES, conv3d_fused_reference, mma_tile,
+    pack_conv3d_weight)
 from stereo_toolbox_tpu_torch.ops.conv3d import (STENCIL_MAX_SMEM,
                                                  STENCIL_TILE,
                                                  conv3d_reference,
@@ -331,6 +338,120 @@ def test_stencil_plan_at_the_forwards_shapes(shape, dtype):
     th, tw = STENCIL_TILE
     assert 1 <= run <= d
     assert b * -(-h // th) * -(-w // tw) * -(-d // run) >= 0.75 * 132
+
+
+# warps of each tile along the voxels x the channels, by type
+# (conv3d_fused.cu::launch)
+K2_WARPS = {BF16: ((2, 2), (4, 1), (4, 1), (4, 1)),
+            F32: ((4, 2), (8, 1), (8, 1), (4, 1))}
+
+
+def walk_conv3d_fused(x, kernel, scale, bias, res, relu, tile, dtype):
+    """K2's blocks in numpy (float64) on the weight packed for `dtype`: a
+    block's TH x 32 voxels x TN channels summed over (kd, channel chunk,
+    tap) from its halo plane at the tap's shifted pixels, each warp's
+    fragments written into the staged sums (each once), then the epilogue's
+    8-channel steps, masked past H, W and Co. Returns the output and how
+    often each element was stored."""
+    b_num, d_num, h_num, w_num, ci = x.shape
+    co = kernel.shape[-1]
+    data = pack_conv3d_weight(torch.from_numpy(kernel).float()).data
+    if dtype == BF16:
+        data = pack_conv3d_weight(torch.from_numpy(kernel).to(BF16)).data
+    wk = data.double().numpy()                       # [27, co_pad, ci_pad]
+    _, co_pad, ci_pad = wk.shape
+    chunk = CI_ALIGN[dtype]
+    assert ci_pad % chunk == 0 and co_pad % CO_ALIGN == 0
+    th, tn = MMA_TILES[tile]
+    wm, wn = K2_WARPS[dtype][tile]
+    km, warp_m, warp_n = th * 32, th * 32 // wm, tn // wn
+    tiles_w, co_blocks = -(-w_num // 32), -(-co // tn)
+    out = np.zeros((b_num, d_num, h_num, w_num, co))
+    writes = np.zeros(out.shape, dtype=int)
+    for bx in range(-(-h_num // th) * tiles_w):
+        h0, w0 = (bx // tiles_w) * th, (bx % tiles_w) * 32
+        for d in range(d_num):
+            for bz in range(b_num * co_blocks):
+                b, co0 = bz // co_blocks, (bz % co_blocks) * tn
+                assert co0 + tn <= co_pad     # weight rows the block reads
+                acc = np.zeros((km, tn))
+                for kd in range(3):
+                    halo = np.zeros((th + 2, 34, ci_pad))
+                    if 0 <= d + kd - 1 < d_num:
+                        for yy in range(th + 2):
+                            for xx in range(34):
+                                gy, gx = h0 + yy - 1, w0 + xx - 1
+                                if 0 <= gy < h_num and 0 <= gx < w_num:
+                                    halo[yy, xx, :ci] = x[b, d + kd - 1, gy,
+                                                          gx]
+                    for c0 in range(0, ci_pad, chunk):
+                        for t in range(9):
+                            kh, kw = divmod(t, 3)
+                            m = np.arange(km)
+                            a = halo[(m >> 5) + kh, (m & 31) + kw,
+                                     c0:c0 + chunk]
+                            acc += a @ wk[kd * 9 + t, co0:co0 + tn,
+                                          c0:c0 + chunk].T
+                staged = np.full((km, tn), np.nan)
+                for warp in range(wm * wn):
+                    wmi, wni = warp % wm, warp // wm
+                    for i in range(warp_m // 16):
+                        for j in range(warp_n // 8):
+                            for lane in range(32):
+                                g, tq = lane >> 2, lane & 3
+                                for r in (0, 8):
+                                    mm = wmi * warp_m + i * 16 + g + r
+                                    nn = wni * warp_n + j * 8 + tq * 2
+                                    assert np.isnan(staged[mm, nn:nn + 2]
+                                                    ).all()
+                                    staged[mm, nn:nn + 2] = acc[mm, nn:nn + 2]
+                for e in range(km * (tn // 8)):
+                    m, q = divmod(e, tn // 8)
+                    y, xw, c = h0 + (m >> 5), w0 + (m & 31), co0 + q * 8
+                    if y >= h_num or xw >= w_num or c >= co:
+                        continue
+                    n = min(8, co - c)
+                    v = staged[m, q * 8:q * 8 + n] * scale[c:c + n] + \
+                        bias[c:c + n]
+                    if res is not None:
+                        v = v + res[b, d, y, xw, c:c + n]
+                    if relu:
+                        v = np.maximum(v, 0)
+                    out[b, d, y, xw, c:c + n] = v
+                    writes[b, d, y, xw, c:c + n] += 1
+    return out, writes
+
+
+# (b, d, h, w, ci, co, residual, relu): chip_smoke's ragged K2 cases (Ci 12,
+# 1, 3, 33, 65; Co 40, 8, 33; odd H and W; D 1 and 2) and a model one cut
+K2_CASES = [(2, 5, 7, 19, 12, 40, True, True), (1, 3, 7, 19, 1, 8, False, True),
+            (2, 2, 9, 35, 3, 33, True, True), (1, 1, 5, 7, 33, 8, True, False),
+            (1, 2, 11, 13, 65, 33, False, False),
+            (1, 3, 9, 40, 40, 32, False, True)]
+
+
+@pytest.mark.parametrize("b,d,h,w,ci,co,res,relu", K2_CASES)
+@pytest.mark.parametrize("tile", range(len(MMA_TILES)))
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_conv3d_fused_kernel_walk_matches_plain(b, d, h, w, ci, co, res,
+                                                relu, tile, dtype):
+    """Every output voxel and channel stored exactly once, equal to the
+    plain version, on every tile and either type's channel chunk."""
+    rng = np.random.RandomState(ci + co + tile)
+    x = rng.randn(b, d, h, w, ci)
+    k = rng.randn(3, 3, 3, ci, co) * 0.2
+    scale, bias = rng.rand(co) + 0.5, rng.randn(co)
+    r = rng.randn(b, d, h, w, co) if res else None
+    got, writes = walk_conv3d_fused(x, k, scale, bias, r, relu, tile, dtype)
+    assert (writes == 1).all()
+    t = [None if a is None else torch.from_numpy(a) for a in (x, k, scale,
+                                                              bias, r)]
+    if dtype == BF16:       # the walk read the bf16-rounded weight
+        t[1] = t[1].to(BF16).double()
+    want = conv3d_fused_reference(*t, relu=relu).numpy()
+    # the plain version's epilogue computes in float32
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def walk_gather(right, samples, max_shift, plan, size):

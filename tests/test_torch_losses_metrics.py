@@ -55,6 +55,29 @@ def test_valid_mask_and_split_match_jax(seed):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("noc_kind", ["nan", "partly_nan", "finite"])
+def test_occ_noc_split_of_nan_masks_matches_jax(noc_kind):
+    """A NaN noc mask (an absent file), one NaN in part and a finite one:
+    the port's split is JAX's, and NaN counts as occluded in both."""
+    _, gt, noc = _maps(3)
+    if noc_kind == "nan":
+        noc = np.full_like(noc, np.nan)
+    elif noc_kind == "partly_nan":
+        noc[:, ::2] = np.nan
+    else:
+        noc = np.nan_to_num(noc, nan=0.75)
+    (tg, tn), (jg, jn) = _both(gt, noc)
+    got = metrics.occ_noc_split(metrics.valid_mask(tg, 16), tn)
+    want = jmetrics.occ_noc_split(jmetrics.valid_mask(jg, 16), jn)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    every, noc_m, occ = got
+    assert not (noc_m & torch.isnan(tn)).any()
+    assert torch.equal(occ | noc_m, every) and not (occ & noc_m).any()
+    if noc_kind == "nan":
+        assert not noc_m.any() and torch.equal(occ, every) and every.any()
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_epe_and_outliers_match_jax(seed):
     pred, gt, _ = _maps(seed)
