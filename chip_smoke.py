@@ -9,11 +9,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 3. hold the gwc-volume kernel (K1, its "stream" design) against its plain
    PyTorch version at every launch shape of the stereo models' forwards and
    train steps and ragged cases, and its backward kernel (K1-bwd, its
-   "window" design) against ``torch.autograd`` of the plain forward at
+   "rowpass" design) against ``torch.autograd`` of the plain forward at
    every eval and train launch shape of K1 (GwcNet_G's, GwcNet_GC's and
    ACVNet's; CFNet's three, C/G = 4 at 1/8) and ragged cases (W not a
-   multiple of the tile, D > W, B 1 and 3, C/G 1 and 16), both in float32
-   and bfloat16;
+   multiple of the strip, D > W, B 1 and 3, C/G 1 and 16, rows long enough
+   for W tiles), both in float32 and bfloat16, each backward run twice for
+   the same bits;
 4. hold the fused 3x3x3 conv kernel (K2) likewise, each of its volume
    shapes also with both epilogue options on and off, and ragged cases (Ci
    1, 3, 33, 65; Co 8, 33; odd H and W; D 1 and 2); bfloat16 runs the
@@ -31,8 +32,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tile, blocks of a few pixels, S = 1, odd G, a C/G without a
    compile-time count; K6: bfloat16 C = 12 rows of 24-byte halves, odd C,
    rows not a multiple of 16 bytes, misaligned feature bases, W tiles);
-   then their backward kernels (K6-bwd "direct", K4-bwd and K5-bwd
-   "sort") against their plain versions in float32 and bfloat16, each run
+   then their backward kernels (K6-bwd "direct", K4-bwd "sort" and K5-bwd
+   "staged") against their plain versions in float32 and bfloat16, each run
    twice for the same bits, at every train launch shape and ragged cases
    (K6-bwd: D > W, odd C, a misaligned gradient, masked and not; K4-bwd
    and K5-bwd: W not a multiple of 32, S = 1, samples at 0, at max_shift,
@@ -441,9 +442,9 @@ TRACE_ITERS = 3        # forwards in the torch.profiler trace
 # every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward must run in both
 # types
 DESIGN = {F32: TF32X3, BF16: "mma"}
-ONE_DESIGN = {"K1": "stream", "K1-bwd": "window", "K3": "stencil",
+ONE_DESIGN = {"K1": "stream", "K1-bwd": "rowpass", "K3": "stencil",
               "K4": "direct", "K5": "direct", "K6": "rows",
-              "K6-bwd": "direct", "K4-bwd": "sort", "K5-bwd": "sort"}
+              "K6-bwd": "direct", "K4-bwd": "sort", "K5-bwd": "staged"}
 DESIGN_TAGS = tuple(KERNELS)                  # every wrapper has .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
@@ -599,26 +600,26 @@ def check_gwc(gen) -> dict:
 def check_gwc_backward(gen) -> dict:
     """K1's backward at every eval and train launch shape of K1 (GwcNet_G,
     GwcNet_GC and ACVNet's; CFNet's three, C/G = 4 at 1/8; the card-vs-CPU
-    train check's) and ragged cases, against
-    ``torch.autograd.grad`` of `gwc_volume_reference` in float32 on the
-    same inputs, with K1's tolerances; every launch on the "window"
-    design."""
+    train check's; the eval rows at 480x640 take W tiles) and ragged cases,
+    against ``torch.autograd.grad`` of `gwc_volume_reference` in float32 on
+    the same inputs, with K1's tolerances; every launch on the "rowpass"
+    design, twice for the same bits."""
     errs = {}
     model_cases = sorted(all_shapes("K1"))
-    # W not a multiple of the tile with D > W and B = 1, C/G = 3; B = 3 with
-    # C/G = 1; C/G = 16 with D > W; W 70, B 2 at GwcNet's widths
+    # W not a multiple of the strip with D > W and B = 1, C/G = 3; B = 3 with
+    # C/G = 1; C/G = 16 with D > W; W 70, B 2 at GwcNet's widths; a long
+    # row at GwcNet's widths (W tiles)
     cases = [*model_cases, (1, 3, 37, 48, 48, 16), (3, 2, 21, 24, 9, 24),
-             (1, 2, 9, 32, 13, 2), (2, 3, 70, 320, 48, 40)]
+             (1, 2, 9, 32, 13, 2), (2, 3, 70, 320, 48, 40),
+             (1, 2, 320, 320, 48, 40)]
     for dtype in (F32, BF16):
         worst = 0.0
         for b, h, w, c, d, g in cases:
             left = randn((b, h, w, c), dtype, gen)
             right = randn((b, h, w, c), dtype, gen)
             grad = randn((b, d, h, w, g), dtype, gen)
-            reset_counts()
-            dl, dr = gwc_volume_backward(left, right, grad, d, g)
-            design = require_design("K1-bwd", ONE_DESIGN["K1-bwd"],
-                                    DTYPE_NAME[dtype])
+            (dl, dr), design = repeat_bits(
+                "K1-bwd", lambda: gwc_volume_backward(left, right, grad, d, g))
             lf = left.float().requires_grad_()
             rf = right.float().requires_grad_()
             want = torch.autograd.grad(gwc_volume_reference(lf, rf, d, g),
@@ -890,7 +891,8 @@ def backward_samples(b, s, h, w, ms, gen):
 
 
 def check_samples_backward(gen) -> tuple[dict, dict]:
-    """K4's and K5's backward kernels on their "sort" design at every train
+    """K4's and K5's backward kernels on their "sort" and "staged" designs
+    (both on the parallel list build) at every train
     launch shape (CFNet's s3 and s2 stages, and the card-vs-CPU check's)
     and ragged cases: W not a multiple of 32, C 1, 5, 6 and 12, C/G 5 and
     8, odd G, S = 1, samples at 0, at max_shift and past the image edge,
@@ -1751,7 +1753,13 @@ def kernel_family(name: str) -> str:
                       ("conv3d_stencil_kernel", "K3 conv3d"),
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_stream_kernel", "K1 gwc_volume"),
-                      ("gwc_backward_kernel", "K1-bwd gwc_volume_backward"),
+                      ("gwc_rowpass_kernel", "K1-bwd gwc_volume_backward"),
+                      ("gather_backward_kernel",
+                       "K4-bwd gather_right_by_samples_backward"),
+                      ("sample_lists_kernel",
+                       "K5-bwd gwc_volume_from_samples_backward"),
+                      ("gwc_samples_backward_kernel",
+                       "K5-bwd gwc_volume_from_samples_backward"),
                       ("gather_direct_kernel", "K4 sample gather"),
                       ("gwc_direct_kernel", "K5 gwc volume from samples"),
                       ("concat_rows_kernel", "K6 concat volume"),

@@ -61,7 +61,7 @@
 // or 16 keeps the left values in registers at a compile-time count; any
 // other C/G runs the same loop with the left values read at each step.
 //
-// The backward kernels (K4-bwd, K5-bwd): see below.
+// The backward kernels (K4-bwd "sort", K5-bwd "staged"): see below.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, allocates nothing, synchronises nothing and returns
@@ -70,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "mma.cuh"
 
@@ -341,78 +343,177 @@ int gwc_by_cpg(const void* left, const void* right, const void* samples, void* o
 // are scatters: many (s, w) can read one right pixel u (every w of a row
 // whose sample reaches back to it), and which do depends on the data.
 //
-// Design ("sort", plan ops/volume.py::sample_backward_plan): a block owns
-// one row (b, h). It stages the row's shifts d[s][w] in shared memory and
-// sorts the row's (s, w) by the right pixel u = w - d they read, into one
-// list a pixel, in a fixed order: a counting sort whose counts are integer
-// atomics on shared memory (the same in every run), whose offsets are an
-// exclusive scan of the counts, and whose fill is one warp walking the
-// entries in order, 32 at a time: the lanes that read one u find each
-// other (__match_any_sync) and take consecutive places in its list by
-// lane. So each list holds its entries in (s, w) order, whatever the
-// scheduling. Then each output (u, c) is one thread's: it walks its list
-// and sums gd (times left, for K5) in float32 registers, and writes once.
-// No atomics on data: the same inputs give the same bits in every run.
-// K5-bwd's dl items, a gather, read the staged shifts directly. Shared
-// memory: 4 bytes a shift, 4 an entry, 8 a pixel for its list's offset and
-// fill cursor (26 KB a row at CFNet's 1/2 stage in training).
+// The lists (both kernels, `build_lists`): a block of kListThreads owns
+// one row (b, h) and sorts the row's (s, w) by the right pixel u = w - d
+// they read, into one list a pixel, each in (s, w) order. Its threads
+// stage u (or -1 where w < d) of every (s, w) in shared memory, and the
+// row's (s, w), in that order, are cut into one run a warp. Each warp
+// takes its run 32 entries at a time: the lanes OR their bit into the
+// warp's mask of their u (integer atomics on shared bookkeeping, whose
+// result does not depend on their order), so each lane reads which lanes
+// share its u, its rank among them and their count. A first pass counts
+// each warp's entries a pixel; the block sums the warps' counts a pixel
+// and scans them (warp shuffles, then over the warps' totals) into the
+// lists' offsets, and each warp's place in each list is the offset plus
+// the counts of the warps before it. A second pass fills every warp's run
+// in order, the lanes of one u taking consecutive places by lane. So each
+// list holds its entries in (s, w) order, whatever the scheduling.
+// (With `__match_any_sync` finding the same lanes, K5-bwd's list kernel
+// took 13 and 30 us at CFNet's two train launches on the H100; with the
+// masks 10.5 and 18.5.) Shared memory: 4 bytes a u and an entry, 4 a
+// pixel for the offsets and 8 a pixel and warp for the counts and masks.
+//
+// K4-bwd ("sort", plan ops/volume.py::sample_backward_plan): a block builds
+// its row's lists, then each output (u, c) is one thread's: it walks its
+// list and sums gd in float32 registers, and writes once.
+//
+// K5-bwd ("staged", same plan): a first kernel builds each row's lists once
+// and writes them (offsets, entries) to scratch that the wrapper
+// allocates. Then a block owns one row and a chunk of GC groups (as many
+// as fit two blocks an SM): it copies the row's lists from scratch (L2),
+// its samples, gd[b, :, h, :, chunk] and the chunk's left and right rows
+// into shared memory with cp.async, and computes from there: dl, a thread
+// an output's groups (pixel w, item_groups of them), sums over s; dr's
+// lists of at most kLong entries, a thread an output's groups, walk their
+// entries; a longer
+// list (the skewed row whose every sample reads one pixel) is walked by a
+// warp, its lanes over the entries, and summed in a fixed butterfly. So
+// neither pass makes a dependent load from device memory, gd is read from
+// it once, and no list serialises a row on one thread. No atomics on data:
+// the same inputs give the same bits in every run.
+
+constexpr int kListThreads = 256;       // threads (8 warps) of a block that builds lists
+constexpr int kListWarps = kListThreads / 32;
+constexpr int kLong = 32;               // entries of a list that one thread walks, at most
+
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared ints of a block that builds a row's lists: u [S * W], off [W + 1],
+// list [S * W], counts and masks [kListWarps * W] each.
+__host__ __device__ __forceinline__ int list_ints(int W, int S) {
+  return 2 * S * W + W + 1 + 2 * kListWarps * W;
+}
+
+// Ints of a row's lists in scratch: off [W + 1], list [S * W], each padded
+// to 16 bytes.
+__host__ __device__ __forceinline__ int scratch_ints(int W, int S) {
+  return round_up(W + 1, 4) + round_up(S * W, 4);
+}
 
 __device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
 
-// The row's lists: d [S * W] shifts, off [W + 1] offsets into list [S * W]
-// entries (s << 16 | w), cursor [W] scratch. smp points at samples[b, 0, h,
-// 0]; sample planes lie `plane` apart. The fill's warp stride is the
-// block's width up to 32 (a block of one thread, as a serial run of the
-// kernel has, fills one entry at a time in the same order).
-__device__ __forceinline__ void stage_lists(const float* __restrict__ smp, size_t plane, int S,
-                                            int W, int max_shift, int* d, int* off, int* list,
-                                            int* cursor) {
-  for (int u = threadIdx.x; u <= W; u += blockDim.x) off[u] = 0;
-  __syncthreads();
+// The lanes of this warp's batch whose u is this lane's (u >= 0), from the
+// warp's masks `msk` (zero before and after: the batch's first lane of
+// each u clears its mask once every lane has read it).
+__device__ __forceinline__ unsigned batch_peers(int* msk, int u, int lane) {
+  if (u >= 0) atomicOr(msk + u, 1 << lane);
+  __syncwarp();
+  const unsigned peers = u >= 0 ? (unsigned)msk[u] : 0u;
+  __syncwarp();
+  if (u >= 0 && lane == __ffs(peers) - 1) msk[u] = 0;
+  return peers;
+}
+
+// The row's lists (blockDim.x == kListThreads): uof [S * W] the right pixel
+// u that (s, w) reads or -1, off [W + 1] the lists' offsets into list
+// [S * W], whose entries are s << 16 | w; cnt [2 * kListWarps * W] scratch
+// (each warp's counts, then cursors, and masks). smp points at samples[b,
+// 0, h, 0]; sample planes lie `plane` apart.
+__device__ __forceinline__ void build_lists(const float* __restrict__ smp, size_t plane, int S,
+                                            int W, int max_shift, int* uof, int* off, int* list,
+                                            int* cnt) {
+  __shared__ int warp_total[kListWarps];
   const int n = S * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 2 * kListWarps * W; i += blockDim.x) cnt[i] = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int s = i / W, w = i - s * W;
-    const int v = shift_of(__ldg(smp + s * plane + w), max_shift);
-    d[i] = v;
-    if (v <= w) atomicAdd(off + w - v + 1, 1);
+    const int d = shift_of(__ldg(smp + s * plane + w), max_shift);
+    uof[i] = d <= w ? w - d : -1;
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    for (int u = 0; u < W; ++u) off[u + 1] += off[u];
+  // each warp's run of the (s, w): [lo, hi)
+  const int run = (n + kListWarps - 1) / kListWarps;
+  const int lo = imin(n, warp * run), hi = imin(n, lo + run);
+  int* mine = cnt + warp * W;
+  int* msk = cnt + (kListWarps + warp) * W;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int u = i < hi ? uof[i] : -1;
+    const unsigned peers = batch_peers(msk, u, lane);
+    if (u >= 0 && lane == __ffs(peers) - 1) mine[u] += __popc(peers);
+    __syncwarp();
+  }
   __syncthreads();
-  for (int u = threadIdx.x; u < W; u += blockDim.x) cursor[u] = off[u];
+  // each thread sums the counts of a run of pixels [u0, u1) (into off), the
+  // runs' sums are scanned over the block, and each pixel's offset and each
+  // warp's cursor into its list follow
+  const int per = (W + blockDim.x - 1) / blockDim.x;
+  const int u0 = imin(W, threadIdx.x * per), u1 = imin(W, u0 + per);
+  int local = 0;
+  for (int u = u0; u < u1; ++u) {
+    int t = 0;
+    for (int k = 0; k < kListWarps; ++k) t += cnt[k * W + u];
+    off[u] = t;
+    local += t;
+  }
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
   __syncthreads();
-  const int lanes = min(32, (int)blockDim.x);
-  const int lane = threadIdx.x;
-  if (lane < lanes) {
-    for (int base = 0; base < n; base += lanes) {
-      const int i = base + lane;
-      const int s = i / W, w = i - s * W;
-      const int u = i < n && d[i] <= w ? w - d[i] : -1;
-      const unsigned peers = __match_any_sync(0xffffffffu >> (32 - lanes), u);
-      if (u >= 0) list[cursor[u] + __popc(peers & ((1u << lane) - 1))] = s << 16 | w;
-      __syncwarp();
-      if (u >= 0 && lane == __ffs(peers) - 1) cursor[u] += __popc(peers);
-      __syncwarp();
+  int at = incl - local;
+  for (int k = 0; k < warp; ++k) at += warp_total[k];
+  for (int u = u0; u < u1; ++u) {
+    const int t = off[u];
+    off[u] = at;
+    int cur = at;
+    for (int k = 0; k < kListWarps; ++k) {
+      const int c = cnt[k * W + u];
+      cnt[k * W + u] = cur;
+      cur += c;
     }
+    at += t;
+  }
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int k = 0; k < kListWarps; ++k) total += warp_total[k];
+    off[W] = total;
+  }
+  __syncthreads();
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const int u = i < hi ? uof[i] : -1;
+    const unsigned peers = batch_peers(msk, u, lane);
+    if (u >= 0) {
+      const int s = i / W;
+      list[mine[u] + __popc(peers & ((1u << lane) - 1))] = s << 16 | (i - s * W);
+    }
+    __syncwarp();
+    if (u >= 0 && lane == __ffs(peers) - 1) mine[u] += __popc(peers);
+    __syncwarp();
   }
   __syncthreads();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kListThreads)
 gather_backward_kernel(const T* __restrict__ gd, const float* __restrict__ samples,
                        T* __restrict__ dright, int H, int W, int C, int S, int max_shift) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* d = reinterpret_cast<int*>(smem);
-  int* off = d + S * W;
+  int* uof = reinterpret_cast<int*>(smem);
+  int* off = uof + S * W;
   int* list = off + W + 1;
-  int* cursor = list + S * W;
+  int* cnt = list + S * W;
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t plane = (size_t)H * W;                  // pixels of a sample plane
-  stage_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, d, off,
-              list, cursor);
+  build_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, uof, off,
+              list, cnt);
   const T* g = gd + ((size_t)b * S * plane + (size_t)h * W) * C;  // gd[b, 0, h, 0, 0]
   T* out = dright + ((size_t)b * H + h) * W * C;
   for (int i = threadIdx.x; i < W * C; i += blockDim.x) {
@@ -426,133 +527,453 @@ gather_backward_kernel(const T* __restrict__ gd, const float* __restrict__ sampl
   }
 }
 
-// CPG > 0: C/G at compile time; a thread item is one pixel and one group:
-// it reads the group's gd value once a term and the group's CPG feature
-// values in `vb`-byte words (16, 8 or 4; else one at a time). CPG == 0: a
-// thread item is one pixel and one channel. A block takes the groups [g0,
-// g0 + gc) of its row (the blockIdx.z-th chunk), so that a launch has
-// blocks enough to fill the card; each chunk builds the row's lists
-// itself.
-template <typename T, int CPG>
-__global__ void __launch_bounds__(kThreads)
-gwc_samples_backward_kernel(const T* __restrict__ left, const T* __restrict__ right,
-                            const float* __restrict__ samples, const T* __restrict__ gd,
-                            T* __restrict__ dl, T* __restrict__ dr, int H, int W, int C, int S,
-                            int G, int max_shift, int gc, int vb) {
+// K5-bwd's first kernel: each row's lists, written to scratch (rs ints a
+// row: off, list, as scratch_ints lays them out).
+__global__ void __launch_bounds__(kListThreads)
+sample_lists_kernel(const float* __restrict__ samples, int* __restrict__ lists, int H, int W,
+                    int S, int max_shift) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* d = reinterpret_cast<int*>(smem);
-  int* off = d + S * W;
+  int* uof = reinterpret_cast<int*>(smem);
+  int* off = uof + S * W;
   int* list = off + W + 1;
-  int* cursor = list + S * W;
+  int* cnt = list + S * W;
   const int h = blockIdx.x, b = blockIdx.y;
-  const size_t plane = (size_t)H * W;                  // pixels of a sample plane
-  stage_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, d, off,
-              list, cursor);
-  const int cpg = C / G;
-  const float inv = 1.f / (float)cpg;
-  const int g0 = blockIdx.z * gc, ng = min(G, g0 + gc) - g0;
-  const size_t row = ((size_t)b * H + h) * W * C;      // left/right/dl/dr [b, h, 0, 0]
-  const T* g = gd + ((size_t)b * S * plane + (size_t)h * W) * G;  // gd[b, 0, h, 0, 0]
-  if constexpr (CPG > 0) {
-    // dl: a gather over the samples of pixel w
-    for (int i = threadIdx.x; i < W * ng; i += blockDim.x) {
-      const int w = i / ng, grp = g0 + (i - w * ng);
-      float acc[CPG];
-#pragma unroll
-      for (int e = 0; e < CPG; ++e) acc[e] = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const int sh = d[s * W + w];
-        if (sh <= w) {
-          const float gv = to_f(__ldg(g + (s * plane + w) * G + grp));
-          float v[CPG];
-          load_f32<T, CPG>(right + row + (size_t)(w - sh) * C + grp * CPG, vb, v);
-#pragma unroll
-          for (int e = 0; e < CPG; ++e) acc[e] = fmaf(gv, v[e], acc[e]);
-        }
+  const size_t plane = (size_t)H * W;
+  build_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, uof, off,
+              list, cnt);
+  int* out = lists + ((size_t)b * H + h) * scratch_ints(W, S);
+  const int o1 = round_up(W + 1, 4);
+  for (int i = threadIdx.x; i <= W; i += blockDim.x) out[i] = off[i];
+  for (int i = threadIdx.x; i < S * W; i += blockDim.x) out[o1 + i] = list[i];
+}
+
+// cp.async of VB (16, 8 or 4) bytes
+template <int VB>
+__device__ __forceinline__ void cp_async_v(void* dst, const void* src) {
+  if constexpr (VB == 16) {
+    mma::cp_async16(mma::smem_addr(dst), src, true);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(mma::smem_addr(dst)),
+                 "l"(src), "n"(VB));
+  }
+}
+
+// `rows` rows of `len` elements of T from src (rows `stride` elements
+// apart) to dst (rows `pitch` elements apart), VB bytes a copy (VB dividing
+// both and len's bytes, both bases aligned to it; 0: one element at a time)
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restrict__ src,
+                                           size_t stride, int rows, int len, int vb) {
+  if (vb >= 4) {
+    const int per = vb / (int)sizeof(T), words = len / per;
+    for (int i = threadIdx.x; i < rows * words; i += blockDim.x) {
+      const int r = i / words, k = i - r * words;
+      T* q = dst + (size_t)r * pitch + k * per;
+      const T* p = src + r * stride + k * per;
+      if (vb == 16) {
+        cp_async_v<16>(q, p);
+      } else if (vb == 8) {
+        cp_async_v<8>(q, p);
+      } else {
+        cp_async_v<4>(q, p);
       }
-      T* o = dl + row + (size_t)w * C + grp * CPG;
-#pragma unroll
-      for (int e = 0; e < CPG; ++e) from_f(acc[e] * inv, o + e);
-    }
-    // dr: a scatter, as the sum over the list of u
-    for (int i = threadIdx.x; i < W * ng; i += blockDim.x) {
-      const int u = i / ng, grp = g0 + (i - u * ng);
-      float acc[CPG];
-#pragma unroll
-      for (int e = 0; e < CPG; ++e) acc[e] = 0.f;
-      for (int p = off[u]; p < off[u + 1]; ++p) {
-        const int e0 = list[p], w = e0 & 0xffff;
-        const float gv = to_f(__ldg(g + ((e0 >> 16) * plane + w) * G + grp));
-        float v[CPG];
-        load_f32<T, CPG>(left + row + (size_t)w * C + grp * CPG, vb, v);
-#pragma unroll
-        for (int e = 0; e < CPG; ++e) acc[e] = fmaf(gv, v[e], acc[e]);
-      }
-      T* o = dr + row + (size_t)u * C + grp * CPG;
-#pragma unroll
-      for (int e = 0; e < CPG; ++e) from_f(acc[e] * inv, o + e);
     }
   } else {
-    const int c0 = g0 * cpg, nc = ng * cpg;
-    for (int i = threadIdx.x; i < W * nc; i += blockDim.x) {
-      const int w = i / nc, c = c0 + (i - w * nc), grp = c / cpg;
-      float acc = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const int sh = d[s * W + w];
-        if (sh <= w)
-          acc = fmaf(to_f(__ldg(g + (s * plane + w) * G + grp)),
-                     to_f(__ldg(right + row + (size_t)(w - sh) * C + c)), acc);
-      }
-      from_f(acc * inv, dl + row + (size_t)w * C + c);
-    }
-    for (int i = threadIdx.x; i < W * nc; i += blockDim.x) {
-      const int u = i / nc, c = c0 + (i - u * nc), grp = c / cpg;
-      float acc = 0.f;
-      for (int p = off[u]; p < off[u + 1]; ++p) {
-        const int e = list[p], w = e & 0xffff;
-        acc = fmaf(to_f(__ldg(g + ((e >> 16) * plane + w) * G + grp)),
-                   to_f(__ldg(left + row + (size_t)w * C + c)), acc);
-      }
-      from_f(acc * inv, dr + row + (size_t)u * C + c);
+    for (int i = threadIdx.x; i < rows * len; i += blockDim.x) {
+      const int r = i / len, k = i - r * len;
+      dst[(size_t)r * pitch + k] = src[r * stride + k];
     }
   }
 }
 
-// Shared bytes of a block: d, list [S * W], off [W + 1], cursor [W]
-int backward_smem(int W, int S) { return 4 * (2 * S * W + 2 * W + 1); }
+// Shared bytes of a K5-bwd (row, chunk) block (ops/volume.py::
+// sample_chunk_smem computes the same): the row's lists and samples
+// [S * W], gd [S * W][GCP] padded to 16 bytes, the left and right rows of
+// the chunk, [W][NCP] each, with GCP = GC rounded up to a thread item's
+// groups NGI and NCP = GCP * cpg rounded up to 16 bytes.
+template <typename T>
+int staged_smem(int W, int S, int cpg, int GC, int NGI) {
+  const int epc = 16 / (int)sizeof(T);
+  const int GCP = round_up(GC, NGI);
+  return 4 * (scratch_ints(W, S) + round_up(S * W, 4)) +
+         round_up(S * W * GCP * (int)sizeof(T), 16) +
+         2 * W * round_up(GCP * cpg, epc) * (int)sizeof(T);
+}
+
+// N float32 values to p as T: in `vb`-byte words (16, 8 or 4, dividing
+// p's alignment; words wider than the N values are not used), else one
+// value at a time.
+template <typename T, int N>
+__device__ __forceinline__ void store_run(T* p, const float (&v)[N], int vb) {
+  constexpr int B = N * (int)sizeof(T);
+  if constexpr (B % 4 == 0) {
+    constexpr int NW = B / 4;
+    uint32_t w[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        w[i] = __float_as_uint(v[i]);
+      } else {
+        w[i] = mma::pack_bf16(v[2 * i], v[2 * i + 1]);
+      }
+    }
+    if constexpr (B % 16 == 0) {
+      if (vb == 16) {
+#pragma unroll
+        for (int k = 0; k < NW / 4; ++k)
+          reinterpret_cast<uint4*>(p)[k] =
+              make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+        return;
+      }
+    }
+    if constexpr (B % 8 == 0) {
+      if (vb >= 8) {
+#pragma unroll
+        for (int k = 0; k < NW / 2; ++k)
+          reinterpret_cast<uint2*>(p)[k] = make_uint2(w[2 * k], w[2 * k + 1]);
+        return;
+      }
+    }
+    if (vb >= 4) {
+#pragma unroll
+      for (int k = 0; k < NW; ++k) reinterpret_cast<uint32_t*>(p)[k] = w[k];
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e) from_f(v[e], p + e);
+}
+
+// N elements of T in shared memory at p as float32: in the widest of 16-,
+// 8- and 4-byte words that divides N * sizeof(T) (p aligned to it), else
+// one at a time.
+template <typename T, int N>
+__device__ __forceinline__ void load_shared(const T* p, float (&dst)[N]) {
+  constexpr int B = N * (int)sizeof(T);
+  constexpr int VB = B % 16 == 0 ? 16 : B % 8 == 0 ? 8 : B % 4 == 0 ? 4 : 0;
+  if constexpr (VB > 0) {
+    constexpr int NW = B / 4, WPV = VB / 4;   // 32-bit words, words a load
+    uint32_t w[NW];
+#pragma unroll
+    for (int k = 0; k < NW / WPV; ++k) {
+      if constexpr (WPV == 4) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[k];
+        w[4 * k] = v.x, w[4 * k + 1] = v.y, w[4 * k + 2] = v.z, w[4 * k + 3] = v.w;
+      } else if constexpr (WPV == 2) {
+        const uint2 v = reinterpret_cast<const uint2*>(p)[k];
+        w[2 * k] = v.x, w[2 * k + 1] = v.y;
+      } else {
+        w[k] = reinterpret_cast<const uint32_t*>(p)[k];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        dst[i] = __uint_as_float(w[i]);
+      } else {
+        dst[2 * i] = __uint_as_float(w[i] << 16);
+        dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) dst[e] = to_f(p[e]);
+  }
+}
+
+// Groups of one thread item of K5-bwd at C/G = CPG (> 0) in T: one in
+// float32, so that the 8 lanes of a quarter warp read consecutive 16-byte
+// chunks of one gathered pixel's row (items of 4 groups read 4 pixels'
+// rows at the same bank groups: 0.458 ms against 0.345 over CFNet's two
+// launches on the H100); in bfloat16 as many as keep the item's sums
+// within 16 float32 registers, at most 4 (0.255 ms against 0.265 for 2).
+template <typename T, int CPG>
+__host__ __device__ constexpr int item_groups() {
+  if constexpr (sizeof(T) == 4) {
+    return 1;
+  } else {
+    return CPG <= 4 ? 4 : CPG <= 8 ? 2 : 1;
+  }
+}
+
+// Threads of a K5-bwd (row, chunk) block: 512 in float32, whose items need
+// few registers, so that more warps hide shared memory's latency; 256 in
+// bfloat16, whose items sum more channels.
+template <typename T>
+__host__ __device__ constexpr int staged_threads() {
+  return sizeof(T) == 4 ? 512 : 256;
+}
+
+// CPG > 0: C/G at compile time, a thread item one pixel and NGI groups of
+// the chunk (item_groups). CPG == 0: C/G is runtime, a thread item one
+// pixel and one channel. vbg / vbf / vbs: bytes a copy of gd's, the
+// features' and the samples' rows; vbo: bytes a store of dl and dr. The
+// copies come in two groups: the lists, samples, gd and the right rows,
+// which dl reads, then, once those have landed, the left rows, which only
+// dr reads and which arrive while dl runs. Then the block turns each
+// staged sample into the right pixel u it reads (-1 off the image), in
+// place. dl's samples and dr's entries are taken UF at a time (4 where an
+// item is one group, else 2), their loads issued before their products.
+// (Two other ways to overlap the copies with the compute were slower on
+// the H100, against 0.345 / 0.254 ms over CFNet's two launches: gd's
+// sample planes taken a group at a time as they land, each thread holding
+// two or four items of each pass, spilled registers (0.393 / 0.297); one
+// block an SM walking units in two buffers idled at each barrier behind
+// its slowest list (0.447 / 0.305).)
+template <typename T, int CPG>
+__global__ void __launch_bounds__(staged_threads<T>())
+gwc_samples_backward_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                            const float* __restrict__ samples, const int* __restrict__ lists,
+                            const T* __restrict__ gd, T* __restrict__ dl, T* __restrict__ dr,
+                            int H, int W, int C, int S, int G, int max_shift, int GC, int chunks,
+                            int vbg, int vbf, int vbs, int vbo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int EPC = 16 / (int)sizeof(T);
+  constexpr int NGI = CPG > 0 ? item_groups<T, CPG>() : 1;
+  constexpr int NV = NGI * (CPG > 0 ? CPG : 1);
+  constexpr int UF = NGI == 1 ? 4 : 2;
+  const int chunk = blockIdx.x % chunks, r = blockIdx.x / chunks;
+  const int h = r % H, b = r / H;
+  const int cpg = CPG > 0 ? CPG : C / G;
+  const int g0 = chunk * GC, gc = imin(GC, G - g0), c0 = g0 * cpg, nc = gc * cpg;
+  const int GCP = round_up(GC, NGI);
+  const int NCP = round_up(GCP * cpg, EPC);
+  const int rs = scratch_ints(W, S);
+  int* si = reinterpret_cast<int*>(smem);                                   // off, list
+  float* ss = reinterpret_cast<float*>(si + rs);                            // [S][W]
+  T* sg = reinterpret_cast<T*>(ss + round_up(S * W, 4));                    // [S * W][GCP]
+  T* sl = sg + round_up(S * W * GCP * (int)sizeof(T), 16) / (int)sizeof(T); // [W][NCP]
+  T* sr = sl + (size_t)W * NCP;
+  const size_t plane = (size_t)H * W;
+  const size_t row = ((size_t)b * H + h) * W * C;      // left/right/dl/dr [b, h, 0, 0]
+
+  stage_rows<int>(si, rs, lists + (size_t)r * rs, rs, 1, rs, 16);
+  stage_rows<float>(ss, W, samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, vbs);
+  for (int s = 0; s < S; ++s)
+    stage_rows<T>(sg + (size_t)s * W * GCP, GCP,
+                  gd + (((size_t)b * S + s) * plane + (size_t)h * W) * G + g0, G, W, gc, vbg);
+  stage_rows<T>(sr, NCP, right + row + c0, C, W, nc, vbf);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  stage_rows<T>(sl, NCP, left + row + c0, C, W, nc, vbf);
+  mma::cp_async_commit();
+  int* su = reinterpret_cast<int*>(ss);                  // [S][W]: u, or -1
+  for (int i = threadIdx.x; i < S * W; i += blockDim.x) {
+    const int w = i % W, d = shift_of(ss[i], max_shift);
+    su[i] = d <= w ? w - d : -1;
+  }
+  __syncthreads();
+  const int* off = si;
+  const int* list = si + round_up(W + 1, 4);
+  const float inv = 1.f / (float)cpg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+
+  if constexpr (CPG > 0) {
+    const int nq = (gc + NGI - 1) / NGI;
+    // the item's sums, scaled, to out (pixel row p) for its groups in the chunk
+    auto store = [&](T* out, int p, int n0, const float (&acc)[NV]) {
+#pragma unroll
+      for (int n = 0; n < NGI; ++n) {
+        if (n0 + n < gc) {
+          float v[CPG];
+#pragma unroll
+          for (int e = 0; e < CPG; ++e) v[e] = acc[n * CPG + e] * inv;
+          store_run<T, CPG>(out + row + (size_t)p * C + c0 + (n0 + n) * CPG, v, vbo);
+        }
+      }
+    };
+    // dl: a gather over the samples of pixel w
+    for (int i = threadIdx.x; i < W * nq; i += blockDim.x) {
+      const int w = i / nq, n0 = (i - w * nq) * NGI;
+      float acc[NV];
+#pragma unroll
+      for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+      for (int s0 = 0; s0 < S; s0 += UF) {
+        int u[UF];
+        float gv[UF][NGI], v[UF][NV];
+#pragma unroll
+        for (int k = 0; k < UF; ++k) u[k] = s0 + k < S ? su[(s0 + k) * W + w] : -1;
+#pragma unroll
+        for (int k = 0; k < UF; ++k) {
+          load_shared<T, NGI>(sg + ((s0 + (u[k] >= 0 ? k : 0)) * W + w) * GCP + n0, gv[k]);
+          load_shared<T, NV>(sr + (u[k] >= 0 ? u[k] : 0) * NCP + n0 * CPG, v[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < UF; ++k) {
+          if (u[k] >= 0) {
+#pragma unroll
+            for (int n = 0; n < NGI; ++n)
+#pragma unroll
+              for (int e = 0; e < CPG; ++e)
+                acc[n * CPG + e] = fmaf(gv[k][n], v[k][n * CPG + e], acc[n * CPG + e]);
+          }
+        }
+      }
+      store(dl, w, n0, acc);
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    // dr: a thread walks each list of at most kLong entries
+    for (int i = threadIdx.x; i < W * nq; i += blockDim.x) {
+      const int u = i / nq, n0 = (i - u * nq) * NGI;
+      const int p0 = off[u], p1 = off[u + 1];
+      if (p1 - p0 > kLong) continue;
+      float acc[NV];
+#pragma unroll
+      for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+      for (int q = p0; q < p1; q += UF) {
+        float gv[UF][NGI], v[UF][NV];
+#pragma unroll
+        for (int k = 0; k < UF; ++k) {
+          const int e0 = list[q + k < p1 ? q + k : p0], w = e0 & 0xffff;
+          load_shared<T, NGI>(sg + ((e0 >> 16) * W + w) * GCP + n0, gv[k]);
+          load_shared<T, NV>(sl + w * NCP + n0 * CPG, v[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < UF; ++k) {
+          if (q + k < p1) {
+#pragma unroll
+            for (int n = 0; n < NGI; ++n)
+#pragma unroll
+              for (int e = 0; e < CPG; ++e)
+                acc[n * CPG + e] = fmaf(gv[k][n], v[k][n * CPG + e], acc[n * CPG + e]);
+          }
+        }
+      }
+      store(dr, u, n0, acc);
+    }
+    // dr: a warp walks each longer list, lane k its entries k, k + 32, ...,
+    // and the lanes' sums meet in a fixed butterfly
+    for (int u = warp; u < W; u += nwarps) {
+      const int p0 = off[u], p1 = off[u + 1];
+      if (p1 - p0 <= kLong) continue;
+      for (int n0 = 0; n0 < gc; n0 += NGI) {
+        float acc[NV];
+#pragma unroll
+        for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+        for (int p = p0 + lane; p < p1; p += 32) {
+          const int e0 = list[p], w = e0 & 0xffff;
+          float gv[NGI], v[NV];
+          load_shared<T, NGI>(sg + ((e0 >> 16) * W + w) * GCP + n0, gv);
+          load_shared<T, NV>(sl + w * NCP + n0 * CPG, v);
+#pragma unroll
+          for (int n = 0; n < NGI; ++n)
+#pragma unroll
+            for (int e = 0; e < CPG; ++e)
+              acc[n * CPG + e] = fmaf(gv[n], v[n * CPG + e], acc[n * CPG + e]);
+        }
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+          for (int e = 0; e < NV; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], m);
+        }
+        if (lane == 0) store(dr, u, n0, acc);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < W * nc; i += blockDim.x) {
+      const int w = i / nc, k = i - w * nc, n = k / cpg;
+      float acc = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const int u = su[s * W + w];
+        if (u >= 0) acc = fmaf(to_f(sg[(s * W + w) * GCP + n]), to_f(sr[u * NCP + k]), acc);
+      }
+      from_f(acc * inv, dl + row + (size_t)w * C + c0 + k);
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < W * nc; i += blockDim.x) {
+      const int u = i / nc, k = i - u * nc, n = k / cpg;
+      const int p0 = off[u], p1 = off[u + 1];
+      if (p1 - p0 > kLong) continue;
+      float acc = 0.f;
+      for (int p = p0; p < p1; ++p) {
+        const int e0 = list[p], w = e0 & 0xffff;
+        acc = fmaf(to_f(sg[((e0 >> 16) * W + w) * GCP + n]), to_f(sl[w * NCP + k]), acc);
+      }
+      from_f(acc * inv, dr + row + (size_t)u * C + c0 + k);
+    }
+    for (int u = warp; u < W; u += nwarps) {
+      const int p0 = off[u], p1 = off[u + 1];
+      if (p1 - p0 <= kLong) continue;
+      for (int k = 0; k < nc; ++k) {
+        const int n = k / cpg;
+        float acc = 0.f;
+        for (int p = p0 + lane; p < p1; p += 32) {
+          const int e0 = list[p], w = e0 & 0xffff;
+          acc = fmaf(to_f(sg[((e0 >> 16) * W + w) * GCP + n]), to_f(sl[w * NCP + k]), acc);
+        }
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+        if (lane == 0) from_f(acc * inv, dr + row + (size_t)u * C + c0 + k);
+      }
+    }
+  }
+}
 
 template <typename K>
 int set_smem(K kernel, int smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// The widest of 16, 8 and 4 bytes that divides every value of `bytes` (0:
+// none does).
+inline int widest_word(std::initializer_list<uintptr_t> bytes) {
+  for (int v = 16; v >= 4; v /= 2) {
+    bool ok = true;
+    for (uintptr_t x : bytes) ok = ok && x % v == 0;
+    if (ok) return v;
+  }
+  return 0;
+}
+
 template <typename T, int CPG>
 int launch_gwc_backward(const void* left, const void* right, const void* samples,
-                        const void* gd, void* dl, void* dr, int B, int H, int W, int C, int S,
-                        int G, int max_shift, int threads, int smem, int gc, cudaStream_t stream) {
-  const int err = set_smem(gwc_samples_backward_kernel<T, CPG>, smem);
+                        const void* gd, void* lists, void* dl, void* dr, int B, int H, int W,
+                        int C, int S, int G, int max_shift, int GC, int smem,
+                        cudaStream_t stream) {
+  const int cpg = C / G;
+  constexpr int NGI = CPG > 0 ? item_groups<T, CPG>() : 1;
+  if (smem != staged_smem<T>(W, S, cpg, GC, NGI)) return (int)cudaErrorInvalidValue;
+  const int lsmem = 4 * list_ints(W, S);
+  int err = set_smem(sample_lists_kernel, lsmem);
   if (err) return err;
-  // the widest word that divides a group's bytes, the row's and both bases
-  const uintptr_t a = reinterpret_cast<uintptr_t>(left) | reinterpret_cast<uintptr_t>(right);
-  int vb = 0;
-  for (int v = 16; v >= 4 && !vb; v /= 2)
-    if ((CPG * sizeof(T)) % v == 0 && (C * sizeof(T)) % v == 0 && a % v == 0) vb = v;
-  const dim3 grid(H, B, (G + gc - 1) / gc);
-  gwc_samples_backward_kernel<T, CPG><<<grid, threads, smem, stream>>>(
+  sample_lists_kernel<<<dim3(H, B), kListThreads, lsmem, stream>>>(
+      static_cast<const float*>(samples), static_cast<int*>(lists), H, W, S, max_shift);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  err = set_smem(gwc_samples_backward_kernel<T, CPG>, smem);
+  if (err) return err;
+  const int size = (int)sizeof(T);
+  const int vbg = widest_word({(uintptr_t)G * size, (uintptr_t)GC * size,
+                               (uintptr_t)round_up(GC, NGI) * size, (uintptr_t)(G % GC) * size,
+                               reinterpret_cast<uintptr_t>(gd)});
+  const int vbf = widest_word({(uintptr_t)C * size, (uintptr_t)GC * cpg * size,
+                               (uintptr_t)(G % GC) * cpg * size,
+                               reinterpret_cast<uintptr_t>(left),
+                               reinterpret_cast<uintptr_t>(right)});
+  const int vbs = widest_word({(uintptr_t)W * 4, (uintptr_t)H * W * 4,
+                               reinterpret_cast<uintptr_t>(samples)});
+  const int vbo = widest_word({(uintptr_t)(CPG > 0 ? CPG : 1) * size, (uintptr_t)C * size,
+                               reinterpret_cast<uintptr_t>(dl), reinterpret_cast<uintptr_t>(dr)});
+  const int chunks = (G + GC - 1) / GC;
+  gwc_samples_backward_kernel<T, CPG><<<B * H * chunks, staged_threads<T>(), smem, stream>>>(
       static_cast<const T*>(left), static_cast<const T*>(right),
-      static_cast<const float*>(samples), static_cast<const T*>(gd), static_cast<T*>(dl),
-      static_cast<T*>(dr), H, W, C, S, G, max_shift, gc, vb);
+      static_cast<const float*>(samples), static_cast<const int*>(lists),
+      static_cast<const T*>(gd), static_cast<T*>(dl), static_cast<T*>(dr), H, W, C, S, G,
+      max_shift, GC, chunks, vbg, vbf, vbs, vbo);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int gwc_backward_by_cpg(const void* left, const void* right, const void* samples,
-                        const void* gd, void* dl, void* dr, int B, int H, int W, int C, int S,
-                        int G, int max_shift, int threads, int smem, int gc, cudaStream_t s) {
-#define GWC_BWD_CASE(n)                                                                     \
-  case n:                                                                                   \
-    return launch_gwc_backward<T, n>(left, right, samples, gd, dl, dr, B, H, W, C, S, G,  \
-                                     max_shift, threads, smem, gc, s);
+                        const void* gd, void* lists, void* dl, void* dr, int B, int H, int W,
+                        int C, int S, int G, int max_shift, int GC, int smem, cudaStream_t s) {
+#define GWC_BWD_CASE(n)                                                                       \
+  case n:                                                                                     \
+    return launch_gwc_backward<T, n>(left, right, samples, gd, lists, dl, dr, B, H, W, C, S, \
+                                     G, max_shift, GC, smem, s);
   switch (C / G) {
     GWC_BWD_CASE(1)
     GWC_BWD_CASE(2)
@@ -563,8 +984,8 @@ int gwc_backward_by_cpg(const void* left, const void* right, const void* samples
     GWC_BWD_CASE(12)
     GWC_BWD_CASE(16)
     default:
-      return launch_gwc_backward<T, 0>(left, right, samples, gd, dl, dr, B, H, W, C, S, G,
-                                       max_shift, threads, smem, gc, s);
+      return launch_gwc_backward<T, 0>(left, right, samples, gd, lists, dl, dr, B, H, W, C, S,
+                                       G, max_shift, GC, smem, s);
   }
 #undef GWC_BWD_CASE
 }
@@ -620,15 +1041,15 @@ int gwc_volume_from_samples(const void* left, const void* right, const void* sam
 
 // dright of gather_right_by_samples given its output's gradient gd ([B, S,
 // H, W, C], in the features' type). dtype: 0 = float32, 1 = bfloat16;
-// samples are float32. The plan (threads a block, shared bytes a block)
-// comes from ops/volume.py::sample_backward_plan.
+// samples are float32. The plan (threads a block: kListThreads; shared
+// bytes a block: 4 * list_ints) comes from ops/volume.py::sample_backward_plan.
 int gather_right_by_samples_backward(const void* gd, const void* samples, void* dright, int B,
                                      int H, int W, int C, int S, int max_shift, int dtype,
                                      int threads, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || W < 1 || W > 0xffff || C < 1 || S < 1 || S > 0x7fff ||
-      max_shift < 0 || threads < 32 || threads > kThreads || threads % 32 ||
-      smem != backward_smem(W, S) || (dtype != 0 && dtype != 1))
+      max_shift < 0 || threads != kListThreads || smem != 4 * list_ints(W, S) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(H, B);
   if (dtype == 0) {
@@ -649,22 +1070,24 @@ int gather_right_by_samples_backward(const void* gd, const void* samples, void* 
 
 // dl, dr of gwc_volume_from_samples given its output's gradient gd ([B, S,
 // H, W, G], in the features' type). dtype: 0 = float32, 1 = bfloat16;
-// samples are float32. The plan (threads a block, shared bytes a block,
-// groups a block) comes from ops/volume.py::sample_backward_plan.
+// samples are float32; lists: int32 scratch of B * H * scratch_ints(W, S),
+// 16-byte aligned. The plan (groups a chunk GC, shared bytes of a (row,
+// chunk) block, which must be staged_smem's) comes from
+// ops/volume.py::sample_backward_plan.
 int gwc_volume_from_samples_backward(const void* left, const void* right, const void* samples,
-                                     const void* gd, void* dl, void* dr, int B, int H, int W,
-                                     int C, int S, int G, int max_shift, int dtype, int threads,
-                                     int smem, int gc, void* stream) {
+                                     const void* gd, void* lists, void* dl, void* dr, int B,
+                                     int H, int W, int C, int S, int G, int max_shift, int dtype,
+                                     int groups, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || W < 1 || W > 0xffff || S < 1 || S > 0x7fff || G < 1 || C % G ||
-      max_shift < 0 || threads < 32 || threads > kThreads || threads % 32 || gc < 1 ||
-      smem != backward_smem(W, S) || (dtype != 0 && dtype != 1))
+      max_shift < 0 || groups < 1 || groups > G || (dtype != 0 && dtype != 1) ||
+      reinterpret_cast<uintptr_t>(lists) % 16)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return gwc_backward_by_cpg<float>(left, right, samples, gd, dl, dr, B, H, W, C, S, G,
-                                      max_shift, threads, smem, gc, s);
-  return gwc_backward_by_cpg<__nv_bfloat16>(left, right, samples, gd, dl, dr, B, H, W, C, S,
-                                            G, max_shift, threads, smem, gc, s);
+    return gwc_backward_by_cpg<float>(left, right, samples, gd, lists, dl, dr, B, H, W, C, S, G,
+                                      max_shift, groups, smem, s);
+  return gwc_backward_by_cpg<__nv_bfloat16>(left, right, samples, gd, lists, dl, dr, B, H, W, C,
+                                            S, G, max_shift, groups, smem, s);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -32,9 +32,9 @@ SIGNATURES = {
         # left, right, out, B, H, W, C, D, G, dtype, tw, gs, dc, strip,
         # stream
         "gwc_volume": [_P, _P, _P] + [_I] * 11 + [_P],
-        # left, right, grad, dl, dr, B, H, W, C, D, G, dtype, tw, strip, ng,
-        # stream
-        "gwc_volume_backward": [_P] * 5 + [_I] * 10 + [_P]},
+        # left, right, grad, dl, dr, B, H, W, C, D, G, dtype, tw, gs, strip,
+        # ng, threads, smem, stream
+        "gwc_volume_backward": [_P] * 5 + [_I] * 13 + [_P]},
     "conv3d_fused": {
         # x, w, scale, bias, res, out, B, D, H, W, Ci, Co, ci_pad, co_pad,
         # relu, tile, stream
@@ -50,9 +50,9 @@ SIGNATURES = {
         # grad, samples, dright, B, H, W, C, S, max_shift, dtype, threads,
         # smem, stream
         "gather_right_by_samples_backward": [_P] * 3 + [_I] * 9 + [_P],
-        # left, right, samples, grad, dl, dr, B, H, W, C, S, G, max_shift,
-        # dtype, threads, smem, groups, stream
-        "gwc_volume_from_samples_backward": [_P] * 6 + [_I] * 11 + [_P]},
+        # left, right, samples, grad, lists, dl, dr, B, H, W, C, S, G,
+        # max_shift, dtype, groups, smem, stream
+        "gwc_volume_from_samples_backward": [_P] * 7 + [_I] * 10 + [_P]},
     "concat_volume": {
         # left, right, out, B, H, W, C, D, mask_left, dtype, vb, sb, tw, dr,
         # threads, stream

@@ -278,26 +278,105 @@ def gwc_volume_backward_reference(left: torch.Tensor, right: torch.Tensor,
     return dl.to(left.dtype), dr.to(right.dtype)
 
 
+GWC_BWD_THREADS = 256          # the K1 backward kernel's most threads a block
+# bytes of a K1 backward block's staged slices, at most: two blocks an SM on
+# the H100 (228 KB an SM, 1 KB of it reserved a block)
+GWC_BWD_MAX_SMEM = 113 * 1024
+
+
 class GwcBackwardPlan(NamedTuple):
-    """How the K1 backward kernel cuts a launch: W tile `tw`, pixels a
-    thread's strip `strip`, groups a thread `ng` (see
-    ``csrc/gwc_volume.cu``)."""
+    """How the K1 backward kernel cuts a launch: W tile `tw` (the whole row
+    where it fits), groups a slice `gs`, pixels a thread's strip `strip`,
+    groups a thread `ng`, threads a block `threads`, shared bytes a block
+    `smem` (see ``csrc/gwc_volume.cu``, design "rowpass")."""
     tw: int
+    gs: int
     strip: int
     ng: int
+    threads: int
+    smem: int
 
 
-def gwc_backward_plan(c: int, g: int, dtype: torch.dtype,
+GWC_BWD_ROW_ALIGN = 8   # a K1 backward gd plane's staged row starts on it
+
+
+def gwc_backward_strip(cpg: int, ng: int) -> int:
+    """Pixels of a K1 backward thread's strip: `gwc_strip`, at most 4 (8
+    left CFNet's C/G = 4 blocks at 64 threads, too few to hide shared
+    memory's latency on the H100)."""
+    return min(4, gwc_strip(cpg, ng))
+
+
+def _skipped(m: int, a: int) -> int:
+    """``Σ_{k < m} a · (k // a)``: the pixels that a tile's planes skip
+    (plane d's staged rows start at its first pixel rounded down to a)."""
+    q, r = divmod(m, a)
+    return a * (a * q * (q - 1) // 2 + r * q)
+
+
+def gwc_backward_tiles(w: int, d: int, tw: int):
+    """The K1 backward blocks' W tiles ``(w0, tw_k, cap)``: each tile's
+    staged gd rows reach `cap` pixels (``tw_k + D - 1``, the row's end at
+    most) rounded up to `GWC_BWD_ROW_ALIGN`."""
+    a = GWC_BWD_ROW_ALIGN
+    dp = min(d, w)
+    return [(w0, min(tw, w - w0),
+             -(-min(w - w0, min(tw, w - w0) + dp - 1) // a) * a)
+            for w0 in range(0, w, tw)]
+
+
+def gwc_backward_smem(w: int, d: int, c: int, g: int, tw: int, gs: int,
+                      ng: int, size: int) -> int:
+    """Shared bytes of a K1 backward block (``rowpass_smem`` in the
+    source): the right and left windows of ``min(W, TW + D - 1)`` pixel
+    rows of the slice, 16-byte padded to 8k chunks, and the largest tile's
+    gd words (``gs / ng`` a pixel, a word ``ng`` groups, in rows of ``cap
+    - a_d`` pixels a plane d < min(D, W))."""
+    cpg = c // g
+    a = GWC_BWD_ROW_ALIGN
+    dp = min(d, w)
+    rows = min(w, tw + dp - 1)
+    row_bytes = -(-(-(-gs * cpg * size // 16)) // 8) * 8 * 16
+    words = max(gs // ng * (dp * cap - _skipped(max(0, dp - w0), a))
+                for w0, _, cap in gwc_backward_tiles(w, d, tw))
+    return 2 * rows * row_bytes + -(-words * ng * size // 16) * 16
+
+
+def gwc_backward_plan(w: int, c: int, d: int, g: int, dtype: torch.dtype,
                       grad_align: int = 16) -> GwcBackwardPlan:
-    """The K1 backward kernel's plan for ``[.., C]`` features of `dtype` in
-    `g` groups, with the gradient's base aligned to `grad_align` bytes: a
-    block is one row of a `GWC_TILE_W`-pixel W tile and one of the two
-    outputs; a thread owns 2 groups in bfloat16 where G is even (one
-    bf16x2 word of the gradient a load, on a 4-byte aligned base), else 1,
-    and a strip of `gwc_strip` pixels, as in the forward."""
+    """The K1 backward kernel's plan for ``[.., W, C]`` features of `dtype`
+    in `g` groups and a ``[.., D, .., W, G]`` gradient whose base is aligned
+    to `grad_align` bytes. A thread owns 2 groups in bfloat16 where G is
+    even and the gradient 4-byte aligned (one bf16x2 word a pixel), else 1,
+    and a strip of `gwc_backward_strip` pixels. A slice is 16
+    bytes of gd a pixel (4 groups in float32, 8 in bfloat16), at most G.
+    The W tile is the whole row where the block's staged bytes fit
+    `GWC_BWD_MAX_SMEM` (two blocks an SM), else the longest multiple of
+    `GWC_BWD_ROW_ALIGN` pixels that fits; where none does, the slice
+    halves. A block's threads are its thread items (a strip of each slot,
+    for dl and for dr) in whole warps, at most `GWC_BWD_THREADS`."""
+    size = 4 if dtype == torch.float32 else 2
+    cpg = c // g
     ng = (2 if dtype == torch.bfloat16 and g % 2 == 0 and grad_align % 4 == 0
           else 1)
-    return GwcBackwardPlan(GWC_TILE_W, gwc_strip(c // g, ng), ng)
+    s = gwc_backward_strip(cpg, ng)
+    a = GWC_BWD_ROW_ALIGN
+    gs = min(g, 16 // size)
+    while True:
+        tw = w
+        while (tw > a and gwc_backward_smem(w, d, c, g, tw, gs, ng, size)
+               > GWC_BWD_MAX_SMEM):
+            tw = (min(tw, w) - 1) // a * a
+        smem = gwc_backward_smem(w, d, c, g, tw, gs, ng, size)
+        if smem <= GWC_BWD_MAX_SMEM:
+            break
+        if gs <= ng:
+            raise ValueError(f"no K1 backward plan fits shared memory at W={w},"
+                             f" D={d}, C={c}, G={g}")
+        gs = max(ng, gs // 2 // ng * ng)
+    items = 2 * (gs // ng) * -(-min(tw, w) // s)
+    threads = min(GWC_BWD_THREADS, -(-items // 32) * 32)
+    return GwcBackwardPlan(tw, gs, s, ng, threads, smem)
 
 
 def gwc_volume_backward(left: torch.Tensor, right: torch.Tensor,
@@ -336,7 +415,8 @@ def _launch_gwc_backward(left: torch.Tensor, right: torch.Tensor,
     if dl.numel() == 0:
         return dl, dr
     bits = grad.data_ptr() | 16
-    plan = gwc_backward_plan(c, num_groups, left.dtype, bits & -bits)
+    plan = gwc_backward_plan(w, c, max_disp, num_groups, left.dtype,
+                             bits & -bits)
     lib = _cuda.library("gwc_volume")
     with torch.cuda.device(left.device):
         rc = lib.gwc_volume_backward(
@@ -346,12 +426,12 @@ def _launch_gwc_backward(left: torch.Tensor, right: torch.Tensor,
     _cuda.check(lib, rc, "gwc_volume_backward")
     gwc_volume_backward.launches += 1
     gwc_volume_backward.shapes[(b, h, w, c, max_disp, num_groups)] += 1
-    gwc_volume_backward.designs[("window", *plan)] += 1
+    gwc_volume_backward.designs[("rowpass", *plan[:4])] += 1
     return dl, dr
 
 
 # launches of the backward kernel, in all, by (B, H, W, C, D, G) and by
-# design ("window", W tile, strip, groups a thread)
+# design ("rowpass", W tile, groups a slice, strip, groups a thread)
 gwc_volume_backward.launches = 0
 gwc_volume_backward.shapes = Counter()
 gwc_volume_backward.designs = Counter()
@@ -756,34 +836,96 @@ def gather_right_by_samples_backward_reference(grad: torch.Tensor,
     return out.view(b, h, w, c).to(grad.dtype)
 
 
-SAMPLE_BWD_THREADS = 256              # the K4/K5 backward kernels' threads
-SAMPLE_BWD_MAX_SMEM = 200 * 1024      # a block's staged lists' bytes, at most
+SAMPLE_BWD_THREADS = 256    # threads of the K4/K5 backward kernels' blocks
+SAMPLE_BWD_WARPS = SAMPLE_BWD_THREADS // 32
+# bytes of a K4/K5 backward block's shared memory, at most: two blocks an SM
+# on the H100 (228 KB an SM, 1 KB of it reserved a block)
+SAMPLE_BWD_MAX_SMEM = 113 * 1024
+SAMPLE_BWD_SMEM_LIMIT = 227 * 1024   # a block's shared bytes on the H100, at most
+SAMPLE_BWD_LONG = 32        # entries of a list one K5-bwd thread walks, at most
 
 
 class SampleBackwardPlan(NamedTuple):
     """How the K4 and K5 backward kernels cut a launch: threads a block
-    `threads`, shared bytes a block `smem`, and (K5) groups a block
-    `groups` (see ``csrc/sample_gather.cu``)."""
+    `threads`, shared bytes `smem` of a block that builds a row's lists
+    (K4-bwd's block, K5-bwd's first kernel), and K5-bwd's groups a chunk
+    `groups` and shared bytes `chunk_smem` of its (row, chunk) blocks (see
+    ``csrc/sample_gather.cu``)."""
     threads: int
     smem: int
     groups: int
+    chunk_smem: int
 
 
-def sample_backward_plan(b: int, h: int, w: int, s: int, g: int,
-                         sms: int) -> SampleBackwardPlan:
-    """The K4/K5 backward kernels' plan for `b` x `h` rows of `w` pixels and
-    `s` samples, K5's features in `g` groups, on a card of `sms` SMs: a
-    block is one row (b, h); it stages the row's shifts and the lists of
-    (s, x) that read each right pixel in shared memory, 4 bytes a shift, 4
-    an entry and 8 a pixel (its list's offset and fill cursor). K5's rows
-    are cut into chunks of whole groups, as few as give the launch 4
-    blocks an SM (K4 takes every channel of a row: pass g = 1)."""
-    smem = 4 * (2 * s * w + 2 * w + 1)
+def sample_list_ints(w: int, s: int) -> int:
+    """Shared ints of a block that builds a row's lists: the right pixel of
+    each (s, w), the lists' entries, their W + 1 offsets, and a count and a
+    lane mask of each pixel for each of the `SAMPLE_BWD_WARPS` warps."""
+    return 2 * s * w + w + 1 + 2 * SAMPLE_BWD_WARPS * w
+
+
+def sample_scratch_ints(w: int, s: int) -> int:
+    """Ints of a row's lists in K5-bwd's scratch: the W + 1 offsets and the
+    entries, each padded to 16 bytes."""
+    return -(-(w + 1) // 4) * 4 + -(-(s * w) // 4) * 4
+
+
+def sample_item_groups(cpg: int, size: int) -> int:
+    """Groups of one K5-bwd thread item at C/G = `cpg` in `size`-byte
+    values (``item_groups`` in the source): one in float32 (a quarter warp
+    then reads one gathered pixel's row), in bfloat16 as many as keep the
+    item's sums within 16 float32 registers, at most 4; one where C/G has
+    no compile-time count, whose items are one channel."""
+    if cpg not in GWC_CPG or size == 4:
+        return 1
+    return 4 if cpg <= 4 else 2 if cpg <= 8 else 1
+
+
+def sample_chunk_smem(w: int, s: int, cpg: int, gc: int, size: int) -> int:
+    """Shared bytes of a K5-bwd (row, chunk of `gc` groups) block: the row's
+    lists and samples, gd ``[S * W][gcp]`` padded to 16 bytes, and the
+    chunk's left and right rows ``[W][gcp * cpg]``, each pixel's channels
+    padded to 16 bytes, with gcp = gc rounded up to `sample_item_groups`."""
+    epc = 16 // size
+    ngi = sample_item_groups(cpg, size)
+    gcp = -(-gc // ngi) * ngi
+    return (4 * (sample_scratch_ints(w, s) + -(-(s * w) // 4) * 4)
+            + -(-s * w * gcp * size // 16) * 16
+            + 2 * w * -(-gcp * cpg // epc) * epc * size)
+
+
+def sample_backward_plan(w: int, s: int, g: int, cpg: int,
+                         dtype: torch.dtype) -> SampleBackwardPlan:
+    """The K4/K5 backward kernels' plan for rows of `w` pixels and `s`
+    samples, K5's features in `g` groups of `cpg` channels of `dtype` (K4
+    takes every channel of a row: pass g = cpg = 1). A block of
+    `SAMPLE_BWD_THREADS` builds a row's lists in shared memory
+    (`sample_list_ints`). K5-bwd's blocks take a row and a chunk of
+    groups: the first of G, then the multiples of 16 bytes of groups and
+    of `sample_item_groups` below it, then the multiples of the item's
+    groups, whose staged bytes fit `SAMPLE_BWD_MAX_SMEM` (two blocks an
+    SM): 8 groups at CFNet's 1/4 stage in float32 and 16 in bfloat16, 4
+    and 8 at its 1/2 stage. Where none does (bfloat16 rows of 640 pixels,
+    whose items take 4 groups), the first that fits one block an SM
+    (`SAMPLE_BWD_SMEM_LIMIT`)."""
+    size = 4 if dtype == torch.float32 else 2
+    smem = 4 * sample_list_ints(w, s)
     if smem > SAMPLE_BWD_MAX_SMEM or w > 0xFFFF or s > 0x7FFF:
         raise ValueError(f"no K4/K5 backward plan for rows of W={w}, S={s}: "
                          f"{smem} shared bytes")
-    chunks = min(g, -(-4 * sms // (b * h)))
-    return SampleBackwardPlan(SAMPLE_BWD_THREADS, smem, -(-g // chunks))
+    ngi = sample_item_groups(cpg, size)
+    unit = math.lcm(16 // size, ngi)
+    cands = ([g] + [n for n in range(g - 1, 0, -1) if n % unit == 0]
+             + [n for n in range(min(g, unit) - 1, 0, -1) if n % ngi == 0])
+    for cap in (SAMPLE_BWD_MAX_SMEM, SAMPLE_BWD_SMEM_LIMIT):
+        for gc in cands:
+            if sample_chunk_smem(w, s, cpg, gc, size) <= cap:
+                return SampleBackwardPlan(
+                    SAMPLE_BWD_THREADS, smem, gc,
+                    sample_chunk_smem(w, s, cpg, gc, size))
+    raise ValueError(f"no K5 backward plan for rows of W={w}, S={s}, C/G={cpg}"
+                     f": {sample_chunk_smem(w, s, cpg, cands[-1], size)} "
+                     f"shared bytes")
 
 
 def _check_sample_grad(grad: torch.Tensor, shape: tuple, dtype) -> None:
@@ -825,8 +967,7 @@ def _launch_gather_backward(grad: torch.Tensor, samples: torch.Tensor,
     code = _cuda.dtype_code(grad)
     if right.numel() == 0:
         return right
-    sms = torch.cuda.get_device_properties(grad.device).multi_processor_count
-    plan = sample_backward_plan(b, h, w, s, 1, sms)
+    plan = sample_backward_plan(w, s, 1, 1, grad.dtype)
     lib = _cuda.library("sample_gather")
     with torch.cuda.device(grad.device):
         rc = lib.gather_right_by_samples_backward(
@@ -1058,25 +1199,26 @@ def _launch_gwc_samples_backward(left: torch.Tensor, right: torch.Tensor,
     dl, dr = torch.empty_like(left), torch.empty_like(right)
     if dl.numel() == 0:
         return dl, dr
-    sms = torch.cuda.get_device_properties(left.device).multi_processor_count
-    plan = sample_backward_plan(b, h, w, s, num_groups, sms)
+    plan = sample_backward_plan(w, s, num_groups, c // num_groups, left.dtype)
+    lists = torch.empty(b * h * sample_scratch_ints(w, s), dtype=torch.int32,
+                        device=left.device)
     lib = _cuda.library("sample_gather")
     with torch.cuda.device(left.device):
         rc = lib.gwc_volume_from_samples_backward(
             left.data_ptr(), right.data_ptr(), samples.data_ptr(),
-            grad.data_ptr(), dl.data_ptr(), dr.data_ptr(), b, h, w, c, s,
-            num_groups, max_shift, code, *plan, _cuda.stream_of(left))
+            grad.data_ptr(), lists.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+            b, h, w, c, s, num_groups, max_shift, code, plan.groups,
+            plan.chunk_smem, _cuda.stream_of(left))
     _cuda.check(lib, rc, "gwc_volume_from_samples_backward")
     gwc_volume_from_samples_backward.launches += 1
     gwc_volume_from_samples_backward.shapes[(b, h, w, c, s, num_groups,
                                              max_shift)] += 1
-    gwc_volume_from_samples_backward.designs[("sort", plan.threads,
-                                              plan.groups)] += 1
+    gwc_volume_from_samples_backward.designs[("staged", plan.groups)] += 1
     return dl, dr
 
 
 # launches of the backward kernel, in all, by (B, H, W, C, S, G, max_shift)
-# and by design ("sort", threads a block, groups a block)
+# and by design ("staged", groups a chunk)
 gwc_volume_from_samples_backward.launches = 0
 gwc_volume_from_samples_backward.shapes = Counter()
 gwc_volume_from_samples_backward.designs = Counter()

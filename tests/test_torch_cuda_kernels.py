@@ -72,10 +72,12 @@ def test_gwc_volume_kernel_matches_plain(dev, b, h, w, c, d, g, dtype, rel):
 
 
 # (b, h, w, c, d, g): GwcNet_G's train launch at 4 rows, CFNet's 1/16
-# volume, W not a multiple of the tile, D > W, B 3, C/G 1, 16 and 3
+# volume, W not a multiple of the strip, D > W, B 3, C/G 1, 16 and 3, a
+# row long enough for W tiles
 GWC_BWD_CASES = [(4, 2, 128, 320, 48, 40), (1, 4, 40, 320, 12, 40),
                  (3, 2, 37, 48, 48, 16), (1, 2, 9, 6, 13, 6),
-                 (1, 3, 33, 32, 5, 2), (2, 2, 21, 24, 9, 8)]
+                 (1, 3, 33, 32, 5, 2), (2, 2, 21, 24, 9, 8),
+                 (1, 2, 160, 320, 48, 40)]
 
 
 @pytest.mark.parametrize("b,h,w,c,d,g", GWC_BWD_CASES)
@@ -83,7 +85,7 @@ GWC_BWD_CASES = [(4, 2, 128, 320, 48, 40), (1, 4, 40, 320, 12, 40),
                                        (torch.bfloat16, 1e-2)])
 def test_gwc_volume_backward_kernel_matches_plain(dev, b, h, w, c, d, g,
                                                   dtype, rel):
-    """The backward kernel ("window") against its plain version and
+    """The backward kernel ("rowpass") against its plain version and
     against torch.autograd of `gwc_volume_reference`, within rel ·
     max|ref|; the same bits when run twice (no atomics)."""
     gen = torch.Generator().manual_seed(1)
@@ -232,7 +234,7 @@ GWC_SAMPLE_BWD_CASES = [(4, 2, 128, 160, 16, 40, 48),
                                        (torch.bfloat16, 1e-2)])
 def test_gwc_from_samples_backward_kernel_matches_plain(
         dev, b, h, w, c, s, g, max_shift, dtype, rel):
-    """K5's backward ("sort") against its plain version and torch.autograd
+    """K5's backward ("staged") against its plain version and torch.autograd
     of the plain forward, within rel · max|ref|; the same bits twice."""
     gen = torch.Generator().manual_seed(13)
     left, right = (torch.randn(b, h, w, c, generator=gen).to(dev, dtype)

@@ -23,6 +23,7 @@ wrappers compute, and must give the plain versions' output on every voxel,
 written once.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -38,11 +39,16 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (STENCIL_MAX_SMEM,
                                                  stencil_run, stencil_smem)
 from stereo_toolbox_tpu_torch.ops.volume import (
     CONCAT_MAX_SMEM, CONCAT_THREADS, GATHER_ITEMS_PER_SM, GATHER_THREADS,
-    GWC_MAX_SMEM, GWC_TILE_W, SAMPLE_GWC_THREADS, concat_plan, concat_smem,
-    concat_volume_reference, gather_plan, gather_right_by_samples_reference,
-    gwc_backward_plan, gwc_plan, gwc_strip,
-    gwc_volume_backward_reference, gwc_volume_from_samples_reference,
-    gwc_volume_reference, sample_gwc_plan, sample_gwc_slot)
+    GWC_BWD_MAX_SMEM, GWC_BWD_ROW_ALIGN, GWC_BWD_THREADS, GWC_MAX_SMEM,
+    GWC_TILE_W,
+    SAMPLE_BWD_LONG, SAMPLE_BWD_THREADS, SAMPLE_GWC_THREADS, _skipped,
+    concat_plan, concat_smem, concat_volume_reference, gather_plan,
+    gather_right_by_samples_reference, gwc_backward_plan, gwc_backward_smem,
+    gwc_backward_tiles, gwc_plan, gwc_strip, gwc_volume_backward_reference,
+    gwc_volume_from_samples_backward_reference,
+    gwc_volume_from_samples_reference, gwc_volume_reference,
+    sample_backward_plan, sample_chunk_smem, sample_gwc_plan,
+    sample_gwc_slot, sample_item_groups, sample_list_ints)
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -157,72 +163,167 @@ def test_gwc_plan_fits_the_kernel(shape, dtype):
         assert gs == g and dc == d
 
 
-def walk_gwc_backward(left, right, gd, d_max, g_num, plan):
-    """K1 backward's blocks (a row, a W tile, one output each), thread items
-    and d steps with their sliding windows, in numpy (float64)."""
+def _rowpass_feat(arr, rows, x, slot, nv, s, epc, re):
+    """A rowpass thread's `nv` values of its slot in staged feature rows
+    `rows` of pixels `x` (chunks swizzled by ``(x / S) % 8``), one row per
+    thread item."""
+    ee = slot[:, None] * nv + np.arange(nv)[None, :]
+    key = ((x // s) & 7)[:, None]
+    return arr[rows[:, None] * re + ((ee // epc) ^ key) * epc + ee % epc]
+
+
+def gwc_backward_fast(c, g, gs, ng, size, align=16):
+    """Whether ``launch_rowpass`` (``csrc/gwc_volume.cu``) takes the FAST
+    layout: every slice 16 bytes of gd a pixel (four 4-byte words of ng
+    groups) on 16-byte boundaries (bases aligned to `align` bytes), the
+    outputs in vector words."""
+    nv = ng * (c // g) * size
+    vf = next((v for v in (16, 8, 4) if nv % v == 0), size)
+    return (ng * size == 4 and gs * size == 16 and g % gs == 0
+            and (g * size) % 16 == 0 and align % 16 == 0
+            and (c * size) % vf == 0)
+
+
+def _banks_distinct(words, warp_of):
+    """Whether the lanes of each warp (`warp_of`: the warp of each lane)
+    read distinct banks at the 4-byte words `words` (lanes reading one word
+    share it)."""
+    for k in np.unique(warp_of):
+        addr = np.unique(words[warp_of == k])
+        if len(np.unique(addr % 32)) != len(addr):
+            return False
+    return True
+
+
+def walk_gwc_backward(left, right, gd, d_max, g_num, plan, size, align=16):
+    """K1 backward's "rowpass" blocks (a row, a W tile, a slice of groups),
+    in numpy (float64): the slices each block stages in shared memory, laid
+    out as ``csrc/gwc_volume.cu`` lays them out (gd planes of ``cap - a_d``
+    pixels, 16 bytes a pixel permuted within each 8 on the FAST layout, a
+    pixel's words in order otherwise; feature rows swizzled by 16-byte
+    chunk; NaN where nothing is staged, so that a read of an unstaged word
+    shows), then its thread items (a strip of S pixels of one slot, for dl
+    or dr), all of a block at once, stepping d with their windows of S
+    feature pixels. On the FAST layout it also requires the lanes of each
+    warp to read distinct banks of gd at every step. Returns dl, dr (NaN
+    where not written) and the count of writes of each."""
     b_num, h_num, w_num, c = left.shape
     cpg = c // g_num
-    tw, s, ng = plan
+    tw_p, gs_p, s, ng, threads, smem = plan
+    a_ = GWC_BWD_ROW_ALIGN
+    fast = gwc_backward_fast(c, g_num, gs_p, ng, size, align)
+    km = s - 1
+    dp = min(d_max, w_num)
+    nr = min(w_num, tw_p + dp - 1)
+    epc = 16 // size
+    re = -(-(-(-gs_p * cpg * size // 16)) // 8) * 8 * epc
     nv = ng * cpg
-    outs = {0: np.full(left.shape, np.nan), 1: np.full(left.shape, np.nan)}
-    slots = g_num // ng
-    for bx in range(-(-w_num // tw)):
-        w0 = bx * tw
+    tiles = gwc_backward_tiles(w_num, d_max, tw_p)
+    words = max(gs_p // ng * (dp * cap - _skipped(max(0, dp - w0), a_))
+                for w0, _, cap in tiles)
+    assert 2 * nr * re * size + -(-words * ng * size // 16) * 16 == smem
+    outs = (np.full(left.shape, np.nan), np.full(left.shape, np.nan))
+    writes = (np.zeros(left.shape, np.int64), np.zeros(left.shape, np.int64))
+    for b in range(b_num):
         for h in range(h_num):
-            for bz in range(2 * b_num):
-                b, is_dr = bz >> 1, bz & 1
-                feat = (left if is_dr else right)[b, h]
-                for item in range(slots * (tw // s)):
-                    slot, strip = item % slots, item // slots
-                    ws = w0 + strip * s
-                    if ws >= w_num:
-                        continue
-                    cols = slice(slot * nv, (slot + 1) * nv)
-                    g0 = slot * ng
-                    acc = np.zeros((s, nv))
-                    win = [feat[ws + j, cols] if ws + j < w_num
-                           else np.zeros(nv) for j in range(s)]
-                    dmax = (min(d_max - 1, w_num - 1 - ws) if is_dr
-                            else min(d_max - 1, ws + s - 1))
-                    for d0 in range(0, dmax + 1, s):
-                        for u in range(s):
-                            d = d0 + u
-                            if d > dmax:
-                                continue
-                            if not is_dr:
-                                if d > 0:
-                                    win[(s - u) % s] = (
-                                        feat[ws - d, cols] if ws - d >= 0
-                                        else np.zeros(nv))
-                                for j in range(s):
-                                    w = ws + j
-                                    if w < w_num and d <= w:
-                                        g = gd[b, d, h, w, g0:g0 + ng]
-                                        acc[j] += (np.repeat(g, cpg)
-                                                   * win[(j - u + s) % s])
-                            else:
-                                if d > 0:
-                                    x = ws + d + s - 1
-                                    win[(u + s - 1) % s] = (
-                                        feat[x, cols] if x < w_num
-                                        else np.zeros(nv))
-                                for j in range(s):
-                                    x = ws + j + d
-                                    if x < w_num:
-                                        g = gd[b, d, h, x, g0:g0 + ng]
-                                        acc[j] += (np.repeat(g, cpg)
-                                                   * win[(j + u) % s])
+            for (w0, tw, cap), g0 in itertools.product(
+                    tiles, range(0, g_num, gs_p)):
+                gs = min(gs_p, g_num - g0)
+                slots, c0, scw = gs // ng, g0 * cpg, gs * cpg
+                assert not fast or slots == 4
+
+                def word(x, slot):
+                    if fast:
+                        return (x ^ ((x >> 3) & km)) * 4 + slot
+                    return x * slots + slot
+
+                rlo = max(0, w0 - (dp - 1))
+                rn = w0 + tw - rlo
+                lhi = min(w_num, w0 + tw + dp - 1)
+                sr, sl = np.full(nr * re, np.nan), np.full(nr * re, np.nan)
+                sg = np.full((words, ng), np.nan)
+                for d in range(dp):
+                    m = max(0, d - w0)
+                    a = a_ * (m // a_)
+                    base = slots * (d * cap - _skipped(m, a_))
+                    x = np.arange(cap - a)
+                    xa = w0 + a + x
+                    ok = (xa >= max(w0, d)) & (xa < min(w_num, w0 + tw + d))
+                    for k in range(slots):
+                        vals = gd[b, d, h, np.minimum(xa, w_num - 1),
+                                  g0 + k * ng:g0 + (k + 1) * ng]
+                        sg[base + word(x, k)] = np.where(ok[:, None], vals,
+                                                         0.0)
+                e = np.arange(scw)
+                for p in range(rn + lhi - w0):
+                    is_r = p < rn
+                    x = rlo + p if is_r else w0 + p - rn
+                    arr, row = (sr, p) if is_r else (sl, p - rn)
+                    arr[row * re + ((e // epc) ^ ((x // s) & 7)) * epc
+                        + e % epc] = (right if is_r else left)[b, h, x,
+                                                               c0 + e]
+                nstrips = -(-tw // s)
+                it = np.arange(slots * nstrips)
+                slot, ws = it % slots, w0 + (it // slots) * s
+                for is_dr in (0, 1):
+                    warp_of = (it + is_dr * len(it)) // 32
+                    acc = np.zeros((s, len(it), nv))
+                    win = np.zeros((s, len(it), nv))
+                    arr, start, end = (sl, w0, lhi) if is_dr else (sr, rlo,
+                                                                   w0 + tw)
                     for j in range(s):
-                        if ws + j < w_num:
-                            outs[is_dr][b, h, ws + j, cols] = acc[j] / cpg
-    return outs[0], outs[1]
+                        x = ws + j
+                        m = x < end
+                        win[j][m] = _rowpass_feat(arr, x[m] - start, x[m],
+                                                  slot[m], nv, s, epc, re)
+                    dmax = (np.minimum(dp - 1, w_num - 1 - ws) if is_dr
+                            else np.minimum(dp - 1, ws + s - 1))
+                    for d in range(int(dmax.max()) + 1):
+                        u = d % s
+                        on = d <= dmax
+                        if d > 0:
+                            x = ws + d + s - 1 if is_dr else ws - d
+                            ok = on & ((x < lhi) if is_dr else (x >= 0))
+                            k = (u + s - 1) % s if is_dr else (s - u) % s
+                            win[k][on & ~ok] = 0.0
+                            win[k][ok] = _rowpass_feat(arr, x[ok] - start,
+                                                       x[ok], slot[ok], nv,
+                                                       s, epc, re)
+                        m = max(0, d - w0)
+                        a = a_ * (m // a_)
+                        base = slots * (d * cap - _skipped(m, a_))
+                        for j in range(s):
+                            x = ws[on] - w0 + j - a + (d if is_dr else 0)
+                            assert (x >= 0).all()
+                            inside = x < cap - a   # the rest read clamped
+                            x = np.minimum(x, cap - a - 1)
+                            wd = base + word(x, slot[on])
+                            if fast:
+                                assert _banks_distinct(
+                                    wd[inside] * ng * size // 4,
+                                    warp_of[on][inside])
+                            g = sg[wd]
+                            if is_dr:
+                                g = np.where((ws[on] + j + d < w_num)[:, None],
+                                             g, 0.0)
+                            r = win[(j + u) % s if is_dr else (j - u) % s][on]
+                            acc[j][on] += np.repeat(g, cpg, axis=1) * r
+                    for j in range(s):
+                        m = ws + j < w0 + tw
+                        cols = (c0 + slot[m, None] * nv
+                                + np.arange(nv)[None, :])
+                        px = ws[m, None]
+                        outs[is_dr][b, h, px + j, cols] = acc[j][m] / cpg
+                        writes[is_dr][b, h, px + j, cols] += 1
+    return outs[0], outs[1], writes
 
 
-# (b, h, w, c, d, g): W not a multiple of the tile, D > W, C/G = 8, 3, 1,
-# 16 and 12, B = 3
+# (b, h, w, c, d, g): W not a multiple of the strip, D > W, C/G = 8, 3, 1,
+# 16 and 12, B = 3; a long row whose slice needs W tiles (GwcNet's eval
+# width at 480x640)
 GWC_BWD_CASES = [(1, 2, 40, 320, 12, 40), (2, 2, 37, 48, 48, 16),
                  (1, 2, 9, 6, 13, 6), (3, 1, 33, 32, 5, 2),
-                 (1, 2, 20, 36, 7, 3)]
+                 (1, 2, 20, 36, 7, 3), (1, 2, 160, 320, 48, 40)]
 
 
 @pytest.mark.parametrize("b,h,w,c,d,g", GWC_BWD_CASES)
@@ -236,27 +337,56 @@ def test_gwc_backward_kernel_walk_matches_plain(b, h, w, c, d, g, dtype):
     gd = rng.randn(b, d, h, w, g)
     want = gwc_volume_backward_reference(
         *(torch.from_numpy(a) for a in (left, right, gd)), d, g)
+    size = 4 if dtype == F32 else 2
     for align in (16, 2):
-        plan = gwc_backward_plan(c, g, dtype, align)
-        got = walk_gwc_backward(left, right, gd, d, g, plan)
-        for got_t, want_t in zip(got, want):
-            assert not np.isnan(got_t).any()
+        plan = gwc_backward_plan(w, c, d, g, dtype, align)
+        if w == 160:
+            assert plan.tw < w   # the row's slice needs tiles
+        *got, writes = walk_gwc_backward(left, right, gd, d, g, plan, size,
+                                         align)
+        for got_t, want_t, n in zip(got, want, writes):
+            assert (n == 1).all()
             np.testing.assert_allclose(got_t, want_t.numpy(), rtol=0,
                                        atol=1e-12)
+
+
+# (C, G, W, D) of the train steps' K1 launches at 256x512: GwcNet's, and
+# CFNet's at 1/8, 1/16 and 1/32
+TRAIN_K1 = {(320, 40, 128, 48), (160, 40, 64, 24), (320, 40, 32, 12),
+            (320, 40, 16, 6)}
 
 
 @pytest.mark.parametrize("c,g", [(320, 40), (160, 40), (48, 16), (6, 6),
                                  (32, 2)])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_gwc_backward_plan_fits_the_kernel(c, g, dtype):
-    """A tile of whole strips; the forward's strip; two groups a thread only
-    in bfloat16 with G even and a 4-byte aligned gradient."""
-    for align in (16, 4, 2):
-        tw, s, ng = gwc_backward_plan(c, g, dtype, align)
-        assert tw == GWC_TILE_W and tw % s == 0
-        assert s == gwc_strip(c // g, ng) and s * ng * (c // g) <= 32
-        assert ng == (2 if dtype == BF16 and g % 2 == 0 and align >= 4
-                      else 1)
+    """At GwcNet's and CFNet's train widths (W 128, 64, 32, 16), their eval
+    widths at 480x640 (160, 80, 40, 20) and short rows: W tiles on
+    `GWC_BWD_ROW_ALIGN` boundaries (or the whole row), the forward's
+    strip up to 4 pixels, two groups a thread only in bfloat16 with G even and
+    a 4-byte aligned gradient, slices of whole threads' groups, the staged
+    bytes within `GWC_BWD_MAX_SMEM`, threads a block in whole warps; the
+    train rows of GwcNet and CFNet are staged whole, their slices 16 bytes
+    of gd a pixel, on the FAST layout."""
+    size = 4 if dtype == F32 else 2
+    cpg = c // g
+    for w, d in ((128, 48), (64, 24), (32, 12), (16, 6), (160, 48),
+                 (80, 24), (40, 12), (20, 6), (9, 13)):
+        for align in (16, 4, 2):
+            tw, gs, s, ng, threads, smem = gwc_backward_plan(w, c, d, g,
+                                                             dtype, align)
+            assert ng == (2 if dtype == BF16 and g % 2 == 0 and align >= 4
+                          else 1)
+            assert s == min(4, gwc_strip(cpg, ng)) and s * ng * cpg <= 32
+            assert tw == w or (tw % GWC_BWD_ROW_ALIGN == 0 and tw < w)
+            assert gs % ng == 0 and 0 < gs <= g
+            assert smem == gwc_backward_smem(w, d, c, g, tw, gs, ng, size)
+            assert smem <= GWC_BWD_MAX_SMEM
+            assert threads % 32 == 0 and 32 <= threads <= GWC_BWD_THREADS
+            if (c, g, w, d) in TRAIN_K1 and align >= 4:
+                assert tw == w and gs * size == 16
+                assert gwc_backward_fast(c, g, gs, ng, size, align) == (
+                    align == 16)
 
 
 def walk_stencil(x, k, run):
@@ -639,6 +769,202 @@ def test_sample_gwc_plan_at_cfnets_shapes(shape, dtype):
     assert ng * (4 if dtype == F32 else 2) == 8
     items = tw * g // ng
     assert threads >= -(-items // -(-items // SAMPLE_GWC_THREADS))
+
+
+def _shifts(samples, max_shift):
+    """The kernels' d of float32 samples: clamped to [0, max_shift] and
+    truncated, NaN -> 0."""
+    return np.where(np.isnan(samples), 0,
+                    np.clip(np.nan_to_num(samples), 0, max_shift)
+                    ).astype(np.int64)
+
+
+def walk_build_lists(smp, max_shift, threads=SAMPLE_BWD_THREADS):
+    """``build_lists`` of ``csrc/sample_gather.cu`` on one row's samples
+    ``[S, W]``, in numpy: each warp's run of the (s, w) counted 32 at a time
+    (the lanes of one u count together), the warps' counts summed a pixel
+    and scanned as the block scans them (a run of pixels a thread, its sum
+    scanned within its warp, then over the warps' totals), each warp's
+    cursor into each list, and the fill, 32 entries at a time, the lanes of
+    one u taking consecutive places by lane. Returns u of each (s, w) (-1
+    where w < d), the W + 1 offsets and the entries (s << 16 | w)."""
+    s_num, w_num = smp.shape
+    n = s_num * w_num
+    warps = threads // 32
+    i = np.arange(n)
+    d = _shifts(smp, max_shift).reshape(-1)
+    uof = np.where(d <= i % w_num, i % w_num - d, -1)
+    run = -(-n // warps)
+    runs = [(min(n, k * run), min(n, min(n, k * run) + run))
+            for k in range(warps)]
+    cnt = np.zeros((warps, w_num), np.int64)
+    for k, (lo, hi) in enumerate(runs):
+        for base in range(lo, hi, 32):
+            lanes = uof[base:min(base + 32, hi)]
+            for u in set(lanes[lanes >= 0].tolist()):
+                cnt[k, u] += (lanes == u).sum()
+    tot = cnt.sum(0)
+    per = -(-w_num // threads)
+    local = np.array([tot[t * per:(t + 1) * per].sum()
+                      for t in range(threads)])
+    incl = np.concatenate([np.cumsum(local[k:k + 32])
+                           for k in range(0, threads, 32)])
+    warp_total = incl[31::32]
+    off = np.zeros(w_num + 1, np.int64)
+    cur = np.zeros((warps, w_num), np.int64)
+    for t in range(threads):
+        at = incl[t] - local[t] + warp_total[:t // 32].sum()
+        for u in range(min(w_num, t * per), min(w_num, (t + 1) * per)):
+            off[u] = at
+            cur[:, u] = at + np.concatenate([[0], np.cumsum(cnt[:-1, u])])
+            at += tot[u]
+    off[w_num] = warp_total.sum()
+    entries = np.full(n, -1, np.int64)
+    for k, (lo, hi) in enumerate(runs):
+        for base in range(lo, hi, 32):
+            lanes = uof[base:min(base + 32, hi)]
+            for lane, u in enumerate(lanes):
+                if u >= 0:
+                    rank = (lanes[:lane] == u).sum()
+                    ii = base + lane
+                    entries[cur[k, u] + rank] = (ii // w_num) << 16 | (
+                        ii % w_num)
+            for u in set(lanes[lanes >= 0].tolist()):
+                cur[k, u] += (lanes == u).sum()
+    return uof, off, entries[:off[w_num]]
+
+
+def walk_sample_gwc_backward(left, right, samples, gd, g_num, max_shift,
+                             plan, size):
+    """K5 backward's "staged" design in numpy (float64): each row's lists
+    (`walk_build_lists`), then each (row, chunk of `plan.groups` groups)
+    block's staged samples, gd, left and right rows (rows padded to the
+    thread items' groups; NaN where nothing is staged) and its three
+    passes, a thread item one pixel and `sample_item_groups` groups, the
+    padding groups computed and not written: dl summing over s; dr's lists
+    of at most `SAMPLE_BWD_LONG` entries a thread each; longer lists a warp
+    each, lane k summing entries k, k + 32, ... and the lanes meeting in a
+    butterfly. Returns dl, dr (NaN where not written) and the count of
+    writes of each."""
+    b_num, h_num, w_num, c = left.shape
+    s_num = samples.shape[1]
+    cpg = c // g_num
+    gc_p = plan.groups
+    ngi = sample_item_groups(cpg, size)
+    gcp = -(-gc_p // ngi) * ngi
+    epc = 16 // size
+    ncp = -(-gcp * cpg // epc) * epc
+    assert plan.chunk_smem == sample_chunk_smem(w_num, s_num, cpg, gc_p, size)
+    assert plan.smem == 4 * sample_list_ints(w_num, s_num)
+    outs = (np.full(left.shape, np.nan), np.full(left.shape, np.nan))
+    writes = (np.zeros(left.shape, np.int64), np.zeros(left.shape, np.int64))
+    for b in range(b_num):
+        for h in range(h_num):
+            uof, off, entries = walk_build_lists(samples[b, :, h], max_shift)
+            order = np.argsort(np.where(uof >= 0, uof, w_num), kind="stable")
+            ii = order[:off[-1]]
+            assert (entries == (ii // w_num) << 16 | ii % w_num).all()
+            lens = np.diff(off)
+            shifts = _shifts(samples[b, :, h], max_shift)       # [S, W]
+            for g0 in range(0, g_num, gc_p):
+                gc = min(gc_p, g_num - g0)
+                c0 = g0 * cpg
+                sg = np.full((s_num * w_num, gcp), np.nan)
+                sg[:, :gc] = gd[b, :, h, :, g0:g0 + gc].reshape(-1, gc)
+                sl, sr = (np.full((w_num, ncp), np.nan) for _ in range(2))
+                sl[:, :gc * cpg] = left[b, h, :, c0:c0 + gc * cpg]
+                sr[:, :gc * cpg] = right[b, h, :, c0:c0 + gc * cpg]
+                nq = -(-gc // ngi)
+                ch = np.arange(ngi * cpg)        # an item's channels
+                grp = ch // cpg                  # and their groups
+                # dl: items (w, group quad)
+                w, q = np.divmod(np.arange(w_num * nq), nq)
+                n0 = q * ngi
+                acc = np.zeros((len(w), ngi * cpg))
+                for s in range(s_num):
+                    d = shifts[s, w]
+                    on = d <= w
+                    u = (w - d)[on]
+                    acc[on] += (sg[s * w_num + w[on, None], n0[on, None] + grp]
+                                * sr[u[:, None], n0[on, None] * cpg + ch])
+                real = n0[:, None] + grp < gc
+                cols = c0 + n0[:, None] * cpg + ch
+                for k in range(len(w)):
+                    outs[0][b, h, w[k], cols[k][real[k]]] = acc[k][real[k]] / cpg
+                    writes[0][b, h, w[k], cols[k][real[k]]] += 1
+                # dr: lists of at most SAMPLE_BWD_LONG entries, items (u, quad)
+                u, q = np.divmod(np.arange(w_num * nq), nq)
+                short = lens[u] <= SAMPLE_BWD_LONG
+                u, n0 = u[short], q[short] * ngi
+                acc = np.zeros((len(u), ngi * cpg))
+                for p in range(int(lens[u].max(initial=0))):
+                    on = p < lens[u]
+                    e = entries[off[u[on]] + p]
+                    ws, ss = e & 0xFFFF, e >> 16
+                    acc[on] += (sg[(ss * w_num + ws)[:, None],
+                                   n0[on, None] + grp]
+                                * sl[ws[:, None], n0[on, None] * cpg + ch])
+                real = n0[:, None] + grp < gc
+                cols = c0 + n0[:, None] * cpg + ch
+                for k in range(len(u)):
+                    outs[1][b, h, u[k], cols[k][real[k]]] = acc[k][real[k]] / cpg
+                    writes[1][b, h, u[k], cols[k][real[k]]] += 1
+                # dr: longer lists, a warp each
+                for u in np.nonzero(lens > SAMPLE_BWD_LONG)[0]:
+                    e = entries[off[u]:off[u + 1]]
+                    ws, ss = e & 0xFFFF, e >> 16
+                    for n0 in range(0, gc, ngi):
+                        terms = (sg[(ss * w_num + ws)[:, None], n0 + grp]
+                                 * sl[ws[:, None], n0 * cpg + ch])
+                        lane = np.zeros((32, ngi * cpg))
+                        for k in range(32):
+                            for t in terms[k::32]:
+                                lane[k] += t
+                        for m in (16, 8, 4, 2, 1):
+                            lane = lane + lane[np.arange(32) ^ m]
+                        real = n0 + grp < gc
+                        cols = (c0 + n0 * cpg + ch)[real]
+                        outs[1][b, h, u, cols] = lane[0][real] / cpg
+                        writes[1][b, h, u, cols] += 1
+    return outs[0], outs[1], writes
+
+
+# (b, h, w, c, s, g, max_shift): W not a multiple of 32, C/G 3 (odd G), 5
+# (no compile-time C/G) and 8, S = 1; CFNet's s3 and s2 widths at two rows
+SAMPLE_GWC_BWD_CASES = [(2, 3, 45, 12, 7, 4, 20), (1, 3, 70, 15, 1, 3, 9),
+                        (1, 2, 40, 320, 3, 40, 200), (2, 2, 19, 10, 4, 2, 25),
+                        (1, 2, 128, 160, 16, 40, 48),
+                        (1, 2, 256, 80, 12, 20, 96)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,g,ms", SAMPLE_GWC_BWD_CASES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_sample_gwc_backward_kernel_walk_matches_plain(b, h, w, c, s, g, ms,
+                                                       dtype):
+    """K5 backward's lists in (s, w) order and every dl and dr value written
+    once, equal to the plain backward, on the plan the wrapper makes, with
+    samples at 0, at max_shift and past both clamps (and past the image's
+    left edge), fractions, a NaN, and a row whose every sample reads one
+    right pixel wherever it can (one list of S x min(W, ms + 1)
+    entries)."""
+    rng = np.random.RandomState(3)
+    left, right = (rng.randn(b, h, w, c) for _ in range(2))
+    gd = rng.randn(b, s, h, w, g)
+    samples = rng.randint(-3, ms + 5, (b, s, h, w)).astype(np.float32)
+    samples[0, 0, 0, -1] = np.nan
+    samples[-1, -1] += 0.5
+    samples[0, :, 1] = np.arange(w)
+    size = 4 if dtype == F32 else 2
+    plan = sample_backward_plan(w, s, g, c // g, dtype)
+    *got, writes = walk_sample_gwc_backward(left, right, samples, gd, g, ms,
+                                            plan, size)
+    want = gwc_volume_from_samples_backward_reference(
+        torch.from_numpy(left), torch.from_numpy(right),
+        torch.from_numpy(np.nan_to_num(samples, nan=0.0)),
+        torch.from_numpy(gd), g, ms)
+    assert (writes[0] == 1).all() and (writes[1] == 1).all()
+    for got_t, want_t in zip(got, want):
+        np.testing.assert_allclose(got_t, want_t.numpy(), rtol=0, atol=1e-12)
 
 
 def walk_concat(left, right, d_max, mask_left, plan, size):

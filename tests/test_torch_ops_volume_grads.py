@@ -159,28 +159,49 @@ def test_gwc_volume_from_samples_backward_reference(b, h, w, c, s, g,
 
 
 # (b, h, w, s, g): CFNet's s3 and s2 stages in training and eval, a few
-# rows with odd G
+# rows with odd G, rows of 640 (whose bfloat16 chunks fit one block an SM)
 @pytest.mark.parametrize("b,h,w,s,g", [(4, 64, 128, 16, 40),
                                        (4, 128, 256, 12, 20),
                                        (1, 120, 160, 16, 40),
                                        (1, 240, 320, 12, 20),
-                                       (2, 3, 45, 7, 3)])
+                                       (2, 3, 45, 7, 3),
+                                       (1, 2, 640, 12, 20)])
 def test_sample_backward_plan_chunks_cover_the_groups(b, h, w, s, g):
-    """The K4/K5 backward plan: whole groups a chunk, the chunks covering G
-    once, the fewest that give 4 blocks an SM (or one group each), and the
-    row's lists within the shared-memory cap."""
-    plan = V.sample_backward_plan(b, h, w, s, g, 132)
-    chunks = -(-g // plan.groups)
-    assert (chunks - 1) * plan.groups < g <= chunks * plan.groups
-    assert b * h * chunks >= 4 * 132 or plan.groups == 1
-    assert b * h * (chunks - 1) < 4 * 132 or chunks == 1
-    assert plan.smem == 4 * (2 * s * w + 2 * w + 1) <= V.SAMPLE_BWD_MAX_SMEM
-    assert V.sample_backward_plan(b, h, w, s, 1, 132).groups == 1
+    """The K4/K5 backward plan (C/G = 4, as at both of CFNet's stages, in
+    both types): whole groups a chunk, the chunks covering G once, the
+    most groups (G or multiples of 16 bytes of groups) whose (row, chunk)
+    block fits two blocks an SM, or, where none does, one block an SM; the
+    row's lists' build within the cap; K4's plan (g = 1) one group."""
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        plan = V.sample_backward_plan(w, s, g, 4, dtype)
+        chunks = -(-g // plan.groups)
+        assert (chunks - 1) * plan.groups < g <= chunks * plan.groups
+        assert plan.chunk_smem == V.sample_chunk_smem(w, s, 4, plan.groups,
+                                                      size)
+        step = 16 // size
+        larger = [n for n in range(plan.groups + 1, g + 1)
+                  if n == g or n % step == 0]
+        if plan.chunk_smem <= V.SAMPLE_BWD_MAX_SMEM:
+            cap = V.SAMPLE_BWD_MAX_SMEM
+        else:
+            # not even a thread item's groups fit two blocks an SM
+            ngi = V.sample_item_groups(4, size)
+            assert (V.sample_chunk_smem(w, s, 4, ngi, size)
+                    > V.SAMPLE_BWD_MAX_SMEM)
+            cap = V.SAMPLE_BWD_SMEM_LIMIT
+        assert plan.chunk_smem <= cap
+        assert all(V.sample_chunk_smem(w, s, 4, n, size) > cap
+                   for n in larger[:1])
+        assert plan.smem == 4 * (2 * s * w + w + 1
+                                 + 2 * V.SAMPLE_BWD_WARPS * w)
+        assert plan.smem <= V.SAMPLE_BWD_MAX_SMEM
+        assert plan.threads == V.SAMPLE_BWD_THREADS
+        assert V.sample_backward_plan(w, s, 1, 1, dtype).groups == 1
 
 
 def test_sample_backward_plan_refuses_rows_past_shared_memory():
     with pytest.raises(ValueError, match="shared bytes"):
-        V.sample_backward_plan(1, 1, 4000, 16, 1, 132)
+        V.sample_backward_plan(4000, 16, 1, 1, torch.float32)
 
 
 @pytest.mark.parametrize("c", [1, 3, 5, 6, 12, 32])
