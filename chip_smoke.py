@@ -1,8 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k4-bwd [--parent DIR]
 
-Phases, each of which raises on failure (exit code != 0, no result line):
+The second form studies K4's backward kernel alone (`main_k4_bwd`). The
+first runs these phases, each of which raises on failure (exit code != 0,
+no result line):
 
 1. require CUDA; print the card and its power limit (nvidia-smi);
 2. build the CUDA kernels from ``stereo_toolbox_tpu_torch/csrc`` (nvcc);
@@ -32,13 +35,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tile, blocks of a few pixels, S = 1, odd G, a C/G without a
    compile-time count; K6: bfloat16 C = 12 rows of 24-byte halves, odd C,
    rows not a multiple of 16 bytes, misaligned feature bases, W tiles);
-   then their backward kernels (K6-bwd "direct", K4-bwd "sort" and K5-bwd
+   then their backward kernels (K6-bwd "direct", K4-bwd "staged" and K5-bwd
    "staged") against their plain versions in float32 and bfloat16, each run
    twice for the same bits, at every train launch shape and ragged cases
    (K6-bwd: D > W, odd C, a misaligned gradient, masked and not; K4-bwd
    and K5-bwd: W not a multiple of 32, S = 1, samples at 0, at max_shift,
    past both clamps and the image's edge, fractional, a NaN, a row whose
-   every sample reads one right pixel);
+   every sample reads one right pixel; K4-bwd also a gradient one element
+   past 16-byte alignment and rows whose chunks fit one block an SM);
 7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
    launch shape, vits' and MonSter's two-view shapes and ragged N (1, 15,
    64, 65, 77, 200, 1025, 2048), bfloat16 on its design "mma", float32 on
@@ -88,7 +92,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     PSMNet: no kernel of the port); then 12 steps on one fixed 256x512, B 2
     batch (lr 1e-3, clip 1.0) whose losses must be finite and fall below
     0.9 x the first; each backward kernel timed at its train launches
-    beside its plain version and ``torch.autograd`` of the plain forward;
+    beside its plain version and ``torch.autograd`` of the plain forward
+    (K4-bwd and K5-bwd also their list builds alone);
 15. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
 16. print one ``{"forward": {...}}``, one ``{"train": {...}}`` and one
@@ -98,11 +103,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
 from collections import Counter, defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -134,7 +142,9 @@ from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
     gwc_volume_backward_reference, gwc_volume_from_samples,
     gwc_volume_from_samples_backward,
     gwc_volume_from_samples_backward_reference,
-    gwc_volume_from_samples_reference, gwc_volume_reference)
+    gather_backward_plan,
+    gwc_volume_from_samples_reference, gwc_volume_reference,
+    sample_scratch_ints)
 from stereo_toolbox_tpu_torch.train import LOSS_WEIGHTS  # noqa: E402
 from stereo_toolbox_tpu_torch.trainer import (  # noqa: E402
     TrainConfig, TrainState, init_train_state, make_train_step, to_device)
@@ -444,7 +454,7 @@ TRACE_ITERS = 3        # forwards in the torch.profiler trace
 DESIGN = {F32: TF32X3, BF16: "mma"}
 ONE_DESIGN = {"K1": "stream", "K1-bwd": "rowpass", "K3": "stencil",
               "K4": "direct", "K5": "direct", "K6": "rows",
-              "K6-bwd": "direct", "K4-bwd": "sort", "K5-bwd": "staged"}
+              "K6-bwd": "direct", "K4-bwd": "staged", "K5-bwd": "staged"}
 DESIGN_TAGS = tuple(KERNELS)                  # every wrapper has .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
@@ -891,33 +901,40 @@ def backward_samples(b, s, h, w, ms, gen):
 
 
 def check_samples_backward(gen) -> tuple[dict, dict]:
-    """K4's and K5's backward kernels on their "sort" and "staged" designs
-    (both on the parallel list build) at every train
-    launch shape (CFNet's s3 and s2 stages, and the card-vs-CPU check's)
-    and ragged cases: W not a multiple of 32, C 1, 5, 6 and 12, C/G 5 and
-    8, odd G, S = 1, samples at 0, at max_shift and past the image edge,
-    fractional samples, a NaN, and a row whose every sample lands on one
-    right pixel; against the plain versions in float32 on the same inputs,
-    and the same bits twice."""
+    """K4's and K5's backward kernels on their "staged" designs
+    at every train launch shape (CFNet's s3 and s2 stages, and the
+    card-vs-CPU check's) and ragged cases: W not a multiple of 32, C 1, 5,
+    6 and 12, C/G 5 and 8, odd G, S = 1, samples at 0, at max_shift and
+    past the image edge, fractional samples, a NaN, and a row whose every
+    sample lands on one right pixel; K4's also with its gradient one
+    element past 16-byte alignment (narrower copies, element by element in
+    bfloat16) and rows of 800 pixels (chunks of 3 float32 channels, one
+    block an SM; one bfloat16 channel a chunk); against the plain versions
+    in float32 on the same inputs, and the same bits twice."""
     errs4, errs5 = {}, {}
     k4_model = sorted(all_shapes("K4-bwd"))
     k5_model = sorted(all_shapes("K5-bwd"))
-    k4_cases = [*k4_model, (2, 3, 45, 5, 7, 20), (1, 2, 37, 1, 3, 9),
-                (1, 3, 70, 6, 1, 30), (2, 2, 19, 12, 4, 25)]
+    k4_cases = [*((*k, False) for k in k4_model), (2, 3, 45, 5, 7, 20, False),
+                (2, 3, 45, 5, 7, 20, True), (1, 2, 37, 1, 3, 9, False),
+                (1, 3, 70, 6, 1, 30, False), (2, 2, 19, 12, 4, 25, True),
+                (1, 2, 800, 6, 12, 96, False)]
     k5_cases = [*k5_model, (2, 3, 45, 12, 7, 4, 20), (1, 3, 70, 15, 1, 3, 9),
                 (1, 2, 40, 320, 3, 40, 200), (2, 2, 19, 10, 4, 2, 25)]
     for dtype in (F32, BF16):
         errs4[dtype] = errs5[dtype] = 0.0
-        for b, h, w, c, s, ms in k4_cases:
+        for b, h, w, c, s, ms, shifted in k4_cases:
             smp = backward_samples(b, s, h, w, ms, gen)
-            grad = randn((b, s, h, w, c), dtype, gen)
+            n = b * s * h * w * c
+            grad = randn((n + shifted,), dtype, gen)[int(shifted):].view(
+                b, s, h, w, c)
             (got,), design = repeat_bits(
                 "K4-bwd", lambda: gather_right_by_samples_backward(
                     grad, smp, ms))
             err = held("K4-bwd", dtype, got,
                        gather_right_by_samples_backward_reference(
                            grad.float(), smp.nan_to_num(0.0), ms),
-                       f"{(b, h, w, c)} S={s} max_shift={ms} [{design}]")
+                       f"{(b, h, w, c)} S={s} max_shift={ms}"
+                       f"{' misaligned' if shifted else ''} [{design}]")
             if (b, h, w, c, s, ms) in k4_model:
                 errs4[dtype] = max(errs4[dtype], err)
         for b, h, w, c, s, g, ms in k5_cases:
@@ -1317,10 +1334,18 @@ def check_cfnet():
 PS_FEATURE = (1, H // 4, W // 4, 32)
 
 
-def launches_of(fn) -> int:
+def launches_of(fn, tries: int = 3) -> int:
     """Device kernels one call of `fn` launches (a ``torch.profiler``
-    trace)."""
-    return round(sum(n for _, n in trace(fn, 1)[0].values()))
+    trace). A trace that saw no device event is taken again, up to `tries`
+    in all: the profiler loses a short trace's events now and then (a
+    bf16 K6 + K2 call, 2 launches, read 0 once on the H100)."""
+    for k in range(tries):
+        n = round(sum(n for _, n in trace(fn, 1)[0].values()))
+        if n:
+            break
+    if k:
+        print(f"  launches_of: traced {k + 1} times, {k} saw no device event")
+    return n
 
 
 def time_concat_layer(model, dtype, gen) -> dict:
@@ -1754,7 +1779,7 @@ def kernel_family(name: str) -> str:
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_stream_kernel", "K1 gwc_volume"),
                       ("gwc_rowpass_kernel", "K1-bwd gwc_volume_backward"),
-                      ("gather_backward_kernel",
+                      ("gather_staged_kernel",
                        "K4-bwd gather_right_by_samples_backward"),
                       ("sample_lists_kernel",
                        "K5-bwd gwc_volume_from_samples_backward"),
@@ -2118,11 +2143,44 @@ def train_samples(b, s, h, w, ms, gen):
         .to(DEV)
 
 
+def gather_backward_build(grad, smp, mshift):
+    """K4-bwd's list build alone, on the kernel's plan (its grid, threads
+    and shared memory): a kernel of the library that is not the wrapper's,
+    so that no count moves."""
+    b, s, h, w, c = grad.shape
+    plan = gather_backward_plan(w, s, c, grad.dtype)
+    offs = torch.empty(b * h * (w + 1), dtype=torch.int32, device=DEV)
+    lib = _cuda.library("sample_gather")
+    args = (smp.data_ptr(), offs.data_ptr(), b, h, w, c, s, mshift,
+            _cuda.dtype_code(grad), *plan, _cuda.stream_of(grad))
+
+    def run():
+        _cuda.check(lib, lib.gather_right_by_samples_backward_build(*args),
+                    "gather_right_by_samples_backward_build")
+    return run
+
+
+def gwc_samples_backward_lists(smp, mshift):
+    """K5-bwd's first kernel (the row's lists to scratch) alone."""
+    b, s, h, w = smp.shape
+    lists = torch.empty(b * h * sample_scratch_ints(w, s), dtype=torch.int32,
+                        device=DEV)
+    lib = _cuda.library("sample_gather")
+    args = (smp.data_ptr(), lists.data_ptr(), b, h, w, s, mshift,
+            _cuda.stream_of(smp))
+
+    def run():
+        _cuda.check(lib, lib.gwc_volume_from_samples_backward_lists(*args),
+                    "gwc_volume_from_samples_backward_lists")
+    return run
+
+
 def time_gather_backward(mix, dtype, gen):
     """Times and work of a train step's K4 backward launches, weighted by
-    `mix`: the kernel, its plain version, the library yardstick (one
-    ``index_add_`` of the masked gradient at precomputed targets) and
-    ``torch.autograd.grad`` of the plain gather beside the shapes."""
+    `mix`: the kernel, its list build alone, its plain version, the library
+    yardstick (one ``index_add_`` of the masked gradient at precomputed
+    targets) and ``torch.autograd.grad`` of the plain gather beside the
+    shapes."""
     ms = plain = lib = 0.0
     nbytes = flops = 0
     shapes = []
@@ -2133,6 +2191,7 @@ def time_gather_backward(mix, dtype, gen):
         t = device_ms(lambda: gather_right_by_samples_backward(
             grad, smp, mshift), 20)
         design = " ".join(designs_of("K4-bwd"))
+        tb = device_ms(gather_backward_build(grad, smp, mshift), 20)
         tp = device_ms(lambda: gather_right_by_samples_backward_reference(
             grad, smp, mshift), 3)
         x = torch.arange(w, device=DEV) - smp.long()
@@ -2156,14 +2215,15 @@ def time_gather_backward(mix, dtype, gen):
         flops += n * used                       # this data's adds
         shapes.append({"bhwc": [b, h, w, c], "s": s, "max_shift": mshift,
                        "launches": n, "design": design, "ms": t,
-                       "plain_ms": tp, "library_ms": tl, "autograd_ms": ta})
+                       "build_ms": tb, "plain_ms": tp, "library_ms": tl,
+                       "autograd_ms": ta})
     return ms, plain, lib, nbytes, flops, shapes
 
 
 def time_gwc_samples_backward(mix, dtype, gen):
     """Times and work of a train step's K5 backward launches, weighted by
-    `mix`: the kernel, its plain version and ``torch.autograd.grad`` of
-    the plain forward beside the shapes."""
+    `mix`: the kernels, the first (the list build) alone, the plain version
+    and ``torch.autograd.grad`` of the plain forward beside the shapes."""
     ms = plain = 0.0
     nbytes = flops = 0
     shapes = []
@@ -2176,6 +2236,7 @@ def time_gwc_samples_backward(mix, dtype, gen):
         t = device_ms(lambda: gwc_volume_from_samples_backward(
             left, right, smp, grad, g, mshift), 20)
         design = " ".join(designs_of("K5-bwd"))
+        tb = device_ms(gwc_samples_backward_lists(smp, mshift), 20)
         tp = device_ms(lambda: gwc_volume_from_samples_backward_reference(
             left, right, smp, grad, g, mshift), 3)
         lf, rf = (x.detach().requires_grad_() for x in (left, right))
@@ -2196,8 +2257,15 @@ def time_gwc_samples_backward(mix, dtype, gen):
         flops += n * 4 * c * inside
         shapes.append({"bhwc": [b, h, w, c], "s": s, "g": g,
                        "max_shift": mshift, "launches": n, "design": design,
-                       "ms": t, "plain_ms": tp, "autograd_ms": ta})
+                       "ms": t, "build_ms": tb, "plain_ms": tp,
+                       "autograd_ms": ta})
     return ms, plain, None, nbytes, flops, shapes
+
+
+def build_ms(shapes) -> float:
+    """The list builds' ms of a backward timer's shapes, weighted by their
+    launches."""
+    return sum(r["build_ms"] * r["launches"] for r in shapes)
 
 
 TIMERS = {"K1": time_gwc, "K1-bwd": time_gwc_backward, "K2": time_conv,
@@ -2250,6 +2318,143 @@ def bound(nbytes, flops, dtype, tf32x3=False):
     else:
         t_ops = flops / (f32 if dtype == F32 else bf16) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ------------------------------------------------- K4-bwd study (--k4-bwd)
+
+K4_BWD_MIX = TRAIN_MIXES["CFNet"]["K4-bwd"]
+# phases between the stamps of csrc/sample_gather.cu (SAMPLE_BWD_STAMPS)
+K4_BWD_PHASES = {"samples": (0, 1), "zero": (1, 2), "count": (2, 3),
+                 "scan": (3, 4), "place": (4, 5), "sort": (5, 6),
+                 "wait": (6, 7), "walk": (7, 8)}
+# the backward timers of a tree, in a process of their own (sys.argv[1]
+# names the tree)
+K4_BWD_TIMER_CODE = """
+import json, sys
+from collections import Counter
+import torch
+import chip_smoke as cs
+gen = torch.Generator().manual_seed(7)
+for tag in ("K4-bwd", "K5-bwd"):
+    for dtype in (cs.F32, cs.BF16):
+        ms, plain, lib, nbytes, flops, shapes = cs.TIMERS[tag](
+            Counter(cs.TRAIN_MIXES["CFNet"][tag]), dtype, gen)
+        b_ms, _ = cs.bound(nbytes, flops, dtype)
+        print(json.dumps({"tree": sys.argv[1], "kernel": tag,
+                          "dtype": cs.DTYPE_NAME[dtype], "ms": ms,
+                          "share": b_ms / ms, "library_ms": lib,
+                          "shapes": [{k: r.get(k) for k in
+                                      ("bhwc", "design", "ms", "build_ms")}
+                                     for r in shapes]}), flush=True)
+"""
+
+
+def k4_bwd_inputs(key, dtype, gen):
+    b, h, w, c, s, ms = key
+    return (randn((b, s, h, w, c), dtype, gen),
+            train_samples(b, s, h, w, ms, gen), ms)
+
+
+def k4_bwd_check(gen) -> None:
+    for dtype in (F32, BF16):
+        for key in K4_BWD_MIX:
+            grad, smp, ms = k4_bwd_inputs(key, dtype, gen)
+            got = gather_right_by_samples_backward(grad, smp, ms)
+            again = gather_right_by_samples_backward(grad, smp, ms)
+            require(torch.equal(got, again), f"K4-bwd bits differ {key}")
+            held("K4-bwd", dtype, got,
+                 gather_right_by_samples_backward_reference(
+                     grad.float(), smp, ms), f"{key}")
+
+
+def k4_bwd_stamps(gen) -> None:
+    lib = _cuda.variant("sample_gather", "stamps",
+                        flags=("-DSAMPLE_BWD_STAMPS",))
+    lib.bwd_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.bwd_stamps_read.restype = ctypes.c_int
+    with _cuda.loaded_as("sample_gather", lib):
+        for dtype in (F32, BF16):
+            for key in K4_BWD_MIX:
+                grad, smp, ms = k4_bwd_inputs(key, dtype, gen)
+                for _ in range(3):
+                    gather_right_by_samples_backward(grad, smp, ms)
+                torch.cuda.synchronize()
+                b, h, w, c, s, _ = key
+                plan = gather_backward_plan(w, s, c, dtype)
+                blocks = b * h * (c // plan.chunk)
+                buf = np.zeros((blocks, 10), np.uint64)
+                _cuda.check(lib, lib.bwd_stamps_read(buf.ctypes.data, blocks),
+                            "bwd_stamps_read")
+                t = buf[:, :9].astype(np.int64) - int(buf[:, 0].min())
+                per_sm = defaultdict(list)
+                for i in range(blocks):
+                    per_sm[int(buf[i, 9])].append((t[i, 0], t[i, 8]))
+                conc = max(max(sum(1 for a, e in v if a <= t0 < e)
+                               for t0, _ in v) for v in per_sm.values())
+                print(json.dumps({
+                    "stamps": DTYPE_NAME[dtype], "bhwc": key[:4],
+                    "plan": plan._asdict(), "blocks": blocks,
+                    "span_us": float(t[:, 8].max() / 1e3),
+                    **{f"{p}_us": float(np.mean(t[:, e] - t[:, a]) / 1e3)
+                       for p, (a, e) in K4_BWD_PHASES.items()},
+                    "block_us": float(np.mean(t[:, 8] - t[:, 0]) / 1e3),
+                    "last_start_us": float(t[:, 0].max() / 1e3),
+                    "blocks_per_sm_at_once": conc}), flush=True)
+
+
+def k4_bwd_parent_ab(parent: Path) -> None:
+    here = Path(__file__).resolve().parent
+    for tree in (parent, here, here, parent):
+        env = {**os.environ, "PYTHONPATH": str(tree)}
+        run = subprocess.run([sys.executable, "-c", K4_BWD_TIMER_CODE,
+                              "parent" if tree == parent else "this"],
+                             cwd=tree, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode:
+            raise RuntimeError(f"timers in {tree} failed:\n{run.stderr}")
+        print(run.stdout, end="", flush=True)
+
+
+def main_k4_bwd(argv) -> None:
+    """``python3 chip_smoke.py --k4-bwd [--parent DIR]``: K4's backward
+    kernel ("staged") alone, at CFNet's two train launches, float32 and
+    bfloat16: (1) held against its plain version, the same bits twice; (2)
+    each block's phase stamps (%globaltimer, ns) from a copy of
+    ``csrc/sample_gather.cu`` built with ``-DSAMPLE_BWD_STAMPS``: the list
+    threads' samples held, scratch zeroed, entries counted, offsets
+    scanned, entries placed, groups sorted, gd landed, lists walked, each
+    phase's mean over the blocks, the launch's span and the blocks an SM
+    held at once; (3) with ``--parent DIR`` (a checkout with a
+    ``chip_smoke.py`` in a directory of this one, e.g. ``git archive`` of
+    the parent commit unpacked into a git-ignored directory), `TIMERS` for
+    K4-bwd and K5-bwd (each with its list build alone where the tree has
+    one) in that tree and in this one, parent, this, this, parent, each in
+    its own process. Prints one JSON object a reading. Needs one card."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --k4-bwd")
+    ap.add_argument("--parent", type=Path, default=None)
+    args = ap.parse_args(argv)
+    parent = None
+    if args.parent is not None:
+        parent = args.parent.resolve()
+        here = Path(__file__).resolve().parent
+        if here not in parent.parents or not (parent / "chip_smoke.py"
+                                              ).is_file():
+            ap.error(f"--parent {args.parent}: not a checkout with a "
+                     f"chip_smoke.py inside {here}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(21)
+    k4_bwd_check(gen)
+    k4_bwd_stamps(gen)
+    if parent is not None:
+        k4_bwd_parent_ab(parent)
+    print(json.dumps({"k4_bwd_ok": True,
+                      "device": torch.cuda.get_device_name(0)}))
 
 
 def main() -> None:
@@ -2335,18 +2540,26 @@ def main() -> None:
                                 mix[tag], designs, errs[tag][F32], gen)
             entry["autograd_ms"] = sum(r["autograd_ms"] * r["launches"]
                                        for r in entry["shapes"])
+            if "build_ms" in entry["shapes"][0]:
+                entry["build_ms"] = build_ms(entry["shapes"])
+                print(f"  {model_name} (train step) {tag} float32 list build "
+                      f"alone {entry['build_ms']:.4f} ms")
             kernels.append(entry)
             # the same launches in bfloat16 (their plans, times and bounds;
             # no train step runs bfloat16 yet)
             ms, _, _, nbytes, flops, shapes = TIMERS[tag](mix[tag], BF16,
                                                           gen)
             b_ms, b_by = bound(nbytes, flops, BF16)
+            built = (f", list build alone {build_ms(shapes):.4f} ms"
+                     if "build_ms" in shapes[0] else "")
             print(f"  {model_name} (train step) {tag} bfloat16: {ms:.4f} ms "
                   f"(bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f}% of "
-                  f"it)")
+                  f"it{built})")
             train[model_name][f"{tag}_bf16"] = {
                 "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
                 "mbytes": nbytes / 1e6, "shapes": shapes}
+            if built:
+                train[model_name][f"{tag}_bf16"]["build_ms"] = build_ms(shapes)
         torch.cuda.empty_cache()
     print("phase 15: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
@@ -2360,4 +2573,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--k4-bwd"]:
+        main_k4_bwd(sys.argv[2:])
+    else:
+        main()

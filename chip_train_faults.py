@@ -21,7 +21,12 @@ caught it:
 - ``k5_bwd_scatter_dropped``: K5's backward kernel returns dr = 0, its
   scatter (CFNet);
 - ``k4_bwd_shifted``: K4's backward kernel writes each right pixel's
-  gradient one pixel to the right (CFNet).
+  gradient one pixel to the right (CFNet);
+- ``k4_bwd_long_lane_dropped``: K4's backward kernel built from a copy of
+  ``csrc/sample_gather.cu`` whose long-list warp path drops lane 31's
+  entries (31, 63, ... of a list of more than 32; CFNet, and phase 6's K4-
+  and K5-bwd kernel gates, `chip_smoke.check_samples_backward`, whose
+  skewed rows make such lists).
 
 The last line is one JSON object ``{"faults": [...]}``. Exits with code 1
 if a clean run is outside the limits; a fault that passes is reported, not
@@ -31,13 +36,14 @@ raised. Needs one card.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 
 import torch
 
 import chip_smoke
 from stereo_toolbox_tpu_torch.nn.layers import FlaxRunningStats
-from stereo_toolbox_tpu_torch.ops import volume
+from stereo_toolbox_tpu_torch.ops import _cuda, volume
 
 
 @contextlib.contextmanager
@@ -108,6 +114,31 @@ def k4_bwd_shifted():
     return patched(volume, "_launch_gather_backward", faulty)
 
 
+# the load of K4-bwd's long-list warp path, and lane 31 leaving first
+LONG_LOAD = "        load_shared<T, NV>(sg + (size_t)list[p] * cc + c, v);"
+LONG_LOAD_FAULT = "        if (lane == 31) break;\n" + LONG_LOAD
+
+
+@functools.cache
+def long_lane_library():
+    return _cuda.variant("sample_gather", "fault_k4_bwd_long_lane",
+                         subs=((LONG_LOAD, LONG_LOAD_FAULT),))
+
+
+def k4_bwd_long_lane_dropped():
+    return _cuda.loaded_as("sample_gather", long_lane_library())
+
+
+def phase6_k4_bwd_gate() -> bool:
+    """Whether phase 6's K4/K5-bwd gates (`check_samples_backward`) fail."""
+    try:
+        chip_smoke.check_samples_backward(torch.Generator().manual_seed(1234))
+    except RuntimeError as err:
+        print(f"  {err}")
+        return True
+    return False
+
+
 RUNS = (
     ("clean", None, chip_smoke.TRAIN_MODELS),
     ("k1_bwd_dr_dropped", k1_bwd_dr_dropped, ("GwcNet_G",)),
@@ -119,7 +150,10 @@ RUNS = (
      ("GwcNet_GC", "ACVNet", "CFNet")),
     ("k5_bwd_scatter_dropped", k5_bwd_scatter_dropped, ("CFNet",)),
     ("k4_bwd_shifted", k4_bwd_shifted, ("CFNet",)),
+    ("k4_bwd_long_lane_dropped", k4_bwd_long_lane_dropped, ("CFNet",)),
 )
+# faults also put to phase 6's kernel gates
+KERNEL_GATES = {"k4_bwd_long_lane_dropped": phase6_k4_bwd_gate}
 
 
 def main() -> None:
@@ -140,6 +174,13 @@ def main() -> None:
                 clean_ok &= within
             rows.append({"fault": fault, "model": name,
                          "caught": not within, **row})
+        if fault in KERNEL_GATES:
+            print(f"{fault}: phase 6 kernel gates")
+            with plant():
+                caught = KERNEL_GATES[fault]()
+            print(f"  {'caught' if caught else 'within the limits'}")
+            rows.append({"fault": fault, "model": "phase 6 kernel gates",
+                         "caught": caught})
     print(json.dumps({"faults": rows}))
     if not clean_ok:
         raise SystemExit("a clean run is outside the limits")

@@ -61,7 +61,7 @@
 // or 16 keeps the left values in registers at a compile-time count; any
 // other C/G runs the same loop with the left values read at each step.
 //
-// The backward kernels (K4-bwd "sort", K5-bwd "staged"): see below.
+// The backward kernels (K4-bwd "staged", K5-bwd "staged"): see below.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, allocates nothing, synchronises nothing and returns
@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <initializer_list>
 
 #include "mma.cuh"
@@ -343,7 +344,7 @@ int gwc_by_cpg(const void* left, const void* right, const void* samples, void* o
 // are scatters: many (s, w) can read one right pixel u (every w of a row
 // whose sample reaches back to it), and which do depends on the data.
 //
-// The lists (both kernels, `build_lists`): a block of kListThreads owns
+// K5-bwd's lists (`build_lists`): a block of kListThreads owns
 // one row (b, h) and sorts the row's (s, w) by the right pixel u = w - d
 // they read, into one list a pixel, each in (s, w) order. Its threads
 // stage u (or -1 where w < d) of every (s, w) in shared memory, and the
@@ -363,11 +364,49 @@ int gwc_by_cpg(const void* left, const void* right, const void* samples, void* o
 // masks 10.5 and 18.5.) Shared memory: 4 bytes a u and an entry, 4 a
 // pixel for the offsets and 8 a pixel and warp for the counts and masks.
 //
-// K4-bwd ("sort", plan ops/volume.py::sample_backward_plan): a block builds
-// its row's lists, then each output (u, c) is one thread's: it walks its
-// list and sums gd in float32 registers, and writes once.
+// K4-bwd ("staged", plan ops/volume.py::gather_backward_plan): a block owns
+// one row (b, h) and a chunk of `cc` of its channels (all C where that
+// fits two blocks an SM, as at both of CFNet's stages). Its last warp
+// copies, the others (the list threads) build the row's lists meanwhile, and
+// then every thread walks them. The copy: one thread's bulk copies (the
+// Tensor Memory Accelerator), first the row's S planes of samples, then
+// gd[b, :, h, :, :] (S contiguous runs), each completing on an mbarrier;
+// where the runs are not 16-byte multiples and bases, or the block takes a
+// chunk, the warp's cp.async of each pixel's channels instead, after the
+// list threads have loaded their samples (a copy in flight holds loads back).
+// The build (`build_staged_lists`): each list thread holds up to kListLoads
+// entries (s, w) in registers; one atomicAdd an entry on its (s, u)'s
+// count, whose result is the entry's arrival; each u's prefix of the
+// counts over s and a block scan into the offsets; each entry stored at
+// its offset + (s, u)'s start + its arrival; and each (s, u) of two or
+// more entries (one to three, typically) sorted by w in registers by the
+// list thread of its second arrival, so that each list holds its entries in
+// (s, w) order whatever the scheduling. Integer atomics on shared
+// bookkeeping only, one an entry, and no per-warp counts: K5-bwd's
+// `build_lists` needs 2 x warps x W ints of them beside the lists (7 KB at
+// CFNet's 1/4 stage), which the float32 block there (112.5 KB) cannot take
+// and still fit two blocks an SM. Where both fit, in K5-bwd's list kernel
+// (256 threads a row), `build_lists` is the faster: 9.2 and 16.5 us at
+// CFNet's two train launches on the H100 against 13-14 and 25-26 for this
+// build (`chip_smoke.py`'s K5-bwd timer on a copy that calls it). The walk: a
+// thread item (pixel u, NV channels, 4 or 8 bytes; the items of one u on
+// neighbouring lanes, so that they share each list entry and read one
+// pixel's contiguous channels) sums u's staged gd in float32 registers, UF
+// entries' loads ahead of their adds, and stores once; a list of more than
+// kLong entries (the skewed row whose every sample reads one pixel) is a
+// warp's: lane k sums its entries k, k + 32, ..., and the lanes' sums meet
+// in a fixed butterfly. So gd is read from device memory once, in wide
+// copies, no load waits on device memory, and the same inputs give the
+// same bits in every run. (On the H100: list masks, bit d of mask (s, u)
+// for (s, u + d) built by one atomicOr pass, walked 8-18 us a block, their
+// lanes' bit loops diverging; the build's first forms took 5-8 us a block,
+// its sort and a second atomic pass most of it; ranks from __match_any_sync
+// over warps owning whole planes took 3-5 us to count; copying gd in four
+// stages that the walk waits for in turn, and walking stage by stage, were
+// no faster. `chip_smoke.py --k4-bwd` reads the phases.)
 //
-// K5-bwd ("staged", same plan): a first kernel builds each row's lists once
+// K5-bwd ("staged", plan ops/volume.py::sample_backward_plan): a first
+// kernel builds each row's lists once
 // and writes them (offsets, entries) to scratch that the wrapper
 // allocates. Then a block owns one row and a chunk of GC groups (as many
 // as fit two blocks an SM): it copies the row's lists from scratch (L2),
@@ -384,10 +423,39 @@ int gwc_by_cpg(const void* left, const void* right, const void* samples, void* o
 
 constexpr int kListThreads = 256;       // threads (8 warps) of a block that builds lists
 constexpr int kListWarps = kListThreads / 32;
-constexpr int kLong = 32;               // entries of a list that one thread walks, at most
+constexpr int kLong = 32;               // entries of a K4/K5-bwd list one thread walks, at most
+constexpr int kStagedThreads = 512;     // threads of a K4-bwd block, at most
 
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Phase stamps of the K4-bwd kernel, compiled in only with
+// -DSAMPLE_BWD_STAMPS (`chip_smoke.py --k4-bwd` builds such a copy to split
+// a launch into its phases): thread 0 of each block writes %globaltimer (ns) at
+// phase k to bwd_stamps[block][k] (0 start, 1 samples held, 2 scratch
+// zeroed, 3 counted, 4 scanned, 5 placed, 6 sorted, 7 gd landed, 8
+// walked), after a block barrier where `sync`, and its SM to [block][9].
+// Without the flag a stamp is nothing.
+#ifdef SAMPLE_BWD_STAMPS
+constexpr int kStampBlocks = 1 << 16;
+__device__ unsigned long long bwd_stamps[kStampBlocks][10];
+__device__ __forceinline__ void bwd_stamp(int k, bool sync) {
+  if (sync) __syncthreads();
+  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    bwd_stamps[blockIdx.x][k] = t;
+    if (k == 0) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      bwd_stamps[blockIdx.x][9] = sm;
+    }
+  }
+}
+#define BWD_STAMP(k, sync) bwd_stamp(k, sync)
+#else
+#define BWD_STAMP(k, sync)
+#endif
 
 // Shared ints of a block that builds a row's lists: u [S * W], off [W + 1],
 // list [S * W], counts and masks [kListWarps * W] each.
@@ -501,32 +569,6 @@ __device__ __forceinline__ void build_lists(const float* __restrict__ smp, size_
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kListThreads)
-gather_backward_kernel(const T* __restrict__ gd, const float* __restrict__ samples,
-                       T* __restrict__ dright, int H, int W, int C, int S, int max_shift) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* uof = reinterpret_cast<int*>(smem);
-  int* off = uof + S * W;
-  int* list = off + W + 1;
-  int* cnt = list + S * W;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t plane = (size_t)H * W;                  // pixels of a sample plane
-  build_lists(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift, uof, off,
-              list, cnt);
-  const T* g = gd + ((size_t)b * S * plane + (size_t)h * W) * C;  // gd[b, 0, h, 0, 0]
-  T* out = dright + ((size_t)b * H + h) * W * C;
-  for (int i = threadIdx.x; i < W * C; i += blockDim.x) {
-    const int u = i / C, c = i - u * C;
-    float acc = 0.f;
-    for (int p = off[u]; p < off[u + 1]; ++p) {
-      const int e = list[p];
-      acc += to_f(__ldg(g + ((e >> 16) * plane + (e & 0xffff)) * C + c));
-    }
-    from_f(acc, out + i);
-  }
-}
-
 // K5-bwd's first kernel: each row's lists, written to scratch (rs ints a
 // row: off, list, as scratch_ints lays them out).
 __global__ void __launch_bounds__(kListThreads)
@@ -560,13 +602,15 @@ __device__ __forceinline__ void cp_async_v(void* dst, const void* src) {
 
 // `rows` rows of `len` elements of T from src (rows `stride` elements
 // apart) to dst (rows `pitch` elements apart), VB bytes a copy (VB dividing
-// both and len's bytes, both bases aligned to it; 0: one element at a time)
+// both and len's bytes, both bases aligned to it; 0: one element at a
+// time), by threads t0, t0 + nt, ...
 template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restrict__ src,
-                                           size_t stride, int rows, int len, int vb) {
+__device__ __forceinline__ void stage_rows_by(T* dst, int pitch, const T* __restrict__ src,
+                                              size_t stride, int rows, int len, int vb, int t0,
+                                              int nt) {
   if (vb >= 4) {
     const int per = vb / (int)sizeof(T), words = len / per;
-    for (int i = threadIdx.x; i < rows * words; i += blockDim.x) {
+    for (int i = t0; i < rows * words; i += nt) {
       const int r = i / words, k = i - r * words;
       T* q = dst + (size_t)r * pitch + k * per;
       const T* p = src + r * stride + k * per;
@@ -579,11 +623,18 @@ __device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restric
       }
     }
   } else {
-    for (int i = threadIdx.x; i < rows * len; i += blockDim.x) {
+    for (int i = t0; i < rows * len; i += nt) {
       const int r = i / len, k = i - r * len;
       dst[(size_t)r * pitch + k] = src[r * stride + k];
     }
   }
+}
+
+// stage_rows_by, by the block's threads
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int pitch, const T* __restrict__ src,
+                                           size_t stride, int rows, int len, int vb) {
+  stage_rows_by<T>(dst, pitch, src, stride, rows, len, vb, threadIdx.x, blockDim.x);
 }
 
 // Shared bytes of a K5-bwd (row, chunk) block (ops/volume.py::
@@ -990,6 +1041,405 @@ int gwc_backward_by_cpg(const void* left, const void* right, const void* samples
 #undef GWC_BWD_CASE
 }
 
+// ------------------------------------------------------------ K4-bwd "staged"
+
+// Shared bytes of a K4-bwd block (ops/volume.py::gather_backward_smem
+// computes the same): gd [S][W][cc] padded to 16 bytes, then the lists:
+// cum [S * W], off [W + 1] padded to 4 ints, list [S * W].
+inline int staged_list_ints(int W, int S) { return S * W + round_up(W + 1, 4) + S * W; }
+inline int gather_staged_smem(int W, int S, int cc, int size) {
+  return round_up(S * W * cc * size, 16) + 4 * staged_list_ints(W, S);
+}
+
+// Entries of a K4-bwd list thread: a block's list threads hold all of its
+// row's S * W, kListLoads each at most.
+constexpr int kListLoads = 20;
+
+// The list threads' barrier (named barrier 1: the first nt threads of the
+// block, a multiple of 32), which the copying warp does not join.
+__device__ __forceinline__ void lists_sync(int nt) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+}
+
+// List thread t's (of nt) entries i = t + k * nt of a row of W pixels, as (s,
+// w) = divmod(i, W), stepped without division.
+struct RowEntries {
+  int s, w, ds, dw;
+  __device__ __forceinline__ RowEntries(int t, int nt, int W)
+      : s(t / W), w(t % W), ds(nt / W), dw(nt % W) {}
+  __device__ __forceinline__ void next(int W) {
+    s += ds;
+    w += dw;
+    if (w >= W) w -= W, ++s;
+  }
+};
+
+// List thread t's right pixel u of each of its entries (-1 where w < d or past
+// the row), from the row's samples at smp (samples[b, 0, h, 0] in device
+// memory, or staged in shared memory; planes `plane` apart), every load in
+// flight at once.
+__device__ __forceinline__ void row_targets(const float* smp, size_t plane, int S, int W,
+                                            int max_shift, int t, int nt, int (&u)[kListLoads]) {
+  const int kl = (S * W + nt - 1) / nt;     // entries a list thread holds
+  float v[kListLoads];
+  RowEntries e(t, nt, W);
+#pragma unroll
+  for (int k = 0; k < kListLoads; ++k, e.next(W)) {
+    if (k == kl) break;
+    v[k] = e.s < S ? smp[e.s * plane + e.w] : 0.f;
+  }
+  e = RowEntries(t, nt, W);
+#pragma unroll
+  for (int k = 0; k < kListLoads; ++k, e.next(W)) {
+    const int d = k < kl ? shift_of(v[k], max_shift) : 0;
+    u[k] = k < kl && e.s < S && d <= e.w ? e.w - d : -1;
+  }
+}
+
+// x[0 .. n) (n <= 4, the rest INT_MAX) in ascending order: a sorting
+// network on registers.
+__device__ __forceinline__ void sort4(int (&x)[4]) {
+  const auto cs = [&](int i, int j) {
+    const int a = min(x[i], x[j]), b = max(x[i], x[j]);
+    x[i] = a, x[j] = b;
+  };
+  cs(0, 1), cs(2, 3), cs(0, 2), cs(1, 3), cs(1, 2);
+}
+
+// The row's lists, built by the block's first nt threads (lists_sync)
+// from their targets u (row_targets): list[off[u] .. off[u + 1]) holds s *
+// W + w of each (s, w) that reads u, in (s, w) order; cum [S * W] is
+// scratch, zeroed by the caller. (1) One atomicAdd an entry on its (s,
+// u)'s count, whose result (the entry's arrival among its (s, u)'s) stays
+// in the entry's register beside u (u << 16 | arrival); (2) each u's
+// prefix of the counts over s, and a block scan of the u's totals into the
+// offsets; (3) each entry stored at its place, no atomics; (4) each (s, u)
+// of two or more entries sorted by w (in registers for up to four), by the
+// list thread of its entry that arrived second. So the lists do not depend on
+// the atomics' order. Integer atomics on shared bookkeeping only.
+__device__ __forceinline__ void build_staged_lists(int (&slot)[kListLoads], int S, int W, int nt,
+                                                   int* cum, int* off, int* list) {
+  __shared__ int warp_total[kStagedThreads / 32];
+  const int t = threadIdx.x, kl = (S * W + nt - 1) / nt;   // entries a list thread holds
+  RowEntries e(t, nt, W);
+#pragma unroll
+  for (int k = 0; k < kListLoads; ++k, e.next(W)) {
+    if (k == kl) break;
+    if (slot[k] >= 0) slot[k] = slot[k] << 16 | atomicAdd(cum + e.s * W + slot[k], 1);
+  }
+  lists_sync(nt);
+  BWD_STAMP(3, false);
+  // each list thread a run of pixels [u0, u1): their prefixes over s, their
+  // totals' sum scanned over the list threads into the offsets
+  const int lane = t & 31, warp = t >> 5;
+  const int per = (W + nt - 1) / nt;
+  const int u0 = imin(W, t * per), u1 = imin(W, u0 + per);
+  int local = 0;
+  for (int x = u0; x < u1; ++x) {
+    int c = 0;
+    for (int s = 0; s < S; ++s) {
+      const int a = cum[s * W + x];
+      cum[s * W + x] = c;
+      c += a;
+    }
+    off[x] = c;
+    local += c;
+  }
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  lists_sync(nt);
+  int at = incl - local;
+  for (int k = 0; k < warp; ++k) at += warp_total[k];
+  for (int x = u0; x < u1; ++x) {
+    const int c = off[x];
+    off[x] = at;
+    at += c;
+  }
+  if (t == nt - 1) off[W] = at;
+  lists_sync(nt);
+  BWD_STAMP(4, false);
+  e = RowEntries(t, nt, W);
+#pragma unroll
+  for (int k = 0; k < kListLoads; ++k, e.next(W)) {
+    if (k == kl) break;
+    const int u = slot[k] >> 16;
+    if (slot[k] >= 0) list[off[u] + cum[e.s * W + u] + (slot[k] & 0xffff)] = e.s * W + e.w;
+  }
+  lists_sync(nt);
+  BWD_STAMP(5, false);
+  // each (s, u) of two or more entries sorted by the list thread of its entry
+  // that arrived second; cum[s * W + u] starts (s, u)'s entries in u's list
+  e = RowEntries(t, nt, W);
+#pragma unroll
+  for (int k = 0; k < kListLoads; ++k, e.next(W)) {
+    if (k == kl) break;
+    if (slot[k] < 0 || (slot[k] & 0xffff) != 1) continue;
+    const int u = slot[k] >> 16, i = e.s * W + u;
+    const int lo = cum[i], n = (e.s + 1 < S ? cum[i + W] : off[u + 1] - off[u]) - lo;
+    int* l = list + off[u] + lo;
+    if (n <= 4) {
+      int x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = j < n ? l[j] : INT_MAX;
+      sort4(x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < n) l[j] = x[j];
+    } else {
+      for (int q = 1; q < n; ++q) {
+        const int x = l[q];
+        int r = q - 1;
+        for (; r >= 0 && l[r] > x; --r) l[r + 1] = l[r];
+        l[r + 1] = x;
+      }
+    }
+  }
+  lists_sync(nt);
+  BWD_STAMP(6, false);
+}
+
+// One thread's bulk copies (the Tensor Memory Accelerator) of S planes of
+// `bytes` bytes each (16-byte multiples and bases) from src (planes
+// `stride` bytes apart) to dst (back to back), completing on the mbarrier
+// bar (initialised for one arrival), which the thread arms with their
+// bytes.
+__device__ __forceinline__ void bulk_copy_planes(void* dst, const void* src, size_t stride,
+                                                 int S, int bytes, uint64_t* bar) {
+  const uint32_t b = mma::smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(S * bytes)
+               : "memory");
+  for (int s = 0; s < S; ++s)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(mma::smem_addr(static_cast<char*>(dst) + (size_t)s * bytes)),
+        "l"(static_cast<const char*>(src) + s * stride), "r"(bytes), "r"(b)
+        : "memory");
+}
+
+// Wait until the mbarrier `bar` completes its phase 0.
+__device__ __forceinline__ void bulk_wait(uint64_t* bar) {
+  const uint32_t b = mma::smem_addr(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+}
+
+// A block: row blockIdx.x / chunks, its chunk blockIdx.x % chunks of cc
+// channels, items of NV channels. Its last warp copies while the others
+// (the list threads) build the lists. `bulk`: its lane 0's bulk copies, first
+// the row's S sample-plane runs of samples (into the lists' entries, which
+// are written only after every list thread has read its samples), then of gd
+// (every channel; 16-byte multiples and bases), each completing on an
+// mbarrier; the list threads wait for the samples'. Else the list threads load
+// their samples from device memory first, and only then (named barrier 2:
+// the copy would otherwise hold their loads back) the warp's lanes copy
+// each pixel's cc channels of gd by cp.async of vbg bytes and arrive on
+// gd's mbarrier once theirs have landed. Then every thread walks, once
+// gd's mbarrier has completed. vbo: bytes a store of dright.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kStagedThreads)
+gather_staged_kernel(const T* __restrict__ gd, const float* __restrict__ samples,
+                     T* __restrict__ dright, int H, int W, int C, int S, int max_shift, int cc,
+                     int chunks, int bulk, int vbg, int vbo) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar[2];                 // gd's, the samples'
+  BWD_STAMP(0, false);
+  constexpr int UF = 4;                   // entries a thread loads before it sums them
+  const int chunk = blockIdx.x % chunks, r = blockIdx.x / chunks;
+  const int h = r % H, b = r / H, c0 = chunk * cc, nq = cc / NV;
+  const size_t plane = (size_t)H * W;
+  const int nt = blockDim.x - 32;                                           // list threads
+  T* sg = reinterpret_cast<T*>(smem);                                       // [S * W][cc]
+  int* cum = reinterpret_cast<int*>(smem + round_up(S * W * cc * (int)sizeof(T), 16));
+  int* off = cum + S * W;
+  int* list = off + round_up(W + 1, 4);
+  const T* g = gd + ((size_t)b * S * plane + (size_t)h * W) * C + c0;      // gd[b, 0, h, 0, c0]
+  const float* smp = samples + (size_t)b * S * plane + (size_t)h * W;      // samples[b, 0, h, 0]
+  if (threadIdx.x >= nt) {
+    if (threadIdx.x == nt) {
+      for (int j = 0; j < 2; ++j)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(mma::smem_addr(bar + j)),
+                     "r"(bulk ? 1 : 32));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    if (bulk) {
+      asm volatile("bar.arrive 2, %0;\n" ::"r"(blockDim.x) : "memory");
+      if (threadIdx.x == nt) {
+        bulk_copy_planes(list, smp, plane * 4, S, W * 4, bar + 1);
+        bulk_copy_planes(sg, g, plane * C * sizeof(T), S, W * C * (int)sizeof(T), bar);
+      }
+    } else {
+      asm volatile("bar.sync 2, %0;\n" ::"r"(blockDim.x) : "memory");
+      for (int s = 0; s < S; ++s)
+        stage_rows_by<T>(sg + (size_t)s * W * cc, cc, g + s * plane * C, C, W, cc, vbg,
+                         threadIdx.x - nt, 32);
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mma::smem_addr(bar))
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < S * W; i += nt) cum[i] = 0;
+    int slot[kListLoads];
+    if (bulk) {
+      asm volatile("bar.sync 2, %0;\n" ::"r"(blockDim.x) : "memory");
+      bulk_wait(bar + 1);
+      row_targets(reinterpret_cast<const float*>(list), W, S, W, max_shift, threadIdx.x, nt,
+                  slot);
+    } else {
+      row_targets(smp, plane, S, W, max_shift, threadIdx.x, nt, slot);
+      asm volatile("bar.sync 2, %0;\n" ::"r"(blockDim.x) : "memory");
+    }
+    BWD_STAMP(1, false);
+    lists_sync(nt);                        // cum zeroed
+    BWD_STAMP(2, false);
+    build_staged_lists(slot, S, W, nt, cum, off, list);
+  }
+  __syncthreads();
+  bulk_wait(bar);
+  BWD_STAMP(7, false);
+  T* out = dright + (size_t)r * W * C + c0;                                // dright[b, h, 0, c0]
+  // lists of at most kLong entries: a thread item (u, NV channels) each,
+  // the items of one u on neighbouring lanes
+  for (int i = threadIdx.x; i < W * nq; i += blockDim.x) {
+    const int u = i / nq, c = (i - u * nq) * NV;
+    const int p0 = off[u], p1 = off[u + 1];
+    if (p1 - p0 > kLong) continue;
+    float acc[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+    for (int p = p0; p < p1; p += UF) {
+      int x[UF];
+#pragma unroll
+      for (int k = 0; k < UF; ++k) x[k] = list[p + k < p1 ? p + k : p0];
+      float v[UF][NV];
+#pragma unroll
+      for (int k = 0; k < UF; ++k) load_shared<T, NV>(sg + (size_t)x[k] * cc + c, v[k]);
+#pragma unroll
+      for (int k = 0; k < UF; ++k) {
+        if (p + k < p1) {
+#pragma unroll
+          for (int e = 0; e < NV; ++e) acc[e] += v[k][e];
+        }
+      }
+    }
+    store_run<T, NV>(out + (size_t)u * C + c, acc, vbo);
+  }
+  // longer lists (the skewed row whose every sample reads one pixel): a
+  // warp each, lane k its entries k, k + 32, ..., the lanes' sums meeting
+  // in a fixed butterfly
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int u = warp; u < W; u += nwarps) {
+    const int p0 = off[u], p1 = off[u + 1];
+    if (p1 - p0 <= kLong) continue;
+    for (int c = 0; c < cc; c += NV) {
+      float acc[NV];
+#pragma unroll
+      for (int e = 0; e < NV; ++e) acc[e] = 0.f;
+      for (int p = p0 + lane; p < p1; p += 32) {
+        float v[NV];
+        load_shared<T, NV>(sg + (size_t)list[p] * cc + c, v);
+#pragma unroll
+        for (int e = 0; e < NV; ++e) acc[e] += v[e];
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+        for (int e = 0; e < NV; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], m);
+      }
+      if (lane == 0) store_run<T, NV>(out + (size_t)u * C + c, acc, vbo);
+    }
+  }
+  BWD_STAMP(8, true);
+}
+
+// K4-bwd's list build alone, to time it beside the whole kernel: the
+// kernel's grid, threads and shared memory, each block's list threads loading
+// its row's samples and building its lists (its last warp, which copies gd
+// in the kernel, idle); the blocks of chunk 0 write the offsets to offs
+// [B * H * (W + 1)].
+__global__ void __launch_bounds__(kStagedThreads)
+gather_staged_build_kernel(const float* __restrict__ samples, int* __restrict__ offs, int H,
+                           int W, int S, int max_shift, int chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* cum = reinterpret_cast<int*>(smem);
+  int* off = cum + S * W;
+  int* list = off + round_up(W + 1, 4);
+  const int r = blockIdx.x / chunks, h = r % H, b = r / H;
+  const size_t plane = (size_t)H * W;
+  const int nt = blockDim.x - 32;                    // the kernel's list threads
+  if (threadIdx.x >= nt) return;
+  for (int i = threadIdx.x; i < S * W; i += nt) cum[i] = 0;
+  int slot[kListLoads];
+  row_targets(samples + (size_t)b * S * plane + (size_t)h * W, plane, S, W, max_shift,
+              threadIdx.x, nt, slot);
+  lists_sync(nt);
+  build_staged_lists(slot, S, W, nt, cum, off, list);
+  if (blockIdx.x % chunks == 0)
+    for (int u = threadIdx.x; u <= W; u += nt) offs[(size_t)r * (W + 1) + u] = off[u];
+}
+
+template <typename T, int NV>
+int launch_gather_backward(const void* gd, const void* samples, void* dright, int B, int H,
+                           int W, int C, int S, int max_shift, int threads, int cc, int smem,
+                           cudaStream_t stream) {
+  const uintptr_t size = sizeof(T), base = reinterpret_cast<uintptr_t>(gd);
+  const int bulk = cc == C && widest_word({W * C * size, H * W * C * size, base}) == 16 &&
+                   widest_word({W * 4u, reinterpret_cast<uintptr_t>(samples)}) == 16;
+  const int vbg = widest_word({cc * size, C * size, base});
+  const int vbo = widest_word({NV * size, C * size, cc * size,
+                               reinterpret_cast<uintptr_t>(dright)});
+  const int err = set_smem(gather_staged_kernel<T, NV>, smem);
+  if (err) return err;
+  gather_staged_kernel<T, NV><<<B * H * (C / cc), threads, smem, stream>>>(
+      static_cast<const T*>(gd), static_cast<const float*>(samples), static_cast<T*>(dright), H,
+      W, C, S, max_shift, cc, C / cc, bulk, vbg, vbo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int gather_backward_by_item(const void* gd, const void* samples, void* dright, int B, int H,
+                            int W, int C, int S, int max_shift, int threads, int cc, int item,
+                            int smem, cudaStream_t s) {
+#define STAGED_CASE(n)                                                                      \
+  case n:                                                                                   \
+    return launch_gather_backward<T, n>(gd, samples, dright, B, H, W, C, S, max_shift,    \
+                                        threads, cc, smem, s);
+  switch (item) {
+    STAGED_CASE(1)
+    STAGED_CASE(2)
+    STAGED_CASE(4)
+  }
+#undef STAGED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The plan of a K4-bwd launch, checked: threads a block (a multiple of 32,
+// at most kStagedThreads, all but the last warp holding the row's S * W
+// entries, kListLoads each), channels a chunk cc (dividing C), channels an
+// item (1, 2 or 4, dividing cc, at most 8 bytes) and shared bytes a block
+// (gather_staged_smem's).
+inline bool staged_plan_ok(int W, int C, int S, int max_shift, int dtype, int threads, int cc,
+                           int item, int smem) {
+  const int size = dtype == 0 ? 4 : 2;
+  return W >= 1 && C >= 1 && S >= 1 && max_shift >= 0 && (dtype == 0 || dtype == 1) &&
+         threads >= 64 && threads <= kStagedThreads && threads % 32 == 0 && W < 0x8000 &&
+         S * W <= kListLoads * (threads - 32) && cc >= 1 && C % cc == 0 && item >= 1 &&
+         cc % item == 0 && item * size <= 8 && smem == gather_staged_smem(W, S, cc, size);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1041,32 +1491,63 @@ int gwc_volume_from_samples(const void* left, const void* right, const void* sam
 
 // dright of gather_right_by_samples given its output's gradient gd ([B, S,
 // H, W, C], in the features' type). dtype: 0 = float32, 1 = bfloat16;
-// samples are float32. The plan (threads a block: kListThreads; shared
-// bytes a block: 4 * list_ints) comes from ops/volume.py::sample_backward_plan.
+// samples are float32. The plan (threads a block, channels a chunk and an
+// item, shared bytes a block) comes from ops/volume.py::gather_backward_plan.
 int gather_right_by_samples_backward(const void* gd, const void* samples, void* dright, int B,
                                      int H, int W, int C, int S, int max_shift, int dtype,
-                                     int threads, int smem, void* stream) {
+                                     int threads, int chunk, int item, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || H < 1 || W < 1 || W > 0xffff || C < 1 || S < 1 || S > 0x7fff ||
-      max_shift < 0 || threads != kListThreads || smem != 4 * list_ints(W, S) ||
-      (dtype != 0 && dtype != 1))
+  if (B < 1 || H < 1 || !staged_plan_ok(W, C, S, max_shift, dtype, threads, chunk, item, smem))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(H, B);
-  if (dtype == 0) {
-    const int err = set_smem(gather_backward_kernel<float>, smem);
-    if (err) return err;
-    gather_backward_kernel<float><<<grid, threads, smem, s>>>(
-        static_cast<const float*>(gd), static_cast<const float*>(samples),
-        static_cast<float*>(dright), H, W, C, S, max_shift);
-  } else {
-    const int err = set_smem(gather_backward_kernel<__nv_bfloat16>, smem);
-    if (err) return err;
-    gather_backward_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(gd), static_cast<const float*>(samples),
-        static_cast<__nv_bfloat16*>(dright), H, W, C, S, max_shift);
-  }
+  if (dtype == 0)
+    return gather_backward_by_item<float>(gd, samples, dright, B, H, W, C, S, max_shift, threads,
+                                          chunk, item, smem, s);
+  return gather_backward_by_item<__nv_bfloat16>(gd, samples, dright, B, H, W, C, S, max_shift,
+                                                threads, chunk, item, smem, s);
+}
+
+// K4-bwd's list build alone, on the plan of gather_right_by_samples_backward
+// (its grid, threads and shared bytes), writing each row's list offsets to
+// offs (int32 [B, H, W + 1]); for timing the build beside the whole kernel.
+int gather_right_by_samples_backward_build(const void* samples, void* offs, int B, int H, int W,
+                                           int C, int S, int max_shift, int dtype, int threads,
+                                           int chunk, int item, int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || !staged_plan_ok(W, C, S, max_shift, dtype, threads, chunk, item, smem))
+    return (int)cudaErrorInvalidValue;
+  const int err = set_smem(gather_staged_build_kernel, smem);
+  if (err) return err;
+  gather_staged_build_kernel<<<B * H * (C / chunk), threads, smem, s>>>(
+      static_cast<const float*>(samples), static_cast<int*>(offs), H, W, S, max_shift,
+      C / chunk);
   return (int)cudaGetLastError();
 }
+
+// K5-bwd's first kernel alone (each row's lists to `lists`, as
+// gwc_volume_from_samples_backward takes them); for timing the list build
+// beside the whole backward.
+int gwc_volume_from_samples_backward_lists(const void* samples, void* lists, int B, int H, int W,
+                                           int S, int max_shift, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || H < 1 || W < 1 || W > 0xffff || S < 1 || S > 0x7fff || max_shift < 0 ||
+      reinterpret_cast<uintptr_t>(lists) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int lsmem = 4 * list_ints(W, S);
+  const int err = set_smem(sample_lists_kernel, lsmem);
+  if (err) return err;
+  sample_lists_kernel<<<dim3(H, B), kListThreads, lsmem, s>>>(
+      static_cast<const float*>(samples), static_cast<int*>(lists), H, W, S, max_shift);
+  return (int)cudaGetLastError();
+}
+
+#ifdef SAMPLE_BWD_STAMPS
+// The first `blocks` blocks' phase stamps of the last stamped launch into
+// dst (host, 10 uint64 a block).
+int bwd_stamps_read(void* dst, int blocks) {
+  return (int)cudaMemcpyFromSymbol(dst, bwd_stamps,
+                                   (size_t)imin(blocks, kStampBlocks) * 10 * sizeof(uint64_t));
+}
+#endif
 
 // dl, dr of gwc_volume_from_samples given its output's gradient gd ([B, S,
 // H, W, G], in the features' type). dtype: 0 = float32, 1 = bfloat16;

@@ -10,6 +10,7 @@ every module of the package and use the plain PyTorch paths on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,11 +49,16 @@ SIGNATURES = {
         # threads, ng, stream
         "gwc_volume_from_samples": [_P] * 4 + [_I] * 11 + [_P],
         # grad, samples, dright, B, H, W, C, S, max_shift, dtype, threads,
-        # smem, stream
-        "gather_right_by_samples_backward": [_P] * 3 + [_I] * 9 + [_P],
+        # chunk, item, smem, stream
+        "gather_right_by_samples_backward": [_P] * 3 + [_I] * 11 + [_P],
+        # samples, offs, B, H, W, C, S, max_shift, dtype, threads, chunk,
+        # item, smem, stream: its list build alone
+        "gather_right_by_samples_backward_build": [_P] * 2 + [_I] * 11 + [_P],
         # left, right, samples, grad, lists, dl, dr, B, H, W, C, S, G,
         # max_shift, dtype, groups, smem, stream
-        "gwc_volume_from_samples_backward": [_P] * 7 + [_I] * 10 + [_P]},
+        "gwc_volume_from_samples_backward": [_P] * 7 + [_I] * 10 + [_P],
+        # samples, lists, B, H, W, S, max_shift, stream: its list build alone
+        "gwc_volume_from_samples_backward_lists": [_P] * 2 + [_I] * 5 + [_P]},
     "concat_volume": {
         # left, right, out, B, H, W, C, D, mask_left, dtype, vb, sb, tw, dr,
         # threads, stream
@@ -126,19 +132,62 @@ def build(names=tuple(SIGNATURES)) -> dict[str, str]:
     return logs
 
 
+def _load(path: Path, name: str) -> ctypes.CDLL:
+    """The library at `path`, its launch functions typed as ``csrc/<name>.cu``
+    declares them."""
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _libs:
         build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = _load(library_path(name), name)
     return _libs[name]
+
+
+def variant(name: str, tag: str, subs=(), flags=()) -> ctypes.CDLL:
+    """A copy of ``csrc/<name>.cu`` with each ``(old, new)`` of `subs`
+    replaced (each `old` must occur once), built with the port's flags and
+    `flags` into ``csrc/build/<tag>/`` beside copies of the headers, and
+    loaded like `library`'s. For phase stamps and planted faults: the
+    wrappers launch it only inside `loaded_as`."""
+    text = (CSRC / f"{name}.cu").read_text()
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{tag}: {old!r} is not in {name}.cu once")
+        text = text.replace(old, new)
+    out = BUILD_DIR / tag
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{name}.cu").write_text(text)
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
+    target = out / f"{name}.so"
+    run = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", str(target),
+                          str(out / f"{name}.cu")], capture_output=True,
+                         text=True)
+    if run.returncode:
+        raise RuntimeError(f"nvcc failed for {tag}:\n{run.stdout}{run.stderr}")
+    return _load(target, name)
+
+
+@contextlib.contextmanager
+def loaded_as(name: str, lib: ctypes.CDLL):
+    """Within it, the wrappers of ``csrc/<name>.cu`` launch `lib`'s kernels
+    (a `variant`)."""
+    old = library(name)
+    _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        _libs[name] = old
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

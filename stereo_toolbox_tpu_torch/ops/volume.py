@@ -22,8 +22,9 @@ cast.
 
 Each wrapper counts its launches, in all (``.launches``), by shape
 (``.shapes``) and by design and plan (``.designs``), the plan coming from
-`gwc_plan`, `gwc_backward_plan`, `gather_plan`, `sample_gwc_plan`,
-`sample_backward_plan`, `concat_plan` and `concat_backward_plan`.
+`gwc_plan`, `gwc_backward_plan`, `gather_plan`, `gather_backward_plan`,
+`sample_gwc_plan`, `sample_backward_plan`, `concat_plan` and
+`concat_backward_plan`.
 """
 
 from __future__ import annotations
@@ -836,21 +837,89 @@ def gather_right_by_samples_backward_reference(grad: torch.Tensor,
     return out.view(b, h, w, c).to(grad.dtype)
 
 
-SAMPLE_BWD_THREADS = 256    # threads of the K4/K5 backward kernels' blocks
+SAMPLE_BWD_THREADS = 256    # threads of K5-bwd's list-building blocks
 SAMPLE_BWD_WARPS = SAMPLE_BWD_THREADS // 32
 # bytes of a K4/K5 backward block's shared memory, at most: two blocks an SM
 # on the H100 (228 KB an SM, 1 KB of it reserved a block)
 SAMPLE_BWD_MAX_SMEM = 113 * 1024
 SAMPLE_BWD_SMEM_LIMIT = 227 * 1024   # a block's shared bytes on the H100, at most
-SAMPLE_BWD_LONG = 32        # entries of a list one K5-bwd thread walks, at most
+SAMPLE_BWD_LONG = 32        # entries of a K4/K5-bwd list one thread walks
+GATHER_BWD_THREADS = (256, 512)   # threads of a K4-bwd block, one or the other
+GATHER_BWD_LOADS = 20       # entries of its row a list thread holds, at most
+# channels of a K4-bwd thread item: the kernel's compile-time counts
+GATHER_BWD_ITEMS = (4, 2, 1)
+GATHER_BWD_ITEM_BYTES = 8   # bytes of a K4-bwd thread item, at most
+
+
+class GatherBackwardPlan(NamedTuple):
+    """How the K4 backward kernel ("staged") cuts a launch: threads a block
+    `threads`, channels a block `chunk` (dividing C), channels a thread
+    item `item` (dividing `chunk`), shared bytes a block `smem` (see
+    ``csrc/sample_gather.cu``)."""
+    threads: int
+    chunk: int
+    item: int
+    smem: int
+
+
+def gather_backward_smem(w: int, s: int, chunk: int, size: int) -> int:
+    """Shared bytes of a K4-bwd block: gd ``[S * W][chunk]`` of `size`-byte
+    values padded to 16 bytes, then the row's lists, 4 bytes an int: a
+    cursor of each (sample, pixel) ``[S * W]``, the W + 1 offsets padded to
+    16 bytes and the entries ``[S * W]``."""
+    return (-(-s * w * chunk * size // 16) * 16
+            + 4 * (2 * s * w + -(-(w + 1) // 4) * 4))
+
+
+def gather_backward_item(chunk: int, size: int) -> int:
+    """Channels of a K4-bwd thread item: the most of `GATHER_BWD_ITEMS`
+    that divide `chunk` within `GATHER_BWD_ITEM_BYTES` (2 float32 or 4
+    bfloat16 at CFNet's 1/4 stage, 2 of either at its 1/2 stage: the items
+    of a pixel on neighbouring lanes, one 4- or 8-byte load an entry)."""
+    return next(n for n in GATHER_BWD_ITEMS
+                if chunk % n == 0 and n * size <= GATHER_BWD_ITEM_BYTES)
+
+
+def gather_backward_plan(w: int, s: int, c: int,
+                         dtype: torch.dtype) -> GatherBackwardPlan:
+    """The K4 backward kernel's plan for rows of `w` pixels, `s` samples and
+    `c` channels of `dtype`. A block owns a row and a chunk of its
+    channels, the most channels that divide C whose block fits
+    `SAMPLE_BWD_MAX_SMEM` (two blocks an SM): every channel at both of
+    CFNet's stages in both types (112.5 and 97 KB a block in float32).
+    Where none does, the most that fit one block an SM
+    (`SAMPLE_BWD_SMEM_LIMIT`). Its threads: a warp that copies and the
+    threads that build the lists, the fewer of `GATHER_BWD_THREADS` where its
+    list threads number the row's pixels (one a thread for the scan) and hold
+    its S * W entries (`GATHER_BWD_LOADS` a thread), else the more: 256 at
+    CFNet's 1/4 stage (W 128), 512 at its 1/2 stage (W 256), where they
+    took 0.0338 / 0.0307 ms against 0.0388 / 0.0338 in float32 / bfloat16
+    on the H100."""
+    lo, hi = GATHER_BWD_THREADS
+    need = max(w, -(-s * w // GATHER_BWD_LOADS))    # list threads
+    threads = lo if need <= lo - 32 else hi
+    if -(-s * w // GATHER_BWD_LOADS) > hi - 32:
+        raise ValueError(f"no K4 backward plan for rows of W={w}, S={s}: "
+                         f"{s * w} entries a row, more than {hi - 32} "
+                         f"list threads hold")
+    size = 4 if dtype == torch.float32 else 2
+    chunks = [n for n in range(c, 0, -1) if c % n == 0]
+    for cap in (SAMPLE_BWD_MAX_SMEM, SAMPLE_BWD_SMEM_LIMIT):
+        for chunk in chunks:
+            smem = gather_backward_smem(w, s, chunk, size)
+            if smem <= cap:
+                return GatherBackwardPlan(threads, chunk,
+                                          gather_backward_item(chunk, size),
+                                          smem)
+    raise ValueError(f"no K4 backward plan for rows of W={w}, S={s}: "
+                     f"{gather_backward_smem(w, s, 1, size)} shared bytes")
 
 
 class SampleBackwardPlan(NamedTuple):
-    """How the K4 and K5 backward kernels cut a launch: threads a block
-    `threads`, shared bytes `smem` of a block that builds a row's lists
-    (K4-bwd's block, K5-bwd's first kernel), and K5-bwd's groups a chunk
-    `groups` and shared bytes `chunk_smem` of its (row, chunk) blocks (see
-    ``csrc/sample_gather.cu``)."""
+    """How the K5 backward kernels cut a launch: threads `threads` and
+    shared bytes `smem` of a block of the first kernel, which builds a
+    row's lists, and groups a chunk `groups` and shared bytes `chunk_smem`
+    of the second's (row, chunk) blocks (see ``csrc/sample_gather.cu``)."""
     threads: int
     smem: int
     groups: int
@@ -896,9 +965,9 @@ def sample_chunk_smem(w: int, s: int, cpg: int, gc: int, size: int) -> int:
 
 def sample_backward_plan(w: int, s: int, g: int, cpg: int,
                          dtype: torch.dtype) -> SampleBackwardPlan:
-    """The K4/K5 backward kernels' plan for rows of `w` pixels and `s`
-    samples, K5's features in `g` groups of `cpg` channels of `dtype` (K4
-    takes every channel of a row: pass g = cpg = 1). A block of
+    """The K5 backward kernels' plan for rows of `w` pixels and `s`
+    samples, the features in `g` groups of `cpg` channels of `dtype`. A
+    block of
     `SAMPLE_BWD_THREADS` builds a row's lists in shared memory
     (`sample_list_ints`). K5-bwd's blocks take a row and a chunk of
     groups: the first of G, then the multiples of 16 bytes of groups and
@@ -911,7 +980,7 @@ def sample_backward_plan(w: int, s: int, g: int, cpg: int,
     size = 4 if dtype == torch.float32 else 2
     smem = 4 * sample_list_ints(w, s)
     if smem > SAMPLE_BWD_MAX_SMEM or w > 0xFFFF or s > 0x7FFF:
-        raise ValueError(f"no K4/K5 backward plan for rows of W={w}, S={s}: "
+        raise ValueError(f"no K5 backward plan for rows of W={w}, S={s}: "
                          f"{smem} shared bytes")
     ngi = sample_item_groups(cpg, size)
     unit = math.lcm(16 // size, ngi)
@@ -944,9 +1013,10 @@ def gather_right_by_samples_backward(grad: torch.Tensor,
 
     CPU tensors take `gather_right_by_samples_backward_reference`; CUDA
     tensors launch the backward kernel (the forward's types; `grad`
-    contiguous), cut as `sample_backward_plan` says, or raise. Each right
-    pixel's gradient is summed by one thread in a fixed order, without
-    atomics: the same inputs give the same bits in every run.
+    contiguous), cut as `gather_backward_plan` says, or raise. Each right
+    pixel's gradient is summed in a fixed order (by one thread, or by the
+    lanes of a warp and a fixed butterfly), without atomics on data: the
+    same inputs give the same bits in every run.
     """
     if _cuda.on_cpu(grad):
         return gather_right_by_samples_backward_reference(grad, samples,
@@ -967,21 +1037,22 @@ def _launch_gather_backward(grad: torch.Tensor, samples: torch.Tensor,
     code = _cuda.dtype_code(grad)
     if right.numel() == 0:
         return right
-    plan = sample_backward_plan(w, s, 1, 1, grad.dtype)
+    plan = gather_backward_plan(w, s, c, grad.dtype)
     lib = _cuda.library("sample_gather")
     with torch.cuda.device(grad.device):
         rc = lib.gather_right_by_samples_backward(
             grad.data_ptr(), samples.data_ptr(), right.data_ptr(), b, h, w, c,
-            s, max_shift, code, *plan[:2], _cuda.stream_of(grad))
+            s, max_shift, code, *plan, _cuda.stream_of(grad))
     _cuda.check(lib, rc, "gather_right_by_samples_backward")
     gather_right_by_samples_backward.launches += 1
     gather_right_by_samples_backward.shapes[(b, h, w, c, s, max_shift)] += 1
-    gather_right_by_samples_backward.designs[("sort", plan.threads)] += 1
+    gather_right_by_samples_backward.designs[
+        ("staged", plan.chunk, plan.item, plan.threads)] += 1
     return right
 
 
 # launches of the backward kernel, in all, by (B, H, W, C, S, max_shift) and
-# by design ("sort", threads a block)
+# by design ("staged", channels a chunk, channels an item, threads a block)
 gather_right_by_samples_backward.launches = 0
 gather_right_by_samples_backward.shapes = Counter()
 gather_right_by_samples_backward.designs = Counter()

@@ -369,3 +369,28 @@ def test_library_path_hashes_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edited\n')
     assert len({first, second, third, _cuda.library_path("k")}) == 4
     assert first.name.startswith("k-") and first.suffix == ".so"
+
+
+def test_variant_needs_each_edit_once_in_the_source(tmp_path, monkeypatch):
+    """An edited copy of a source (`_cuda.variant`, for phase stamps and
+    planted faults) is refused before anything is written or compiled
+    where a text it replaces is missing or occurs twice."""
+    (tmp_path / "k.cu").write_text("a;\nb;\nb;\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    for old in ("c;", "b;"):
+        with pytest.raises(RuntimeError, match="not in k.cu once"):
+            _cuda.variant("k", "edited", subs=((old, "x;"),))
+    assert not (tmp_path / "build").exists()
+
+
+def test_loaded_as_puts_the_library_back(monkeypatch):
+    """The wrappers launch a variant's kernels only inside `loaded_as`,
+    and the library they loaded before once it ends, also on an error."""
+    monkeypatch.setattr(_cuda, "_libs", {"k": "built"})
+    with _cuda.loaded_as("k", "variant"):
+        assert _cuda.library("k") == "variant"
+    with pytest.raises(ValueError):
+        with _cuda.loaded_as("k", "variant"):
+            raise ValueError
+    assert _cuda.library("k") == "built"

@@ -200,7 +200,7 @@ GATHER_BWD_CASES = [(4, 3, 128, 12, 16, 48), (4, 3, 256, 6, 12, 96),
                                        (torch.bfloat16, 1e-2)])
 def test_gather_backward_kernel_matches_plain(dev, b, h, w, c, s, max_shift,
                                               dtype, rel):
-    """K4's backward ("sort") against its plain version and torch.autograd
+    """K4's backward ("staged") against its plain version and torch.autograd
     of the plain gather, within rel · max|ref|; the same bits twice."""
     gen = torch.Generator().manual_seed(12)
     samples = _backward_samples(dev, b, s, h, w, max_shift, gen)

@@ -14,9 +14,11 @@ at shifted pixels, each warp's m16 x n8 fragments into the staged sums and
 the epilogue's masked stores of 8 channels;
 K3: the tap partials of each staged plane and the 27-point stencil
 over them, with rolling output planes; K4: a thread's (pixel, word) items
-over its run of samples; K5: a thread's (pixel, slot) items over the
-samples; K6: a thread's vectors over the flat output row, stepped without
-division, over a run of planes). The walks below follow
+over its run of samples; K4's backward: a row's lists built by atomics
+and sorted, and a thread's (pixel, channels) items walking them, or a
+warp's lanes for a long list; K5: a thread's (pixel, slot) items over
+the samples; K6: a thread's vectors over the flat output row, stepped
+without division, over a run of planes). The walks below follow
 ``csrc/gwc_volume.cu``, ``csrc/conv3d_fused.cu``, ``csrc/conv3d.cu``,
 ``csrc/sample_gather.cu`` and ``csrc/concat_volume.cu`` block by block, index by index, on the plans the
 wrappers compute, and must give the plain versions' output on every voxel,
@@ -40,9 +42,13 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (STENCIL_MAX_SMEM,
 from stereo_toolbox_tpu_torch.ops.volume import (
     CONCAT_MAX_SMEM, CONCAT_THREADS, GATHER_ITEMS_PER_SM, GATHER_THREADS,
     GWC_BWD_MAX_SMEM, GWC_BWD_ROW_ALIGN, GWC_BWD_THREADS, GWC_MAX_SMEM,
-    GWC_TILE_W,
-    SAMPLE_BWD_LONG, SAMPLE_BWD_THREADS, SAMPLE_GWC_THREADS, _skipped,
-    concat_plan, concat_smem, concat_volume_reference, gather_plan,
+    GATHER_BWD_ITEM_BYTES, GATHER_BWD_ITEMS, GATHER_BWD_LOADS,
+    GATHER_BWD_THREADS, GWC_TILE_W,
+    SAMPLE_BWD_LONG, SAMPLE_BWD_MAX_SMEM, SAMPLE_BWD_SMEM_LIMIT,
+    SAMPLE_BWD_THREADS, SAMPLE_GWC_THREADS, _skipped,
+    concat_plan, concat_smem, concat_volume_reference, gather_backward_plan,
+    gather_backward_smem, gather_plan,
+    gather_right_by_samples_backward_reference,
     gather_right_by_samples_reference, gwc_backward_plan, gwc_backward_smem,
     gwc_backward_tiles, gwc_plan, gwc_strip, gwc_volume_backward_reference,
     gwc_volume_from_samples_backward_reference,
@@ -965,6 +971,174 @@ def test_sample_gwc_backward_kernel_walk_matches_plain(b, h, w, c, s, g, ms,
     assert (writes[0] == 1).all() and (writes[1] == 1).all()
     for got_t, want_t in zip(got, want):
         np.testing.assert_allclose(got_t, want_t.numpy(), rtol=0, atol=1e-12)
+
+
+def walk_build_staged_lists(smp, max_shift, rng):
+    """K4 backward's list build (``build_staged_lists`` in the source) on
+    one row's samples ``[S, W]``, in numpy: each (s, u)'s count of entries,
+    each u's prefix over s and the offsets (an exclusive scan of the
+    totals); each entry placed at its (s, u)'s start + its arrival among
+    them, in an order of the scheduler's (here `rng`'s), then each (s, u)
+    of two or more entries sorted. Returns the W + 1 offsets and the
+    entries (s * W + w)."""
+    s_num, w_num = smp.shape
+    d = _shifts(smp, max_shift)
+    u = np.where(d <= np.arange(w_num), np.arange(w_num) - d, -1)   # [S, W]
+    s, w = np.nonzero(u >= 0)
+    cnt = np.zeros((s_num, w_num), np.int64)
+    np.add.at(cnt, (s, u[s, w]), 1)
+    start = np.cumsum(cnt, axis=0) - cnt             # each u's prefix over s
+    off = np.concatenate([[0], np.cumsum(cnt.sum(0))])
+    entries = np.full(off[-1], -1, np.int64)
+    arrived = np.zeros((s_num, w_num), np.int64)
+    for k in rng.permutation(len(s)):                 # atomicAdd's order
+        x = u[s[k], w[k]]
+        entries[off[x] + start[s[k], x] + arrived[s[k], x]] = (
+            s[k] * w_num + w[k])
+        arrived[s[k], x] += 1
+    for sk, x in zip(*np.nonzero(cnt >= 2)):          # sort each (s, u)
+        lo = off[x] + start[sk, x]
+        entries[lo:lo + cnt[sk, x]].sort()
+    return off, entries
+
+
+def walk_gather_backward(gd, samples, max_shift, plan, size, rng):
+    """K4 backward's "staged" design in numpy (float64): each (row, chunk
+    of `plan.chunk` channels) block's lists (`walk_build_staged_lists`) and
+    staged gd, then its thread items (pixel u, `plan.item` channels), each
+    summing u's list in order, for lists of at most `SAMPLE_BWD_LONG`
+    entries; a longer list a warp's, lane k summing its entries k, k + 32,
+    ... and the lanes meeting in a butterfly. Returns dright (NaN where not
+    written) and the count of writes of each value."""
+    b_num, s_num, h_num, w_num, c = gd.shape
+    chunk, item = plan.chunk, plan.item
+    assert plan.smem == gather_backward_smem(w_num, s_num, chunk, size)
+    out = np.full((b_num, h_num, w_num, c), np.nan)
+    writes = np.zeros(out.shape, np.int64)
+    d = _shifts(samples, max_shift)                          # [B, S, H, W]
+    for b in range(b_num):
+        for h in range(h_num):
+            off, entries = walk_build_staged_lists(samples[b, :, h],
+                                                   max_shift, rng)
+            # each u's list: its (s, w) with w - d = u, in (s, w) order
+            ss, ww = np.divmod(entries, w_num)
+            uu = np.repeat(np.arange(w_num), np.diff(off))
+            assert (ww - d[b, ss, h, ww] == uu).all()
+            assert (np.diff(entries) > 0)[np.diff(uu) == 0].all()
+            assert off[-1] == (d[b, :, h] <= np.arange(w_num)).sum()
+            lens = np.diff(off)
+            for c0 in range(0, c, chunk):
+                sg = gd[b, :, h, :, c0:c0 + chunk].reshape(-1, chunk)
+                short = np.nonzero(lens <= SAMPLE_BWD_LONG)[0]
+                acc = np.zeros((len(short), chunk))
+                for p in range(int(lens[short].max(initial=0))):
+                    on = p < lens[short]
+                    acc[on] += sg[entries[off[short[on]] + p]]
+                for q in range(chunk // item):               # the items
+                    cols = slice(c0 + q * item, c0 + (q + 1) * item)
+                    out[b, h, short, cols] = acc[:, q * item:(q + 1) * item]
+                    writes[b, h, short, cols] += 1
+                for u in np.nonzero(lens > SAMPLE_BWD_LONG)[0]:
+                    e = entries[off[u]:off[u + 1]]
+                    lane = np.zeros((32, chunk))
+                    for k in range(32):
+                        for t in e[k::32]:
+                            lane[k] += sg[t]
+                    for m in (16, 8, 4, 2, 1):
+                        lane = lane + lane[np.arange(32) ^ m]
+                    for q in range(chunk // item):
+                        cols = slice(c0 + q * item, c0 + (q + 1) * item)
+                        out[b, h, u, cols] = lane[0, q * item:(q + 1) * item]
+                        writes[b, h, u, cols] += 1
+    return out, writes
+
+
+# (b, h, w, c, s, max_shift): W not a multiple of 32, C 12, 5, 1 and 6, S =
+# 1, max_shift past W; CFNet's s3 and s2 widths at two rows; rows of 800
+# pixels (chunks of 3 float32 channels, one bfloat16 channel)
+GATHER_BWD_WALK_CASES = [(2, 3, 45, 12, 7, 20), (1, 3, 70, 5, 1, 9),
+                         (1, 2, 40, 1, 3, 200), (2, 2, 19, 6, 4, 25),
+                         (1, 2, 128, 12, 16, 48), (1, 2, 256, 6, 12, 96),
+                         (1, 2, 800, 6, 12, 96)]
+
+
+@pytest.mark.parametrize("b,h,w,c,s,ms", GATHER_BWD_WALK_CASES)
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gather_backward_kernel_walk_matches_plain(b, h, w, c, s, ms, dtype):
+    """K4 backward's lists in (s, w) order whatever order the atomics place
+    their entries in, and every dright value written once, equal to the
+    plain backward, on the plan the wrapper makes, with samples at 0, at
+    max_shift and past both clamps (and the image's left edge), fractions,
+    a NaN, and a row whose every sample reads one right pixel wherever it
+    can (one list of S x min(W, ms + 1) entries, a warp's)."""
+    rng = np.random.RandomState(5)
+    gd = rng.randn(b, s, h, w, c)
+    samples = rng.randint(-3, ms + 5, (b, s, h, w)).astype(np.float32)
+    samples[0, 0, 0, -1] = np.nan
+    samples[-1, -1] += 0.5
+    samples[0, :, 1] = np.arange(w)
+    size = 4 if dtype == F32 else 2
+    plan = gather_backward_plan(w, s, c, dtype)
+    got, writes = walk_gather_backward(gd, samples, ms, plan, size, rng)
+    want = gather_right_by_samples_backward_reference(
+        torch.from_numpy(gd),
+        torch.from_numpy(np.nan_to_num(samples, nan=0.0)), ms)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gather_backward_plan_at_cfnets_shapes(dtype):
+    """CFNet's two K4-bwd train launches, rows (W, S, C): every channel a
+    block, whose shared memory fits two blocks an SM (1 KB of the SM's 228
+    KB reserved a block; 112.5 KB a block at the 1/4 stage in float32);
+    256 threads at the 1/4 stage, 512 (one list thread a pixel) at the 1/2."""
+    for (w, s, c), threads in (((128, 16, 12), 256), ((256, 12, 6), 512)):
+        plan = gather_backward_plan(w, s, c, dtype)
+        assert plan.chunk == c and plan.threads == threads
+        assert 2 * (plan.smem + 1024) <= 228 * 1024
+
+
+# (w, s, c): CFNet's stages in training and eval, rows of 800 pixels (a
+# chunk fits one block an SM only in float32), odd and prime C, C 32
+@pytest.mark.parametrize("w,s,c", [(128, 16, 12), (256, 12, 6), (160, 16, 12),
+                                   (320, 12, 6), (800, 12, 6), (45, 7, 5),
+                                   (70, 1, 7), (96, 8, 32)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_gather_backward_plan_fits_the_kernel(w, s, c, dtype):
+    """The K4-bwd plan: a chunk dividing C, the largest whose block fits two
+    blocks an SM, or where none does one block an SM; an item of the
+    kernel's compile-time counts dividing the chunk within
+    `GATHER_BWD_ITEM_BYTES`; the fewer threads of `GATHER_BWD_THREADS`
+    where their list threads (all but the copying warp) number the row's
+    pixels and hold its entries, `GATHER_BWD_LOADS` each, else the
+    more."""
+    size = 4 if dtype == F32 else 2
+    plan = gather_backward_plan(w, s, c, dtype)
+    lo, hi = GATHER_BWD_THREADS
+    assert plan.threads in (lo, hi)
+    assert (plan.threads - 32) * GATHER_BWD_LOADS >= s * w
+    fits = w <= lo - 32 and (lo - 32) * GATHER_BWD_LOADS >= s * w
+    assert plan.threads == (lo if fits else hi)
+    assert c % plan.chunk == 0 and plan.chunk % plan.item == 0
+    assert plan.item == max(n for n in GATHER_BWD_ITEMS if plan.chunk % n == 0
+                            and n * size <= GATHER_BWD_ITEM_BYTES)
+    assert plan.smem == gather_backward_smem(w, s, plan.chunk, size)
+    cap = (SAMPLE_BWD_MAX_SMEM if plan.smem <= SAMPLE_BWD_MAX_SMEM
+           else SAMPLE_BWD_SMEM_LIMIT)
+    if cap == SAMPLE_BWD_SMEM_LIMIT:
+        assert gather_backward_smem(w, s, 1, size) > SAMPLE_BWD_MAX_SMEM
+    assert plan.smem <= cap
+    assert all(gather_backward_smem(w, s, n, size) > cap
+               for n in range(plan.chunk + 1, c + 1) if c % n == 0)
+
+
+@pytest.mark.parametrize("w,s", [(4000, 4), (700, 16)])
+def test_gather_backward_plan_refuses_rows_past_the_block(w, s):
+    """A row whose entries pass what a block's list threads hold (its lists
+    and one channel then fit the shared memory whatever the row)."""
+    with pytest.raises(ValueError, match="no K4 backward plan"):
+        gather_backward_plan(w, s, 12, torch.float32)
 
 
 def walk_concat(left, right, d_max, mask_left, plan, size):
