@@ -91,14 +91,32 @@ no result line):
     GwcNet_GC and ACVNet K1 and K6; CFNet K1 and K6 x3, K4 and K5 x2;
     PSMNet: no kernel of the port); then 12 steps on one fixed 256x512, B 2
     batch (lr 1e-3, clip 1.0) whose losses must be finite and fall below
-    0.9 x the first; each backward kernel timed at its train launches
-    beside its plain version and ``torch.autograd`` of the plain forward
+    0.9 x the first; then the same three in bfloat16 (JAX's ``--bf16``:
+    the float32 model's parameters are the masters, each step computes on a
+    bfloat16 view of them, ``make_train_step(..., dtype=torch.bfloat16)``):
+    the card's bfloat16 step against the CPU's at 64x128, B 2 (also
+    ACVNet's ``freeze_attn_weights`` and ``attn_weights_only``), held by
+    the loss (its pixels' terms), each head, the running statistics and the
+    gradients of the
+    groups whose CPU float32 gradient is stable under a 1e-3 input
+    perturbation, each within 2x the CPU's own bfloat16-vs-float32
+    distance, by the dtypes of every conv, linear and BatchNorm call
+    (equal to the CPU's), and by each backward kernel launch of the step
+    against its plain version on the same arguments; its launches by shape
+    the check mix, each kernel on its design and on bfloat16 data; the
+    full-size steps (TRAIN_STEPS[BF16] timed) and the overfit likewise;
+    each backward kernel timed at its train launches beside its plain
+    version and ``torch.autograd`` of the plain forward, in both types
     (K4-bwd and K5-bwd also their list builds alone);
-15. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
+15. run the four disparity estimators on the card and on the CPU on one
+    probability volume (the softmax of GwcNet_G's upsampled ``classif3``
+    costs, [1, 192, 480, 640]): the argmax, the mode bounds and the modal
+    mask the same, the soft estimators within 1e-5 x max_disp;
+16. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
-16. print one ``{"forward": {...}}``, one ``{"train": {...}}`` and one
-    ``{"kernels": [...]}`` line;
-17. print ``{"ok": true, "device": {...}}`` as the last line.
+17. print one ``{"forward": {...}}``, one ``{"train": {...}}``, one
+    ``{"estimators": {...}}`` and one ``{"kernels": [...]}`` line;
+18. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -120,12 +138,17 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this script "
              "needs an NVIDIA GPU")
 
+from stereo_toolbox_tpu_torch import losses as port_losses  # noqa: E402
+from stereo_toolbox_tpu_torch import metrics as port_metrics  # noqa: E402
 from stereo_toolbox_tpu_torch import nn as port_nn  # noqa: E402
+from stereo_toolbox_tpu_torch import (  # noqa: E402
+    disparity_estimators as estimators)
 from stereo_toolbox_tpu_torch.datasets import (  # noqa: E402
     DataLoader, SyntheticStereoDataset)
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
+from stereo_toolbox_tpu_torch.ops import volume as port_volume  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.attention import (  # noqa: E402
     attention, attention_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d import (  # noqa: E402
@@ -133,6 +156,8 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
     PackedConv3dWeight, conv3d_fused, conv3d_fused_reference,
     pack_conv3d_weight)
+from stereo_toolbox_tpu_torch.ops.upsample import (  # noqa: E402
+    interpolate as port_interpolate)
 from stereo_toolbox_tpu_torch.ops.volume import (  # noqa: E402
     build_concat_volume, build_gwc_volume, concat_volume_backward,
     concat_volume_backward_reference, concat_volume_reference,
@@ -304,15 +329,18 @@ TRAIN_MODELS = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet")
 TRAIN_H, TRAIN_W, TRAIN_B = 256, 512, 4
 TRAIN_CHECK_H, TRAIN_CHECK_W, TRAIN_CHECK_B = 64, 128, 2
 OVERFIT_B, OVERFIT_STEPS = 2, 12
-TRAIN_STEPS, TRAIN_WARMUP = 5, 1
+TRAIN_STEPS, TRAIN_WARMUP = {F32: 5, BF16: 5}, 1
 # CFNet's nine heads take the sequence loss (the multi-head weights are
 # four), as JAX's own CFNet gradient check does
 TRAIN_LOSS = {"CFNet": "sequence"}
 
 
-def train_mix(name, b, h, w) -> dict:
+def train_mix(name, b, h, w, mode=None) -> dict:
     """The launches by tag and shape of one train step of `name` on a
-    ``[b, h, w, 3]`` batch (shapes keyed as the wrappers count them)."""
+    ``[b, h, w, 3]`` batch (shapes keyed as the wrappers count them); for
+    ACVNet's staged `mode`, ``freeze_attn_weights`` launches no K1 backward
+    (the attention branch gets no gradient) and ``attn_weights_only`` no K6
+    (no main branch)."""
     g, c4, h4, w4 = 40, 320, h // 4, w // 4
     fwd = {}
     if name in ("GwcNet_G", "GwcNet_GC", "ACVNet"):
@@ -331,7 +359,12 @@ def train_mix(name, b, h, w) -> dict:
                      (b, h // 2, w // 2, 6, 12, MAX_DISP // 2): 1}
         fwd["K5"] = {(b, h4, w4, 160, 16, 40, MAX_DISP // 4): 1,
                      (b, h // 2, w // 2, 80, 12, 20, MAX_DISP // 2): 1}
-    return {**fwd, **{f"{tag}-bwd": mix for tag, mix in fwd.items()}}
+    if mode == "attn_weights_only":
+        del fwd["K6"]
+    bwd = {f"{tag}-bwd": mix for tag, mix in fwd.items()}
+    if mode == "freeze_attn_weights":
+        del bwd["K1-bwd"]
+    return {**fwd, **bwd}
 
 
 TRAIN_MIXES = {name: train_mix(name, TRAIN_B, TRAIN_H, TRAIN_W)
@@ -354,6 +387,30 @@ TRAIN_CHECK_MIXES = {name: train_mix(name, TRAIN_CHECK_B, TRAIN_CHECK_H,
 # limits.
 TRAIN_REL = 1e-4
 TRAIN_GRAD = {"default": (3e-2, 0.2), "CFNet": (5e-3, 5e-2)}
+# bfloat16 train steps (JAX's --bf16: float32 masters, the forward on a
+# bfloat16 view of them) of the same five models, and ACVNet's two staged
+# modes at the card-vs-CPU check. At init a train-mode BatchNorm trunk
+# amplifies every rounding in its backward, so the bfloat16 step is held by
+# its well-conditioned readings, each within BF16_FACTOR x the CPU's own
+# bfloat16-vs-float32 distance on the same batch (the CPU port's bfloat16
+# step is held likewise against JAX's, tests/test_torch_train_bf16_*.py):
+# the loss (by its pixels' terms, `loss_terms`), each head, the running
+# statistics, and the gradient of each
+# group (a top-level module) whose CPU float32 gradient moves less than
+# STABLE under a PERTURBATION of the left image; and the dtypes every
+# conv, linear and BatchNorm module computes with, exactly.
+BF16_FACTOR, PERTURBATION, STABLE = 2.0, 1e-3, 0.1
+BF16_MODES = {"freeze_attn_weights": (0.5, 0.7, 1.0),
+              "attn_weights_only": (1.0,)}
+AUDITED = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose3d,
+           torch.nn.Linear, torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)
+# the volume kernels' launchers, whose data type a train step records
+LAUNCHERS = {"K1": "_launch_gwc_volume", "K1-bwd": "_launch_gwc_backward",
+             "K6": "_launch_concat_volume",
+             "K6-bwd": "_launch_concat_backward", "K4": "_launch_gather",
+             "K4-bwd": "_launch_gather_backward",
+             "K5": "_launch_gwc_samples",
+             "K5-bwd": "_launch_gwc_samples_backward"}
 
 MIXES = {
     "GwcNet_G": {"K1": K1_MIX, "K2": K2_MIX, "K3": K3_MIX},
@@ -1512,11 +1569,14 @@ class GradRecorder:
     count = 0
 
     def step(self, grads):
+        self.dtypes = [g.dtype for g in grads]
         self.grads = [g.detach().float().cpu() for g in grads]
 
 
 def bn_buffers(model) -> dict:
-    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+    """A copy of the model's running statistics, float32 on the CPU."""
+    return {k: v.detach().float().cpu().clone()
+            for k, v in model.state_dict().items()
             if k.endswith(("running_mean", "running_var"))}
 
 
@@ -1608,19 +1668,21 @@ def train_card_vs_cpu(name) -> dict:
     return row
 
 
-def train_full_size(name) -> tuple[dict, dict]:
-    """make_train_step at 256x512, B 4, on batches of the port's
+def train_full_size(name, dtype=F32) -> tuple[dict, dict]:
+    """make_train_step in `dtype` at 256x512, B 4, on batches of the port's
     DataLoader (moved from pinned memory): TRAIN_WARMUP warm steps, then
-    TRAIN_STEPS timed ones (host clock around the step and a synchronize),
-    each step's launches by shape required to be TRAIN_MIXES[name]; the
+    TRAIN_STEPS[dtype] timed ones (host clock around the step and a
+    synchronize), each step's launches by shape required to be
+    TRAIN_MIXES[name], each kernel on its design and on `dtype` data; the
     peak memory of the timed steps."""
     model = create_model(name, max_disp=MAX_DISP,
                          generator=torch.Generator().manual_seed(0))
+    steps = TRAIN_STEPS[dtype]
     loader = synthetic_loader(TRAIN_H, TRAIN_W, TRAIN_B,
-                              TRAIN_WARMUP + TRAIN_STEPS, seed=6)
+                              TRAIN_WARMUP + steps, seed=6)
     config = train_config(name)
-    state = init_train_state(model, config, len(loader))
-    step = make_train_step(model, config)
+    state = init_train_state(model, config, len(loader), dtype)
+    step = make_train_step(model, config, dtype)
     want = {tag: Counter(TRAIN_MIXES[name].get(tag, {})) for tag in KERNELS}
     times, losses = [], []
     for i, batch in enumerate(loader):
@@ -1629,14 +1691,15 @@ def train_full_size(name) -> tuple[dict, dict]:
         if i == TRAIN_WARMUP:
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        t0 = time.perf_counter()
-        state, loss = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        shapes = {tag: Counter(fn.shapes) for tag, (fn, *_) in
-                  KERNELS.items()}
-        require(shapes == want, f"{name} train step {i} launches by shape "
-                                f"{shapes} differ from {want}")
+        with launch_dtypes() as seen:
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        _, problems = train_launches(
+            f"{name} {DTYPE_NAME[dtype]} train step {i}", TRAIN_MIXES[name],
+            dtype, seen.seen)
+        require(not problems, "; ".join(problems))
         losses.append(loss.item())
     peak = torch.cuda.max_memory_allocated()
     designs = {tag: designs_of(tag) for tag in TRAIN_MIXES[name]}
@@ -1649,7 +1712,8 @@ def train_full_size(name) -> tuple[dict, dict]:
         families[kernel_family(key)] += ms
     timed = sorted(times[TRAIN_WARMUP:])
     row = {"shape": [TRAIN_B, TRAIN_H, TRAIN_W, 3], "max_disp": MAX_DISP,
-           "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "dtype": DTYPE_NAME[dtype], "warmup": TRAIN_WARMUP,
+           "steps": steps,
            "step_ms_median": timed[len(timed) // 2], "step_ms": times,
            "peak_mib": peak / 2**20, "losses": losses,
            "launches_per_step": {tag: {str(k): n for k, n in c.items()}
@@ -1657,8 +1721,9 @@ def train_full_size(name) -> tuple[dict, dict]:
            "designs_last_step": designs,
            "traced_step_families_ms": dict(families) or None,
            "traced_step_launches": sum(n for _, n in kernels.values())}
-    print(f"  {name} train {TRAIN_H}x{TRAIN_W} B {TRAIN_B} f32: median step "
-          f"{row['step_ms_median']:.1f} ms over {TRAIN_STEPS} (all "
+    print(f"  {name} train {TRAIN_H}x{TRAIN_W} B {TRAIN_B} "
+          f"{DTYPE_NAME[dtype]}: median step "
+          f"{row['step_ms_median']:.1f} ms over {steps} (all "
           + ", ".join(f"{t:.1f}" for t in times) + f" ms), peak "
           f"{row['peak_mib']:.1f} MiB, losses "
           + ", ".join(f"{v:.3f}" for v in losses) + "; launches a step: "
@@ -1680,42 +1745,426 @@ def train_full_size(name) -> tuple[dict, dict]:
     return row, want
 
 
-def train_overfit(name) -> dict:
-    """OVERFIT_STEPS steps on one fixed 256x512 batch of OVERFIT_B with the
-    configuration of the JAX package's overfit test (lr 1e-3, the multi-head
-    loss (CFNet: the sequence loss), clip 1.0, 30 scheduled steps): every
-    loss finite and the last below 0.9 x the first."""
+def train_overfit(name, dtype=F32) -> dict:
+    """OVERFIT_STEPS steps in `dtype` on one fixed 256x512 batch of
+    OVERFIT_B with the configuration of the JAX package's overfit test (lr
+    1e-3, the multi-head loss (CFNet: the sequence loss), clip 1.0, 30
+    scheduled steps): every loss finite and the last below 0.9 x the
+    first."""
     model = create_model(name, max_disp=MAX_DISP,
                          generator=torch.Generator().manual_seed(0))
     config = train_config(name, lr=1e-3, clip_grad=1.0)
-    state = init_train_state(model, config, 30)
-    step = make_train_step(model, config)
+    state = init_train_state(model, config, 30, dtype)
+    step = make_train_step(model, config, dtype)
     batch = to_device(next(iter(synthetic_loader(
         TRAIN_H, TRAIN_W, OVERFIT_B, 1, seed=7, workers=0))), DEV)
     losses = []
     for _ in range(OVERFIT_STEPS):
         state, loss = step(state, batch)
         losses.append(loss.item())
-    print(f"  {name} overfit {TRAIN_H}x{TRAIN_W} B {OVERFIT_B}: losses "
+    print(f"  {name} overfit {TRAIN_H}x{TRAIN_W} B {OVERFIT_B} "
+          f"{DTYPE_NAME[dtype]}: losses "
           + ", ".join(f"{v:.3f}" for v in losses))
     require(all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0],
-            f"{name} overfit losses {losses}")
+            f"{name} {DTYPE_NAME[dtype]} overfit losses {losses}")
     del state, step, model
     return {"shape": [OVERFIT_B, TRAIN_H, TRAIN_W, 3], "losses": losses}
 
 
 def check_training(name) -> tuple[dict, dict]:
-    """Phase 14 for `name`: card vs CPU, the full-size steps, the overfit.
-    Returns the train line's row and the launches a full-size step made."""
+    """Phase 14 for `name`: card vs CPU, the full-size steps and the
+    overfit in float32, then in bfloat16 (card vs CPU also in ACVNet's
+    staged modes). Returns the train line's row and the launches a
+    full-size step made."""
     t0 = time.perf_counter()
     row = {"card_vs_cpu": train_card_vs_cpu(name)}
     row["full_size"], mix = train_full_size(name)
     torch.cuda.empty_cache()
     row["overfit"] = train_overfit(name)
     torch.cuda.empty_cache()
+    bf16 = row["bf16"] = {"card_vs_cpu": [train_card_vs_cpu_bf16(name)]}
+    if name == "ACVNet":
+        bf16["card_vs_cpu"] += [train_card_vs_cpu_bf16(name, mode)
+                                for mode in BF16_MODES]
+    bf16["full_size"], _ = train_full_size(name, BF16)
+    torch.cuda.empty_cache()
+    bf16["overfit"] = train_overfit(name, BF16)
+    torch.cuda.empty_cache()
     row["seconds"] = time.perf_counter() - t0
     print(f"  {name} training phase: {row['seconds']:.1f} s")
     return row, mix
+
+
+# the plain version of each backward kernel, on its launcher's arguments
+BACKWARD_PLAIN = {
+    "K1-bwd": gwc_volume_backward_reference,
+    "K6-bwd": concat_volume_backward_reference,
+    "K4-bwd": lambda grad, samples, right, max_shift:
+        gather_right_by_samples_backward_reference(grad, samples, max_shift),
+    "K5-bwd": gwc_volume_from_samples_backward_reference}
+
+
+class launch_dtypes:
+    """Within it, the data type each volume kernel's launcher was given,
+    counted by tag (`LAUNCHERS`): what proves a step ran a kernel's
+    bfloat16 design (its plan is taken from the type). With `check`, each
+    backward launch is also held against its plain version on the same
+    arguments (`BACKWARD_PLAIN`; uncounted): ``errors[tag]`` is the worst
+    max|err| / (REL_TOL · max|ref|) of its launches."""
+
+    def __init__(self, check: bool = False):
+        self.check = check
+
+    def __enter__(self):
+        self.seen: dict = defaultdict(Counter)
+        self.errors: dict = {}
+        self.saved = {}
+        for tag, attr in LAUNCHERS.items():
+            launch = self.saved[attr] = getattr(port_volume, attr)
+
+            def counted(*args, launch=launch, tag=tag):
+                dtype = args[0].dtype
+                self.seen[tag][DTYPE_NAME.get(dtype, str(dtype))] += 1
+                out = launch(*args)
+                if self.check and tag in BACKWARD_PLAIN:
+                    want = BACKWARD_PLAIN[tag](*args)
+                    pairs = zip(out, want) if isinstance(out, tuple) else [
+                        (out, want)]
+                    for got, ref in pairs:
+                        err = (got.float() - ref.float()).abs().max().item()
+                        tol = REL_TOL[tag][dtype] * ref.float().abs().max(
+                        ).item()
+                        self.errors[tag] = max(self.errors.get(tag, 0.0),
+                                               err / tol if tol else (
+                                                   0.0 if err == 0 else
+                                                   float("inf")))
+                return out
+            setattr(port_volume, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, launch in self.saved.items():
+            setattr(port_volume, attr, launch)
+
+
+def train_launches(what, want, dtype, seen) -> tuple[dict, list]:
+    """The kernels' launches since the counts were reset against `want`:
+    by shape, each on its one design (`ONE_DESIGN`) and on `dtype` data
+    (`seen`, from `launch_dtypes`). Returns the designs by tag and what
+    differs, one message a kernel."""
+    designs, problems = {}, []
+    for tag, (fn, *_) in KERNELS.items():
+        if Counter(fn.shapes) != Counter(want.get(tag, {})):
+            problems.append(f"{what} {tag} launches {dict(fn.shapes)}, not "
+                            f"{want.get(tag, {})}")
+        if not want.get(tag):
+            continue
+        ran = designs[tag] = designs_of(tag)
+        if not ran or any(k.split()[0] != ONE_DESIGN[tag] for k in ran):
+            problems.append(f"{what} {tag} ran {ran}, not "
+                            f"{ONE_DESIGN[tag]}")
+        if dict(seen.get(tag, {})) != {DTYPE_NAME[dtype]:
+                                       sum(want[tag].values())}:
+            problems.append(f"{what} {tag} ran on {dict(seen.get(tag, {}))}"
+                            f", not {DTYPE_NAME[dtype]}")
+    return designs, problems
+
+
+def step_readings(model, config, batch, dtype, dev) -> dict:
+    """One train step of `model` in `dtype` on `batch` (on `dev`), the
+    optimizer a `GradRecorder`: the loss and its type, the heads, the
+    gradients handed to the optimizer, the running statistics after it,
+    and the (input, weight, output) dtypes of each call of a conv, linear
+    and BatchNorm module."""
+    rec, heads, audit = GradRecorder(), [], defaultdict(list)
+    hooks = [model.register_forward_hook(lambda mod, inp, out: heads.extend(
+        o.detach().float().cpu() for o in out))]
+    for key, m in model.named_modules():
+        if isinstance(m, AUDITED):
+            hooks.append(m.register_forward_hook(
+                lambda mod, inp, out, key=key: audit[key].append(tuple(
+                    DTYPE_NAME.get(t.dtype, str(t.dtype))
+                    for t in (inp[0], mod.weight, out)))))
+    _, loss = make_train_step(model, config, dtype)(TrainState(model, rec),
+                                                    to_device(batch, dev))
+    for hk in hooks:
+        hk.remove()
+    return {"loss": loss.item(), "loss_dtype": loss.dtype, "heads": heads,
+            "grads": rec.grads, "grad_dtypes": set(rec.dtypes),
+            "stats": bn_buffers(model), "audit": dict(audit)}
+
+
+def _rel(a, b) -> float:
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def _stats_distance(got, want) -> dict:
+    """RMS over every channel of |d mean| / sqrt(var) and |d var| / var."""
+    sq = {"mean": [], "var": []}
+    for k, v in want.items():
+        if k.endswith("running_mean"):
+            var = want[k.replace("running_mean", "running_var")].double()
+            sq["mean"].append((got[k].double() - v.double()) ** 2 / var)
+        else:
+            sq["var"].append(((got[k].double() - v.double()) / v.double())
+                             ** 2)
+    return {k: torch.cat(v).mean().sqrt().item() for k, v in sq.items()}
+
+
+def loss_terms(heads, batch, config) -> torch.Tensor:
+    """The loss pixel by pixel: ``Σ_i w_i · smooth_l1(head_i − gt)`` over
+    the valid pixels (the multi-head weights, or the sequence loss's
+    ``γ'^(n−1−i)``), whose mean is the step's loss."""
+    gt = torch.from_numpy(np.asarray(batch["gt_disp"], np.float32))
+    mask = port_metrics.valid_mask(gt, config.max_disp)
+    n = len(heads)
+    weights = (config.loss_weights if config.loss == "multihead" else
+               [(config.loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0)
+                ** (n - 1 - i) for i in range(n)])
+    total = sum(w * port_losses.smooth_l1(h, gt)
+                for w, h in zip(weights, heads))
+    return total[mask]
+
+
+def _groups(model, grads) -> dict:
+    """The gradients by group (the first part of a parameter's name),
+    flattened."""
+    out = defaultdict(list)
+    for (key, _), g in zip(model.named_parameters(), grads):
+        out[key.split(".")[0]].append(g.flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def compare_train_step_bf16(name, mode=None) -> dict:
+    """One bfloat16 train step on the card against the same step on the
+    port's CPU paths at 64x128, B 2 (cuDNN's deterministic algorithms),
+    from the same float32 masters and batch, beside the CPU's float32 step
+    and its float32 step on the left image perturbed by PERTURBATION: the
+    loss, each head and the running statistics within BF16_FACTOR x the
+    CPU's bfloat16-vs-float32 distance, likewise the gradient of each group
+    whose float32 gradient moves less than STABLE under the perturbation;
+    the module dtypes of the card's step equal to the CPU's, every
+    gradient float32, the loss and heads float32; the card's launches by
+    shape the bfloat16 check mix, each kernel on bfloat16 data. For CFNet,
+    also the samples of both cascade stages that differ between the card
+    and the CPU."""
+    kw = {mode: True} if mode else {}
+    config = (train_config(name) if mode is None else TrainConfig(
+        max_disp=MAX_DISP, loss="multihead", loss_weights=BF16_MODES[mode]))
+    model = create_model(name, max_disp=MAX_DISP,
+                         generator=torch.Generator().manual_seed(0), **kw)
+    cpu = create_model(name, max_disp=MAX_DISP, device="cpu", **kw)
+    cpu.load_state_dict(model.state_dict())
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    batch = next(iter(synthetic_loader(TRAIN_CHECK_H, TRAIN_CHECK_W,
+                                       TRAIN_CHECK_B, 1, seed=5, workers=0)))
+    noise = np.random.RandomState(0).randn(*batch["left"].shape)
+    perturbed = dict(batch, left=(batch["left"] + PERTURBATION * noise)
+                     .astype(np.float32))
+    what = f"{name}{' ' + mode if mode else ''} bf16 card train step"
+    runs, samples = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, m, dev, dtype, b in (
+                ("cpu32", cpu, "cpu", F32, batch),
+                ("cpu32+", cpu, "cpu", F32, perturbed),
+                ("cpu16", cpu, "cpu", BF16, batch),
+                ("card16", model, DEV, BF16, batch)):
+            if m is cpu:
+                cpu.load_state_dict(init)
+            caught = samples[key] = []
+            hooks = [m.get_submodule(stage).register_forward_pre_hook(
+                lambda mod, args: caught.append(args[2].detach().cpu()))
+                for stage in ("volume_s3", "volume_s2") if name == "CFNet"]
+            reset_counts()
+            with launch_dtypes(check=key == "card16") as seen:
+                runs[key] = step_readings(m, config, b, dtype, dev)
+            for hk in hooks:
+                hk.remove()
+            if key == "card16":
+                designs, launch_problems = train_launches(
+                    what, train_mix(name, TRAIN_CHECK_B, TRAIN_CHECK_H,
+                                    TRAIN_CHECK_W, mode), BF16, seen.seen)
+                kernel_errors = seen.errors
+    finally:
+        torch.backends.cudnn.deterministic = False
+    c32, p32, c16, g16 = (runs[k] for k in ("cpu32", "cpu32+", "cpu16",
+                                            "card16"))
+    row = {"model": name, "mode": mode, "dtype": "bfloat16",
+           "shape": [TRAIN_CHECK_B, TRAIN_CHECK_H, TRAIN_CHECK_W, 3],
+           "loss_card": g16["loss"], "loss_cpu": c16["loss"],
+           "loss_cpu_f32": c32["loss"], "designs": designs,
+           "launch_problems": launch_problems,
+           "backward_kernels_vs_plain": kernel_errors}
+    # the loss by its pixels: |d loss| is one number whose own distance
+    # can cancel to near nothing across pixels (GwcNet_G: 0.18 of a loss of
+    # 173, where its heads are 4-8% apart); the mean |d| of the pixels'
+    # loss terms bounds it and does not cancel
+    terms = {k: loss_terms(runs[k]["heads"], batch, config)
+             for k in ("cpu32", "cpu16", "card16")}
+    row["loss"] = ((terms["card16"] - terms["cpu16"]).abs().mean().item(),
+                   (terms["cpu16"] - terms["cpu32"]).abs().mean().item())
+    row["loss_abs_diff"] = (abs(g16["loss"] - c16["loss"]),
+                            abs(c16["loss"] - c32["loss"]))
+    row["heads"] = [(_rel(a, b), _rel(b, c)) for a, b, c in
+                    zip(g16["heads"], c16["heads"], c32["heads"])]
+    card_stats = _stats_distance(g16["stats"], c16["stats"])
+    own_stats = _stats_distance(c16["stats"], c32["stats"])
+    row["stats"] = {k: (card_stats[k], own_stats[k]) for k in card_stats}
+    groups = {k: _groups(cpu, r["grads"]) for k, r in runs.items()}
+    moves = {g: _rel(groups["cpu32+"][g], v) for g, v in
+             groups["cpu32"].items() if v.abs().max() > 0}
+    row["stable_groups"] = {
+        g: (_rel(groups["card16"][g], groups["cpu16"][g]),
+            _rel(groups["cpu16"][g], groups["cpu32"][g]), moves[g])
+        for g in sorted(moves) if moves[g] < STABLE}
+    row["audit_calls"] = sum(map(len, g16["audit"].values()))
+    row["audit_equal"] = g16["audit"] == c16["audit"]
+    row["float32_outputs"] = (
+        g16["loss_dtype"] == F32 and g16["grad_dtypes"] == {F32}
+        and all(h.dtype == F32 for h in g16["heads"]))
+    moved = [int((a != b).sum()) for a, b in zip(samples["cpu16"],
+                                                  samples["card16"])]
+    if moved:
+        row["samples_moved"] = moved
+        row["samples"] = [a.numel() for a in samples["cpu16"]]
+    print(f"  {what} {TRAIN_CHECK_H}x{TRAIN_CHECK_W} B {TRAIN_CHECK_B}, "
+          f"card vs CPU (CPU bf16 vs f32): loss {g16['loss']:.6f} / "
+          f"{c16['loss']:.6f} / {c32['loss']:.6f}, |d| "
+          f"{row['loss_abs_diff'][0]:.3e} ({row['loss_abs_diff'][1]:.3e}),"
+          f" its pixels' mean |d| {row['loss'][0]:.3e} ({row['loss'][1]:.3e})"
+          f"; heads' relative L2 "
+          + ", ".join(f"{a:.3e} ({b:.3e})" for a, b in row["heads"])
+          + "; running statistics "
+          + ", ".join(f"{k} {a:.3e} ({b:.3e})" for k, (a, b) in
+                      row["stats"].items())
+          + f"; {len(row['stable_groups'])} stable groups of {len(moves)}: "
+          + ", ".join(f"{g} {a:.3e} ({b:.3e}, moved {m:.3f})" for g, (
+              a, b, m) in row["stable_groups"].items())
+          + f"; audit {row['audit_calls']} calls "
+          f"{'equal' if row['audit_equal'] else 'DIFFER'}; backward kernels "
+          f"in the step vs plain (max|err| / tol) "
+          + ", ".join(f"{t} {e:.3f}" for t, e in kernel_errors.items())
+          + (f"; samples that differ (s3, s2): {moved} of {row['samples']}"
+             if moved else "")
+          + "".join(f"; {p}" for p in launch_problems))
+    return row
+
+
+def bf16_step_failures(row) -> list:
+    """The gates a `compare_train_step_bf16` reading fails: ``loss``,
+    ``heads``, ``running statistics``, ``stable gradients`` (beyond
+    BF16_FACTOR x the CPU's own distance, or no stable group), ``dtypes``
+    (the audit, float32 loss, heads and gradients), ``backward kernels``
+    (a launch of the step against its plain version), ``launches`` (by
+    shape, design and data type), ``CPU yardstick`` (the CPU's own
+    bf16-vs-f32 distance of a head or a stable group not finite or not
+    below 1: its bf16 step is then no yardstick, as PyTorch's CPU dilated
+    depthwise conv made ACVNet's ``patch_l2`` gradient 5e30 times its f32
+    one on the card's host before `models.acvnet.depthwise_input`)."""
+    def far(pairs):
+        return any(a > BF16_FACTOR * b for a, b in pairs)
+    yardsticks = [b for _, b in row["heads"]] + [
+        b for _, b, _ in row["stable_groups"].values()]
+    gates = {
+        "CPU yardstick": not all(np.isfinite(b) and b < 1
+                                 for b in yardsticks),
+        "loss": far([row["loss"]]),
+        "heads": far(row["heads"]),
+        "running statistics": far(row["stats"].values()),
+        "stable gradients": not row["stable_groups"] or far(
+            (a, b) for a, b, _ in row["stable_groups"].values()),
+        "dtypes": not (row["audit_equal"] and row["float32_outputs"]),
+        "backward kernels": any(
+            e > 1 for e in row["backward_kernels_vs_plain"].values()),
+        "launches": bool(row["launch_problems"])}
+    return [gate for gate, failed in gates.items() if failed]
+
+
+def train_card_vs_cpu_bf16(name, mode=None) -> dict:
+    """`compare_train_step_bf16`, required within its gates."""
+    row = compare_train_step_bf16(name, mode)
+    failed = bf16_step_failures(row)
+    require(not failed, f"{name}{' ' + mode if mode else ''} bf16 card "
+                        f"train step differs from the CPU port: {failed}")
+    return row
+
+
+# --------------------------------------------------------------- phase 15
+# estimators held card vs CPU on one probability volume: the argmax, the
+# mode bounds and the modal mask exactly; the soft estimators within
+# EST_TOL x max_disp (a pixel whose two modes carry masses within
+# EST_TIE of each other may take either: its decision is rounding)
+EST_TOL, EST_TIE = 1e-5, 1e-6
+
+
+def dominant_margin(prob) -> torch.Tensor:
+    """|mass of the top mode − mass of the runner-up| of the dominant-modal
+    estimator, ``[B, H, W]``."""
+    blur = estimators._box_blur_d(prob)
+    mask = estimators.modal_mask(blur)
+    y = prob * mask
+    z = (prob - y) * estimators.modal_mask(blur * ~mask)
+    return (y.sum(1) - z.sum(1)).abs()
+
+
+def check_estimators(gen) -> dict:
+    """The four disparity estimators on the card and on the CPU, on a real
+    probability volume: the softmax over D of GwcNet_G's (float32, seeded
+    random weights, settled BatchNorm) ``classif3`` costs upsampled to
+    ``[1, 192, 480, 640]``, as its head regresses them."""
+    model = create_model("GwcNet_G", max_disp=MAX_DISP,
+                         generator=torch.Generator().manual_seed(0))
+    left, right = (t.to(DEV) for t in stereo_pair(1, H, W, seed=21))
+    settle_and_perturb_bn(model, left, right, gen)
+    costs = []
+    hook = model.classif3[1].register_forward_hook(
+        lambda mod, inp, out: costs.append(out))
+    with torch.no_grad():
+        model(left, right)
+    hook.remove()
+    cost = port_interpolate(costs[0][..., 0], (MAX_DISP, H, W), (1, 2, 3),
+                            align_corners=False)
+    prob = torch.softmax(cost.float(), dim=1)
+    del model, costs, cost
+    cpu = prob.cpu()
+    row = {"shape": list(prob.shape), "tolerance_px": EST_TOL * MAX_DISP}
+    for got, want, what in zip(estimators.mode_bounds(prob),
+                               estimators.mode_bounds(cpu),
+                               ("argmax index", "left bound", "right bound")):
+        require(torch.equal(got.cpu(), want), f"estimators: {what} differs")
+    require(torch.equal(estimators.modal_mask(prob).cpu(),
+                        estimators.modal_mask(cpu)),
+            "estimators: modal mask differs")
+    margin = dominant_margin(cpu)
+    for name in ("argmax_disparity_estimator",
+                 "softargmax_disparity_estimator",
+                 "unimodal_disparity_estimator",
+                 "dominant_modal_disparity_estimator"):
+        fn = getattr(estimators, name)
+        d = (fn(prob).cpu() - fn(cpu)).abs()
+        ms = device_ms(lambda: fn(prob), 3, warmup=1)
+        ties = 0
+        if name.startswith("argmax"):
+            require(d.max().item() == 0, f"estimators: {name} differs")
+        elif name.startswith("dominant"):
+            off = d > EST_TOL * MAX_DISP
+            ties = int(off.sum())
+            require(bool((margin[off] < EST_TIE).all()),
+                    f"estimators: {name} differs beyond "
+                    f"{EST_TOL * MAX_DISP} px where its modes are not tied")
+            d = d[~off] if ties else d
+        else:
+            require(d.max().item() <= EST_TOL * MAX_DISP,
+                    f"estimators: {name} differs by {d.max().item()} px")
+        row[name] = {"max_abs_px": d.max().item(), "card_ms": ms,
+                     "tied_pixels": ties}
+        print(f"  {name}: card vs CPU max|d| {d.max().item():.3e} px (tol "
+              f"{EST_TOL * MAX_DISP:.3e}; pixels tied within {EST_TIE}: "
+              f"{ties}), card {ms:.3f} ms")
+    print(f"  modes: {int((margin < EST_TIE).sum())} pixels tied within "
+          f"{EST_TIE}; argmax, bounds and modal mask equal")
+    return row
 
 
 # ----------------------------------------------------- timing (phases 8-13)
@@ -2532,40 +2981,36 @@ def main() -> None:
     train = {}
     for model_name in TRAIN_MODELS:
         train[model_name], mix = check_training(model_name)
-        designs = train[model_name]["full_size"]["designs_last_step"]
-        for tag in BACKWARD_TAGS:
-            if not mix.get(tag):
-                continue
-            entry = time_kernel(f"{model_name} (train step)", tag, F32,
-                                mix[tag], designs, errs[tag][F32], gen)
-            entry["autograd_ms"] = sum(r["autograd_ms"] * r["launches"]
-                                       for r in entry["shapes"])
-            if "build_ms" in entry["shapes"][0]:
-                entry["build_ms"] = build_ms(entry["shapes"])
-                print(f"  {model_name} (train step) {tag} float32 list build "
-                      f"alone {entry['build_ms']:.4f} ms")
-            kernels.append(entry)
-            # the same launches in bfloat16 (their plans, times and bounds;
-            # no train step runs bfloat16 yet)
-            ms, _, _, nbytes, flops, shapes = TIMERS[tag](mix[tag], BF16,
-                                                          gen)
-            b_ms, b_by = bound(nbytes, flops, BF16)
-            built = (f", list build alone {build_ms(shapes):.4f} ms"
-                     if "build_ms" in shapes[0] else "")
-            print(f"  {model_name} (train step) {tag} bfloat16: {ms:.4f} ms "
-                  f"(bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f}% of "
-                  f"it{built})")
-            train[model_name][f"{tag}_bf16"] = {
-                "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-                "mbytes": nbytes / 1e6, "shapes": shapes}
-            if built:
-                train[model_name][f"{tag}_bf16"]["build_ms"] = build_ms(shapes)
+        # each backward kernel at the launches a full-size step made (the
+        # same shapes in both types), in both types, with the designs the
+        # step of that type ran
+        for dtype, run in ((F32, train[model_name]["full_size"]),
+                           (BF16, train[model_name]["bf16"]["full_size"])):
+            for tag in BACKWARD_TAGS:
+                if not mix.get(tag):
+                    continue
+                entry = time_kernel(f"{model_name} (train step)", tag, dtype,
+                                    mix[tag], run["designs_last_step"],
+                                    errs[tag][dtype], gen)
+                entry["autograd_ms"] = sum(r["autograd_ms"] * r["launches"]
+                                           for r in entry["shapes"])
+                if "build_ms" in entry["shapes"][0]:
+                    entry["build_ms"] = build_ms(entry["shapes"])
+                    print(f"  {model_name} (train step) {tag} "
+                          f"{DTYPE_NAME[dtype]} list build alone "
+                          f"{entry['build_ms']:.4f} ms")
+                kernels.append(entry)
         torch.cuda.empty_cache()
-    print("phase 15: cuDNN float32 probe")
+    print(f"phase 15: disparity estimators, card vs CPU "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    estimates = check_estimators(gen)
+    torch.cuda.empty_cache()
+    print("phase 16: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"estimators": estimates}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

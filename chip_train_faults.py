@@ -28,6 +28,17 @@ caught it:
   and K5-bwd kernel gates, `chip_smoke.check_samples_backward`, whose
   skewed rows make such lists).
 
+Then the same for phase 14's bfloat16 card-vs-CPU step
+(`chip_smoke.compare_train_step_bf16`): clean (GwcNet_G, CFNet), and with
+each fault planted into the card's bfloat16 step, printing which of its
+gates caught it (`chip_smoke.bf16_step_failures`):
+
+- ``bf16_masters_dropped``: the card's bfloat16 view is cut from its
+  float32 masters (each cast a leaf of its own), so no gradient reaches a
+  master (GwcNet_G);
+- ``k1_bwd_dr_dropped`` in bfloat16: K1's backward kernel returns dr = 0
+  (GwcNet_G).
+
 The last line is one JSON object ``{"faults": [...]}``. Exits with code 1
 if a clean run is outside the limits; a fault that passes is reported, not
 raised. Needs one card.
@@ -42,6 +53,7 @@ import json
 import torch
 
 import chip_smoke
+from stereo_toolbox_tpu_torch import trainer as port_trainer
 from stereo_toolbox_tpu_torch.nn.layers import FlaxRunningStats
 from stereo_toolbox_tpu_torch.ops import _cuda, volume
 
@@ -129,6 +141,15 @@ def k4_bwd_long_lane_dropped():
     return _cuda.loaded_as("sample_gather", long_lane_library())
 
 
+def bf16_masters_dropped():
+    view = port_trainer.bfloat16_view
+
+    def faulty(model):
+        return {k: (v.detach().requires_grad_() if v.is_cuda else v)
+                for k, v in view(model).items()}
+    return patched(port_trainer, "bfloat16_view", faulty)
+
+
 def phase6_k4_bwd_gate() -> bool:
     """Whether phase 6's K4/K5-bwd gates (`check_samples_backward`) fail."""
     try:
@@ -154,6 +175,11 @@ RUNS = (
 )
 # faults also put to phase 6's kernel gates
 KERNEL_GATES = {"k4_bwd_long_lane_dropped": phase6_k4_bwd_gate}
+RUNS_BF16 = (
+    ("clean", None, ("GwcNet_G", "CFNet")),
+    ("bf16_masters_dropped", bf16_masters_dropped, ("GwcNet_G",)),
+    ("k1_bwd_dr_dropped", k1_bwd_dr_dropped, ("GwcNet_G",)),
+)
 
 
 def main() -> None:
@@ -181,6 +207,20 @@ def main() -> None:
             print(f"  {'caught' if caught else 'within the limits'}")
             rows.append({"fault": fault, "model": "phase 6 kernel gates",
                          "caught": caught})
+    for fault, plant, models in RUNS_BF16:
+        for name in models:
+            print(f"{fault} (bfloat16 step): {name}")
+            with plant() if plant else contextlib.nullcontext():
+                row = chip_smoke.compare_train_step_bf16(name)
+            failed = chip_smoke.bf16_step_failures(row)
+            print("  " + ("caught by " + ", ".join(failed) if failed
+                          else "within the gates"))
+            if fault == "clean":
+                clean_ok &= not failed
+            rows.append({"fault": fault, "dtype": "bfloat16", "model": name,
+                         "caught": bool(failed), "caught_by": failed,
+                         **{k: v for k, v in row.items()
+                            if k not in ("designs",)}})
     print(json.dumps({"faults": rows}))
     if not clean_ok:
         raise SystemExit("a clean run is outside the limits")

@@ -7,6 +7,12 @@ is no card; the CPU runs only when asked for with ``device="cpu"``. A float32
 forward computes in full float32 (no TF32), a bfloat16 model keeps in
 float32 what the JAX package keeps and computes with in float32
 (`F32_MODULES`, `F32_PARAMS`; `stereo_toolbox_tpu_torch.utils.precision`).
+
+Such a cast model evaluates; it does not train. bfloat16 training keeps the
+float32 model's parameters as the masters, as flax does, and runs the
+forward on a bfloat16 view of them (`bfloat16_view`, through
+``torch.func.functional_call``), so that every gradient flows back to its
+float32 leaf (`trainer.make_train_step(..., dtype=torch.bfloat16)`).
 """
 
 from __future__ import annotations
@@ -77,10 +83,31 @@ def create_model(name: str, device=None, dtype: torch.dtype = torch.float32,
     return cast_model(model, dtype).to(device)
 
 
+def bfloat16_view(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The float32 `model`'s parameters by name as a bfloat16 model uses
+    them, for ``torch.func.functional_call(model, view, inputs)``: each
+    floating parameter cast to bfloat16 with ``.to()``, whose backward
+    casts the gradient back to the float32 leaf (JAX's
+    ``convert_element_type`` of a flax ``param_dtype=float32`` leaf); the
+    parameters `keeps_float32` names are the float32 leaves themselves.
+    Buffers are not in the view: the module's own float32 running
+    statistics are read and updated in place. Build it anew each step,
+    after the masters' update."""
+    view = {}
+    for prefix, m in model.named_modules():
+        for key, p in m.named_parameters(recurse=False):
+            cast = p.is_floating_point() and not keeps_float32(m, key)
+            view[f"{prefix}.{key}" if prefix else key] = (
+                p.to(torch.bfloat16) if cast else p)
+    return view
+
+
 def cast_model(model: torch.nn.Module, dtype: torch.dtype
                ) -> torch.nn.Module:
     """`model` (or one of its layers) cast in place to compute in `dtype`:
-    every floating value in `dtype` but those `keeps_float32` names."""
+    every floating value in `dtype` but those `keeps_float32` names. A
+    bfloat16 model cast so evaluates; in train mode it raises, having no
+    float32 masters (train the float32 model through `bfloat16_view`)."""
     for m in model.modules():
         for group in (m._parameters, m._buffers):
             for key, t in group.items():
@@ -92,4 +119,5 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype
 
 __all__ = ["ACVNet", "CFNet", "DepthAnythingV2", "F32_MODULES",
            "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "MODEL_REGISTRY",
-           "PSMNet", "cast_model", "create_model", "keeps_float32"]
+           "PSMNet", "bfloat16_view", "cast_model", "create_model",
+           "keeps_float32"]

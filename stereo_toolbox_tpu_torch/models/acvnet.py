@@ -18,7 +18,8 @@ names follow the original toolbox's ``models/ACVNet/acv.py``, so
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32): ``pred2``, or with `attn_weights_only` the
 attention branch's ``pred_attention``. All heads are registered, so the
-parameter set is the original's whole. In train mode (float32) the forward
+parameter set is the original's whole. In train mode (float32, or
+bfloat16 on a view of float32 masters, ``models.bfloat16_view``) the forward
 returns ``[pred_attention, pred0, pred1, pred2]`` (``classif_att_``,
 ``classif0`` on ``cost0``, ``classif1`` on ``dres2``'s output, ``classif2``),
 each regressed at full resolution, with per-view BatchNorm batch statistics
@@ -42,8 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stereo_toolbox_tpu_torch.models.gwcnet import (GwcFeature,
-                                                    refuse_bfloat16_training)
+from stereo_toolbox_tpu_torch.models.gwcnet import GwcFeature
 from stereo_toolbox_tpu_torch.nn.layers import (ConvBNAct, HourglassRedir,
                                                 channels_first, channels_last,
                                                 classifier, dual_view_apply,
@@ -52,7 +52,8 @@ from stereo_toolbox_tpu_torch.ops.upsample import interpolate
 from stereo_toolbox_tpu_torch.ops.volume import (build_concat_volume,
                                                  build_gwc_volume,
                                                  disparity_regression)
-from stereo_toolbox_tpu_torch.utils.precision import full_float32
+from stereo_toolbox_tpu_torch.utils.precision import (compute_dtype,
+                                                      full_float32)
 
 # logit of a key in a block's zero padding (the JAX package's, not -inf)
 PAD_LOGIT = -1000.0
@@ -111,6 +112,18 @@ def _depthwise(c: int, dilation: int) -> nn.Conv3d:
                      (1, dilation, dilation), groups=c, bias=False)
 
 
+def depthwise_input(x: torch.Tensor, dilation: int) -> torch.Tensor:
+    """`x` as a `_depthwise` conv at `dilation` takes it. PyTorch's CPU
+    bfloat16 depthwise conv3d returns a wrong weight gradient for a
+    channels-last input at a dilation above 1 (1.04-1.13 relative L2 from
+    float32's, where the forward, the input gradient, dilation 1 and a
+    contiguous input are within bfloat16's 3e-3): on the CPU such an input
+    is made contiguous first."""
+    if dilation > 1 and x.dtype == torch.bfloat16 and not x.is_cuda:
+        return x.contiguous()
+    return x
+
+
 class ACVNet(nn.Module):
     # the original's widths: 40 groups (split 8/16/16 by the patch convs)
     # and 32 concat channels a view
@@ -164,9 +177,7 @@ class ACVNet(nn.Module):
                                     self.max_disp)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
-        dtype = self.classif2[0][0].weight.dtype
-        if self.training:
-            refuse_bfloat16_training(dtype)
+        dtype = compute_dtype(self.classif2[0][0].weight, self.training)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 
@@ -183,8 +194,9 @@ class ACVNet(nn.Module):
         gwc = channels_first(gwc)
         gwc = self.patch(gwc)
         patch_volume = channels_last(torch.cat(
-            [self.patch_l1(gwc[:, :8]), self.patch_l2(gwc[:, 8:24]),
-             self.patch_l3(gwc[:, 24:40])], dim=1))
+            [self.patch_l1(gwc[:, :8]),
+             self.patch_l2(depthwise_input(gwc[:, 8:24], 2)),
+             self.patch_l3(depthwise_input(gwc[:, 24:40], 3))], dim=1))
         ca = self.dres2_att_(self.dres1_att_(patch_volume))
         att_weights = self.classif_att_[1](self.classif_att_[0](ca))
         if self.freeze_attn_weights:

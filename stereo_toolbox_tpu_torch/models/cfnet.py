@@ -12,7 +12,8 @@ Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32). H and W must be multiples of 32. Only the heads
 of the eval path run (``classif2`` and ``confidence_classif1_s{3,2}``), but
 every head and the cascade's ``gamma_s*``/``beta_s*`` are registered, so the
-parameter set is the original's whole. In train mode (float32) the forward
+parameter set is the original's whole. In train mode (float32, or
+bfloat16 on a view of float32 masters, ``models.bfloat16_view``) the forward
 returns JAX's nine predictions at full resolution: ``classif0`` and
 ``classif1`` regressed over the full range (trilinear upsampling with
 ``align_corners=True``), the 1/8 stage's ``pred2``, then each cascade
@@ -38,7 +39,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stereo_toolbox_tpu_torch.models.gwcnet import refuse_bfloat16_training
 from stereo_toolbox_tpu_torch.nn.layers import (BasicResBlock, ConvBNAct,
                                                 ConvTransposeBN,
                                                 HourglassRedir, avg_pool,
@@ -50,7 +50,8 @@ from stereo_toolbox_tpu_torch.ops.volume import (
     build_concat_volume, build_gwc_volume, concat_volume_from_samples,
     disparity_regression, disparity_variance, disparity_variance_confidence,
     gwc_volume_from_samples)
-from stereo_toolbox_tpu_torch.utils.precision import full_float32
+from stereo_toolbox_tpu_torch.utils.precision import (compute_dtype,
+                                                      full_float32)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -318,9 +319,7 @@ class CFNet(nn.Module):
                 torch.clamp(hi + widen, 0, cap))
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
-        dtype = self.classif2[0][0].weight.dtype
-        if self.training:
-            refuse_bfloat16_training(dtype)
+        dtype = compute_dtype(self.classif2[0][0].weight, self.training)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 

@@ -8,10 +8,11 @@ PyTorch names and published checkpoints load with ``load_state_dict``.
 
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32). In eval only ``classif3`` runs; in train mode
-(float32) the forward returns the four heads ``[classif0(cost0),
-classif1(out1), classif2(out2), classif3(out3)]``, each regressed at full
-resolution, as JAX's ``train=True`` does, with per-view BatchNorm batch
-statistics in the 2D trunk.
+(float32, or bfloat16 on a view of float32 masters,
+``models.bfloat16_view``) the forward returns the four heads
+``[classif0(cost0), classif1(out1), classif2(out2), classif3(out3)]``, each
+regressed at full resolution, as JAX's ``train=True`` does, with per-view
+BatchNorm batch statistics in the 2D trunk.
 
 On the card the eval forward launches K1 once (the gwc volume), K6 once for
 GwcNet_GC (the masked concat volume), K2 on each stride-1 3×3×3 ConvBN of
@@ -34,7 +35,8 @@ from stereo_toolbox_tpu_torch.ops.upsample import interpolate
 from stereo_toolbox_tpu_torch.ops.volume import (build_concat_volume,
                                                  build_gwc_volume,
                                                  disparity_regression)
-from stereo_toolbox_tpu_torch.utils.precision import full_float32
+from stereo_toolbox_tpu_torch.utils.precision import (compute_dtype,
+                                                      full_float32)
 
 
 class GwcFeature(nn.Module):
@@ -108,9 +110,7 @@ class GwcNet(nn.Module):
                      else torch.Generator().manual_seed(0))
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
-        dtype = self.classif3[0][0].weight.dtype
-        if self.training:
-            refuse_bfloat16_training(dtype)
+        dtype = compute_dtype(self.classif3[0][0].weight, self.training)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 
@@ -153,16 +153,6 @@ def regress(cost: torch.Tensor, max_disp: int, h: int, w: int
     cost = interpolate(cost[..., 0], (max_disp, h, w), (1, 2, 3),
                        align_corners=False)
     return disparity_regression(torch.softmax(cost.float(), dim=1), max_disp)
-
-
-def refuse_bfloat16_training(dtype: torch.dtype) -> None:
-    """Train mode takes no bfloat16 model (a float64 copy, ``.double()``,
-    trains as the float32 model does, its head in float32)."""
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bfloat16 training is not ported yet: it needs float32 master "
-            "parameters cast at use, as flax keeps them (ROADMAP Queue 1, "
-            "item 1)")
 
 
 def GwcNet_G(max_disp: int = 192, **kw) -> GwcNet:

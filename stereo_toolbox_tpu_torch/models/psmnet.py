@@ -9,7 +9,8 @@ checkpoints load with ``load_state_dict``.
 Contract: ImageNet-normalised ``[B, H, W, 3]`` left/right images → ``[B, H,
 W]`` disparity (float32). The three classifiers run in both modes,
 cascaded (``cost2 = classif2 + cost1``, ``cost3 = classif3 + cost2``); eval
-regresses ``cost3``, train mode (float32) returns all three heads
+regresses ``cost3``, train mode (float32, or bfloat16 on a view of
+float32 masters, ``models.bfloat16_view``) returns all three heads
 regressed at full resolution, as JAX's ``train=True`` does, with per-view
 BatchNorm batch statistics in the 2D trunk.
 
@@ -28,8 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stereo_toolbox_tpu_torch.models.gwcnet import (GwcFeature, regress,
-                                                    refuse_bfloat16_training)
+from stereo_toolbox_tpu_torch.models.gwcnet import GwcFeature, regress
 from stereo_toolbox_tpu_torch.nn.layers import (ConcatVolumeConvBNAct,
                                                 ConvBNAct, ConvTransposeBN,
                                                 avg_pool, channels_first,
@@ -37,7 +37,8 @@ from stereo_toolbox_tpu_torch.nn.layers import (ConcatVolumeConvBNAct,
                                                 dual_view_apply, every_other,
                                                 init_weights)
 from stereo_toolbox_tpu_torch.ops.upsample import interpolate
-from stereo_toolbox_tpu_torch.utils.precision import full_float32
+from stereo_toolbox_tpu_torch.utils.precision import (compute_dtype,
+                                                      full_float32)
 
 
 class SPPPool(nn.Module):
@@ -127,9 +128,7 @@ class PSMNet(nn.Module):
                      else torch.Generator().manual_seed(0))
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
-        dtype = self.classif3[0][0].weight.dtype
-        if self.training:
-            refuse_bfloat16_training(dtype)
+        dtype = compute_dtype(self.classif3[0][0].weight, self.training)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, dtype)
 

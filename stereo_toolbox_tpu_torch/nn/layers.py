@@ -54,11 +54,21 @@ class FlaxRunningStats:
 
     PyTorch's own update runs inside ``F.batch_norm``, in one pass over
     `x`; the unbiased part ``m · var · n / (n − 1)`` is then scaled back to
-    ``m · var`` per channel."""
+    ``m · var`` per channel.
+
+    A bfloat16 `x` (a bfloat16 train step; the weight, bias and running
+    statistics stay float32) is normalised as flax's
+    ``BatchNorm(dtype=bfloat16)`` does it: the batch statistics and the
+    normalisation in float32 on x widened exactly, the running statistics
+    updated in float32, the output rounded to bfloat16 once. The widening
+    is explicit, so that the CPU and the card take the same float32 path
+    whatever mixed-type ``F.batch_norm`` calls each accepts."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if x.dtype == torch.bfloat16:
+            return self.forward(x.float()).to(torch.bfloat16)
         self._check_input_dim(x)
         self.num_batches_tracked += 1
         m = (self.momentum if self.momentum is not None

@@ -4,15 +4,18 @@
 
 Trains PSMNet, GwcNet_G, GwcNet_GC, ACVNet or CFNet on the card
 (``--device cpu`` runs the plain paths on the CPU; without it and without a
-card it raises), in float32, on the synthetic dataset. The flags are those
-of the JAX package's ``examples/train.py`` that the port supports, with its
-defaults, plus ``--device``; the synthetic dataset holds 64 samples, as
-there. The multi-head loss weighs PSMNet's three heads (0.5, 0.7, 1.0) and
-every other model's four (0.5, 0.5, 0.7, 1.0), as there: CFNet's nine heads
-train with ``--loss sequence`` (with the default ``multihead`` its step
-raises, as JAX's asserts). ``--bf16`` and ``--distributed`` are refused:
-bfloat16 training and data parallelism are not ported yet (ROADMAP Queue
-1).
+card it raises), in float32 or, with ``--bf16``, in bfloat16, on the
+synthetic dataset. ``--bf16`` is the JAX package's: the model's parameters
+and running statistics stay float32 (the masters, which the optimizer
+updates and the checkpoints hold), and each step computes on a bfloat16
+view of them (``trainer.make_train_step(..., dtype=torch.bfloat16)``). The
+flags are those of the JAX package's ``examples/train.py`` that the port
+supports, with its defaults, plus ``--device``; the synthetic dataset holds
+64 samples, as there. The multi-head loss weighs PSMNet's three heads
+(0.5, 0.7, 1.0) and every other model's four (0.5, 0.5, 0.7, 1.0), as
+there: CFNet's nine heads train with ``--loss sequence`` (with the default
+``multihead`` its step raises, as JAX's asserts). ``--distributed`` is
+refused: data parallelism is not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain paths; default: the card")
     p.add_argument("--bf16", action="store_true",
-                   help="refused: bfloat16 training is not ported yet")
+                   help="bf16 compute on float32 master parameters (the "
+                        "JAX package's --bf16, its analogue of --amp)")
     p.add_argument("--distributed", action="store_true",
                    help="refused: data parallelism is not ported yet")
     return p.parse_args(argv)
@@ -64,10 +68,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.bf16:
-        raise SystemExit("--bf16: bfloat16 training is not ported yet "
-                         "(ROADMAP Queue 1, item 1: float32 master "
-                         "parameters cast at use)")
     if args.distributed:
         raise SystemExit("--distributed: data parallelism is not ported yet "
                          "(ROADMAP Queue 1, item 3)")
@@ -89,8 +89,10 @@ def main(argv=None) -> None:
                         seed=args.seed, drop_last=True,
                         num_workers=args.num_workers)
     total_steps = len(loader) * args.epochs
-    state = init_train_state(model, config, total_steps)
-    trainer = Trainer(model, config, lr_schedule=state.optimizer.schedule)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state = init_train_state(model, config, total_steps, dtype)
+    trainer = Trainer(model, config, lr_schedule=state.optimizer.schedule,
+                      dtype=dtype)
     start_epoch = 0
     if args.resume:
         state, last_epoch = trainer.load_checkpoint(state, args.resume)
@@ -99,7 +101,8 @@ def main(argv=None) -> None:
               f"{last_epoch}, continuing at {start_epoch}")
     device = next(model.parameters()).device
     print(f"training {args.model} on {args.dataset}: {len(loader)} steps/"
-          f"epoch x {args.epochs} epochs on {device}")
+          f"epoch x {args.epochs} epochs on {device} in "
+          f"{str(dtype).replace('torch.', '')}")
     trainer.train(state, loader, epochs=args.epochs, start_epoch=start_epoch)
     trainer.writer.close()
 

@@ -10,14 +10,24 @@ Counterpart of ``stereo_toolbox_tpu/trainer/__init__.py`` on one device:
   on the linear OneCycle schedule          its order, with `clip`
   value_and_grad of the jitted step        autograd, forward and backward
                                            inside ``full_float32``
+  create_model(dtype=bfloat16): float32    ``make_train_step(..., dtype=
+  params cast at use, optax on them        torch.bfloat16)``: the float32
+                                           model's parameters are the
+                                           masters, the forward runs on
+                                           `models.bfloat16_view` of them,
+                                           `Adam` updates the masters
   TrainState (params, batch_stats, opt)    `TrainState` (model, `Adam`)
   orbax checkpoint, epoch-granular resume  ``torch.save`` to
                                            ``ckpt_dir/epoch_XXXX.pt``,
                                            epoch-granular resume
 
 JAX's `make_optimizer` takes no weight decay (``weight_decay`` is read
-nowhere), and neither does this one. bfloat16 training and data
-parallelism are not ported yet (ROADMAP Queue 1).
+nowhere), and neither does this one. JAX's `TrainConfig` has no dtype: the
+compute dtype is the model's side of the step there (``create_model(...,
+dtype=)``) and `make_train_step`'s, `init_train_state`'s and `Trainer`'s
+``dtype`` here; checkpoints hold the float32 masters and running
+statistics in both dtypes. Data parallelism is not ported yet (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from stereo_toolbox_tpu_torch import losses, metrics
+from stereo_toolbox_tpu_torch.models import bfloat16_view
 from stereo_toolbox_tpu_torch.utils.observability import ScalarWriter
 from stereo_toolbox_tpu_torch.utils.precision import full_float32
 
@@ -171,10 +182,31 @@ class TrainState:
 
 
 def init_train_state(model: torch.nn.Module, config: TrainConfig,
-                     total_steps: int) -> TrainState:
-    """The model in train mode with a fresh optimizer."""
+                     total_steps: int,
+                     dtype: torch.dtype = torch.float32) -> TrainState:
+    """The model in train mode with a fresh optimizer over its parameters.
+    A step in ``dtype=torch.bfloat16`` updates float32 masters: every
+    floating parameter of `model` must be float32."""
+    _check_compute_dtype(model, dtype)
     return TrainState(model.train(),
                       make_optimizer(model, config, total_steps)[0])
+
+
+def _check_compute_dtype(model: torch.nn.Module,
+                         dtype: torch.dtype) -> None:
+    """Raise unless `model` can train in `dtype`: float32 computes in its
+    own parameters' type (a float64 copy trains in float64), bfloat16 only
+    on float32 masters."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"a train step computes in float32 or bfloat16, "
+                        f"not {dtype}")
+    if dtype == torch.bfloat16:
+        kept = {p.dtype for p in model.parameters() if p.is_floating_point()}
+        if kept != {torch.float32}:
+            raise TypeError(
+                f"bfloat16 training updates float32 master parameters; "
+                f"this model's are {sorted(map(str, kept))} (train the "
+                f"float32 model)")
 
 
 def compute_loss(outputs, gt: torch.Tensor, mask: torch.Tensor,
@@ -198,15 +230,32 @@ def compute_loss(outputs, gt: torch.Tensor, mask: torch.Tensor,
                                   config.loss_weights)
 
 
-def make_train_step(model: torch.nn.Module, config: TrainConfig
+def make_train_step(model: torch.nn.Module, config: TrainConfig,
+                    dtype: torch.dtype = torch.float32
                     ) -> Callable[[TrainState, dict], tuple]:
     """The train step of `model`: ``step(state, batch) → (state, loss)``
     with ``batch`` a dict of ``left``, ``right`` ``[B, H, W, 3]`` and
     ``gt_disp`` ``[B, H, W]`` tensors on the model's device (``gt_disp``
-    NaN or absent where there is none). The forward and the backward run
-    in train mode inside ``full_float32``, so that no cuDNN or cuBLAS call
-    of either takes TF32; then the optimizer updates the parameters."""
+    NaN or absent where there is none).
+
+    float32: the forward and the backward run in train mode inside
+    ``full_float32``, so that no cuDNN or cuBLAS call of either takes TF32.
+    bfloat16 (JAX's ``--bf16``): the forward runs on a bfloat16 view of
+    the float32 masters (`models.bfloat16_view`, anew each step), so it
+    computes as the bfloat16 model does; the predictions, the loss and the
+    running statistics stay float32, and the gradients are taken with
+    respect to the masters, each the view's gradient widened to float32.
+    Then the optimizer updates the parameters (the masters)."""
+    _check_compute_dtype(model, dtype)
     params = list(model.parameters())
+
+    def forward_loss(batch, gt, mask):
+        if dtype == torch.float32:
+            outputs = model(batch["left"], batch["right"])
+        else:
+            outputs = torch.func.functional_call(
+                model, bfloat16_view(model), (batch["left"], batch["right"]))
+        return compute_loss(outputs, gt, mask, config, batch=batch)
 
     def step(state: TrainState, batch: dict):
         if state.model is not model:
@@ -218,9 +267,8 @@ def make_train_step(model: torch.nn.Module, config: TrainConfig
                             dtype=batch["left"].dtype,
                             device=batch["left"].device)
         mask = metrics.valid_mask(gt, config.max_disp)
-        with full_float32():
-            outputs = model(batch["left"], batch["right"])
-            loss = compute_loss(outputs, gt, mask, config, batch=batch)
+        with full_float32(dtype == torch.float32):
+            loss = forward_loss(batch, gt, mask)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -247,10 +295,11 @@ class Trainer:
     """Epoch-driven training loop (the JAX package's `Trainer`)."""
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
-                 lr_schedule: Callable[[int], float] | None = None):
+                 lr_schedule: Callable[[int], float] | None = None,
+                 dtype: torch.dtype = torch.float32):
         self.model = model
         self.config = config
-        self.train_step = make_train_step(model, config)
+        self.train_step = make_train_step(model, config, dtype)
         self.lr_schedule = lr_schedule
         self.writer = ScalarWriter(config.log_dir)
 

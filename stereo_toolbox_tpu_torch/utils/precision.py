@@ -23,6 +23,11 @@ bfloat16 one); DINOv2's ``cls_token``, ``pos_embed`` and LayerScale
 ``gamma``, so that its token stream and residual adds are float32 as JAX's
 type promotion makes them; and CFNet's ``gamma_s*`` / ``beta_s*``, which
 set its search ranges in float32.
+
+In training, bfloat16 is a view of the float32 model's parameters
+(``models.bfloat16_view``): the model computes as the bfloat16 model does
+while its float32 parameters stay the masters, and `compute_dtype` refuses
+to train a cast model, which has none.
 """
 
 from __future__ import annotations
@@ -46,6 +51,24 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     of |x|."""
     hi = tf32_round(x)
     return hi, tf32_round(x.float() - hi)
+
+
+def compute_dtype(weight: torch.Tensor, training: bool) -> torch.dtype:
+    """The type a model computes in: its `weight`'s. In train mode a
+    bfloat16 weight must be a view of a float32 master (a plain tensor under
+    ``torch.func.functional_call``); a bfloat16 parameter is a cast model's
+    (``create_model(..., dtype=torch.bfloat16)``), which has no masters to
+    update, and raises."""
+    if (training and weight.dtype == torch.bfloat16
+            and isinstance(weight, torch.nn.Parameter)):
+        raise NotImplementedError(
+            "bfloat16 training takes the float32 model, whose parameters "
+            "are the masters, and runs it on a bfloat16 view "
+            "(trainer.make_train_step(model, config, dtype=torch.bfloat16), "
+            "models.bfloat16_view); this model's parameters are bfloat16 "
+            "themselves (create_model(..., dtype=torch.bfloat16) builds the "
+            "eval model)")
+    return weight.dtype
 
 
 @contextlib.contextmanager
