@@ -114,18 +114,39 @@ no result line):
     mask the same, the soft estimators within 1e-5 x max_disp;
 16. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
-17. print one ``{"forward": {...}}``, one ``{"train": {...}}``, one
-    ``{"estimators": {...}}`` and one ``{"kernels": [...]}`` line;
-18. print ``{"ok": true, "device": {...}}`` as the last line.
+17. the evaluation suites: write dataset trees in the zoo's on-disk
+    layouts at the real datasets' sizes (``datasets.fixtures``: SceneFlow
+    540x960 PFM/PNG, KITTI 2015 and 2012 375x1242, Middlebury Eval3 H
+    992x1436, ETH3D 458x739, DrivingStereo half 400x881 JPEG/PNG, two frames
+    each, with their manifests), hold every file's native decode (where
+    the port's native IO library built; else print why not) against the
+    plain one; run ``sceneflow``, ``generalization`` and ``weather``
+    through ``eval.py``'s functions with GwcNet_G (max_disp 192, settled
+    seeded weights) in float32 and bfloat16, with the counts set to 0
+    just before and every forward's K1, K2 and K3 launches required after
+    (GwcNet_G's mix a frame, on their designs), printing each suite's
+    frames/s and the loader's share of its wall time; hold the card's
+    metric vectors against the CPU's on trees of 192x384 frames (every
+    prediction within the forward's gates, every metric within
+    ``evaluation.suite_slack``); then ``speed_and_memory_test`` at its
+    three resolutions (SPEED_WARMUP, SPEED_ITERS) in both types;
+18. print one ``{"forward": {...}}``, one ``{"train": {...}}``, one
+    ``{"estimators": {...}}``, one ``{"eval": {...}}`` and one
+    ``{"kernels": [...]}`` line;
+19. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter, defaultdict
 from pathlib import Path
@@ -138,13 +159,19 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is false; this script "
              "needs an NVIDIA GPU")
 
+from stereo_toolbox_tpu_torch import eval as eval_cli  # noqa: E402
+from stereo_toolbox_tpu_torch import evaluation  # noqa: E402
 from stereo_toolbox_tpu_torch import losses as port_losses  # noqa: E402
+from stereo_toolbox_tpu_torch import native as port_native  # noqa: E402
 from stereo_toolbox_tpu_torch import metrics as port_metrics  # noqa: E402
 from stereo_toolbox_tpu_torch import nn as port_nn  # noqa: E402
 from stereo_toolbox_tpu_torch import (  # noqa: E402
     disparity_estimators as estimators)
 from stereo_toolbox_tpu_torch.datasets import (  # noqa: E402
     DataLoader, SyntheticStereoDataset)
+from stereo_toolbox_tpu_torch.datasets import io as port_io  # noqa: E402
+from stereo_toolbox_tpu_torch.datasets.fixtures import (  # noqa: E402
+    FULL_SIZES, write_eval_trees)
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
@@ -2167,6 +2194,348 @@ def check_estimators(gen) -> dict:
     return row
 
 
+# --------------------------------------------------------------- phase 17
+EVAL_MODEL = "GwcNet_G"
+EVAL_FRAMES = 2                  # frames of each dataset written in full
+EVAL_ROWS = 12                   # manifest lines a dataset: them, cycled
+EVAL_CHECK = (192, 384)          # the frames of the card-vs-CPU trees
+EVAL_MEAN_PX, EVAL_MAX_PX = 5e-3, 0.1   # the forward's card-vs-CPU gates
+# speed rows: warm-up forwards, then SPEED_READINGS readings of the timed
+# forwards at each resolution of the suite's ladder
+SPEED_WARMUP, SPEED_READINGS = 2, 3
+SPEED_ITERS = {(480, 640): 30, (736, 1280): 8, (1088, 1920): 8}
+HOST_RUNS = 5                    # forwards enqueued alone on an idle card
+HOST_BOUND = 0.9                 # their enqueue / the card's time: host-bound
+
+
+class TimedLoader:
+    """A loader that records, for each batch, the seconds the caller
+    waited for it and the moment it arrived."""
+
+    def __init__(self, loader):
+        self.loader, self.waits, self.arrivals = loader, [], []
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            t1 = time.perf_counter()
+            self.waits.append(t1 - t0)
+            self.arrivals.append(t1)
+            yield batch
+
+
+def run_eval_suites(apply_fn, roots) -> dict:
+    """Each data suite of ``eval.py`` on the trees at `roots`: its metrics,
+    frames and wall seconds; and in steady state, from each loader's first
+    batch to its last (the first batch, which waits for the workers to
+    start and decode, left out), the frames a second and the loader's share
+    of that time."""
+    out = {}
+    for suite in eval_cli.DATA_SUITES:
+        loaders = eval_cli.suite_loaders(suite, roots[suite], roots["lists"])
+        timed = ({k: TimedLoader(v) for k, v in loaders.items()}
+                 if isinstance(loaders, dict) else TimedLoader(loaders))
+        parts = timed.values() if isinstance(timed, dict) else [timed]
+        t0 = time.perf_counter()
+        metrics = eval_cli.run_suite(suite, apply_fn, timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steady_s = sum(p.arrivals[-1] - p.arrivals[0] for p in parts)
+        steady_frames = sum(len(p.arrivals) - 1 for p in parts)
+        out[suite] = {"metrics": np.asarray(metrics).tolist(),
+                      "frames": sum(len(p.arrivals) for p in parts),
+                      "wall_s": wall, "steady_frames": steady_frames,
+                      "steady_s": steady_s,
+                      "frames_per_s": steady_frames / steady_s,
+                      "loader_share": sum(sum(p.waits[1:]) for p in parts)
+                      / steady_s,
+                      "first_batch_s": [p.waits[0] for p in parts]}
+    return out
+
+
+def recording(apply_fn, preds):
+    def fn(left, right):
+        pred = apply_fn(left, right)
+        preds.append(pred.cpu().numpy())
+        return pred
+    return fn
+
+
+def check_native_decodes(root) -> dict:
+    """Every file under `root` decoded by the port's native library and by
+    its NumPy/PIL path: the same bits (images, disparity PNGs, PFMs), and
+    the seconds each path took, by kind of file (warm reads: the files were
+    just written)."""
+    from PIL import Image
+    row = {"available": port_native.available,
+           "build_error": port_native.build_error}
+    if not port_native.available:
+        return row
+    seconds = defaultdict(lambda: [0.0, 0.0, 0])   # kind → native, plain, n
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            if f.endswith(".pfm"):
+                call, kind = port_io.pfm_imread, "pfm"
+            elif f.endswith(".jpg"):
+                call, kind = port_io.load_image_rgb, "jpeg rgb"
+            elif f.endswith(".png") and Image.open(path).mode == "RGB":
+                call, kind = port_io.load_image_rgb, "png rgb"
+            elif f.endswith(".png"):
+                call, kind = port_io.load_png_raw, "png raw"
+            else:
+                continue
+            t0 = time.perf_counter()
+            got = call(path)
+            t1 = time.perf_counter()
+            port_native.available = False
+            try:
+                want = call(path)
+            finally:
+                port_native.available = True
+            t2 = time.perf_counter()
+            seconds[kind][0] += t1 - t0
+            seconds[kind][1] += t2 - t1
+            seconds[kind][2] += 1
+            got, want = (np.asarray(x[0] if isinstance(x, tuple) else x)
+                         for x in (got, want))
+            require(got.dtype == want.dtype and np.array_equal(
+                got, want, equal_nan=got.dtype.kind == "f"),
+                f"native decode of {path} differs from the plain one")
+            if call is port_io.load_image_rgb:
+                t0 = time.perf_counter()
+                norm = port_io.normalize_u8(got)
+                t1 = time.perf_counter()
+                plain = port_io.imagenet_normalize(port_io.to_float01(got))
+                t2 = time.perf_counter()
+                seconds["normalize"][0] += t1 - t0
+                seconds["normalize"][1] += t2 - t1
+                seconds["normalize"][2] += 1
+                require(np.abs(norm - plain).max() <= 2e-6,
+                        f"native normalize of {path} off by more than 2e-6")
+    row["files_held"] = sum(n for k, (_, _, n) in seconds.items()
+                            if k != "normalize")
+    row["ms_per_file"] = {k: {"native": 1e3 * a / n, "plain": 1e3 * b / n,
+                              "files": n}
+                          for k, (a, b, n) in seconds.items()}
+    return row
+
+
+def _suite_slack(suite, roots, cpu_preds, tol, epe_tol) -> np.ndarray:
+    """`evaluation.suite_slack` of `suite`'s metric vector on the trees at
+    `roots`, for predictions within `tol` px (mean `epe_tol`) of
+    `cpu_preds`."""
+    frames = eval_cli.suite_loaders(suite, roots[suite], roots["lists"])
+    if not isinstance(frames, dict):
+        return evaluation.suite_slack(list(frames), cpu_preds, (1, 2, 3),
+                                      tol, epe_tol, maxdisp=MAX_DISP)
+    slack, k = [], 0
+    for idx, loader in enumerate(frames.values()):
+        batches = list(loader)
+        t = (evaluation.GENERALIZATION_THRESHOLDS[idx]
+             if suite == "generalization" else 3.0)
+        slack.append(evaluation.suite_slack(
+            batches, cpu_preds[k:k + len(batches)], (t,), tol, epe_tol,
+            regions=suite == "generalization"))
+        k += len(batches)
+    return np.stack(slack)
+
+
+def eval_card_vs_cpu(models, root) -> dict:
+    """The data suites on the card (`models`: the float32 model and its
+    bfloat16 copy) and on the CPU (the same weights in both types) on trees
+    of `EVAL_CHECK` frames. The float32 card predictions within the
+    forward's gates of the CPU's; the bfloat16 card predictions' mean |d|
+    from the CPU's float32 ones within BF16_FACTOR x the CPU bfloat16
+    model's own (the rule of the bfloat16 train steps). Every metric within
+    `evaluation.suite_slack` of the CPU float32 model's (the tests' rule),
+    for bfloat16 with the largest |d| its predictions showed."""
+    roots = write_eval_trees(root, frames=2, sizes={
+        k: EVAL_CHECK for k in FULL_SIZES}, max_disp=MAX_DISP, seed=18)
+    cpus = {}
+    for dtype in (F32, BF16):
+        cpus[dtype] = create_model(EVAL_MODEL, device="cpu",
+                                   max_disp=MAX_DISP, dtype=dtype)
+        cpus[dtype].load_state_dict(models[F32].state_dict())
+    row = {}
+    for suite in eval_cli.DATA_SUITES:
+        metrics, preds = {}, {}
+        for where, dtype, model in (("card", F32, models[F32]),
+                                    ("cpu", F32, cpus[F32]),
+                                    ("card", BF16, models[BF16]),
+                                    ("cpu", BF16, cpus[BF16])):
+            key = (where, dtype)
+            preds[key] = []
+            loaders = eval_cli.suite_loaders(suite, roots[suite],
+                                             roots["lists"])
+            metrics[key] = np.asarray(eval_cli.run_suite(
+                suite, recording(evaluation.make_apply(model), preds[key]),
+                loaders))
+        want, want_m = preds["cpu", F32], metrics["cpu", F32]
+        row[suite] = {"cpu": want_m.tolist()}
+        for dtype in (F32, BF16):
+            got = preds["card", dtype]
+            d = [np.abs(a - b) for a, b in zip(got, want)]
+            require(all(np.isfinite(x).all() for x in got),
+                    f"eval {suite} {DTYPE_NAME[dtype]}: non-finite card "
+                    f"predictions")
+            mean = float(np.mean([x.mean() for x in d]))
+            big = float(max(x.max() for x in d))
+            if dtype == F32:
+                require(max(x.mean() for x in d) < EVAL_MEAN_PX
+                        and big < EVAL_MAX_PX,
+                        f"eval {suite}: card vs CPU predictions mean|d| "
+                        f"{mean}, max {big}")
+                slack = _suite_slack(suite, roots, want, EVAL_MAX_PX,
+                                     EVAL_MEAN_PX)
+                gate = ""
+            else:
+                own = float(np.mean([np.abs(a - b).mean() for a, b in zip(
+                    preds["cpu", BF16], want)]))
+                require(mean <= BF16_FACTOR * own,
+                        f"eval {suite} bf16: card vs CPU f32 predictions "
+                        f"mean|d| {mean} beyond {BF16_FACTOR} x the CPU "
+                        f"bf16's {own}")
+                slack = _suite_slack(suite, roots, want, big, big)
+                gate = (f" (limit {BF16_FACTOR} x the CPU bf16's "
+                        f"{own:.3e})")
+            card_m = metrics["card", dtype]
+            diff = np.abs(card_m - want_m)
+            require(diff.shape == slack.shape and (diff <= slack + 1e-6).all(),
+                    f"eval {suite} {DTYPE_NAME[dtype]}: card "
+                    f"{card_m.tolist()} vs CPU {want_m.tolist()} beyond "
+                    f"{slack.tolist()}")
+            row[suite][DTYPE_NAME[dtype]] = {
+                "card": card_m.tolist(), "slack": slack.tolist(),
+                "pred_mean_abs": mean, "pred_max_abs": big,
+                **({"cpu_bf16_mean_abs": own} if dtype == BF16 else {})}
+            print(f"  {suite} {DTYPE_NAME[dtype]} card vs CPU float32 at "
+                  f"{EVAL_CHECK}: preds mean|d| {mean:.2e}{gate} max "
+                  f"{big:.2e} px; max |metric d| {diff.max():.2e} within "
+                  f"{slack.min():.2e}-{slack.max():.2e}")
+    return row
+
+
+def speed_rows(model) -> list:
+    """`evaluation.speed_and_memory_test` at each resolution of its ladder,
+    `SPEED_READINGS` times, each reading `SPEED_ITERS` timed forwards after
+    `SPEED_WARMUP`; beside it the host's seconds to enqueue one forward on
+    an idle card, the median of `HOST_RUNS` (in the timed loop the host
+    waits on a full launch queue, so its time there reads the card's). A
+    row whose idle enqueue reaches HOST_BOUND of the card's time a forward
+    is bound by the host, and reads the host's speed."""
+    apply_fn = evaluation.make_apply(model)
+    rows = []
+    for res, iters in SPEED_ITERS.items():
+        readings = []
+        for _ in range(SPEED_READINGS):
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, (t,), (mem,) = evaluation.speed_and_memory_test(
+                    apply_fn, model, resolutions=[res], num_iterations=iters,
+                    warmup=SPEED_WARMUP)
+            readings.append({"ms": 1e3 * t, "peak_mib": mem})
+        x = torch.zeros(1, *res, 3, device=DEV)
+        host = []
+        for _ in range(HOST_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply_fn(x, x)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        ms = sorted(r["ms"] for r in readings)[len(readings) // 2]
+        host_ms = 1e3 * float(np.median(host))
+        rows.append({"resolution": list(res), "iters": iters, "ms": ms,
+                     "readings": readings, "host_ms": host_ms,
+                     "host_bound": host_ms >= HOST_BOUND * ms,
+                     "peak_mib": max(r["peak_mib"] for r in readings)})
+    return rows
+
+
+def check_eval_suites(gen, smi_line) -> dict:
+    """Phase 17: the evaluation suites through ``eval.py``'s functions on
+    the card, on dataset trees written in the zoo's layouts."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        t0 = time.perf_counter()
+        roots = write_eval_trees(os.path.join(tmp, "full"),
+                                 frames=EVAL_FRAMES, max_disp=MAX_DISP,
+                                 seed=17, rows=EVAL_ROWS)
+        row = {"tree_write_s": time.perf_counter() - t0,
+               "sizes": {k: list(v) for k, v in FULL_SIZES.items()},
+               "frames_written": EVAL_FRAMES, "manifest_rows": EVAL_ROWS,
+               "native_io": check_native_decodes(os.path.join(tmp, "full"))}
+        nat = row["native_io"]
+        if nat["available"]:
+            print(f"  native IO library: built, {nat['files_held']} files "
+                  f"decoded to the plain path's bits; ms a file native / "
+                  f"plain (warm reads): " + ", ".join(
+                      f"{k} {v['native']:.2f} / {v['plain']:.2f} "
+                      f"({v['files']})"
+                      for k, v in nat["ms_per_file"].items()))
+        else:
+            print(f"  native IO library: unavailable: {nat['build_error']}")
+        f32 = create_model(EVAL_MODEL, max_disp=MAX_DISP,
+                           generator=torch.Generator().manual_seed(0))
+        left, right = (t.to(DEV) for t in stereo_pair(1, H, W, seed=17))
+        settle_and_perturb_bn(f32, left, right, gen)
+        bf16 = create_model(EVAL_MODEL, max_disp=MAX_DISP, dtype=BF16)
+        bf16.load_state_dict(f32.state_dict())
+        for dtype, model in ((F32, f32), (BF16, bf16)):
+            apply_fn = evaluation.make_apply(model)
+            for size in {tuple(-(-s // 96) * 96 for s in hw)
+                         for hw in FULL_SIZES.values()}:   # warm each shape
+                x = torch.zeros(1, *size, 3, device=DEV)
+                apply_fn(x, x)
+            torch.cuda.synchronize()
+            reset_counts()
+            suites = run_eval_suites(apply_fn, roots)
+            frames = sum(s["frames"] for s in suites.values())
+            totals = {tag: fn.launches for tag, (fn, *_) in KERNELS.items()}
+            want = {tag: frames * sum(MIXES[EVAL_MODEL].get(tag, {}).values())
+                    for tag in KERNELS}
+            require(totals == want, f"eval suites {DTYPE_NAME[dtype]}: "
+                                    f"launches {totals} != {want}")
+            require_design("K2", DESIGN[dtype], "in the eval suites")
+            for tag in ("K1", "K3"):
+                require_design(tag, ONE_DESIGN[tag], "in the eval suites")
+            for name, s in suites.items():
+                require(np.isfinite(s["metrics"]).all(),
+                        f"eval {name} {DTYPE_NAME[dtype]}: {s['metrics']}")
+                print(f"  {name} {DTYPE_NAME[dtype]}: {s['frames']} frames "
+                      f"in {s['wall_s']:.3f} s; steady state "
+                      f"{s['steady_frames']} frames in {s['steady_s']:.3f} "
+                      f"s, {s['frames_per_s']:.2f} frames/s, loader "
+                      f"{100 * s['loader_share']:.1f}% of it; first batch "
+                      f"{', '.join(f'{x:.3f}' for x in s['first_batch_s'])}"
+                      f" s; metrics {s['metrics']}")
+            row[DTYPE_NAME[dtype]] = {"suites": suites, "launches": totals}
+        row["card_vs_cpu"] = eval_card_vs_cpu({F32: f32, BF16: bf16},
+                                              os.path.join(tmp, "small"))
+        print(f"  speed ({smi_line}):")
+        row["speed"] = {"warmup": SPEED_WARMUP, "readings": SPEED_READINGS,
+                        "host_runs": HOST_RUNS, "card": smi_line}
+        for dtype, model in ((F32, f32), (BF16, bf16)):
+            rows = speed_rows(model)
+            row["speed"][DTYPE_NAME[dtype]] = rows
+            for r in rows:
+                print(f"  {DTYPE_NAME[dtype]} {r['resolution'][0]}x"
+                      f"{r['resolution'][1]}: {r['ms']:.3f} ms a forward "
+                      f"(median of " + ", ".join(
+                          f"{x['ms']:.3f}" for x in r["readings"])
+                      + f"; {r['iters']} each), host enqueues one on an "
+                      f"idle card in {r['host_ms']:.3f} ms"
+                      f"{' (host-bound)' if r['host_bound'] else ''}, peak "
+                      f"{r['peak_mib']:.1f} MiB")
+        return row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ----------------------------------------------------- timing (phases 8-13)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
@@ -3007,10 +3376,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("phase 16: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
+    torch.cuda.empty_cache()
+    print(f"phase 17: evaluation suites, {EVAL_MODEL} "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    t0 = time.perf_counter()
+    suites = check_eval_suites(gen, smi[0] if smi else "nvidia-smi: none")
+    suites["phase_s"] = time.perf_counter() - t0
+    print(f"phase 17: {suites['phase_s']:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))
     print(json.dumps({"estimators": estimates}))
+    print(json.dumps({"eval": suites}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -18,9 +18,9 @@ color-jittered (asymmetric), and right-occlusion-masked; eval samples are
 padded to multiples of 96 (datasets/sceneflow.py:66-103).
 
 Manifests use the reference's txt format (datasets/utils.py:11-21): per line,
-2-3 space-separated paths relative to the dataset root, passed as
-``manifest=`` (or looked up in `LISTS_DIR/<name>/<split>.txt`; the port's
-per-dataset lists and loaders come with its real-dataset slice).
+2-3 space-separated paths relative to the dataset root. They are looked up in
+`LISTS_DIR/<name>/<split>.txt` (the zoo's vendored manifests, the JAX
+package's byte for byte) or passed as ``manifest=``.
 
 Unlike the reference (implicit global torch RNG), every sample's augmentation
 is derived from `(seed, epoch, index)` — fully reproducible and trivially

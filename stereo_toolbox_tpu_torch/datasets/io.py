@@ -1,10 +1,13 @@
 """Dataset IO: manifests, PFM/PNG16/packed-RGB disparity decoders, normalize.
 
-The port's own copy of the NumPy/PIL paths of
-``stereo_toolbox_tpu/datasets/io.py`` (the original toolbox's
-datasets/utils.py:11-69 plus its per-dataset decode rules). The JAX
-package's native C++ decoders are bit-identical to these paths; the port
-binds them with the real-dataset loaders, not yet.
+The port's own copy of ``stereo_toolbox_tpu/datasets/io.py`` (the original
+toolbox's datasets/utils.py:11-69 plus its per-dataset decode rules). The
+decoders go to the port's native C++ runtime (``csrc/stereo_io.cpp``, bound
+in `stereo_toolbox_tpu_torch.native`) when its library is available —
+libpng / libjpeg decode and a fused normalize outside the GIL — and to the
+NumPy/PIL paths below otherwise, file by file where the native decoder
+refuses one. Both give the same bits; the fused normaliser rounds within
+2 ulp of the NumPy one (tests/test_torch_native_io.py).
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import re
 
 import numpy as np
 from PIL import Image
+
+from stereo_toolbox_tpu_torch import native as _native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -40,6 +45,8 @@ def pfm_imread(filename: str):
     Parity: datasets/utils.py:25-59 (PF/Pf header, endian from scale sign,
     flipud).
     """
+    if _native.available:
+        return _native.decode_pfm(filename)
     with open(filename, "rb") as f:
         header = f.readline().decode("latin-1").rstrip()
         if header not in ("PF", "Pf"):
@@ -59,11 +66,21 @@ def pfm_imread(filename: str):
 
 def load_image_rgb(filename: str) -> np.ndarray:
     """Load an image as HxWx3 uint8 RGB."""
+    if _native.available:
+        try:
+            return _native.decode_rgb(filename)
+        except _native.NativeIOError:
+            pass  # a format the native decoder does not read → PIL
     return np.asarray(Image.open(filename).convert("RGB"))
 
 
 def load_png_raw(filename: str) -> np.ndarray:
     """Load a PNG preserving bit depth (uint8/uint16 as stored)."""
+    if _native.available:
+        try:
+            return _native.decode_raw(filename)
+        except _native.NativeIOError:
+            pass
     return np.asarray(Image.open(filename))
 
 
@@ -135,8 +152,15 @@ def imagenet_normalize(img01: np.ndarray) -> np.ndarray:
 
 
 def normalize_u8(img: np.ndarray) -> np.ndarray:
-    """uint8 HxWx3 → ImageNet-normalized float32
-    (``imagenet_normalize(to_float01(img))``)."""
+    """uint8 HxWx3 → ImageNet-normalized float32, fused in one pass.
+
+    The native single-pass kernel when available (sio_normalize_imagenet),
+    else ``imagenet_normalize(to_float01(img))``; within 2 ulp of each
+    other.
+    """
+    if (_native.available and img.dtype == np.uint8 and img.ndim == 3
+            and img.shape[-1] == 3):
+        return _native.imagenet_normalize_u8(img)
     return imagenet_normalize(to_float01(img))
 
 

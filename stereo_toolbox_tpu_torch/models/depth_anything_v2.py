@@ -58,6 +58,8 @@ class DepthAnythingV2(nn.Module):
     (64 / 128 / 256); ``out_align_corners=False`` is StereoAnywhere's
     variant of the last resize."""
 
+    monocular = True             # its forward takes the left image alone
+
     def __init__(self, encoder: str = "vits", features: int | None = None,
                  out_align_corners: bool = True,
                  generator: torch.Generator | None = None):

@@ -1,17 +1,24 @@
 """Training entry point of the PyTorch port.
 
     python -m stereo_toolbox_tpu_torch.train --model PSMNet --dataset synthetic
+    python -m stereo_toolbox_tpu_torch.train --model GwcNet_G \
+        --dataset sceneflow --root /data/Scene_Flow --bf16
 
 Trains PSMNet, GwcNet_G, GwcNet_GC, ACVNet or CFNet on the card
 (``--device cpu`` runs the plain paths on the CPU; without it and without a
 card it raises), in float32 or, with ``--bf16``, in bfloat16, on the
-synthetic dataset. ``--bf16`` is the JAX package's: the model's parameters
-and running statistics stay float32 (the masters, which the optimizer
-updates and the checkpoints hold), and each step computes on a bfloat16
-view of them (``trainer.make_train_step(..., dtype=torch.bfloat16)``). The
+synthetic dataset or on a dataset of the zoo (``--dataset`` a name of
+`DATASETS` or a '+'-joined mix of them, trained as one `ConcatDataset`;
+``--split`` overrides each one's train split, ``--root`` its root), as the
+JAX package's ``examples/train.py`` builds them; ``--lists`` takes their
+manifests from a directory laid out as ``datasets/lists`` instead of the
+vendored ones. ``--bf16`` is the JAX package's: the model's parameters and
+running statistics stay float32 (the masters, which the optimizer updates
+and the checkpoints hold), and each step computes on a bfloat16 view of
+them (``trainer.make_train_step(..., dtype=torch.bfloat16)``). The
 flags are those of the JAX package's ``examples/train.py`` that the port
-supports, with its defaults, plus ``--device``; the synthetic dataset holds
-64 samples, as there. The multi-head loss weighs PSMNet's three heads
+supports, with its defaults, plus ``--device`` and ``--lists``; the
+synthetic dataset holds 64 samples, as there. The multi-head loss weighs PSMNet's three heads
 (0.5, 0.7, 1.0) and every other model's four (0.5, 0.5, 0.7, 1.0), as
 there: CFNet's nine heads train with ``--loss sequence`` (with the default
 ``multihead`` its step raises, as JAX's asserts). ``--distributed`` is
@@ -21,11 +28,11 @@ refused: data parallelism is not ported yet (ROADMAP Queue 1).
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
-from stereo_toolbox_tpu_torch.datasets import (DataLoader,
-                                               SyntheticStereoDataset)
+from stereo_toolbox_tpu_torch import datasets as D
 from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.trainer import (TrainConfig, Trainer,
                                               init_train_state)
@@ -35,12 +42,41 @@ TRAINABLE = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet")
 LOSS_WEIGHTS = {name: (0.5, 0.7, 1.0) if name == "PSMNet"
                 else (0.5, 0.5, 0.7, 1.0) for name in TRAINABLE}
 SYNTHETIC_SAMPLES = 64
+# dataset key → (class name in `datasets`, default train split)
+DATASETS = {
+    "sceneflow": ("SceneFlow_Dataset", "train_finalpass"),
+    "kitti2015": ("KITTI2015_Dataset", "train"),
+    "kitti2012": ("KITTI2012_Dataset", "train"),
+    "middleburyeval3": ("MiddleburyEval3_Dataset", "trainH"),
+    "eth3d": ("ETH3D_Dataset", "train"),
+    "drivingstereo": ("DrivingStereo_Dataset", "train_half"),
+    "middlebury2021": ("Middlebury2021_Dataset", "train"),
+    "sintel": ("Sintel_Dataset", "train_final"),
+    "hr_vs": ("HR_VS_Dataset", "train"),
+    "booster": ("Booster_Dataset", "train_balanced"),
+    "instereo2k": ("InStereo2k_Dataset", "train"),
+    "crestereo": ("CREStereo_Dataset", "train"),
+    "argoverse": ("Argoverse_Dataset", "train"),
+    "holopix50k": ("Holopix50k_Dataset", "train"),
+    "fallingthings": ("FallingThings_Dataset", "train"),
+    "virtualkitti2": ("VirtualKITTI2_Dataset", "train"),
+}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="PSMNet", choices=TRAINABLE)
-    p.add_argument("--dataset", default="synthetic", choices=("synthetic",))
+    p.add_argument("--dataset", default="synthetic",
+                   help="'synthetic', a dataset name, or a '+'-joined mix "
+                        "(e.g. sceneflow+sintel+hr_vs); names: "
+                        + ", ".join(DATASETS))
+    p.add_argument("--split", default=None,
+                   help="split name; default: each dataset's train split")
+    p.add_argument("--root", default=None,
+                   help="dataset root; default: each dataset's own")
+    p.add_argument("--lists", default=None,
+                   help="manifest directory laid out as datasets/lists "
+                        "(default: the vendored manifests)")
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--epochs", type=int, default=20)
@@ -66,6 +102,34 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _build_one(name: str, args):
+    if name == "synthetic":
+        return D.SyntheticStereoDataset(
+            num_samples=SYNTHETIC_SAMPLES, height=args.crop[0] + 64,
+            width=args.crop[1] + 64, max_disp=min(args.maxdisp, 96),
+            training=True, crop_size=tuple(args.crop), seed=args.seed)
+    if name not in DATASETS:
+        raise SystemExit(f"unknown dataset {name!r}; have "
+                         f"{['synthetic'] + sorted(DATASETS)}")
+    cls_name, default_split = DATASETS[name]
+    cls, split = getattr(D, cls_name), args.split or default_split
+    kw = {"crop_size": tuple(args.crop), "seed": args.seed}
+    if args.root:
+        kw["root_dir"] = args.root
+    if args.lists:
+        kw["manifest"] = os.path.join(args.lists, cls.list_name,
+                                      f"{split}.txt")
+    return cls(split, training=True, **kw)
+
+
+def build_dataset(args):
+    """One dataset, or a '+'-joined mix as one `ConcatDataset` (the
+    original's SceneFlow+Sintel+HR-VS+CREStereo recipe,
+    train_accelerate.py:97-107)."""
+    parts = [_build_one(n, args) for n in args.dataset.split("+")]
+    return parts[0] if len(parts) == 1 else D.ConcatDataset(parts)
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.distributed:
@@ -81,13 +145,10 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir, save_every=args.save_every,
         log_dir=args.log_dir, loss=args.loss,
         loss_weights=LOSS_WEIGHTS[args.model])
-    dataset = SyntheticStereoDataset(
-        num_samples=SYNTHETIC_SAMPLES, height=args.crop[0] + 64,
-        width=args.crop[1] + 64, max_disp=min(args.maxdisp, 96),
-        training=True, crop_size=tuple(args.crop), seed=args.seed)
-    loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=True,
-                        seed=args.seed, drop_last=True,
-                        num_workers=args.num_workers)
+    dataset = build_dataset(args)
+    loader = D.DataLoader(dataset, batch_size=args.batch_size, shuffle=True,
+                          seed=args.seed, drop_last=True,
+                          num_workers=args.num_workers)
     total_steps = len(loader) * args.epochs
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     state = init_train_state(model, config, total_steps, dtype)

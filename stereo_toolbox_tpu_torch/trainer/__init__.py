@@ -277,6 +277,27 @@ def make_train_step(model: torch.nn.Module, config: TrainConfig,
     return step
 
 
+def make_eval_step(model: torch.nn.Module) -> Callable:
+    """The eval forward ``eval_fn(left, right) → prediction`` (the JAX
+    package's `make_eval_step`, the trainer-side twin of
+    `evaluation.make_apply`): `model` in eval mode under
+    ``torch.inference_mode()``, a float32 model inside ``full_float32``;
+    the inputs (tensors or numpy arrays, ``[B, H, W, 3]``) are moved to the
+    model's device, where the prediction stays, in the model's output type.
+    A model whose class sets ``monocular = True`` takes `left` alone."""
+    device = next(model.parameters()).device
+    float32 = all(p.dtype != torch.bfloat16 for p in model.parameters())
+    monocular = getattr(model, "monocular", False)
+
+    def eval_fn(left, right):
+        model.eval()
+        inputs = (left,) if monocular else (left, right)
+        inputs = [torch.as_tensor(x).to(device) for x in inputs]
+        with torch.inference_mode(), full_float32(float32):
+            return model(*inputs)
+    return eval_fn
+
+
 def to_device(batch: dict, device) -> dict:
     """The loader's numpy ``left``, ``right`` and ``gt_disp`` as tensors on
     `device`, through pinned memory to a card."""
@@ -359,5 +380,5 @@ class Trainer:
 
 
 __all__ = ["Adam", "TrainConfig", "TrainState", "Trainer", "compute_loss",
-           "init_train_state", "make_optimizer", "make_train_step",
-           "onecycle_schedule", "to_device"]
+           "init_train_state", "make_eval_step", "make_optimizer",
+           "make_train_step", "onecycle_schedule", "to_device"]

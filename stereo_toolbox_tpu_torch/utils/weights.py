@@ -374,3 +374,31 @@ def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:
     t = JaxToTorch(variables)
     CONVERTERS[name](t)
     return t.state_dict()
+
+
+# Keys of the original toolbox's checkpoints that its forward never uses and
+# the port does not register (the JAX importer's ``expect_unused``,
+# utils/torch_import.py:444-447, :992-997)
+UNUSED_REFERENCE_KEYS = {
+    "CFNet": ("combine1.combine3.", "combine1.redir3."),
+    "DepthAnythingV2": ("refinenet4.resConfUnit1.", "pretrained.mask_token"),
+}
+
+
+def reference_state_dict(name: str, path: str) -> dict[str, torch.Tensor]:
+    """The original toolbox's checkpoint of model `name` at `path` as the
+    port's ``state_dict``, for ``load_state_dict(strict=True)``: the port
+    keeps the original's names, so the tensors are taken as they are. As
+    the JAX importer does, a ``{"model" | "state_dict" |
+    "model_state_dict": ...}`` nesting is unwrapped and DDP's ``module.``
+    prefixes are stripped; the keys `UNUSED_REFERENCE_KEYS` names are
+    dropped."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("model", "state_dict", "model_state_dict"):
+        if isinstance(obj, Mapping) and isinstance(obj.get(key), Mapping):
+            obj = obj[key]
+            break
+    unused = UNUSED_REFERENCE_KEYS.get(name, ())
+    return {k.removeprefix("module."): v for k, v in obj.items()
+            if isinstance(v, torch.Tensor)
+            and not any(u in k for u in unused)}
