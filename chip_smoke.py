@@ -44,9 +44,17 @@ no result line):
    every sample reads one right pixel; K4-bwd also a gradient one element
    past 16-byte alignment and rows whose chunks fit one block an SM);
 7. hold the ViT attention kernel (K7) likewise, at DepthAnythingV2-vitl's
-   launch shape, vits' and MonSter's two-view shapes and ragged N (1, 15,
-   64, 65, 77, 200, 1025, 2048), bfloat16 on its design "mma", float32 on
-   "tf32x3" (each float32 launch twice for the same bits);
+   launch shape, vits', DEFOMStereo_S's eval and train and MonSter's
+   two-view shapes and ragged N (1, 15, 64, 65, 77, 200, 1025, 2048),
+   bfloat16 on its design "mma", float32 on "tf32x3" (each float32 launch
+   twice for the same bits); then its backward (K7-bwd: "dkv" and "dq", both
+   "simt") at DEFOMStereo_S's train and eval shapes and the ragged N, in
+   both types: the forward's row log-sum-exp against the plain one, each
+   backward kernel against `attention_backward_reference` on the forward
+   kernel's output and log-sum-exp (f32 1e-5, bf16 1e-2 x max|ref|; at
+   N = 1, where dQ and dK are zero, against dV's scale), twice for the same
+   bits, and autograd through `attention` against the plain chain
+   (`K7_CHAIN_TOL`);
 8. PSMNet, 9. GwcNet_G, 10. GwcNet_GC, 11. CFNet and 12. ACVNet (max_disp
    192, seeded random weights, settled and perturbed BatchNorm
    statistics), one after the other: the card against the port's CPU
@@ -130,10 +138,27 @@ no result line):
     prediction within the forward's gates, every metric within
     ``evaluation.suite_slack``); then ``speed_and_memory_test`` at its
     three resolutions (SPEED_WARMUP, SPEED_ITERS) in both types;
-18. print one ``{"forward": {...}}``, one ``{"train": {...}}``, one
+18. DEFOMStereo_S (seeded random weights, the published widths; the
+    sequence loss, max_disp 192 for its mask): its eval forward on the card
+    against the CPU at 64x128 (f32: mean |d| < 5e-3, p99 < 2e-2 x
+    max(mean |ref|, 1); bf16 against the same forward with K7 swapped for
+    its plain version, mean |d| < 0.5 px); the 480x640 forward (32
+    iterations, 8 of them scale updates) in f32 and bf16 and
+    DEFOMStereo_L's in bf16, launches by shape required (12 and 24 K7 of
+    two views, N 1201); one train step on the card against the CPU at
+    64x128, B 2 (f32: the loss 1e-4, each group's gradient 5e-2 relative
+    L2, the frozen depth head's zero on both sides; bf16: each K7-bwd
+    launch against its plain version), its launches 12 K7 and 12 + 12
+    K7-bwd; at the default crop 320x512, B 4, a warm and three timed steps
+    in each type with those launches every step, and eight steps on one
+    batch whose last loss is below 0.9 x the first; each forward timed as
+    phases 8-13 time theirs, K7-bwd timed at the train step's launches
+    beside its plain version and autograd through
+    ``F.scaled_dot_product_attention``;
+19. print one ``{"forward": {...}}``, one ``{"train": {...}}``, one
     ``{"estimators": {...}}``, one ``{"eval": {...}}`` and one
     ``{"kernels": [...]}`` line;
-19. print ``{"ok": true, "device": {...}}`` as the last line.
+20. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -173,11 +198,16 @@ from stereo_toolbox_tpu_torch.datasets import io as port_io  # noqa: E402
 from stereo_toolbox_tpu_torch.datasets.fixtures import (  # noqa: E402
     FULL_SIZES, write_eval_trees)
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
+from stereo_toolbox_tpu_torch.models.defom_stereo import (  # noqa: E402
+    get_danv2_io_size)
+port_attention = sys.modules["stereo_toolbox_tpu_torch.ops.attention"]
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import volume as port_volume  # noqa: E402
 from stereo_toolbox_tpu_torch.ops.attention import (  # noqa: E402
-    attention, attention_reference)
+    attention, attention_backward, attention_backward_dkv,
+    attention_backward_dq, attention_backward_reference,
+    attention_lse_reference, attention_reference, attention_with_lse)
 from stereo_toolbox_tpu_torch.ops.conv3d import (  # noqa: E402
     conv3d, conv3d_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (  # noqa: E402
@@ -263,6 +293,18 @@ KERNELS = {
                "stereo_toolbox_tpu_torch/csrc/sample_gather.cu",
                "stereo_toolbox_tpu/ops/volume.py:336 (no TPU kernel: the "
                "gradient of the XLA path)"),
+    # the library flash_attention's two backward Pallas kernels, which its
+    # custom_vjp ties to the forward K7 ports
+    "K7-bwd-dkv": (attention_backward_dkv, "vit_attention_bwd_dkv",
+                   "stereo_toolbox_tpu_torch/csrc/vit_attention.cu",
+                   "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                   "(_flash_attention_bwd_dkv, :941), reached from "
+                   "stereo_toolbox_tpu/models/depth_anything_v2.py:75"),
+    "K7-bwd-dq": (attention_backward_dq, "vit_attention_bwd_dq",
+                  "stereo_toolbox_tpu_torch/csrc/vit_attention.cu",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                  "(_flash_attention_bwd_dq, :1287), reached from "
+                  "stereo_toolbox_tpu/models/depth_anything_v2.py:75"),
 }
 
 # Launches expected in one eval forward at 480x640, max_disp 192, keyed as
@@ -336,6 +378,12 @@ ACV_K2_MIX = {
 }
 # DepthAnythingV2-vitl at 518x518: one K7 per block, (B, heads, N, head_dim)
 DAV2_K7_MIX = {(1, 16, 1370, 64): 24}
+# DEFOMStereo at 480x640 (B 1): one ViT pass over both views at the DAv2
+# input 420x560, a 30x40 patch grid (N = 1201); 12 blocks of 6 heads (S),
+# 24 of 16 (L)
+DEFOM, DEFOM_L = "DEFOMStereo_S", "DEFOMStereo_L"
+DEFOM_K7_MIX = {(2, 6, 1201, 64): 12}
+DEFOM_L_K7_MIX = {(2, 16, 1201, 64): 24}
 # PSMNet: no volume kernel (its first 3D layer never builds the volume)
 PS_K2_MIX = {
     # dres0.2, dres1.0, classif1..3
@@ -449,6 +497,8 @@ MIXES = {
                "K6": ACV_K6_MIX},
     "DepthAnythingV2": {"K7": DAV2_K7_MIX},
     "PSMNet": {"K2": PS_K2_MIX, "K3": PS_K3_MIX},
+    DEFOM: {"K7": DEFOM_K7_MIX},
+    DEFOM_L: {"K7": DEFOM_L_K7_MIX},
 }
 
 # Stages of each forward, as (stage, first module, last module, label of the
@@ -515,6 +565,35 @@ STAGES = {
         ("DPT output head", "depth_head.scratch.output_conv1",
          "depth_head.scratch.output_conv2", "path_1 upsample"),
     ], "glue"),
+    DEFOM: ([
+        ("ViT blocks 0-11 (K7)", "defomencoder.depth_anything.pretrained."
+         "blocks.0", "defomencoder.depth_anything.pretrained.blocks.11",
+         "input resize, patch embed + pos"),
+        ("DPT depth head", "defomencoder.depth_anything.depth_head",
+         "defomencoder.depth_anything.depth_head", "tap norms"),
+        ("DPT feature head", "defomencoder.depth_anything.depth_feat",
+         "defomencoder.depth_anything.depth_feat", "glue"),
+        ("cnet", "cnet", "cnet", "initial disparity"),
+        ("fnet", "fnet", "fnet", "glue"),
+        ("scale update blocks (8)", "scale_update_block",
+         "scale_update_block",
+         "context convs, correlation, pyramid, scale lookups"),
+        ("update blocks (24)", "update_block", "update_block",
+         "lookups, disparity updates"),
+    ], "final convex upsample"),
+    DEFOM_L: ([
+        ("ViT blocks 0-23 (K7)", "defomencoder.depth_anything.pretrained."
+         "blocks.0", "defomencoder.depth_anything.pretrained.blocks.23",
+         "input resize, patch embed + pos"),
+        ("DPT heads", "defomencoder.depth_anything.depth_head",
+         "defomencoder.depth_anything.depth_feat", "tap norms"),
+        ("cnet + fnet", "cnet", "fnet", "initial disparity"),
+        ("scale update blocks (8)", "scale_update_block",
+         "scale_update_block",
+         "context convs, correlation, pyramid, scale lookups"),
+        ("update blocks (24)", "update_block", "update_block",
+         "lookups, disparity updates"),
+    ], "final convex upsample"),
     "PSMNet": ([
         ("2D trunk (SPP)", "feature_extraction", "feature_extraction",
          "input cast + view batching"),
@@ -538,7 +617,8 @@ TRACE_ITERS = 3        # forwards in the torch.profiler trace
 DESIGN = {F32: TF32X3, BF16: "mma"}
 ONE_DESIGN = {"K1": "stream", "K1-bwd": "rowpass", "K3": "stencil",
               "K4": "direct", "K5": "direct", "K6": "rows",
-              "K6-bwd": "direct", "K4-bwd": "staged", "K5-bwd": "staged"}
+              "K6-bwd": "direct", "K4-bwd": "staged", "K5-bwd": "staged",
+              "K7-bwd-dkv": "simt", "K7-bwd-dq": "simt"}
 DESIGN_TAGS = tuple(KERNELS)                  # every wrapper has .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
@@ -552,7 +632,14 @@ REL_TOL = {"K1": {F32: 1e-5, BF16: 1e-2}, "K1-bwd": {F32: 1e-5, BF16: 1e-2},
            "K6": {F32: 0.0, BF16: 0.0}, "K7": {F32: 1e-5, BF16: 1e-2},
            "K6-bwd": {F32: 1e-5, BF16: 1e-2},
            "K4-bwd": {F32: 1e-5, BF16: 1e-2},
-           "K5-bwd": {F32: 1e-5, BF16: 1e-2}}
+           "K5-bwd": {F32: 1e-5, BF16: 1e-2},
+           "K7-bwd-dkv": {F32: 1e-5, BF16: 1e-2},
+           "K7-bwd-dq": {F32: 1e-5, BF16: 1e-2}}
+# K7's forward and backward kernels together (autograd through `attention`)
+# against the plain chain (the plain output and log-sum-exp): the chain
+# carries the forward kernel's own error (1e-5 of max|o| in float32) into
+# di = rowsum(dO o) and into dS = P (dP - di), where dP - di cancels
+K7_CHAIN_TOL = {F32: 1e-4, BF16: 2e-2}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1043,13 +1130,16 @@ def check_samples_backward(gen) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------- phase 7
-def check_attention(gen) -> dict:
-    """K7 at DepthAnythingV2-vitl's launch shape, vits' (6 heads), MonSter's
-    two views at 420x560 (N = 1201) and ragged N (1, 77, 1025), at the ViT's
-    scale 1/8; and logits of ~±30 (scale 1), where a wrong running max
-    shows."""
-    errs = {}
+def check_attention(gen) -> tuple[dict, dict]:
+    """K7 at DepthAnythingV2-vitl's launch shape, vits' (6 heads),
+    DEFOMStereo_S's eval (two views at 420x560, N = 1201) and train (B 4,
+    N = 641) launches, MonSter's two views at 420x560 and ragged N (1, 77,
+    1025), at the ViT's scale 1/8; and logits of ~±30 (scale 1), where a
+    wrong running max shows. Returns the errors at DepthAnythingV2's and at
+    DEFOMStereo_S's eval launch shape, by type."""
+    errs, defom = {}, {}
     cases = [(*key[:3], 0.125) for key in DAV2_K7_MIX]
+    cases += [(2, 6, 1201, 0.125), (8, 6, 641, 0.125)]
     cases += [(1, 6, 1370, 0.125), (2, 16, 1201, 0.125), (1, 2, 1, 0.125),
               (1, 3, 15, 0.125), (2, 2, 64, 0.125), (1, 2, 65, 1.0),
               (2, 3, 77, 0.125), (1, 4, 1025, 0.125), (1, 4, 2048, 0.125),
@@ -1074,6 +1164,100 @@ def check_attention(gen) -> dict:
                        f"{(b, heads, n, 64)} scale={scale}")
             if (b, heads, n, 64) in DAV2_K7_MIX:
                 errs[dtype] = max(errs[dtype], err)
+            if (b, heads, n, 64) in DEFOM_K7_MIX:
+                defom[dtype] = err
+    return errs, defom
+
+
+# K7-bwd: DEFOMStereo_S's train launch (B 4: 8 views x 6 heads, N 641), its
+# 480x640 view pair (2 x 6, N 1201), and check_attention's ragged cases
+K7_BWD_CASES = [(8, 6, 641, 0.125), (4, 6, 1201, 0.125), (1, 2, 1, 0.125),
+                (1, 3, 15, 0.125), (2, 2, 64, 0.125), (1, 2, 65, 1.0),
+                (2, 3, 77, 0.125), (1, 4, 1025, 0.125), (1, 2, 200, 1.0)]
+K7_BWD_TRAIN_SHAPE = (8, 6, 641, 64)
+
+
+def backward_gates(tag, dtype, got, want, what, floor=None) -> float:
+    """max|got - want| of one K7-bwd output against REL_TOL · max(max|ref|,
+    `floor`): at N = 1, dQ and dK are zero (the softmax of one key is
+    constant) and both sides give rounding noise, held against dV's
+    scale."""
+    err = (got.float() - want.float()).abs().max().item()
+    ref = max(want.float().abs().max().item(), floor or 0.0)
+    tol = REL_TOL[tag][dtype] * ref
+    print(f"  {tag} {DTYPE_NAME[dtype]} {what}: max|err| {err:.3e} (tol "
+          f"{tol:.3e})")
+    require(err <= tol, f"{tag} {DTYPE_NAME[dtype]} {what}")
+    return err
+
+
+def check_attention_backward(gen) -> dict:
+    """K7-bwd at K7_BWD_CASES in both types: (1) the forward kernel's row
+    log-sum-exp against the plain one, within K7's float32 gate · max|lse|
+    in both types (its logits ~±30 at scale 1, where a wrong lse shows);
+    (2) each backward kernel (dK, dV from "dkv", dQ from "dq", both on
+    their "simt" design) against `attention_backward_reference` on the same
+    q, k, v, dO and the forward kernel's output and lse, within REL_TOL,
+    run twice for the same bits; (3) autograd through `attention` (the
+    forward with its lse, then both backward kernels) against the plain
+    chain within K7_CHAIN_TOL. Returns the largest gate (2) errors at
+    DEFOMStereo_S's train launch, by tag and type."""
+    errs = {"K7-bwd-dkv": {}, "K7-bwd-dq": {}}
+    for dtype in (F32, BF16):
+        for tag in errs:
+            errs[tag][dtype] = 0.0
+        for b, heads, n, scale in K7_BWD_CASES:
+            shape = (b, heads, n, 64)
+            q, k, v, do = (randn(shape, dtype, gen) for _ in range(4))
+            out, lse = attention_with_lse(q, k, v, scale)
+            want_lse = attention_lse_reference(q, k, scale)
+            err = (lse - want_lse).abs().max().item()
+            tol = REL_TOL["K7"][F32] * want_lse.abs().max().item()
+            print(f"  K7 lse {DTYPE_NAME[dtype]} {shape} scale={scale}: "
+                  f"max|err| {err:.3e} (tol {tol:.3e})")
+            require(err <= tol, f"K7 {DTYPE_NAME[dtype]} lse {shape}")
+            di = (do.float() * out.float()).sum(-1)
+            (dk, dv), _ = repeat_bits("K7-bwd-dkv", lambda: (
+                attention_backward_dkv(q, k, v, do, lse, di, scale)))
+            (dq,), _ = repeat_bits("K7-bwd-dq", lambda: (
+                attention_backward_dq(q, k, v, do, lse, di, scale)))
+            for g in (dq, dk, dv):
+                require(g.dtype == dtype and g.shape == q.shape,
+                        f"K7-bwd output {g.dtype} {tuple(g.shape)}")
+            wq, wk, wv = attention_backward_reference(
+                q.float(), k.float(), v.float(), out.float(), do.float(),
+                lse, scale)
+            floor = wv.abs().max().item() if n == 1 else None
+            what = f"{shape} scale={scale}"
+            e = [backward_gates("K7-bwd-dkv", dtype, dk, wk, f"dK {what}",
+                                floor),
+                 backward_gates("K7-bwd-dkv", dtype, dv, wv, f"dV {what}"),
+                 backward_gates("K7-bwd-dq", dtype, dq, wq, f"dQ {what}",
+                                floor)]
+            if shape == K7_BWD_TRAIN_SHAPE:
+                errs["K7-bwd-dkv"][dtype] = max(e[:2])
+                errs["K7-bwd-dq"][dtype] = e[2]
+            # the chain: autograd through the kernels against the plain one
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            reset_counts()
+            got = torch.autograd.grad(attention(*leaves, scale), leaves, do)
+            require(attention.launches == 1
+                    and attention_backward_dkv.launches == 1
+                    and attention_backward_dq.launches == 1,
+                    "autograd through attention did not launch K7, "
+                    "K7-bwd-dkv and K7-bwd-dq once each")
+            want = attention_backward_reference(
+                q.float(), k.float(), v.float(),
+                attention_reference(q.float(), k.float(), v.float(), scale),
+                do.float(), want_lse, scale)
+            for name, g, w in zip("QKV", got, want):
+                ref = max(w.abs().max().item(), floor or 0.0)
+                err = (g.float() - w).abs().max().item()
+                tol = K7_CHAIN_TOL[dtype] * ref
+                require(err <= tol, f"K7 + K7-bwd {DTYPE_NAME[dtype]} d{name}"
+                                    f" {what}: {err:.3e} > {tol:.3e}")
+            print(f"  K7 + K7-bwd {DTYPE_NAME[dtype]} {what}, autograd vs "
+                  f"the plain chain: within {K7_CHAIN_TOL[dtype]} x max|ref|")
     return errs
 
 
@@ -2536,6 +2720,410 @@ def check_eval_suites(gen, smi_line) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 18
+DEFOM_CHECK = (64, 128)          # card vs CPU: a 4x8 patch grid, N = 33
+DEFOM_CHECK_B = 2
+# the card-vs-CPU checks run both phases at a cut depth (the CPU's forward
+# of 32 iterations takes half a minute); the full-size runs take the
+# published 32 (eval) and 18 (train) iterations, 8 of them scale updates
+DEFOM_CHECK_ITERS = dict(valid_iters=4, train_iters=4, scale_iters=2)
+DEFOM_TRAIN_H, DEFOM_TRAIN_W, DEFOM_TRAIN_B = 320, 512, 4
+DEFOM_TRAIN_STEPS, DEFOM_TRAIN_WARMUP = {F32: 3, BF16: 3}, 1
+DEFOM_OVERFIT_B, DEFOM_OVERFIT_STEPS = 2, 8
+# one forward a trace: a 480x640 forward launches ~11,000 kernels, and with
+# three a trace the timing took half of phase 18 (96 of 196 s, H100)
+DEFOM_TRACE_ITERS = 1
+# the CPU test's f32 gradient floor a group (tests/test_torch_defom.py),
+# and its eval gates (mean |d|, 99th percentile, / max(mean |ref|, 1))
+DEFOM_GROUP_REL = 5e-2
+DEFOM_EVAL_GATES = (5e-3, 2e-2)
+
+
+def defom_train_mix(b, h, w) -> dict:
+    """K7's and K7-bwd's launches in one DEFOMStereo_S train step on a
+    ``[b, h, w, 3]`` batch: each kernel once a ViT block (12), on both views
+    (2b) at the DAv2 input of (h, w)."""
+    ih, iw, _, _ = get_danv2_io_size(h, w)
+    key = (2 * b, 6, (ih // 14) * (iw // 14) + 1, 64)
+    return {tag: {key: 12} for tag in ("K7", "K7-bwd-dkv", "K7-bwd-dq")}
+
+
+DEFOM_TRAIN_MIX = defom_train_mix(DEFOM_TRAIN_B, DEFOM_TRAIN_H,
+                                  DEFOM_TRAIN_W)
+DEFOM_CHECK_MIX = defom_train_mix(DEFOM_CHECK_B, *DEFOM_CHECK)
+
+
+def defom_config(**kw) -> TrainConfig:
+    """``train.py``'s config for DEFOMStereo: the sequence loss over its
+    iterations, max_disp 192 for the mask alone."""
+    return TrainConfig(max_disp=MAX_DISP, loss="sequence", **kw)
+
+
+class k7_backward_launches:
+    """Within it, the data type of each K7-bwd launch (``seen``, by tag and
+    type) and, with `check`, each launch against its plain version on the
+    same arguments (uncounted): ``errors[tag]`` the worst max|err| /
+    (REL_TOL · max|ref|)."""
+
+    def __init__(self, check: bool = False):
+        self.check = check
+
+    def __enter__(self):
+        self.seen, self.errors = Counter(), {}
+        launch = self.saved = port_attention._launch_backward
+
+        def counted(kind, q, k, v, do, lse, di, outs, scale):
+            launch(kind, q, k, v, do, lse, di, outs, scale)
+            tag = f"K7-bwd-{kind}"
+            self.seen[(tag, DTYPE_NAME[q.dtype])] += 1
+            if self.check:
+                wq, wk, wv = attention_backward_reference(
+                    q, k, v, None, do, lse, scale, di=di)
+                for got, ref in zip(outs, (wk, wv) if kind == "dkv"
+                                    else (wq,)):
+                    err = (got.float() - ref.float()).abs().max().item()
+                    tol = REL_TOL[tag][q.dtype] * ref.float().abs().max(
+                    ).item()
+                    self.errors[tag] = max(self.errors.get(tag, 0.0),
+                                           err / tol if tol else (
+                                               0.0 if err == 0 else
+                                               float("inf")))
+        port_attention._launch_backward = counted
+        return self
+
+    def __exit__(self, *exc):
+        port_attention._launch_backward = self.saved
+
+
+def defom_launch_problems(what, want, dtype, seen) -> list:
+    """A DEFOM step's launches since the counts were reset against `want`:
+    by shape, K7 on its type's design, K7-bwd on "simt" and on `dtype`
+    data (`seen`, from `k7_backward_launches`)."""
+    problems = []
+    for tag, (fn, *_) in KERNELS.items():
+        if Counter(fn.shapes) != Counter(want.get(tag, {})):
+            problems.append(f"{what} {tag} launches {dict(fn.shapes)}, not "
+                            f"{want.get(tag, {})}")
+        if not want.get(tag):
+            continue
+        kind = ONE_DESIGN.get(tag) or DESIGN[dtype]
+        ran = designs_of(tag)
+        if not ran or any(k.split()[0] != kind for k in ran):
+            problems.append(f"{what} {tag} ran {ran}, not {kind}")
+        if tag != "K7" and seen[(tag, DTYPE_NAME[dtype])] != sum(
+                want[tag].values()):
+            problems.append(f"{what} {tag} ran on {dict(seen)}, not "
+                            f"{DTYPE_NAME[dtype]}")
+    return problems
+
+
+def defom_groups(model, grads) -> dict:
+    """Gradients by group: a top-level module, and the ViT and the two DPT
+    heads of ``defomencoder``, each flattened."""
+    groups = defaultdict(list)
+    for (name, _), g in zip(model.named_parameters(), grads):
+        parts = name.split(".")
+        key = (f"defomencoder.{parts[2]}" if parts[0] == "defomencoder"
+               else parts[0])
+        groups[key].append(g.reshape(-1))
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def compare_defom_train_step(dtype=F32) -> dict:
+    """One DEFOMStereo_S train step on the card and on the port's CPU paths
+    at DEFOM_CHECK, B 2, from the same seeded weights and batch (cuDNN's
+    deterministic algorithms on the card): the loss and the gradients by
+    group; the card's launches DEFOM_CHECK_MIX, each K7-bwd launch held
+    against its plain version on its arguments; the frozen depth head's
+    gradient zero on both sides."""
+    model = create_model(DEFOM, generator=torch.Generator().manual_seed(0),
+                         **DEFOM_CHECK_ITERS)
+    cpu = create_model(DEFOM, device="cpu", **DEFOM_CHECK_ITERS)
+    cpu.load_state_dict(model.state_dict())
+    batch = next(iter(synthetic_loader(*DEFOM_CHECK, DEFOM_CHECK_B, 1,
+                                       seed=5, workers=0)))
+    got = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for m, dev in ((cpu, "cpu"), (model, DEV)):
+            rec = GradRecorder()
+            reset_counts()
+            with k7_backward_launches(check=dev == DEV) as seen:
+                _, loss = make_train_step(m, defom_config(), dtype)(
+                    TrainState(m, rec), to_device(batch, dev))
+            torch.cuda.synchronize()
+            got[dev] = (loss.item(), defom_groups(m, rec.grads))
+            if dev == DEV:
+                problems = defom_launch_problems(
+                    f"{DEFOM} card train step {DTYPE_NAME[dtype]}",
+                    DEFOM_CHECK_MIX, dtype, seen.seen)
+                kernel_errs = seen.errors
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = got["cpu"], got[DEV]
+    zero = [k for k, g in g_cpu.items() if not g.any()]
+    rel = {k: _rel(g_gpu[k], g) for k, g in g_cpu.items() if g.any()}
+    row = {"shape": [DEFOM_CHECK_B, *DEFOM_CHECK, 3],
+           "dtype": DTYPE_NAME[dtype], "loss_cpu": l_cpu,
+           "loss_card": l_gpu, "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "groups_rel_l2": rel, "zero_groups": zero,
+           "card_zero_groups": [k for k, g in g_gpu.items() if not g.any()],
+           "k7_bwd_launch_errors": kernel_errs,
+           "finite": bool(np.isfinite(l_gpu) and all(
+               torch.isfinite(g).all() for g in g_gpu.values())),
+           "problems": problems}
+    print(f"  {DEFOM} train step {DEFOM_CHECK[0]}x{DEFOM_CHECK[1]} B "
+          f"{DEFOM_CHECK_B} {DTYPE_NAME[dtype]}, card vs CPU: loss "
+          f"{l_gpu:.6f} / {l_cpu:.6f} (rel {row['loss_rel']:.3e}); zero "
+          f"groups {zero} / {row['card_zero_groups']}; each K7-bwd launch "
+          f"vs plain (err / tol) {kernel_errs}")
+    for k, r in sorted(rel.items()):
+        print(f"    group {k}: relative L2 {r:.3e}")
+    for p in problems:
+        print(f"    {p}")
+    return row
+
+
+def defom_step_within_limits(row) -> bool:
+    """Whether a float32 `compare_defom_train_step` reading is within
+    TRAIN_REL (the loss) and DEFOM_GROUP_REL (each group), the depth head
+    the only zero group on both sides, every K7-bwd launch within its gate
+    and the launches as required."""
+    return (row["finite"] and not row["problems"]
+            and row["loss_rel"] <= TRAIN_REL
+            and max(row["groups_rel_l2"].values()) <= DEFOM_GROUP_REL
+            and row["zero_groups"] == row["card_zero_groups"]
+            == ["defomencoder.depth_head"]
+            and len(row["k7_bwd_launch_errors"]) == 2
+            and max(row["k7_bwd_launch_errors"].values()) <= 1.0)
+
+
+def defom_eval_check() -> tuple:
+    """DEFOMStereo_S (seeded random weights) on the card and on the CPU at
+    DEFOM_CHECK, float32: DEFOM_EVAL_GATES; then its bfloat16 copy on the
+    card, K7 on "mma", against the same forward with K7 swapped for its
+    plain version: mean |d| < PLAIN_SWAP_MEAN_PX. Returns the float32 card
+    model and the readings."""
+    model = create_model(DEFOM, generator=torch.Generator().manual_seed(0),
+                         **DEFOM_CHECK_ITERS)
+    cpu = create_model(DEFOM, device="cpu", **DEFOM_CHECK_ITERS)
+    cpu.load_state_dict(model.state_dict())
+    left, right = stereo_pair(1, *DEFOM_CHECK, seed=1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu(left, right)
+    cpu_s = time.perf_counter() - t0
+    got, _, _ = forward_counted(DEFOM, model, left.to(DEV), right.to(DEV))
+    d = (got.cpu() - want).abs()
+    scale = max(want.abs().mean().item(), 1.0)
+    row = {"shape": [1, *DEFOM_CHECK, 3], "mean_abs": d.mean().item(),
+           "p99_abs": d.quantile(0.99).item(), "max_abs": d.max().item(),
+           "scale": scale, "cpu_s": cpu_s}
+    print(f"  {DEFOM} {DEFOM_CHECK[0]}x{DEFOM_CHECK[1]} f32, card vs CPU "
+          f"({cpu_s:.1f} s on the CPU): mean |d| {row['mean_abs']:.3e}, p99 "
+          f"{row['p99_abs']:.3e}, max {row['max_abs']:.3e} px (scale "
+          f"{scale:.3f}; limits {DEFOM_EVAL_GATES} x scale)")
+    require(row["mean_abs"] < DEFOM_EVAL_GATES[0] * scale
+            and row["p99_abs"] < DEFOM_EVAL_GATES[1] * scale,
+            f"{DEFOM} card forward differs from the CPU port")
+    m16 = create_model(DEFOM, dtype=BF16, **DEFOM_CHECK_ITERS)
+    m16.load_state_dict(model.state_dict())
+    l16, r16 = left.to(DEV, BF16), right.to(DEV, BF16)
+    got16, _, _ = forward_counted(DEFOM, m16, l16, r16)
+    reset_counts()
+    with plain_kernels(), torch.no_grad():
+        plain16 = m16(l16, r16)
+    torch.cuda.synchronize()
+    require(attention.launches == 0, "the plain swap still launched K7")
+    require(bool(torch.isfinite(got16).all()), f"{DEFOM} bf16 non-finite")
+    d16 = (got16.float() - plain16.float()).abs()
+    row["bf16_vs_plain_mean_abs"] = d16.mean().item()
+    row["bf16_vs_plain_max_abs"] = d16.max().item()
+    row["bf16_vs_f32_mean_abs"] = (got16.float() - got).abs().mean().item()
+    print(f"  {DEFOM} {DEFOM_CHECK[0]}x{DEFOM_CHECK[1]} bf16, K7 vs its plain "
+          f"version on the card: mean |d| {row['bf16_vs_plain_mean_abs']:.3e}"
+          f" px (limit {PLAIN_SWAP_MEAN_PX}), max "
+          f"{row['bf16_vs_plain_max_abs']:.3e}; from the f32 forward "
+          f"{row['bf16_vs_f32_mean_abs']:.3e} px mean")
+    require(row["bf16_vs_plain_mean_abs"] < PLAIN_SWAP_MEAN_PX,
+            f"{DEFOM} bf16 forward differs from its plain kernels")
+    del cpu, m16
+    return model, row
+
+
+def defom_full_size(name, model, dtypes) -> dict:
+    """The 480x640 eval forward (32 iterations, 8 of them scale updates) in
+    each of `dtypes`, the launches by shape required to be MIXES[name], the
+    output finite; without `model`, one of seeded random weights. Returns
+    the runs as `full_size_runs` does."""
+    runs = {}
+    for dtype in dtypes:
+        if model is None:
+            m = create_model(name, dtype=dtype,
+                             generator=torch.Generator().manual_seed(0))
+        elif dtype == F32:
+            m = model
+        else:
+            m = create_model(name, dtype=dtype)
+            m.load_state_dict(model.state_dict())
+        left, right = (t.to(DEV, dtype) for t in stereo_pair(1, H, W, 2))
+        out, shapes, designs = forward_counted(name, m, left, right,
+                                               by_shape=True)
+        require(out.shape == (1, H, W), f"output shape {out.shape}")
+        require(bool(torch.isfinite(out).all()), "non-finite output")
+        print(f"  {name} {H}x{W} {DTYPE_NAME[dtype]}: disparity "
+              f"{out.min().item():.2f}..{out.max().item():.2f}, mean "
+              f"{out.float().mean().item():.2f}, launches " + " ".join(
+                  f"{t}={c.total()}" for t, c in shapes.items() if c))
+        runs[dtype] = (m, (left, right), shapes, out.float(), designs)
+    return runs
+
+
+def defom_train_full_size(dtype) -> tuple[dict, dict]:
+    """DEFOMStereo_S's train step in `dtype` at 320x512, B 4 (the default
+    crop), on batches of the port's DataLoader: DEFOM_TRAIN_WARMUP warm
+    steps and DEFOM_TRAIN_STEPS[dtype] timed ones (host clock around the
+    step and a synchronize), each step's launches required to be
+    DEFOM_TRAIN_MIX (K7 on its type's design, K7-bwd on "simt" and on
+    `dtype` data), the losses finite; a traced step's kernel families."""
+    model = create_model(DEFOM, generator=torch.Generator().manual_seed(0))
+    steps = DEFOM_TRAIN_STEPS[dtype]
+    loader = synthetic_loader(DEFOM_TRAIN_H, DEFOM_TRAIN_W, DEFOM_TRAIN_B,
+                              DEFOM_TRAIN_WARMUP + steps, seed=6)
+    config = defom_config()
+    state = init_train_state(model, config, len(loader), dtype)
+    step = make_train_step(model, config, dtype)
+    times, losses = [], []
+    for i, batch in enumerate(loader):
+        batch = to_device(batch, DEV)
+        torch.cuda.synchronize()
+        if i == DEFOM_TRAIN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with k7_backward_launches() as seen:
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        problems = defom_launch_problems(
+            f"{DEFOM} {DTYPE_NAME[dtype]} train step {i}", DEFOM_TRAIN_MIX,
+            dtype, seen.seen)
+        require(not problems, "; ".join(problems))
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    designs = {tag: designs_of(tag) for tag in DEFOM_TRAIN_MIX}
+    mix = {tag: Counter(KERNELS[tag][0].shapes) for tag in DEFOM_TRAIN_MIX}
+    require(all(np.isfinite(losses)), f"{DEFOM} train losses {losses}")
+    families: dict = defaultdict(float)
+    kernels, _ = trace(lambda: step(state, batch), 1, grad=True)
+    for key, (ms, _) in kernels.items():
+        families[kernel_family(key)] += ms
+    timed = sorted(times[DEFOM_TRAIN_WARMUP:])
+    row = {"shape": [DEFOM_TRAIN_B, DEFOM_TRAIN_H, DEFOM_TRAIN_W, 3],
+           "dtype": DTYPE_NAME[dtype], "iters": model.train_iters,
+           "scale_iters": model.scale_iters, "warmup": DEFOM_TRAIN_WARMUP,
+           "steps": steps, "step_ms_median": timed[len(timed) // 2],
+           "step_ms": times, "peak_mib": peak / 2**20, "losses": losses,
+           "launches_per_step": {tag: {str(k): n for k, n in c.items()}
+                                 for tag, c in mix.items()},
+           "designs_last_step": designs,
+           "traced_step_families_ms": dict(families) or None,
+           "traced_step_launches": sum(n for _, n in kernels.values())}
+    print(f"  {DEFOM} train {DEFOM_TRAIN_H}x{DEFOM_TRAIN_W} B "
+          f"{DEFOM_TRAIN_B} {DTYPE_NAME[dtype]}: median step "
+          f"{row['step_ms_median']:.1f} ms over {steps} (all "
+          + ", ".join(f"{t:.1f}" for t in times) + f" ms), peak "
+          f"{row['peak_mib']:.1f} MiB, losses "
+          + ", ".join(f"{v:.3f}" for v in losses) + "; launches a step: "
+          + ", ".join(f"{tag} {dict(c)}" for tag, c in mix.items()))
+    if families:
+        busy = sum(families.values())
+        print(f"    traced step: device busy {busy:.1f} ms in "
+              f"{row['traced_step_launches']:g} launches")
+        for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            print(f"    family {fam:40s} {ms:9.3f} ms")
+    else:
+        print("    torch.profiler saw no device time: the step's kernel "
+              "families not measured")
+    del state, step, model
+    return row, mix
+
+
+def defom_overfit(dtype) -> dict:
+    """DEFOM_OVERFIT_STEPS steps in `dtype` on one fixed 320x512 batch of
+    DEFOM_OVERFIT_B (the default lr 2e-4, clip 1.0, 30 scheduled steps):
+    every loss finite and the last below 0.9 x the first. (At lr 1e-3 the
+    randomly initialised model's sequence loss swings by 2x from step to
+    step, its scale updates compounding.)"""
+    model = create_model(DEFOM, generator=torch.Generator().manual_seed(0))
+    config = defom_config(clip_grad=1.0)
+    state = init_train_state(model, config, 30, dtype)
+    step = make_train_step(model, config, dtype)
+    batch = to_device(next(iter(synthetic_loader(
+        DEFOM_TRAIN_H, DEFOM_TRAIN_W, DEFOM_OVERFIT_B, 1, seed=7,
+        workers=0))), DEV)
+    losses = []
+    for _ in range(DEFOM_OVERFIT_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+    print(f"  {DEFOM} overfit {DEFOM_TRAIN_H}x{DEFOM_TRAIN_W} B "
+          f"{DEFOM_OVERFIT_B} {DTYPE_NAME[dtype]}: losses "
+          + ", ".join(f"{v:.3f}" for v in losses))
+    require(all(np.isfinite(losses)) and losses[-1] < 0.9 * losses[0],
+            f"{DEFOM} {DTYPE_NAME[dtype]} overfit losses {losses}")
+    del state, step, model
+    return {"shape": [DEFOM_OVERFIT_B, DEFOM_TRAIN_H, DEFOM_TRAIN_W, 3],
+            "losses": losses}
+
+
+def check_defom() -> tuple[dict, dict, dict]:
+    """Phase 18: DEFOMStereo_S eval card vs CPU (f32) and bf16 vs its plain
+    K7 at DEFOM_CHECK; the 480x640 eval in f32 and bf16 and DEFOMStereo_L's
+    in bf16; the train step card vs CPU at DEFOM_CHECK (f32 gated, bf16
+    with each K7-bwd launch against its plain version), the full-size steps
+    and the overfit in both types. Returns the eval runs by model and the
+    train line's row."""
+    t0 = time.perf_counter()
+    seconds = {}
+    model, check = defom_eval_check()
+    seconds["eval_check"] = time.perf_counter() - t0
+    full = create_model(DEFOM)
+    full.load_state_dict(model.state_dict())
+    runs = {DEFOM: defom_full_size(DEFOM, full, (F32, BF16))}
+    del model, full
+    torch.cuda.empty_cache()
+    runs[DEFOM_L] = defom_full_size(DEFOM_L, None, (BF16,))
+    torch.cuda.empty_cache()
+    seconds["eval_full_size"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+    row = {"card_vs_cpu": compare_defom_train_step(F32)}
+    require(defom_step_within_limits(row["card_vs_cpu"]),
+            f"{DEFOM} card train step differs from the CPU port")
+    bf16 = compare_defom_train_step(BF16)
+    require(bf16["finite"] and not bf16["problems"]
+            and len(bf16["k7_bwd_launch_errors"]) == 2
+            and max(bf16["k7_bwd_launch_errors"].values()) <= 1.0,
+            f"{DEFOM} bf16 card train step: {bf16}")
+    row["bf16"] = {"card_vs_cpu": bf16}
+    seconds["train_check"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+    row["full_size"], mix = defom_train_full_size(F32)
+    torch.cuda.empty_cache()
+    row["overfit"] = defom_overfit(F32)
+    torch.cuda.empty_cache()
+    row["bf16"]["full_size"], _ = defom_train_full_size(BF16)
+    torch.cuda.empty_cache()
+    row["bf16"]["overfit"] = defom_overfit(BF16)
+    torch.cuda.empty_cache()
+    seconds["train_full_size"] = time.perf_counter() - t0 - sum(
+        seconds.values())
+    row["eval_check"] = check
+    row["seconds"] = seconds
+    print(f"  {DEFOM} phase: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in seconds.items()))
+    return runs, row, mix
+
+
 # ----------------------------------------------------- timing (phases 8-13)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
@@ -2592,7 +3180,12 @@ def forward_breakdown(name, model, *inputs) -> dict:
 def kernel_family(name: str) -> str:
     for mark, fam in (("conv3d_fused_kernel", "K2 conv3d_fused"),
                       ("conv3d_fused_mma_kernel", "K2 conv3d_fused"),
+                      ("vit_attention_bwd_dkv_kernel",
+                       "K7-bwd-dkv vit attention backward"),
+                      ("vit_attention_bwd_dq_kernel",
+                       "K7-bwd-dq vit attention backward"),
                       ("vit_attention_mma_kernel", "K7 vit attention"),
+                      ("vit_attention_tf32x3_kernel", "K7 vit attention"),
                       ("conv3d_stencil_kernel", "K3 conv3d"),
                       ("::conv3d_kernel<", "K3 conv3d"),
                       ("gwc_stream_kernel", "K1 gwc_volume"),
@@ -2627,9 +3220,10 @@ def kernel_family(name: str) -> str:
     return "other (elementwise, copies, reductions)"
 
 
-def profile_forward(name, model, inputs, dtype) -> dict:
+def profile_forward(name, model, inputs, dtype,
+                    trace_iters=TRACE_ITERS) -> dict:
     fwd = forward_breakdown(name, model, *inputs)
-    kernels, host_ops = trace(lambda: model(*inputs), TRACE_ITERS)
+    kernels, host_ops = trace(lambda: model(*inputs), trace_iters)
     families: dict = defaultdict(float)
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
@@ -2842,6 +3436,51 @@ def time_attention(mix, dtype, gen):
                        "launches": cnt, "ms": t, "plain_ms": tp,
                        "library_ms": tl})
     return ms, plain, lib, nbytes, flops, shapes
+
+
+def time_attention_backward(kind):
+    """The timer of K7-bwd's `kind` kernel ("dkv" or "dq"): times and work
+    of its launches weighted by `mix`, each on the forward kernel's output
+    and log-sum-exp of seeded inputs. The plain version is
+    `attention_backward_reference` (dQ, dK and dV together); the library
+    yardstick is ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention`` for the kernel's outputs (its
+    backward computes all three). The work counted is the function's own:
+    dK, dV need S, dP = dO Vᵀ, dV and dK (8 N² d FLOP a head), dQ needs S,
+    dP and dQ (6 N² d); bytes: q, k, v, dO, lse, di read once, the outputs
+    written once."""
+    launch = {"dkv": attention_backward_dkv, "dq": attention_backward_dq}[
+        kind]
+
+    def timer(mix, dtype, gen):
+        ms = plain = lib = 0.0
+        nbytes = flops = 0
+        shapes = []
+        for (b, heads, n, d), cnt in mix.items():
+            q, k, v, do = (randn((b, heads, n, d), dtype, gen)
+                           for _ in range(4))
+            scale = d ** -0.5
+            out, lse = attention_with_lse(q, k, v, scale)
+            di = (do.float() * out.float()).sum(-1)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+            wrt = leaves[1:] if kind == "dkv" else leaves[:1]
+            t = device_ms(lambda: launch(q, k, v, do, lse, di, scale), 20)
+            tp = device_ms(lambda: attention_backward_reference(
+                q, k, v, None, do, lse, scale, di=di), 5)
+            tl = device_ms(lambda: torch.autograd.grad(
+                sdpa, wrt, do, retain_graph=True), 20)
+            ms, plain, lib = ms + cnt * t, plain + cnt * tp, lib + cnt * tl
+            bh, es = b * heads, q.element_size()
+            outs = 2 if kind == "dkv" else 1
+            nbytes += cnt * (bh * n * d * es * (4 + outs) + 2 * bh * n * 4)
+            flops += cnt * bh * n * n * d * (8 if kind == "dkv" else 6)
+            shapes.append({"b": b, "heads": heads, "n": n, "head_dim": d,
+                           "launches": cnt, "ms": t, "plain_ms": tp,
+                           "library_ms": tl})
+            del sdpa, leaves
+        return ms, plain, lib, nbytes, flops, shapes
+    return timer
 
 
 # The two 3x3 convs of CFNet's 2D trunk (iconv3, gw3: Ci, Co, H, W, both
@@ -3090,7 +3729,9 @@ TIMERS = {"K1": time_gwc, "K1-bwd": time_gwc_backward, "K2": time_conv,
           "K3": time_conv3d, "K4": time_gather, "K5": time_gwc_samples,
           "K6": time_concat, "K7": time_attention,
           "K6-bwd": time_concat_backward, "K4-bwd": time_gather_backward,
-          "K5-bwd": time_gwc_samples_backward}
+          "K5-bwd": time_gwc_samples_backward,
+          "K7-bwd-dkv": time_attention_backward("dkv"),
+          "K7-bwd-dq": time_attention_backward("dq")}
 BACKWARD_TAGS = ("K1-bwd", "K6-bwd", "K4-bwd", "K5-bwd")
 
 
@@ -3314,8 +3955,10 @@ def main() -> None:
     errs["K6"] = check_concat(gen)
     errs["K6-bwd"] = check_concat_backward(gen)
     errs["K4-bwd"], errs["K5-bwd"] = check_samples_backward(gen)
-    print("phase 7: K7 vit_attention kernel vs plain")
-    errs["K7"] = check_attention(gen)
+    print("phase 7: K7 vit_attention kernel and its backward (K7-bwd) vs "
+          "plain")
+    errs["K7"], errs["K7 DEFOM"] = check_attention(gen)
+    errs.update(check_attention_backward(gen))
     kernels = []
     forward = {}
     stereo = {"shape": [1, H, W, 3], "max_disp": MAX_DISP}
@@ -3383,6 +4026,36 @@ def main() -> None:
     suites = check_eval_suites(gen, smi[0] if smi else "nvidia-smi: none")
     suites["phase_s"] = time.perf_counter() - t0
     print(f"phase 17: {suites['phase_s']:.1f} s")
+    print(f"phase 18: {DEFOM}, eval and training "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    t0 = time.perf_counter()
+    defom_runs, train[DEFOM], defom_mix = check_defom()
+    print(f"phase 18: {DEFOM} timing")
+    for model_name, runs in defom_runs.items():
+        forward[model_name] = {"shape": [1, H, W, 3], "iters": FWD_ITERS,
+                               "warmup": FWD_WARMUP,
+                               "trace_iters": DEFOM_TRACE_ITERS,
+                               "valid_iters": 32, "scale_iters": 8}
+        if model_name == DEFOM:
+            forward[model_name]["card_vs_cpu"] = train[DEFOM]["eval_check"]
+        for dtype, (m, inputs, shapes, _, designs) in runs.items():
+            forward[model_name][DTYPE_NAME[dtype]] = profile_forward(
+                model_name, m, inputs, dtype, DEFOM_TRACE_ITERS)
+            kernels.append(time_kernel(model_name, "K7", dtype, shapes["K7"],
+                                       designs, errs["K7 DEFOM"][dtype],
+                                       gen))
+        del runs, m, inputs
+        torch.cuda.empty_cache()
+    for dtype, run in ((F32, train[DEFOM]["full_size"]),
+                       (BF16, train[DEFOM]["bf16"]["full_size"])):
+        for tag in ("K7-bwd-dkv", "K7-bwd-dq"):
+            kernels.append(time_kernel(f"{DEFOM} (train step)", tag, dtype,
+                                       defom_mix[tag],
+                                       run["designs_last_step"],
+                                       errs[tag][dtype], gen))
+    train[DEFOM]["seconds"]["timing"] = time.perf_counter() - t0 - sum(
+        train[DEFOM]["seconds"].values())
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))

@@ -28,6 +28,18 @@ caught it:
   and K5-bwd kernel gates, `chip_smoke.check_samples_backward`, whose
   skewed rows make such lists).
 
+Then DEFOMStereo_S's card-vs-CPU train step of phase 18
+(`chip_smoke.compare_defom_train_step`: the loss, each group's gradient,
+each K7-bwd launch against its plain version) clean and with each fault
+planted into the card's step, and phase 7's K7-bwd kernel gates
+(`chip_smoke.check_attention_backward`) under each fault:
+
+- ``k7_bwd_dq_dropped``: K7-bwd's dq kernel returns dQ = 0;
+- ``k7_bwd_last_key_tile_dropped``: K7-bwd's dkv kernel, built from a copy
+  of ``csrc/vit_attention.cu`` whose blocks of the last key tile store
+  nothing (their dK, dV stay as allocated: a ragged-tail fault; at 64x128
+  the 33 tokens are one tile).
+
 Then the same for phase 14's bfloat16 card-vs-CPU step
 (`chip_smoke.compare_train_step_bf16`): clean (GwcNet_G, CFNet), and with
 each fault planted into the card's bfloat16 step, printing which of its
@@ -141,6 +153,45 @@ def k4_bwd_long_lane_dropped():
     return _cuda.loaded_as("sample_gather", long_lane_library())
 
 
+def k7_bwd_dq_dropped():
+    launch = chip_smoke.port_attention._launch_backward
+
+    def faulty(kind, q, k, v, do, lse, di, outs, scale):
+        launch(kind, q, k, v, do, lse, di, outs, scale)
+        if kind == "dq":
+            outs[0].zero_()
+    return patched(chip_smoke.port_attention, "_launch_backward", faulty)
+
+
+# the store of K7-bwd-dkv's accumulators, and the blocks of the last key
+# tile leaving before it
+DKV_STORE = ("    const int key = k0 + hi + 16 * j;\n"
+             "    if (key >= N) continue;")
+DKV_STORE_FAULT = ("    const int key = k0 + hi + 16 * j;\n"
+                   "    if (key >= N || k0 + kTile >= N) continue;")
+
+
+@functools.cache
+def last_key_tile_library():
+    return _cuda.variant("vit_attention", "fault_k7_bwd_last_key_tile",
+                         subs=((DKV_STORE, DKV_STORE_FAULT),))
+
+
+def k7_bwd_last_key_tile_dropped():
+    return _cuda.loaded_as("vit_attention", last_key_tile_library())
+
+
+def phase7_k7_bwd_gate() -> bool:
+    """Whether phase 7's K7-bwd gates (`check_attention_backward`) fail."""
+    try:
+        chip_smoke.check_attention_backward(
+            torch.Generator().manual_seed(1234))
+    except RuntimeError as err:
+        print(f"  {err}")
+        return True
+    return False
+
+
 def bf16_masters_dropped():
     view = port_trainer.bfloat16_view
 
@@ -175,6 +226,11 @@ RUNS = (
 )
 # faults also put to phase 6's kernel gates
 KERNEL_GATES = {"k4_bwd_long_lane_dropped": phase6_k4_bwd_gate}
+RUNS_DEFOM = (
+    ("clean", None),
+    ("k7_bwd_dq_dropped", k7_bwd_dq_dropped),
+    ("k7_bwd_last_key_tile_dropped", k7_bwd_last_key_tile_dropped),
+)
 RUNS_BF16 = (
     ("clean", None, ("GwcNet_G", "CFNet")),
     ("bf16_masters_dropped", bf16_masters_dropped, ("GwcNet_G",)),
@@ -206,6 +262,24 @@ def main() -> None:
                 caught = KERNEL_GATES[fault]()
             print(f"  {'caught' if caught else 'within the limits'}")
             rows.append({"fault": fault, "model": "phase 6 kernel gates",
+                         "caught": caught})
+    for fault, plant in RUNS_DEFOM:
+        name = chip_smoke.DEFOM
+        print(f"{fault}: {name}")
+        with plant() if plant else contextlib.nullcontext():
+            row = chip_smoke.compare_defom_train_step()
+        within = chip_smoke.defom_step_within_limits(row)
+        print(f"  {'within the limits' if within else 'caught'}")
+        if fault == "clean":
+            clean_ok &= within
+        rows.append({"fault": fault, "model": name, "caught": not within,
+                     **row})
+        if plant:
+            print(f"{fault}: phase 7 K7-bwd kernel gates")
+            with plant():
+                caught = phase7_k7_bwd_gate()
+            print(f"  {'caught' if caught else 'within the limits'}")
+            rows.append({"fault": fault, "model": "phase 7 K7-bwd gates",
                          "caught": caught})
     for fault, plant, models in RUNS_BF16:
         for name in models:

@@ -64,8 +64,37 @@
 // from shared memory (16 query rows a warp read the high and remainder
 // planes of every K and V tile).
 //
-// C interface (loaded with ctypes): vit_attention_mma(...) and
-// vit_attention_tf32x3(...) launch on the given stream, allocate nothing,
+// Either forward also writes each row's log-sum-exp of the scaled logits,
+// float32 [B * heads, N] in natural-log units, where the caller passes an
+// `lse` pointer (a train step saves it for the backward); with a null
+// pointer (eval) nothing else changes.
+//
+// Backward (K7-bwd): the counterparts of the library's two backward Pallas
+// kernels (_flash_attention_bwd_dkv and _flash_attention_bwd_dq in
+// jax/experimental/pallas/ops/tpu/flash_attention.py). Both recompute
+// P = exp2(S * scale * log2e - lse * log2e) from the saved lse and form
+// dS = P * (dO V^T - di), di = rowsum(dO * O) (given, float32 [BH, N]), in
+// float32 whatever the input type:
+//   vit_attention_bwd_dkv: a block owns 64 keys and walks the query tiles:
+//     dV += P^T dO, dK += scale * dS^T Q;
+//   vit_attention_bwd_dq: a block owns 64 queries and walks the key tiles:
+//     dQ += scale * dS K.
+// Design "simt": 256 threads a block, float32 FMA on the CUDA cores from
+// float32 tiles in shared memory (bf16 inputs widened as they are staged;
+// rows of 65 floats, so the column reads of a warp hit distinct banks). Per
+// tile, a thread computes a 4x4 patch of S and of dO V^T (rows r + 16i,
+// columns c + 16j), writes P and dS to shared memory, and after a barrier a
+// 4x4 patch of its accumulators (dK and dV, or dQ) from them. Rows past N
+// stage as zeros and get P = 0; rows past N are not stored. The gradients
+// are stored in the input type. What bounds it on this card: operations
+// (the two kernels do 14 N^2 64 FLOP a head against the 10 N^2 64 that the
+// S recompute, dV, dP, dQ and dK need, at the 67 TF/s float32 peak), then
+// the shared-memory loads (one load a FMA in the S and dP patches, half a
+// load in the accumulations).
+//
+// C interface (loaded with ctypes): vit_attention_mma(...),
+// vit_attention_tf32x3(...), vit_attention_bwd_dkv(...) and
+// vit_attention_bwd_dq(...) launch on the given stream, allocate nothing,
 // synchronise nothing and return cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -80,6 +109,13 @@ namespace {
 constexpr int kD = 64;         // head dim
 constexpr int kTile = 64;      // queries per block, keys per step
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// The log-sum-exp (natural log) of a row from its running max `m` (log2
+// units) and its full sum `l`, where the caller asked for it.
+__device__ __forceinline__ void store_lse(float* lse, int row, float m, float l) {
+  if (lse != nullptr) lse[row] = (m + log2f(l)) * kLn2;
+}
 
 // ----------------------------------------------------------------- float32
 
@@ -135,8 +171,8 @@ __device__ __forceinline__ int k_row(int r) { return (r & ~7) + 2 * (r & 3) + ((
 
 __global__ void __launch_bounds__(kTfThreads, 2)
 vit_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ out, int N,
-                            float scale_log2) {
+                            const float* __restrict__ v, float* __restrict__ out,
+                            float* __restrict__ lse, int N, float scale_log2) {
   extern __shared__ __align__(16) float smem[];
   float* raw_k = smem;                      // [64][kRawLd]
   float* raw_v = raw_k + kRawFloats;
@@ -295,6 +331,7 @@ vit_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= N) continue;
+    if (tq == 0) store_lse(lse, blockIdx.y * N + row, m[r], l[r]);
     const float inv = 1.f / l[r];
     float* dst = out + head + (size_t)row * kD + 2 * tq;
 #pragma unroll
@@ -328,8 +365,8 @@ __device__ __forceinline__ void stage_async(uint32_t dst, const bf16* __restrict
 
 __global__ void __launch_bounds__(kMmaThreads)
 vit_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out, int N,
-                         float scale_log2) {
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         float* __restrict__ lse, int N, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_bytes[];
   const uint32_t sq = mma::smem_addr(smem_bytes);
   const uint32_t sk = sq + kTileBytes;       // K[2]
@@ -449,6 +486,7 @@ vit_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= N) continue;
+    if (tq == 0) store_lse(lse, blockIdx.y * N + row, m[r], l[r]);
     const float inv = 1.f / l[r];
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + head + (size_t)row * kD + 2 * tq);
 #pragma unroll
@@ -457,15 +495,301 @@ vit_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- backward
+
+constexpr int kBwdThreads = 256;       // 16 x 16 threads, a 4 x 4 patch each
+constexpr int kBLd = kD + 1;           // staged rows (65 floats)
+constexpr int kBTile = kTile * kBLd;   // floats of one staged 64-row tile
+
+// 16 bytes of a row as float32: four floats, or eight bf16 (a bf16 is the
+// high half of its float32)
+__device__ __forceinline__ void unpack(const uint4 w, float* to, float) {
+  to[0] = __uint_as_float(w.x);
+  to[1] = __uint_as_float(w.y);
+  to[2] = __uint_as_float(w.z);
+  to[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4 w, float* to, bf16) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    to[2 * i] = __uint_as_float(words[i] << 16);
+    to[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow(bf16* p, float x) { *p = __float2bfloat16(x); }
+
+// Rows [row0, row0 + 64) of one head's [N, 64] matrix into [64][kBLd]
+// float32 at dst, zero-filled past N; 16-byte loads (4 floats or 8 bf16).
+template <typename T>
+__device__ __forceinline__ void stage_f32(float* dst, const T* __restrict__ src, int row0,
+                                          int N) {
+  constexpr int kVec = 16 / sizeof(T);        // elements a 16-byte load
+  constexpr int kPer = kD / kVec;             // loads a row
+  for (int i = threadIdx.x; i < kTile * kPer; i += kBwdThreads) {
+    const int r = i / kPer, c = (i % kPer) * kVec;
+    float* to = dst + r * kBLd + c;
+    if (row0 + r < N) {
+      unpack(*reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD + c), to, T());
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) to[e] = 0.f;
+    }
+  }
+}
+
+// S = A B^T and dP = C D^T of one 64 x 64 tile pair, the 4 x 4 patch of
+// rows r + 16i, columns c + 16j, from [64][kBLd] tiles.
+__device__ __forceinline__ void two_products(const float* a, const float* b, const float* c,
+                                             const float* d, int r, int cc, float (&s)[4][4],
+                                             float (&dp)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < kD; ++k) {
+    float av[4], bv[4], cv[4], dv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[(r + 16 * i) * kBLd + k];
+      cv[i] = c[(r + 16 * i) * kBLd + k];
+      bv[i] = b[(cc + 16 * i) * kBLd + k];
+      dv[i] = d[(cc + 16 * i) * kBLd + k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+        dp[i][j] = fmaf(cv[i], dv[j], dp[i][j]);
+      }
+  }
+}
+
+// dK and dV of 64 keys: the block of (key tile blockIdx.x, head blockIdx.y)
+// walks every query tile. lse2 = lse * log2e, rows past N get P = 0.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+vit_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ di,
+                             T* __restrict__ dk, T* __restrict__ dv, int N, float scale_log2,
+                             float scale) {
+  extern __shared__ __align__(16) float bsm[];
+  float* ks = bsm;                 // this block's keys, [64][kBLd]
+  float* vs = ks + kBTile;         // their values
+  float* qs = vs + kBTile;         // the query tile
+  float* dos = qs + kBTile;        // its output gradient
+  float* ps = dos + kBTile;        // P [query][key]
+  float* dss = ps + kBTile;        // dS [query][key]
+  float* rows = dss + kBTile;      // lse2 [64], di [64] of the query tile
+
+  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
+  const int k0 = blockIdx.x * kTile;
+  const size_t head = (size_t)blockIdx.y * N * kD;
+  const float* lse_h = lse + (size_t)blockIdx.y * N;
+  const float* di_h = di + (size_t)blockIdx.y * N;
+  stage_f32(ks, k + head, k0, N);
+  stage_f32(vs, v + head, k0, N);
+
+  float acc_k[4][4], acc_v[4][4];  // keys hi + 16j, dims lo + 16i
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
+
+  for (int q0 = 0; q0 < N; q0 += kTile) {
+    __syncthreads();               // the previous tile's P, dS, Q, dO are consumed
+    stage_f32(qs, q + head, q0, N);
+    stage_f32(dos, dout + head, q0, N);
+    if (tid < kTile) {
+      const bool ok = q0 + tid < N;
+      rows[tid] = ok ? lse_h[q0 + tid] * kLog2e : 0.f;
+      rows[kTile + tid] = ok ? di_h[q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    // S (queries hi + 16i, keys lo + 16j) and dP = dO V^T
+    float s[4][4], dp[4][4];
+    two_products(qs, ks, dos, vs, hi, lo, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = hi + 16 * i;
+      const bool qok = q0 + qi < N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = lo + 16 * j;
+        const float p =
+            (qok && k0 + kj < N) ? exp2f(fmaf(s[i][j], scale_log2, -rows[qi])) : 0.f;
+        ps[qi * kBLd + kj] = p;
+        dss[qi * kBLd + kj] = p * (dp[i][j] - rows[kTile + qi]);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q over the tile's real queries
+    const int nq = min(kTile, N - q0);
+    for (int qi = 0; qi < nq; ++qi) {
+      float pv[4], dsv[4], ov[4], qv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pv[j] = ps[qi * kBLd + hi + 16 * j];
+        dsv[j] = dss[qi * kBLd + hi + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ov[i] = dos[qi * kBLd + lo + 16 * i];
+        qv[i] = qs[qi * kBLd + lo + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc_v[j][i] = fmaf(pv[j], ov[i], acc_v[j][i]);
+          acc_k[j][i] = fmaf(dsv[j], qv[i], acc_k[j][i]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key = k0 + hi + 16 * j;
+    if (key >= N) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t at = head + (size_t)key * kD + lo + 16 * i;
+      narrow(dk + at, acc_k[j][i] * scale);
+      narrow(dv + at, acc_v[j][i]);
+    }
+  }
+}
+
+// dQ of 64 queries: the block of (query tile blockIdx.x, head blockIdx.y)
+// walks every key tile.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+vit_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ di,
+                            T* __restrict__ dq, int N, float scale_log2, float scale) {
+  extern __shared__ __align__(16) float bsm[];
+  float* qs = bsm;                 // this block's queries, [64][kBLd]
+  float* dos = qs + kBTile;        // their output gradient
+  float* ks = dos + kBTile;        // the key tile
+  float* vs = ks + kBTile;         // its values
+  float* dss = vs + kBTile;        // dS [query][key]
+
+  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
+  const int q0 = blockIdx.x * kTile;
+  const size_t head = (size_t)blockIdx.y * N * kD;
+  stage_f32(qs, q + head, q0, N);
+  stage_f32(dos, dout + head, q0, N);
+  float lse2[4], dii[4];           // of queries hi + 16i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + hi + 16 * i;
+    const bool ok = row < N;
+    lse2[i] = ok ? lse[(size_t)blockIdx.y * N + row] * kLog2e : 0.f;
+    dii[i] = ok ? di[(size_t)blockIdx.y * N + row] : 0.f;
+  }
+
+  float acc[4][4];                 // queries hi + 16i, dims lo + 16j
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kTile) {
+    __syncthreads();               // the previous tile's K, V, dS are consumed
+    stage_f32(ks, k + head, k0, N);
+    stage_f32(vs, v + head, k0, N);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    two_products(qs, ks, dos, vs, hi, lo, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = hi + 16 * i;
+      const bool qok = q0 + qi < N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = lo + 16 * j;
+        const float p =
+            (qok && k0 + kj < N) ? exp2f(fmaf(s[i][j], scale_log2, -lse2[i])) : 0.f;
+        dss[qi * kBLd + kj] = p * (dp[i][j] - dii[i]);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K over the tile's real keys
+    const int nk = min(kTile, N - k0);
+    for (int kj = 0; kj < nk; ++kj) {
+      float dsv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = dss[(hi + 16 * i) * kBLd + kj];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[kj * kBLd + lo + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + hi + 16 * i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      narrow(dq + head + (size_t)row * kD + lo + 16 * j, acc[i][j] * scale);
+  }
+}
+
+constexpr int kDkvSmem = (6 * kBTile + 2 * kTile) * (int)sizeof(float);
+constexpr int kDqSmem = 5 * kBTile * (int)sizeof(float);
+
+template <typename T>
+cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* di, void* dk, void* dv, int BH, int N,
+                           float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(vit_attention_bwd_dkv_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTile - 1) / kTile, BH);
+  vit_attention_bwd_dkv_kernel<T><<<grid, kBwdThreads, kDkvSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, di, static_cast<T*>(dk), static_cast<T*>(dv), N,
+      scale * kLog2e, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* di, void* dq, int BH, int N,
+                          float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(vit_attention_bwd_dq_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTile - 1) / kTile, BH);
+  vit_attention_bwd_dq_kernel<T><<<grid, kBwdThreads, kDqSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, di, static_cast<T*>(dq), N, scale * kLog2e, scale);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// bfloat16, tensor cores. q, k, v, out: [BH, N, 64], 16-byte aligned.
-int vit_attention_mma(const void* q, const void* k, const void* v, void* out, int BH, int N,
-                      float scale, void* stream) {
+// bfloat16, tensor cores. q, k, v, out: [BH, N, 64], 16-byte aligned; lse:
+// float32 [BH, N] or null.
+int vit_attention_mma(const void* q, const void* k, const void* v, void* out, void* lse, int BH,
+                      int N, float scale, void* stream) {
   if (BH < 1 || BH > 65535 || N < 1 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
       !aligned16(out))
     return (int)cudaErrorInvalidValue;
@@ -475,14 +799,14 @@ int vit_attention_mma(const void* q, const void* k, const void* v, void* out, in
   const dim3 grid((N + kTile - 1) / kTile, BH);
   vit_attention_mma_kernel<<<grid, kMmaThreads, kMmaSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), N, scale * kLog2e);
+      static_cast<bf16*>(out), static_cast<float*>(lse), N, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 // float32, 3xTF32 on the tensor cores. q, k, v, out: [BH, N, 64], 16-byte
-// aligned.
-int vit_attention_tf32x3(const void* q, const void* k, const void* v, void* out, int BH, int N,
-                         float scale, void* stream) {
+// aligned; lse: float32 [BH, N] or null.
+int vit_attention_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse,
+                         int BH, int N, float scale, void* stream) {
   if (BH < 1 || BH > 65535 || N < 1 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
       !aligned16(out))
     return (int)cudaErrorInvalidValue;
@@ -492,8 +816,37 @@ int vit_attention_tf32x3(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((N + kTile - 1) / kTile, BH);
   vit_attention_tf32x3_kernel<<<grid, kTfThreads, kTfSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), N, scale * kLog2e);
+      static_cast<float*>(out), static_cast<float*>(lse), N, scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+// The backward, design "simt". q, k, v, dout and the gradients: [BH, N, 64]
+// of the input type (dtype 0 float32, 1 bfloat16), 16-byte aligned; lse, di:
+// float32 [BH, N].
+int vit_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* di, void* dk, void* dv, int BH, int N,
+                          float scale, int dtype, void* stream) {
+  if (BH < 1 || BH > 65535 || N < 1 || (dtype != 0 && dtype != 1) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  return (int)(dtype == 0 ? launch_bwd_dkv<float>(q, k, v, dout, l, d, dk, dv, BH, N, scale, s)
+                          : launch_bwd_dkv<bf16>(q, k, v, dout, l, d, dk, dv, BH, N, scale, s));
+}
+
+int vit_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* di, void* dq, int BH, int N, float scale,
+                         int dtype, void* stream) {
+  if (BH < 1 || BH > 65535 || N < 1 || (dtype != 0 && dtype != 1) || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(di);
+  return (int)(dtype == 0 ? launch_bwd_dq<float>(q, k, v, dout, l, d, dq, BH, N, scale, s)
+                          : launch_bwd_dq<bf16>(q, k, v, dout, l, d, dq, BH, N, scale, s));
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

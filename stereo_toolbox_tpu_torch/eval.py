@@ -39,8 +39,10 @@ from stereo_toolbox_tpu_torch.datasets import DataLoader, zoo
 from stereo_toolbox_tpu_torch.models import MODEL_REGISTRY, create_model
 from stereo_toolbox_tpu_torch.utils.weights import reference_state_dict
 
-# the models `--max-disp` goes to (examples/eval.py:94-96, those ported)
+# the models `--max-disp` goes to (examples/eval.py:94-96, those ported),
+# and every model that predicts disparity
 TAKES_MAX_DISP = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet")
+STEREO = TAKES_MAX_DISP + ("DEFOMStereo_S", "DEFOMStereo_L")
 DATA_SUITES = ("sceneflow", "generalization", "weather")
 SUITES = DATA_SUITES + ("speed",)
 LOADER_WORKERS = 2                  # examples/eval.py's
@@ -143,7 +145,7 @@ def main(argv=None):
     if args.suite != "speed" and args.root is None:
         raise SystemExit(f"--root is required for the data-driven "
                          f"'{args.suite}' suite (dataset root directory)")
-    if args.suite != "speed" and args.model not in TAKES_MAX_DISP:
+    if args.suite != "speed" and args.model not in STEREO:
         raise SystemExit(f"{args.model} predicts no disparity: it runs the "
                          f"speed suite only")
     model = build_model(args)

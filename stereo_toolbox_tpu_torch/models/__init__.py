@@ -23,6 +23,9 @@ import torch
 
 from stereo_toolbox_tpu_torch.models.acvnet import ACVNet
 from stereo_toolbox_tpu_torch.models.cfnet import CFNet
+from stereo_toolbox_tpu_torch.models.defom_stereo import (DEFOMStereo,
+                                                          DEFOMStereo_L,
+                                                          DEFOMStereo_S)
 from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 from stereo_toolbox_tpu_torch.models.gwcnet import (GwcNet, GwcNet_G,
                                                     GwcNet_GC)
@@ -32,6 +35,8 @@ from stereo_toolbox_tpu_torch.nn.vit import DINOv2, LayerScale
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "ACVNet": ACVNet,
     "CFNet": CFNet,
+    "DEFOMStereo_L": DEFOMStereo_L,
+    "DEFOMStereo_S": DEFOMStereo_S,
     "DepthAnythingV2": DepthAnythingV2,
     "GwcNet_G": GwcNet_G,
     "GwcNet_GC": GwcNet_GC,
@@ -117,7 +122,8 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype
     return model
 
 
-__all__ = ["ACVNet", "CFNet", "DepthAnythingV2", "F32_MODULES",
+__all__ = ["ACVNet", "CFNet", "DEFOMStereo", "DEFOMStereo_L",
+           "DEFOMStereo_S", "DepthAnythingV2", "F32_MODULES",
            "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "MODEL_REGISTRY",
            "PSMNet", "bfloat16_view", "cast_model", "create_model",
            "keeps_float32"]

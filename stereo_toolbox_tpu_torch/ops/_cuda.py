@@ -71,9 +71,13 @@ SIGNATURES = {
         # x, w, out, B, D, H, W, Ci, Co, dtype, stream
         "conv3d_direct": [_P] * 3 + [_I] * 7 + [_P]},
     "vit_attention": {
-        # q, k, v, out, B*heads, N, scale, stream
-        "vit_attention_mma": [_P] * 4 + [_I] * 2 + [_F, _P],
-        "vit_attention_tf32x3": [_P] * 4 + [_I] * 2 + [_F, _P]},
+        # q, k, v, out, lse (or null), B*heads, N, scale, stream
+        "vit_attention_mma": [_P] * 5 + [_I] * 2 + [_F, _P],
+        "vit_attention_tf32x3": [_P] * 5 + [_I] * 2 + [_F, _P],
+        # q, k, v, dout, lse, di, dk, dv, B*heads, N, scale, dtype, stream
+        "vit_attention_bwd_dkv": [_P] * 8 + [_I] * 2 + [_F, _I, _P],
+        # q, k, v, dout, lse, di, dq, B*heads, N, scale, dtype, stream
+        "vit_attention_bwd_dq": [_P] * 7 + [_I] * 2 + [_F, _I, _P]},
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

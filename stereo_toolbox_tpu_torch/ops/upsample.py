@@ -83,3 +83,27 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, ...],
                                        device=x.device) * (in_size / s))
         x = torch.index_select(x, a, idx.long().clamp(0, in_size - 1))
     return x
+
+
+def unfold3x3(x: torch.Tensor) -> torch.Tensor:
+    """3×3 neighbourhoods of a ``[B, H, W]`` map with zero padding →
+    ``[B, H, W, 9]``, window index ``k = 3 · dy + dx`` (``F.unfold``'s
+    order)."""
+    b, h, w = x.shape
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    return torch.stack([xp[:, i:i + h, j:j + w] for i in range(3)
+                        for j in range(3)], dim=-1)
+
+
+def convex_upsample(disp: torch.Tensor, mask_logits: torch.Tensor,
+                    factor: int = 4) -> torch.Tensor:
+    """RAFT's convex upsampling: each output subpixel a softmax-weighted
+    blend of the 3×3 neighbours of ``factor · disp``. `disp` ``[B, h, w]``,
+    `mask_logits` ``[B, h, w, 9 · factor²]`` (k-major, then the subpixel
+    row, then its column) → ``[B, h · factor, w · factor]``, in float32."""
+    b, h, w = disp.shape
+    f = factor
+    m = torch.softmax(mask_logits.float().reshape(b, h, w, 9, f, f), dim=3)
+    nb = unfold3x3(disp.float() * f)
+    up = torch.einsum("bhwkij,bhwk->bhwij", m, nb)
+    return up.permute(0, 1, 3, 2, 4).reshape(b, h * f, w * f)

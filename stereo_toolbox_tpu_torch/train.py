@@ -4,7 +4,8 @@
     python -m stereo_toolbox_tpu_torch.train --model GwcNet_G \
         --dataset sceneflow --root /data/Scene_Flow --bf16
 
-Trains PSMNet, GwcNet_G, GwcNet_GC, ACVNet or CFNet on the card
+Trains PSMNet, GwcNet_G, GwcNet_GC, ACVNet, CFNet, DEFOMStereo_S or
+DEFOMStereo_L on the card
 (``--device cpu`` runs the plain paths on the CPU; without it and without a
 card it raises), in float32 or, with ``--bf16``, in bfloat16, on the
 synthetic dataset or on a dataset of the zoo (``--dataset`` a name of
@@ -18,11 +19,17 @@ and the checkpoints hold), and each step computes on a bfloat16 view of
 them (``trainer.make_train_step(..., dtype=torch.bfloat16)``). The
 flags are those of the JAX package's ``examples/train.py`` that the port
 supports, with its defaults, plus ``--device`` and ``--lists``; the
-synthetic dataset holds 64 samples, as there. The multi-head loss weighs PSMNet's three heads
-(0.5, 0.7, 1.0) and every other model's four (0.5, 0.5, 0.7, 1.0), as
-there: CFNet's nine heads train with ``--loss sequence`` (with the default
-``multihead`` its step raises, as JAX's asserts). ``--distributed`` is
-refused: data parallelism is not ported yet (ROADMAP Queue 1).
+synthetic dataset holds 64 samples, as there. ``--loss`` defaults to the
+sequence loss for the iterative models (DEFOMStereo: its ``train_iters``
+predictions; ``--maxdisp`` then goes to the loss's mask alone, the model
+takes none) and to the multi-head loss for the others, as JAX's trainer
+trains them (``TrainConfig(loss="sequence")``; JAX's own
+``examples/train.py`` passes DEFOMStereo a ``max_disp`` it does not take).
+The multi-head loss weighs PSMNet's three heads (0.5, 0.7, 1.0) and every
+other model's four (0.5, 0.5, 0.7, 1.0), as there: CFNet's nine heads train
+with ``--loss sequence`` (with ``multihead`` its step raises, as JAX's
+asserts). ``--distributed`` is refused: data parallelism is not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -37,7 +44,12 @@ from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.trainer import (TrainConfig, Trainer,
                                               init_train_state)
 
-TRAINABLE = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet")
+TRAINABLE = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet",
+             "DEFOMStereo_S", "DEFOMStereo_L")
+# the models whose constructor takes max_disp, and those trained with the
+# sequence loss by default
+TAKES_MAX_DISP = TRAINABLE[:5]
+ITERATIVE = ("DEFOMStereo_S", "DEFOMStereo_L")
 # the heads' weights of the multi-head loss (the JAX entry point's)
 LOSS_WEIGHTS = {name: (0.5, 0.7, 1.0) if name == "PSMNet"
                 else (0.5, 0.5, 0.7, 1.0) for name in TRAINABLE}
@@ -90,8 +102,10 @@ def parse_args(argv=None):
     p.add_argument("--num-workers", type=int, default=16)
     p.add_argument("--log-dir", default=None,
                    help="TensorBoard/JSONL scalar directory")
-    p.add_argument("--loss", default="multihead",
-                   choices=("sequence", "multihead", "selfsup"))
+    p.add_argument("--loss", default=None,
+                   choices=("sequence", "multihead", "selfsup"),
+                   help="default: sequence for the iterative models, "
+                        "multihead for the others")
     p.add_argument("--device", default=None,
                    help="'cpu' for the plain paths; default: the card")
     p.add_argument("--bf16", action="store_true",
@@ -136,14 +150,18 @@ def main(argv=None) -> None:
         raise SystemExit("--distributed: data parallelism is not ported yet "
                          "(ROADMAP Queue 1, item 3)")
     torch.manual_seed(args.seed)
+    model_kw = ({"max_disp": args.maxdisp}
+                if args.model in TAKES_MAX_DISP else {})
     model = create_model(args.model, device=args.device,
-                         max_disp=args.maxdisp,
-                         generator=torch.Generator().manual_seed(args.seed))
+                         generator=torch.Generator().manual_seed(args.seed),
+                         **model_kw)
     config = TrainConfig(
         lr=args.lr, batch_size=args.batch_size, epochs=args.epochs,
         clip_grad=args.clip_grad, max_disp=args.maxdisp, seed=args.seed,
         ckpt_dir=args.ckpt_dir, save_every=args.save_every,
-        log_dir=args.log_dir, loss=args.loss,
+        log_dir=args.log_dir,
+        loss=args.loss or ("sequence" if args.model in ITERATIVE
+                           else "multihead"),
         loss_weights=LOSS_WEIGHTS[args.model])
     dataset = build_dataset(args)
     loader = D.DataLoader(dataset, batch_size=args.batch_size, shuffle=True,

@@ -311,24 +311,23 @@ def _numbered(tree: dict, prefix: str) -> list[int]:
                   if k.startswith(prefix) and k[len(prefix):].isdigit())
 
 
-def _depth_anything_v2(t: JaxToTorch) -> None:
-    """Inverse of the JAX package's ``convert_depth_anything_v2``. The JAX
-    trunk has one LayerNorm per tap where the original has one ``norm``
-    applied at every tap: carried only if all tap norms are equal."""
-    p, h = "pretrained", "depth_head"
-    tree = t.trees["params"][p]
-    t.conv(f"{p}/patch_embed", f"{p}.patch_embed.proj", bias=True)
-    t.raw(f"{p}/cls_token", f"{p}.cls_token")
-    t.raw(f"{p}/pos_embed", f"{p}.pos_embed")
+def _dinov2(t: JaxToTorch, p: str, k: str) -> None:
+    """The JAX DINOv2 at path `p` → the port's at key `k`. The JAX trunk
+    has one LayerNorm per tap where the original has one ``norm`` applied
+    at every tap: carried only if all tap norms are equal."""
+    tree = t._find("params", p)
+    t.conv(f"{p}/patch_embed", f"{k}.patch_embed.proj", bias=True)
+    t.raw(f"{p}/cls_token", f"{k}.cls_token")
+    t.raw(f"{p}/pos_embed", f"{k}.pos_embed")
     for i in _numbered(tree, "block"):
-        f, k = f"{p}/block{i}", f"{p}.blocks.{i}"
-        t.layernorm(f"{f}/LayerNorm_0", f"{k}.norm1")
-        t.attention(f"{f}/MultiHeadDotProductAttention_0", f"{k}.attn")
-        t.raw(f"{f}/ls1", f"{k}.ls1.gamma")
-        t.layernorm(f"{f}/LayerNorm_1", f"{k}.norm2")
-        t.dense(f"{f}/Dense_0", f"{k}.mlp.fc1")
-        t.dense(f"{f}/Dense_1", f"{k}.mlp.fc2")
-        t.raw(f"{f}/ls2", f"{k}.ls2.gamma")
+        f, b = f"{p}/block{i}", f"{k}.blocks.{i}"
+        t.layernorm(f"{f}/LayerNorm_0", f"{b}.norm1")
+        t.attention(f"{f}/MultiHeadDotProductAttention_0", f"{b}.attn")
+        t.raw(f"{f}/ls1", f"{b}.ls1.gamma")
+        t.layernorm(f"{f}/LayerNorm_1", f"{b}.norm2")
+        t.dense(f"{f}/Dense_0", f"{b}.mlp.fc1")
+        t.dense(f"{f}/Dense_1", f"{b}.mlp.fc2")
+        t.raw(f"{f}/ls2", f"{b}.ls2.gamma")
     norms = [(t._take("params", f"{p}/tapnorm{i}/scale"),
               t._take("params", f"{p}/tapnorm{i}/bias"))
              for i in _numbered(tree, "tapnorm")]
@@ -337,30 +336,109 @@ def _depth_anything_v2(t: JaxToTorch) -> None:
                             for s, b in norms):
         raise ValueError("the JAX tap norms differ (or are missing): the "
                          "original has one norm applied at every tap")
-    t.sd[f"{p}.norm.weight"], t.sd[f"{p}.norm.bias"] = norms[0]
+    t.sd[f"{k}.norm.weight"], t.sd[f"{k}.norm.bias"] = norms[0]
+
+
+def _dpt_head(t: JaxToTorch, h: str, k: str, with_output: bool = True
+              ) -> None:
+    """A JAX ``DPTHead`` (or DEFOM's ``DEFOMHead``) at path `h` → the
+    port's at key `k`; the feature head has no output convs."""
     for i in range(4):
-        t.conv(f"{h}/project{i}", f"{h}.projects.{i}", bias=True)
+        t.conv(f"{h}/project{i}", f"{k}.projects.{i}", bias=True)
         if i in (0, 1):
-            t.conv_transpose(f"{h}/resize{i}", f"{h}.resize_layers.{i}",
+            t.conv_transpose(f"{h}/resize{i}", f"{k}.resize_layers.{i}",
                              bias=True)
         elif i == 3:
-            t.conv(f"{h}/resize{i}", f"{h}.resize_layers.{i}", bias=True)
-        t.conv(f"{h}/layer{i + 1}_rn", f"{h}.scratch.layer{i + 1}_rn")
+            t.conv(f"{h}/resize{i}", f"{k}.resize_layers.{i}", bias=True)
+        t.conv(f"{h}/layer{i + 1}_rn", f"{k}.scratch.layer{i + 1}_rn")
     for i in (1, 2, 3, 4):
-        f, k = f"{h}/refine{i}", f"{h}.scratch.refinenet{i}"
+        f, r = f"{h}/refine{i}", f"{k}.scratch.refinenet{i}"
         units = ("resConfUnit2",) if i == 4 else ("resConfUnit1",
                                                    "resConfUnit2")
         for j, unit in enumerate(units):
             for c in (0, 1):
                 t.conv(f"{f}/ResidualConvUnit_{j}/Conv_{c}",
-                       f"{k}.{unit}.conv{c + 1}", bias=True)
-        t.conv(f"{f}/Conv_0", f"{k}.out_conv", bias=True)
-    t.conv(f"{h}/output_conv1", f"{h}.scratch.output_conv1", bias=True)
-    t.conv(f"{h}/output_conv2a", f"{h}.scratch.output_conv2.0", bias=True)
-    t.conv(f"{h}/output_conv2b", f"{h}.scratch.output_conv2.2", bias=True)
+                       f"{r}.{unit}.conv{c + 1}", bias=True)
+        t.conv(f"{f}/Conv_0", f"{r}.out_conv", bias=True)
+    if with_output:
+        t.conv(f"{h}/output_conv1", f"{k}.scratch.output_conv1", bias=True)
+        t.conv(f"{h}/output_conv2a", f"{k}.scratch.output_conv2.0",
+               bias=True)
+        t.conv(f"{h}/output_conv2b", f"{k}.scratch.output_conv2.2",
+               bias=True)
+
+
+def _depth_anything_v2(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_depth_anything_v2``."""
+    _dinov2(t, "pretrained", "pretrained")
+    _dpt_head(t, "depth_head", "depth_head")
+
+
+def _raft_res(t: JaxToTorch, path: str, key: str, norm: str) -> None:
+    """A JAX ``RAFTResBlock`` → the port's: ``Conv_0/1`` → ``conv1/2``,
+    ``Conv_2`` → ``downsample.0`` where it has one; with batch norm
+    ``BatchNorm_0/1/2`` → ``norm1``, ``norm2``, ``downsample.1``."""
+    t.conv(f"{path}/Conv_0", f"{key}.conv1", bias=True)
+    t.conv(f"{path}/Conv_1", f"{key}.conv2", bias=True)
+    if norm == "batch":
+        t.bn(f"{path}/BatchNorm_0", f"{key}.norm1")
+        t.bn(f"{path}/BatchNorm_1", f"{key}.norm2")
+    if t.has(f"{path}/Conv_2"):
+        t.conv(f"{path}/Conv_2", f"{key}.downsample.0", bias=True)
+        if norm == "batch":
+            t.bn(f"{path}/BatchNorm_2", f"{key}.downsample.1")
+
+
+def _update_block(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX ``BasicMultiUpdateBlock`` (DEFOM's, one flow channel)."""
+    for g in ("gru08", "gru16", "gru32"):
+        for c in ("convz", "convr", "convq"):
+            t.conv(f"{path}/{g}/{c}", f"{key}.{g}.{c}", bias=True)
+    for i, name in enumerate(("convc1", "convc2", "convd1", "convd2",
+                              "conv")):
+        t.conv(f"{path}/encoder/Conv_{i}", f"{key}.encoder.{name}",
+               bias=True)
+    t.conv(f"{path}/flow_head_1", f"{key}.disp_head.conv1", bias=True)
+    t.conv(f"{path}/flow_head_2", f"{key}.disp_head.conv2", bias=True)
+    t.conv(f"{path}/mask_1", f"{key}.mask.0", bias=True)
+    t.conv(f"{path}/mask_2", f"{key}.mask.2", bias=True)
+
+
+def _defom(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_defom`` (either encoder)."""
+    da = "defomencoder.depth_anything"
+    _dinov2(t, "defomencoder/pretrained", f"{da}.pretrained")
+    _dpt_head(t, "defomencoder/depth_head", f"{da}.depth_head")
+    _dpt_head(t, "defomencoder/depth_feat", f"{da}.depth_feat",
+              with_output=False)
+    stages = [f"layer{i}.{j}" for i in (1, 2, 3) for j in (0, 1)]
+    for net, norm in (("fnet", "instance"), ("cnet", "batch")):
+        t.conv(f"{net}/conv1", f"{net}.conv1", bias=True)
+        for n, key in enumerate(stages):
+            _raft_res(t, f"{net}/RAFTResBlock_{n}", f"{net}.{key}", norm)
+    t.conv("fnet/convd/conv", "fnet.convd.conv", bias=True)
+    t.conv("fnet/conv2", "fnet.conv2", bias=True)
+    t.bn("cnet/norm1", "cnet.norm1")
+    for n, key in enumerate(("layer4.0", "layer4.1", "layer5.0",
+                             "layer5.1"), 6):
+        _raft_res(t, f"cnet/RAFTResBlock_{n}", f"cnet.{key}", "batch")
+    for s in ("08", "16", "32"):
+        t.conv(f"cnet/conv{s}/conv", f"cnet.conv{s}.conv", bias=True)
+        t.bn(f"cnet/conv{s}/norm1", f"cnet.conv{s}.norm1")
+    for j in range(2):
+        for s in ("08", "16"):
+            _raft_res(t, f"cnet/res{s}_{j}", f"cnet.outputs{s}.{j}.0",
+                      "batch")
+            t.conv(f"cnet/out{s}_{j}", f"cnet.outputs{s}.{j}.1", bias=True)
+        t.conv(f"cnet/out32_{j}", f"cnet.outputs32.{j}", bias=True)
+    for i in range(3):
+        t.conv(f"context_zqr_{i}", f"context_zqr_convs.{i}", bias=True)
+    _update_block(t, "refine_phase/update_block", "update_block")
+    _update_block(t, "scale_phase/scale_update_block", "scale_update_block")
 
 
 CONVERTERS = {"ACVNet": _acvnet, "CFNet": _cfnet,
+              "DEFOMStereo_L": _defom, "DEFOMStereo_S": _defom,
               "DepthAnythingV2": _depth_anything_v2, "GwcNet_G": _gwcnet,
               "GwcNet_GC": _gwcnet, "PSMNet": _psmnet}
 
@@ -382,7 +460,16 @@ def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:
 UNUSED_REFERENCE_KEYS = {
     "CFNet": ("combine1.combine3.", "combine1.redir3."),
     "DepthAnythingV2": ("refinenet4.resConfUnit1.", "pretrained.mask_token"),
+    # convert_defom's (:1324-1327): the doubly registered downsample norms,
+    # ConvBlock's unused norm2/norm3 and DAv2's artifacts
+    **{name: (".norm3.", "convd.norm2", "conv08.norm2", "conv16.norm2",
+              "conv32.norm2", "refinenet4.resConfUnit1.", "mask_token")
+       for name in ("DEFOMStereo_S", "DEFOMStereo_L")},
 }
+# Whole keys dropped likewise: DEFOM's ImageNet ``mean``/``std`` buffers
+# (utils/torch_import.py:1217)
+UNUSED_REFERENCE_NAMES = {name: ("mean", "std")
+                          for name in ("DEFOMStereo_S", "DEFOMStereo_L")}
 
 
 def reference_state_dict(name: str, path: str) -> dict[str, torch.Tensor]:
@@ -399,6 +486,7 @@ def reference_state_dict(name: str, path: str) -> dict[str, torch.Tensor]:
             obj = obj[key]
             break
     unused = UNUSED_REFERENCE_KEYS.get(name, ())
-    return {k.removeprefix("module."): v for k, v in obj.items()
-            if isinstance(v, torch.Tensor)
-            and not any(u in k for u in unused)}
+    names = UNUSED_REFERENCE_NAMES.get(name, ())
+    obj = {k.removeprefix("module."): v for k, v in obj.items()}
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)
+            and k not in names and not any(u in k for u in unused)}

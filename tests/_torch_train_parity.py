@@ -31,6 +31,19 @@ from stereo_toolbox_tpu_torch.utils.weights import from_jax_variables
 BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 
+# Models whose constructor takes no max_disp (it goes to the loss mask alone)
+TAKES_NO_MAX_DISP = ("DEFOMStereo_S", "DEFOMStereo_L")
+
+
+def port_model(name, config, model_kw=None):
+    """The port's `name` on the CPU, built with `model_kw` and, where it
+    takes one, the config's max_disp."""
+    kw = dict(model_kw or {})
+    if name not in TAKES_NO_MAX_DISP:
+        kw["max_disp"] = config.max_disp
+    return create_model(name, device="cpu", **kw)
+
+
 def jax_config(config):
     """The JAX trainer's config for the port's `config`."""
     return jtrainer.TrainConfig(lr=config.lr, max_disp=config.max_disp,
@@ -123,8 +136,7 @@ def one_step(name, jmodel, config, batch, model_kw=None, init_model=None):
         jax_side(jmodel, jax_config(config), batch, init_model=init_model)
     got = {}
     for dtype in (torch.float64, torch.float32):
-        model = create_model(name, max_disp=config.max_disp, device="cpu",
-                             **model_kw)
+        model = port_model(name, config, model_kw)
         model.load_state_dict(from_jax_variables(name, variables))
         init = {k: v.clone() for k, v in model.state_dict().items()}
         model.to(dtype)
@@ -278,7 +290,8 @@ PERTURBATION = 1e-3     # the seeded noise added to the left image
 STABLE = 0.1            # a group is stable below this relative L2 move
 TRAJECTORIES = 4        # perturbed bfloat16 trainer runs of JAX's
 BF16_FACTOR = 2.0       # the port within 2x JAX's bf16-vs-f32 distance
-PORT_KINDS = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose3d,
+PORT_KINDS = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d,
+              torch.nn.ConvTranspose3d,
               torch.nn.Linear, torch.nn.BatchNorm2d, torch.nn.BatchNorm3d)
 
 
@@ -503,8 +516,7 @@ def bf16_port_step(name, config, batch, variables, model_kw=None):
     dtype=torch.bfloat16)`) on `batch` from JAX's `variables`, the
     optimizer a `Recorder`: the loss, the heads, the gradients handed to
     the optimizer, the state after, the model, and the audit."""
-    model = create_model(name, max_disp=config.max_disp, device="cpu",
-                         **(model_kw or {}))
+    model = port_model(name, config, model_kw)
     model.load_state_dict(from_jax_variables(name, variables))
     init = {k: v.clone() for k, v in model.state_dict().items()}
     heads = []

@@ -697,6 +697,44 @@ def test_attention_tf32x3_kernel_matches_plain(dev, b, heads, n, scale):
     assert err <= 1e-5 * want.abs().max().item(), err
 
 
+# (b, heads, n, logit scale): DEFOMStereo_S's train launch (B 4) and eval
+# views, one key, ragged N, logits of ~±30
+ATTENTION_BWD_CASES = [(8, 6, 641, 0.125), (2, 6, 1201, 0.125),
+                       (1, 2, 1, 0.125), (2, 3, 77, 0.125),
+                       (1, 2, 65, 1.0)]
+
+
+@pytest.mark.parametrize("b,heads,n,scale", ATTENTION_BWD_CASES)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_attention_backward_kernels_match_plain(dev, b, heads, n, scale,
+                                                dtype, rel):
+    """K7-bwd ("dkv", "dq") on the forward kernel's output and
+    log-sum-exp, against `attention_backward_reference` on the same; at
+    N = 1, where dQ and dK are zero, against dV's scale; the same bits
+    twice."""
+    from stereo_toolbox_tpu_torch.ops import (attention_backward,
+                                              attention_backward_dkv,
+                                              attention_backward_reference,
+                                              attention_with_lse)
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, do = (torch.randn(b, heads, n, 64, generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    out, lse = attention_with_lse(q, k, v, scale)
+    before = attention_backward_dkv.launches
+    got = attention_backward(q, k, v, out, do, lse, scale)
+    assert attention_backward_dkv.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, attention_backward(q, k, v, out, do, lse, scale)))
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        out.float(), do.float(), lse, scale)
+    floor = want[2].abs().max().item()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and g.shape == q.shape
+        ref = max(w.abs().max().item(), floor if i < 2 and n == 1 else 0.0)
+        assert (g.float() - w).abs().max().item() <= rel * ref, i
+
+
 def test_float32_launches_the_tf32x3_designs(dev):
     x = torch.zeros(1, 2, 3, 4, 8, device=dev)
     before = sum(n for key, n in conv3d_fused.designs.items()

@@ -2,10 +2,10 @@
 
 A CUDA kernel's wrapper returns a fresh tensor without a ``grad_fn``: with
 autograd on, an input that requires grad would lose its gradient with no
-error. The wrappers of K2, K3 and K7 raise instead (`ops._cuda.refuse_grad`),
-naming the path that trains through cuDNN or autograd; K1, K4, K5 and K6
-have backward kernels and are differentiable (the samples of K4 and K5 may
-require grad: they get none). On the CPU the wrappers run their plain
+error. The wrappers of K2 and K3 raise instead (`ops._cuda.refuse_grad`),
+naming the path that trains through cuDNN or autograd; K1, K4, K5, K6 and
+K7 have backward kernels and are differentiable (the samples of K4 and K5
+may require grad: they get none). On the CPU the wrappers run their plain
 versions, which autograd differentiates; here the device check is
 monkeypatched so that CPU tensors take the card's path up to the launch.
 """
@@ -47,8 +47,7 @@ def _calls(requires_grad):
          lambda: gwc_volume_from_samples(f, f, samples, 2, 4)),
         ("build_concat_volume (K6)", None,
          lambda: build_concat_volume(f, f, 3)),
-        ("attention (K7)", "attention_reference",
-         lambda: attention(q, q, q, 0.125)),
+        ("attention (K7)", None, lambda: attention(q, q, q, 0.125)),
     ]
 
 
@@ -60,7 +59,7 @@ def card_path(monkeypatch):
 
 @pytest.mark.parametrize("index", range(7))
 def test_wrappers_refuse_an_input_that_requires_grad(card_path, index):
-    """K2, K3 and K7 refuse; K4, K5 and K6, autograd Functions with a
+    """K2 and K3 refuse; K4, K5, K6 and K7, autograd Functions with a
     backward kernel, take the input and stop at the device check, past
     the point where the others refuse."""
     what, instead, call = _calls(True)[index]

@@ -345,14 +345,14 @@ def test_entry_point_refuses_what_is_not_ported(tmp_path):
     model the port trains is taken, with JAX's multi-head weights (PSMNet's
     three heads, four for the others); CFNet's nine heads fail the default
     multi-head loss, as JAX's assert does, and train with ``--loss
-    sequence``."""
+    sequence``, DEFOMStereo's default."""
     r = _run_entry("--device", "cpu", "--distributed", timeout=120)
     assert r.returncode != 0 and "item 3" in r.stderr, r.stderr
     if not torch.cuda.is_available():
         r = _run_entry("--epochs", "1", timeout=120)
         assert r.returncode != 0 and "CUDA" in r.stderr, r.stderr
     assert TRAINABLE == ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet",
-                         "CFNet")
+                         "CFNet", "DEFOMStereo_S", "DEFOMStereo_L")
     for name in TRAINABLE:
         assert parse_args(["--model", name]).model == name
         assert LOSS_WEIGHTS[name] == ((0.5, 0.7, 1.0) if name == "PSMNet"
