@@ -47,8 +47,9 @@ no result line):
    launch shape, vits', DEFOMStereo_S's eval and train and MonSter's
    two-view shapes and ragged N (1, 15, 64, 65, 77, 200, 1025, 2048),
    bfloat16 on its design "mma", float32 on "tf32x3" (each float32 launch
-   twice for the same bits); then its backward (K7-bwd: "dkv" and "dq", both
-   "simt") at DEFOMStereo_S's train and eval shapes and the ragged N, in
+   twice for the same bits); then its backward (K7-bwd: "dkv" and "dq", on
+   the tensor cores in their type's design, bfloat16 "mma" and float32
+   "tf32x3") at DEFOMStereo_S's train and eval shapes and the ragged N, in
    both types: the forward's row log-sum-exp against the plain one, each
    backward kernel against `attention_backward_reference` on the forward
    kernel's output and log-sum-exp (f32 1e-5, bf16 1e-2 x max|ref|; at
@@ -611,14 +612,13 @@ GAP = "between forwards (host)"
 FWD_ITERS, FWD_WARMUP = 10, 3
 TRACE_ITERS = 3        # forwards in the torch.profiler trace
 
-# The design each type's K2 and K7 launches must run, and the one design
-# every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward must run in both
-# types
+# The design each type's K2, K7 and K7-bwd launches must run, and the one
+# design every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward (and each
+# of their backward kernels) must run in both types
 DESIGN = {F32: TF32X3, BF16: "mma"}
 ONE_DESIGN = {"K1": "stream", "K1-bwd": "rowpass", "K3": "stencil",
               "K4": "direct", "K5": "direct", "K6": "rows",
-              "K6-bwd": "direct", "K4-bwd": "staged", "K5-bwd": "staged",
-              "K7-bwd-dkv": "simt", "K7-bwd-dq": "simt"}
+              "K6-bwd": "direct", "K4-bwd": "staged", "K5-bwd": "staged"}
 DESIGN_TAGS = tuple(KERNELS)                  # every wrapper has .designs
 # bfloat16 forward with K2 and K7 against the same forward with their plain
 # versions: mean |d| limit in px
@@ -1196,9 +1196,9 @@ def check_attention_backward(gen) -> dict:
     log-sum-exp against the plain one, within K7's float32 gate · max|lse|
     in both types (its logits ~±30 at scale 1, where a wrong lse shows);
     (2) each backward kernel (dK, dV from "dkv", dQ from "dq", both on
-    their "simt" design) against `attention_backward_reference` on the same
-    q, k, v, dO and the forward kernel's output and lse, within REL_TOL,
-    run twice for the same bits; (3) autograd through `attention` (the
+    their type's design, DESIGN) against `attention_backward_reference` on
+    the same q, k, v, dO and the forward kernel's output and lse, within
+    REL_TOL, run twice for the same bits; (3) autograd through `attention` (the
     forward with its lse, then both backward kernels) against the plain
     chain within K7_CHAIN_TOL. Returns the largest gate (2) errors at
     DEFOMStereo_S's train launch, by tag and type."""
@@ -1218,9 +1218,11 @@ def check_attention_backward(gen) -> dict:
             require(err <= tol, f"K7 {DTYPE_NAME[dtype]} lse {shape}")
             di = (do.float() * out.float()).sum(-1)
             (dk, dv), _ = repeat_bits("K7-bwd-dkv", lambda: (
-                attention_backward_dkv(q, k, v, do, lse, di, scale)))
+                attention_backward_dkv(q, k, v, do, lse, di, scale)),
+                DESIGN[dtype])
             (dq,), _ = repeat_bits("K7-bwd-dq", lambda: (
-                attention_backward_dq(q, k, v, do, lse, di, scale)))
+                attention_backward_dq(q, k, v, do, lse, di, scale)),
+                DESIGN[dtype])
             for g in (dq, dk, dv):
                 require(g.dtype == dtype and g.shape == q.shape,
                         f"K7-bwd output {g.dtype} {tuple(g.shape)}")
@@ -2797,7 +2799,7 @@ class k7_backward_launches:
 
 def defom_launch_problems(what, want, dtype, seen) -> list:
     """A DEFOM step's launches since the counts were reset against `want`:
-    by shape, K7 on its type's design, K7-bwd on "simt" and on `dtype`
+    by shape, K7 and K7-bwd on their type's design, K7-bwd on `dtype`
     data (`seen`, from `k7_backward_launches`)."""
     problems = []
     for tag, (fn, *_) in KERNELS.items():
@@ -2984,7 +2986,7 @@ def defom_train_full_size(dtype) -> tuple[dict, dict]:
     crop), on batches of the port's DataLoader: DEFOM_TRAIN_WARMUP warm
     steps and DEFOM_TRAIN_STEPS[dtype] timed ones (host clock around the
     step and a synchronize), each step's launches required to be
-    DEFOM_TRAIN_MIX (K7 on its type's design, K7-bwd on "simt" and on
+    DEFOM_TRAIN_MIX (K7 and K7-bwd on their type's design, K7-bwd on
     `dtype` data), the losses finite; a traced step's kernel families."""
     model = create_model(DEFOM, generator=torch.Generator().manual_seed(0))
     steps = DEFOM_TRAIN_STEPS[dtype]
@@ -3955,8 +3957,8 @@ def main() -> None:
     errs["K6"] = check_concat(gen)
     errs["K6-bwd"] = check_concat_backward(gen)
     errs["K4-bwd"], errs["K5-bwd"] = check_samples_backward(gen)
-    print("phase 7: K7 vit_attention kernel and its backward (K7-bwd) vs "
-          "plain")
+    print(f"phase 7: K7 vit_attention kernel and its backward (K7-bwd) vs "
+          f"plain ({time.perf_counter() - t_start:.1f} s)")
     errs["K7"], errs["K7 DEFOM"] = check_attention(gen)
     errs.update(check_attention_backward(gen))
     kernels = []
@@ -4048,11 +4050,21 @@ def main() -> None:
         torch.cuda.empty_cache()
     for dtype, run in ((F32, train[DEFOM]["full_size"]),
                        (BF16, train[DEFOM]["bf16"]["full_size"])):
-        for tag in ("K7-bwd-dkv", "K7-bwd-dq"):
-            kernels.append(time_kernel(f"{DEFOM} (train step)", tag, dtype,
-                                       defom_mix[tag],
-                                       run["designs_last_step"],
-                                       errs[tag][dtype], gen))
+        pair = [time_kernel(f"{DEFOM} (train step)", tag, dtype,
+                            defom_mix[tag], run["designs_last_step"],
+                            errs[tag][dtype], gen)
+                for tag in ("K7-bwd-dkv", "K7-bwd-dq")]
+        kernels.extend(pair)
+        # both kernels against one backward of SDPA (each entry's library
+        # call computes dQ, dK and dV)
+        ms, b_ms = (sum(e[key] for e in pair) for key in ("ms", "bound_ms"))
+        sdpa = pair[0]["library_ms"]
+        print(f"  {DEFOM} (train step) K7-bwd {DTYPE_NAME[dtype]} "
+              f"({pair[0]['design']}): dkv {pair[0]['ms']:.4f} + dq "
+              f"{pair[1]['ms']:.4f} = {ms:.4f} ms x{pair[0]['launches']}, "
+              f"{100 * b_ms / ms:.1f}% of its bound {b_ms:.4f} "
+              f"({pair[0]['bound_by']}); SDPA's backward {sdpa:.4f} ms, "
+              f"{ms / sdpa:.2f}x its time")
     train[DEFOM]["seconds"]["timing"] = time.perf_counter() - t0 - sum(
         train[DEFOM]["seconds"].values())
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")

@@ -35,10 +35,13 @@ planted into the card's step, and phase 7's K7-bwd kernel gates
 (`chip_smoke.check_attention_backward`) under each fault:
 
 - ``k7_bwd_dq_dropped``: K7-bwd's dq kernel returns dQ = 0;
-- ``k7_bwd_last_key_tile_dropped``: K7-bwd's dkv kernel, built from a copy
+- ``k7_bwd_last_key_tile_dropped``: K7-bwd's dkv kernels, built from a copy
   of ``csrc/vit_attention.cu`` whose blocks of the last key tile store
   nothing (their dK, dV stay as allocated: a ragged-tail fault; at 64x128
-  the 33 tokens are one tile).
+  the 33 tokens are one tile);
+- ``k7_bwd_one_tf32_product``: K7-bwd's float32 design ("tf32x3") built
+  from a copy of ``csrc/vit_attention.cu`` whose 3xTF32 step keeps hi·hi
+  alone (the two products of a remainder taken out).
 
 Then the same for phase 14's bfloat16 card-vs-CPU step
 (`chip_smoke.compare_train_step_bf16`): clean (GwcNet_G, CFNet), and with
@@ -163,12 +166,15 @@ def k7_bwd_dq_dropped():
     return patched(chip_smoke.port_attention, "_launch_backward", faulty)
 
 
-# the store of K7-bwd-dkv's accumulators, and the blocks of the last key
-# tile leaving before it
-DKV_STORE = ("    const int key = k0 + hi + 16 * j;\n"
+# the store of K7-bwd-dkv's accumulators (both types), and the blocks of the
+# last key tile leaving before it
+DKV_STORE = ("    const int key = k0 + warp * 16 + g + 8 * r;\n"
              "    if (key >= N) continue;")
-DKV_STORE_FAULT = ("    const int key = k0 + hi + 16 * j;\n"
+DKV_STORE_FAULT = ("    const int key = k0 + warp * 16 + g + 8 * r;\n"
                    "    if (key >= N || k0 + kTile >= N) continue;")
+# the two products of a remainder in K7-bwd's 3xTF32 step
+LOW_PRODUCTS = ("  mma::mma_tf32(d, al, bh0, bh1);\n"
+                "  mma::mma_tf32(d, ah, bl0, bl1);\n")
 
 
 @functools.cache
@@ -179,6 +185,16 @@ def last_key_tile_library():
 
 def k7_bwd_last_key_tile_dropped():
     return _cuda.loaded_as("vit_attention", last_key_tile_library())
+
+
+@functools.cache
+def one_tf32_product_library():
+    return _cuda.variant("vit_attention", "fault_k7_bwd_one_tf32_product",
+                         subs=((LOW_PRODUCTS, ""),))
+
+
+def k7_bwd_one_tf32_product():
+    return _cuda.loaded_as("vit_attention", one_tf32_product_library())
 
 
 def phase7_k7_bwd_gate() -> bool:
@@ -230,6 +246,7 @@ RUNS_DEFOM = (
     ("clean", None),
     ("k7_bwd_dq_dropped", k7_bwd_dq_dropped),
     ("k7_bwd_last_key_tile_dropped", k7_bwd_last_key_tile_dropped),
+    ("k7_bwd_one_tf32_product", k7_bwd_one_tf32_product),
 )
 RUNS_BF16 = (
     ("clean", None, ("GwcNet_G", "CFNet")),

@@ -85,15 +85,18 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 // NaN, takes about four instructions).
 __device__ __forceinline__ uint32_t tf32_bits(uint32_t x) { return (x + 0x1000u) & 0xffffe000u; }
 
-// Four float32 fragment elements (as bits) split into tf32 high parts and
-// tf32 remainders: x = hi + lo to about 2^-22 of |x|.
+// x split into its tf32 high part and tf32 remainder: x = hi + lo to about
+// 2^-22 of |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(__float_as_uint(x));
+  lo = tf32_bits(__float_as_uint(x - __uint_as_float(hi)));
+}
+
+// Four float32 fragment elements (as bits) split likewise.
 __device__ __forceinline__ void split_tf32(const uint32_t (&x)[4], uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = tf32_bits(x[i]);
-    lo[i] = tf32_bits(__float_as_uint(__uint_as_float(x[i]) - __uint_as_float(hi[i])));
-  }
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
 }
 
 // d += a * b, m16n8k8, tf32 x tf32 -> float32

@@ -72,25 +72,42 @@
 // Backward (K7-bwd): the counterparts of the library's two backward Pallas
 // kernels (_flash_attention_bwd_dkv and _flash_attention_bwd_dq in
 // jax/experimental/pallas/ops/tpu/flash_attention.py). Both recompute
-// P = exp2(S * scale * log2e - lse * log2e) from the saved lse and form
-// dS = P * (dO V^T - di), di = rowsum(dO * O) (given, float32 [BH, N]), in
-// float32 whatever the input type:
-//   vit_attention_bwd_dkv: a block owns 64 keys and walks the query tiles:
-//     dV += P^T dO, dK += scale * dS^T Q;
-//   vit_attention_bwd_dq: a block owns 64 queries and walks the key tiles:
-//     dQ += scale * dS K.
-// Design "simt": 256 threads a block, float32 FMA on the CUDA cores from
-// float32 tiles in shared memory (bf16 inputs widened as they are staged;
-// rows of 65 floats, so the column reads of a warp hit distinct banks). Per
-// tile, a thread computes a 4x4 patch of S and of dO V^T (rows r + 16i,
-// columns c + 16j), writes P and dS to shared memory, and after a barrier a
-// 4x4 patch of its accumulators (dK and dV, or dQ) from them. Rows past N
-// stage as zeros and get P = 0; rows past N are not stored. The gradients
-// are stored in the input type. What bounds it on this card: operations
-// (the two kernels do 14 N^2 64 FLOP a head against the 10 N^2 64 that the
-// S recompute, dV, dP, dQ and dK need, at the 67 TF/s float32 peak), then
-// the shared-memory loads (one load a FMA in the S and dP patches, half a
-// load in the accumulations).
+// S = Q K^T and P = exp2(S * scale * log2e - lse * log2e) from the saved lse
+// and form dS = P * (dO V^T - di), di = rowsum(dO * O) (given, float32
+// [BH, N]), in float32 whatever the input type:
+//   vit_attention_bwd_dkv: a block owns 64 keys (4 warps x 16) and walks
+//     the query tiles: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+//     dK += scale * dS^T Q;
+//   vit_attention_bwd_dq: a block owns 64 queries (4 warps x 16) and walks
+//     the key tiles: S = Q K^T, dP = dO V^T, dQ += scale * dS K.
+// Each output element is written by one block, no atomics: the same bits
+// every run. The walked tiles (with, in dkv, their lse * log2e and di)
+// stream through shared memory by cp.async, double-buffered, zero-filled
+// past N; the block's own tiles stay resident. P and dS never leave
+// registers: the accumulator fragments of the score products are the A
+// fragments of the gradient products. Queries past N get P = 0 (lse taken
+// as +inf), keys past N are masked in dq, rows past N are not stored.
+// What bounds them on this card: operations (dK, dV 8 N^2 64 and dQ
+// 6 N^2 64 FLOP a head), then the fragment loads from shared memory.
+//
+// bfloat16 ("mma"): mma.sync m16n8k16 with float32 sums; the resident
+// tiles' fragments (Q, dO or K, V) stay in registers (ldmatrix), the
+// walked tiles are read by ldmatrix (score products) and ldmatrix.trans
+// (gradient products) from the swizzled tiles of the forward. P and dS
+// are rounded to bfloat16 as the A operands of dV, dK and dQ, where the
+// library rounds them; the gradients are stored as bfloat16.
+//
+// float32 ("tf32x3"): every product 3xTF32 on mma.sync m16n8k8, each
+// operand split into its tf32 high part and remainder as its fragment is
+// loaded from the raw float32 tiles in shared memory (rows of 72 floats;
+// none is held split in registers, which would spill). The n8 tiles of S
+// pair their columns with the tokens of the gradient product's k step
+// (tok()), so that the C fragments are the A fragments in place and both
+// kinds of fragment load hit distinct banks. mma.sync truncates the
+// float32 sums it writes: each k8 step of S and dP sums into fresh
+// registers added once, rounded to nearest, and each walked tile's share
+// of dQ, dK and dV likewise (the forward's 24 truncations into S bias a
+// logit of ~30 by ~2e-5, which exp would carry into P past the 1e-5 gate).
 //
 // C interface (loaded with ctypes): vit_attention_mma(...),
 // vit_attention_tf32x3(...), vit_attention_bwd_dkv(...) and
@@ -128,14 +145,15 @@ constexpr int kPlaneFloats = kTile * kLd;
 constexpr int kTfSmem = (2 * kRawFloats + 4 * kPlaneFloats) * (int)sizeof(float);
 
 // Rows [row0, row0 + 64) of one head's [N, 64] float32 matrix into
-// [64][kRawLd] at dst, zero-filled past N.
+// [64][Ld] at dst, zero-filled past N.
+template <int Ld = kRawLd>
 __device__ __forceinline__ void stage_raw(uint32_t dst, const float* __restrict__ src, int row0,
                                           int N) {
   for (int i = threadIdx.x; i < kTile * 16; i += kTfThreads) {
     const int r = i >> 4, c = i & 15;
     const bool ok = row0 + r < N;
     const float* from = ok ? src + (size_t)(row0 + r) * kD + c * 4 : src;
-    mma::cp_async16(dst + (r * kRawLd + c * 4) * 4, from, ok);
+    mma::cp_async16(dst + (r * Ld + c * 4) * 4, from, ok);
   }
 }
 
@@ -497,286 +515,520 @@ vit_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---------------------------------------------------------------- backward
 
-constexpr int kBwdThreads = 256;       // 16 x 16 threads, a 4 x 4 patch each
-constexpr int kBLd = kD + 1;           // staged rows (65 floats)
-constexpr int kBTile = kTile * kBLd;   // floats of one staged 64-row tile
+constexpr int kBwdThreads = 128;           // 4 warps x 16 rows (queries or keys)
+constexpr int kBLd = kD + 8;               // float32 staged rows, floats
+constexpr int kBTile = kTile * kBLd;       // floats of one float32 staged tile
 
-// 16 bytes of a row as float32: four floats, or eight bf16 (a bf16 is the
-// high half of its float32)
-__device__ __forceinline__ void unpack(const uint4 w, float* to, float) {
-  to[0] = __uint_as_float(w.x);
-  to[1] = __uint_as_float(w.y);
-  to[2] = __uint_as_float(w.z);
-  to[3] = __uint_as_float(w.w);
-}
-__device__ __forceinline__ void unpack(const uint4 w, float* to, bf16) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    to[2 * i] = __uint_as_float(words[i] << 16);
-    to[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(bf16* p, float x) { *p = __float2bfloat16(x); }
+// Column c of an n8 tile of the float32 S (S^T) holds token tok(c) of its 8
+// (keys in dq, queries in dkv), so that a lane's accumulator columns 2t,
+// 2t + 1 hold the tokens of k = t and k = t + 4 of the A fragment that
+// reuses them, and that both the row loads of the score products (tokens
+// tok(g)) and the column loads of the gradient products (tokens tok(2t),
+// tok(2t + 1)) of a warp hit distinct banks in rows of kBLd floats.
+__device__ __forceinline__ int tok(int c) { return c ^ ((c >> 2) & 1); }
 
-// Rows [row0, row0 + 64) of one head's [N, 64] matrix into [64][kBLd]
-// float32 at dst, zero-filled past N; 16-byte loads (4 floats or 8 bf16).
-template <typename T>
-__device__ __forceinline__ void stage_f32(float* dst, const T* __restrict__ src, int row0,
-                                          int N) {
-  constexpr int kVec = 16 / sizeof(T);        // elements a 16-byte load
-  constexpr int kPer = kD / kVec;             // loads a row
-  for (int i = threadIdx.x; i < kTile * kPer; i += kBwdThreads) {
-    const int r = i / kPer, c = (i % kPer) * kVec;
-    float* to = dst + r * kBLd + c;
-    if (row0 + r < N) {
-      unpack(*reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD + c), to, T());
-    } else {
+// d += a b over one k8 step in 3xTF32: lo*hi + hi*lo + hi*hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma::mma_tf32(d, al, bh0, bh1);
+  mma::mma_tf32(d, ah, bl0, bl1);
+  mma::mma_tf32(d, ah, bh0, bh1);
+}
+
+// The split A fragment of rows r, r + 8 at `at` (row r, dim 8kk + 2t) of a
+// float32 [64][kBLd] tile: k = t and t + 4 are dims 2t and 2t + 1 of the
+// step's 8
+__device__ __forceinline__ void a_rows(const float* at, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(at);
+  const float2 x1 = *reinterpret_cast<const float2*>(at + 8 * kBLd);
+  const uint32_t x[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x), __float_as_uint(x0.y),
+                         __float_as_uint(x1.y)};
+  mma::split_tf32(x, hi, lo);
+}
+
+// S (or S^T) += A B^T over the 64 dims of 16 rows x 64 tokens: a at row
+// g, dim 2t of the A tile, b at the B tile; each k8 step's three products
+// go into a fresh register tile that is added once, rounded to nearest
+// (mma.sync truncates the float32 sums it writes; 24 truncations into one
+// tile bias a logit of ~30 by ~2e-5, which exp carries into P)
+__device__ __forceinline__ void scores_3xtf32(float (&s)[8][4], const float* a, const float* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) to[e] = 0.f;
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ah[4], al[4];
+    a_rows(a + 8 * kk, ah, al);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(b + (8 * j + tok(g)) * kBLd + 8 * kk + 2 * tq);
+      uint32_t bh0, bh1, bl0, bl1;
+      mma::split_tf32(x.x, bh0, bl0);
+      mma::split_tf32(x.y, bh1, bl1);
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32(t, ah, al, bh0, bh1, bl0, bl1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += t[e];
     }
   }
 }
 
-// S = A B^T and dP = C D^T of one 64 x 64 tile pair, the 4 x 4 patch of
-// rows r + 16i, columns c + 16j, from [64][kBLd] tiles.
-__device__ __forceinline__ void two_products(const float* a, const float* b, const float* c,
-                                             const float* d, int r, int cc, float (&s)[4][4],
-                                             float (&dp)[4][4]) {
+// acc += C B over one 64-token tile, C the accumulator tiles of a score
+// product (16 rows x 64 tokens, column c of tile j token 8j + tok(c)), B
+// the [64 tokens][64 dims] tile at b: k step j takes C's tile j as its A
+// fragment as it lies (k = t, t + 4: tokens tok(2t), tok(2t + 1)); summed
+// into a fresh register tile, added once
+__device__ __forceinline__ void grads_3xtf32(float (&acc)[8][4], const float (&c)[8][4],
+                                             const float* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  float t[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < kD; ++k) {
-    float av[4], bv[4], cv[4], dv[4];
+    for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a[(r + 16 * i) * kBLd + k];
-      cv[i] = c[(r + 16 * i) * kBLd + k];
-      bv[i] = b[(cc + 16 * i) * kBLd + k];
-      dv[i] = d[(cc + 16 * i) * kBLd + k];
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t x[4] = {__float_as_uint(c[j][0]), __float_as_uint(c[j][2]),
+                           __float_as_uint(c[j][1]), __float_as_uint(c[j][3])};
+    uint32_t ah[4], al[4];
+    mma::split_tf32(x, ah, al);
+    const float* b0 = b + (8 * j + tok(2 * tq)) * kBLd + g;
+    const float* b1 = b + (8 * j + tok(2 * tq + 1)) * kBLd + g;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t bh0, bh1, bl0, bl1;
+      mma::split_tf32(b0[8 * n], bh0, bl0);
+      mma::split_tf32(b1[8 * n], bh1, bl1);
+      mma_3xtf32(t[n], ah, al, bh0, bh1, bl0, bl1);
     }
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        dp[i][j] = fmaf(cv[i], dv[j], dp[i][j]);
-      }
+    for (int e = 0; e < 4; ++e) acc[n][e] += t[n][e];
+}
+
+// bfloat16: S (or S^T) = A B^T of 16 rows x 64 tokens over the 64 dims, A
+// as resident fragments, B a swizzled [64 tokens][64 dims] tile (column 2t
+// + e of tile j: token 8j + 2t + e)
+__device__ __forceinline__ void scores_mma(float (&s)[8][4], const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t f[4];
+      const int row = jp * 16 + (lane & 7) + ((lane >> 4) << 3);
+      mma::ldmatrix_x4(f, b + swz(row, 2 * kk + ((lane >> 3) & 1)));
+      mma::mma_bf16(s[2 * jp], a[kk], f[0], f[1]);
+      mma::mma_bf16(s[2 * jp + 1], a[kk], f[2], f[3]);
+    }
   }
 }
 
-// dK and dV of 64 keys: the block of (key tile blockIdx.x, head blockIdx.y)
-// walks every query tile. lse2 = lse * log2e, rows past N get P = 0.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-vit_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const T* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ di,
-                             T* __restrict__ dk, T* __restrict__ dv, int N, float scale_log2,
-                             float scale) {
-  extern __shared__ __align__(16) float bsm[];
-  float* ks = bsm;                 // this block's keys, [64][kBLd]
-  float* vs = ks + kBTile;         // their values
-  float* qs = vs + kBTile;         // the query tile
-  float* dos = qs + kBTile;        // its output gradient
-  float* ps = dos + kBTile;        // P [query][key]
-  float* dss = ps + kBTile;        // dS [query][key]
-  float* rows = dss + kBTile;      // lse2 [64], di [64] of the query tile
+// bfloat16: acc += C B over one 64-token tile, C rounded to bfloat16 as the
+// A fragments (k step kk: tokens 16kk .. 16kk + 15), B the swizzled [64
+// tokens][64 dims] tile at b (ldmatrix.trans)
+__device__ __forceinline__ void grads_mma(float (&acc)[8][4], const float (&c)[8][4], uint32_t b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {mma::pack_bf16(c[2 * kk][0], c[2 * kk][1]),
+                           mma::pack_bf16(c[2 * kk][2], c[2 * kk][3]),
+                           mma::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]),
+                           mma::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t f[4];
+      const int row = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+      mma::ldmatrix_x4_trans(f, b + swz(row, 2 * dp + (lane >> 4)));
+      mma::mma_bf16(acc[2 * dp], a, f[0], f[1]);
+      mma::mma_bf16(acc[2 * dp + 1], a, f[2], f[3]);
+    }
+  }
+}
 
-  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
+// Rows r (0: g, 1: g + 8) of a 16 x 64 accumulator, times `mul`, at dst
+// (the row's dim 2t), in the output type
+__device__ __forceinline__ void store_row(float* dst, const float (&acc)[8][4], int r, float mul) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    *reinterpret_cast<float2*>(dst + 8 * n) =
+        make_float2(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+}
+__device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[8][4], int r, float mul) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) d[4 * n] = mma::pack_bf16(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+}
+
+// dK = scale * acc_k and dV = acc_v of this warp's 16 keys of the tile at
+// k0 (of one head's [N, 64] gradients), keys past N not stored
+template <typename T>
+__device__ __forceinline__ void store_dkv(T* dk, T* dv, const float (&acc_k)[8][4],
+                                          const float (&acc_v)[8][4], int k0, int N, float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + g + 8 * r;
+    if (key >= N) continue;
+    store_row(dk + (size_t)key * kD + 2 * tq, acc_k, r, scale);
+    store_row(dv + (size_t)key * kD + 2 * tq, acc_v, r, 1.f);
+  }
+}
+
+// dQ = scale * acc of this warp's 16 queries of the tile at q0
+template <typename T>
+__device__ __forceinline__ void store_dq(T* dq, const float (&acc)[8][4], int q0, int N,
+                                         float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row < N) store_row(dq + (size_t)row * kD + 2 * tq, acc, r, scale);
+  }
+}
+
+// lse * log2e (+inf past N, so that P = 0 there) and di of the 64 queries
+// at row0 into st[0, 64) and st[64, 128)
+__device__ __forceinline__ void stage_stats(float* st, const float* __restrict__ lse,
+                                            const float* __restrict__ di, int row0, int N) {
+  if (threadIdx.x < kTile) {
+    const int row = row0 + threadIdx.x;
+    const bool ok = row < N;
+    st[threadIdx.x] = ok ? lse[row] * kLog2e : INFINITY;
+    st[kTile + threadIdx.x] = ok ? di[row] : 0.f;
+  }
+}
+
+// dS = P * (dP - di), P = exp2(S * scale_log2 - lse2), in place of dp;
+// P in place of s. Element e of tile j is row e >> 1, token col(j, e & 1)
+// of the tile; `keep` says whether that token is real; lse2 and di by
+// (row, token): rows of the dq kernel, tokens (queries) of the dkv kernel.
+template <typename Col, typename Stat>
+__device__ __forceinline__ void softmax_grad(float (&s)[8][4], float (&dp)[8][4], float scale_log2,
+                                             Col keep, Stat stat) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float lse2, d;
+      stat(j, e, lse2, d);
+      const float p = keep(j, e) ? exp2f(fmaf(s[j][e], scale_log2, -lse2)) : 0.f;
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - d);
+    }
+}
+
+// dQ of 64 queries, float32 ("tf32x3"): the block of (query tile
+// blockIdx.x, head blockIdx.y) keeps its Q and dO tiles in shared memory
+// and walks the key tiles, double-buffered by cp.async.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+vit_attention_bwd_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v, const float* __restrict__ dout,
+                                   const float* __restrict__ lse, const float* __restrict__ di,
+                                   float* __restrict__ dq, int N, float scale_log2, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                  // [64][kBLd]
+  float* dos = qs + kBTile;
+  float* ks = dos + kBTile;         // [2][64][kBLd]
+  float* vs = ks + 2 * kBTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * kTile;
+  const size_t head = (size_t)blockIdx.y * N * kD;
+  const int ntiles = (N + kTile - 1) / kTile;
+
+  stage_raw<kBLd>(mma::smem_addr(qs), q + head, q0, N);
+  stage_raw<kBLd>(mma::smem_addr(dos), dout + head, q0, N);
+  stage_raw<kBLd>(mma::smem_addr(ks), k + head, 0, N);
+  stage_raw<kBLd>(mma::smem_addr(vs), v + head, 0, N);
+  mma::cp_async_commit();
+
+  float lse2[2], dii[2];            // rows g, g + 8 of this warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    lse2[r] = row < N ? lse[(size_t)blockIdx.y * N + row] * kLog2e : INFINITY;
+    dii[r] = row < N ? di[(size_t)blockIdx.y * N + row] : 0.f;
+  }
+  const int c0 = tok(2 * tq), c1 = tok(2 * tq + 1);
+  const float* qa = qs + (warp * 16 + g) * kBLd + 2 * tq;
+  const float* oa = dos + (warp * 16 + g) * kBLd + 2 * tq;
+
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      stage_raw<kBLd>(mma::smem_addr(ks + (buf ^ 1) * kBTile), k + head, (it + 1) * kTile, N);
+      stage_raw<kBLd>(mma::smem_addr(vs + (buf ^ 1) * kBTile), v + head, (it + 1) * kTile, N);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();        // tile it (and Q, dO) landed
+    __syncthreads();
+    const float* kt = ks + buf * kBTile;
+    const float* vt = vs + buf * kBTile;
+    const int k0 = it * kTile;
+
+    float s[8][4], dp[8][4];
+    scores_3xtf32(s, qa, kt);
+    scores_3xtf32(dp, oa, vt);
+    softmax_grad(
+        s, dp, scale_log2,
+        [&](int j, int e) { return k0 + 8 * j + ((e & 1) ? c1 : c0) < N; },
+        [&](int, int e, float& l, float& d) { l = lse2[e >> 1]; d = dii[e >> 1]; });
+    grads_3xtf32(acc, dp, kt);      // dQ += dS K
+    __syncthreads();                // the next iteration's copies overwrite this buffer
+  }
+  store_dq(dq + head, acc, q0, N, scale);
+}
+
+// dK and dV of 64 keys, float32 ("tf32x3"): the block of (key tile
+// blockIdx.x, head blockIdx.y) keeps its K and V tiles in shared memory
+// and walks the query tiles (with their lse * log2e and di),
+// double-buffered by cp.async.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+vit_attention_bwd_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ dout,
+                                    const float* __restrict__ lse, const float* __restrict__ di,
+                                    float* __restrict__ dk, float* __restrict__ dv, int N,
+                                    float scale_log2, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                  // [64][kBLd]
+  float* vs = ks + kBTile;
+  float* qs = vs + kBTile;          // [2][64][kBLd]
+  float* dos = qs + 2 * kBTile;
+  float* st = dos + 2 * kBTile;     // [2][lse2 64, di 64]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int k0 = blockIdx.x * kTile;
   const size_t head = (size_t)blockIdx.y * N * kD;
   const float* lse_h = lse + (size_t)blockIdx.y * N;
   const float* di_h = di + (size_t)blockIdx.y * N;
-  stage_f32(ks, k + head, k0, N);
-  stage_f32(vs, v + head, k0, N);
+  const int ntiles = (N + kTile - 1) / kTile;
 
-  float acc_k[4][4], acc_v[4][4];  // keys hi + 16j, dims lo + 16i
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
+  stage_raw<kBLd>(mma::smem_addr(ks), k + head, k0, N);
+  stage_raw<kBLd>(mma::smem_addr(vs), v + head, k0, N);
+  stage_raw<kBLd>(mma::smem_addr(qs), q + head, 0, N);
+  stage_raw<kBLd>(mma::smem_addr(dos), dout + head, 0, N);
+  mma::cp_async_commit();
+  stage_stats(st, lse_h, di_h, 0, N);
+  const int c0 = tok(2 * tq), c1 = tok(2 * tq + 1);
+  const float* ka = ks + (warp * 16 + g) * kBLd + 2 * tq;
+  const float* va = vs + (warp * 16 + g) * kBLd + 2 * tq;
 
-  for (int q0 = 0; q0 < N; q0 += kTile) {
-    __syncthreads();               // the previous tile's P, dS, Q, dO are consumed
-    stage_f32(qs, q + head, q0, N);
-    stage_f32(dos, dout + head, q0, N);
-    if (tid < kTile) {
-      const bool ok = q0 + tid < N;
-      rows[tid] = ok ? lse_h[q0 + tid] * kLog2e : 0.f;
-      rows[kTile + tid] = ok ? di_h[q0 + tid] : 0.f;
+  float acc_k[8][4], acc_v[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      stage_raw<kBLd>(mma::smem_addr(qs + (buf ^ 1) * kBTile), q + head, (it + 1) * kTile, N);
+      stage_raw<kBLd>(mma::smem_addr(dos + (buf ^ 1) * kBTile), dout + head, (it + 1) * kTile,
+                      N);
+      stage_stats(st + (buf ^ 1) * 2 * kTile, lse_h, di_h, (it + 1) * kTile, N);
     }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();        // tile it (and K, V) landed
     __syncthreads();
+    const float* qt = qs + buf * kBTile;
+    const float* ot = dos + buf * kBTile;
+    const float* stt = st + buf * 2 * kTile;
 
-    // S (queries hi + 16i, keys lo + 16j) and dP = dO V^T
-    float s[4][4], dp[4][4];
-    two_products(qs, ks, dos, vs, hi, lo, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = hi + 16 * i;
-      const bool qok = q0 + qi < N;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = lo + 16 * j;
-        const float p =
-            (qok && k0 + kj < N) ? exp2f(fmaf(s[i][j], scale_log2, -rows[qi])) : 0.f;
-        ps[qi * kBLd + kj] = p;
-        dss[qi * kBLd + kj] = p * (dp[i][j] - rows[kTile + qi]);
-      }
-    }
+    // S^T = K Q^T, dP^T = V dO^T: 16 keys x 64 queries (query 8j + tok(c)
+    // in column c of tile j)
+    float s[8][4], dp[8][4];
+    scores_3xtf32(s, ka, qt);
+    scores_3xtf32(dp, va, ot);
+    softmax_grad(
+        s, dp, scale_log2, [](int, int) { return true; },
+        [&](int j, int e, float& l, float& d) {
+          const int col = 8 * j + ((e & 1) ? c1 : c0);
+          l = stt[col];
+          d = stt[kTile + col];
+        });
+    grads_3xtf32(acc_v, s, ot);     // dV += P^T dO
+    grads_3xtf32(acc_k, dp, qt);    // dK += dS^T Q
     __syncthreads();
-
-    // dV += P^T dO, dK += dS^T Q over the tile's real queries
-    const int nq = min(kTile, N - q0);
-    for (int qi = 0; qi < nq; ++qi) {
-      float pv[4], dsv[4], ov[4], qv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pv[j] = ps[qi * kBLd + hi + 16 * j];
-        dsv[j] = dss[qi * kBLd + hi + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ov[i] = dos[qi * kBLd + lo + 16 * i];
-        qv[i] = qs[qi * kBLd + lo + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc_v[j][i] = fmaf(pv[j], ov[i], acc_v[j][i]);
-          acc_k[j][i] = fmaf(dsv[j], qv[i], acc_k[j][i]);
-        }
-    }
   }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + hi + 16 * j;
-    if (key >= N) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t at = head + (size_t)key * kD + lo + 16 * i;
-      narrow(dk + at, acc_k[j][i] * scale);
-      narrow(dv + at, acc_v[j][i]);
-    }
-  }
+  store_dkv(dk + head, dv + head, acc_k, acc_v, k0, N, scale);
 }
 
-// dQ of 64 queries: the block of (query tile blockIdx.x, head blockIdx.y)
-// walks every key tile.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-vit_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const T* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ di,
-                            T* __restrict__ dq, int N, float scale_log2, float scale) {
-  extern __shared__ __align__(16) float bsm[];
-  float* qs = bsm;                 // this block's queries, [64][kBLd]
-  float* dos = qs + kBTile;        // their output gradient
-  float* ks = dos + kBTile;        // the key tile
-  float* vs = ks + kBTile;         // its values
-  float* dss = vs + kBTile;        // dS [query][key]
-
-  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
+// dQ of 64 queries, bfloat16 ("mma"): as the float32 kernel, with Q and dO
+// as resident A fragments and bf16 products on m16n8k16.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+vit_attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ di,
+                                bf16* __restrict__ dq, int N, float scale_log2, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  const uint32_t sq = mma::smem_addr(smem_bytes);
+  const uint32_t sdo = sq + kTileBytes;
+  const uint32_t sk = sq + 2 * kTileBytes;   // K[2]
+  const uint32_t sv = sq + 4 * kTileBytes;   // V[2]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const size_t head = (size_t)blockIdx.y * N * kD;
-  stage_f32(qs, q + head, q0, N);
-  stage_f32(dos, dout + head, q0, N);
-  float lse2[4], dii[4];           // of queries hi + 16i
+  const int ntiles = (N + kTile - 1) / kTile;
+
+  stage_async(sq, q + head, q0, N);
+  stage_async(sdo, dout + head, q0, N);
+  stage_async(sk, k + head, 0, N);
+  stage_async(sv, v + head, 0, N);
+  mma::cp_async_commit();
+
+  float lse2[2], dii[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + hi + 16 * i;
-    const bool ok = row < N;
-    lse2[i] = ok ? lse[(size_t)blockIdx.y * N + row] * kLog2e : 0.f;
-    dii[i] = ok ? di[(size_t)blockIdx.y * N + row] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    lse2[r] = row < N ? lse[(size_t)blockIdx.y * N + row] * kLog2e : INFINITY;
+    dii[r] = row < N ? di[(size_t)blockIdx.y * N + row] : 0.f;
   }
-
-  float acc[4][4];                 // queries hi + 16i, dims lo + 16j
+  uint32_t qf[4][4], of[4][4];      // Q and dO fragments, 16 rows x 64 dims
+  float acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();               // the previous tile's K, V, dS are consumed
-    stage_f32(ks, k + head, k0, N);
-    stage_f32(vs, v + head, k0, N);
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      stage_async(sk + (buf ^ 1) * kTileBytes, k + head, (it + 1) * kTile, N);
+      stage_async(sv + (buf ^ 1) * kTileBytes, v + head, (it + 1) * kTile, N);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
     __syncthreads();
-
-    float s[4][4], dp[4][4];
-    two_products(qs, ks, dos, vs, hi, lo, s, dp);
+    if (it == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = hi + 16 * i;
-      const bool qok = q0 + qi < N;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = lo + 16 * j;
-        const float p =
-            (qok && k0 + kj < N) ? exp2f(fmaf(s[i][j], scale_log2, -lse2[i])) : 0.f;
-        dss[qi * kBLd + kj] = p * (dp[i][j] - dii[i]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const int at = swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
+        mma::ldmatrix_x4(qf[kk], sq + at);
+        mma::ldmatrix_x4(of[kk], sdo + at);
       }
     }
+    const uint32_t kt = sk + buf * kTileBytes;
+    const int k0 = it * kTile;
+
+    float s[8][4], dp[8][4];
+    scores_mma(s, qf, kt);
+    scores_mma(dp, of, sv + buf * kTileBytes);
+    softmax_grad(
+        s, dp, scale_log2, [&](int j, int e) { return k0 + 8 * j + 2 * tq + (e & 1) < N; },
+        [&](int, int e, float& l, float& d) { l = lse2[e >> 1]; d = dii[e >> 1]; });
+    grads_mma(acc, dp, kt);         // dQ += dS K, dS rounded to bf16
     __syncthreads();
+  }
+  store_dq(dq + head, acc, q0, N, scale);
+}
 
-    // dQ += dS K over the tile's real keys
-    const int nk = min(kTile, N - k0);
-    for (int kj = 0; kj < nk; ++kj) {
-      float dsv[4], kv[4];
+// dK and dV of 64 keys, bfloat16 ("mma"): as the float32 kernel, with K
+// and V as resident A fragments and bf16 products on m16n8k16.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+vit_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ di,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv, int N,
+                                 float scale_log2, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_bytes[];
+  const uint32_t sk = mma::smem_addr(smem_bytes);
+  const uint32_t sv = sk + kTileBytes;
+  const uint32_t sq = sk + 2 * kTileBytes;   // Q[2]
+  const uint32_t sdo = sk + 4 * kTileBytes;  // dO[2]
+  float* st = reinterpret_cast<float*>(smem_bytes + 6 * kTileBytes);   // [2][128]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tq = lane & 3;
+  const int k0 = blockIdx.x * kTile;
+  const size_t head = (size_t)blockIdx.y * N * kD;
+  const float* lse_h = lse + (size_t)blockIdx.y * N;
+  const float* di_h = di + (size_t)blockIdx.y * N;
+  const int ntiles = (N + kTile - 1) / kTile;
+
+  stage_async(sk, k + head, k0, N);
+  stage_async(sv, v + head, k0, N);
+  stage_async(sq, q + head, 0, N);
+  stage_async(sdo, dout + head, 0, N);
+  mma::cp_async_commit();
+  stage_stats(st, lse_h, di_h, 0, N);
+
+  uint32_t kf[4][4], vf[4][4];      // K and V fragments, 16 keys x 64 dims
+  float acc_k[8][4], acc_v[8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(hi + 16 * i) * kBLd + kj];
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[kj * kBLd + lo + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {
+      stage_async(sq + (buf ^ 1) * kTileBytes, q + head, (it + 1) * kTile, N);
+      stage_async(sdo + (buf ^ 1) * kTileBytes, dout + head, (it + 1) * kTile, N);
+      stage_stats(st + (buf ^ 1) * 2 * kTile, lse_h, di_h, (it + 1) * kTile, N);
     }
-  }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int at = swz(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
+        mma::ldmatrix_x4(kf[kk], sk + at);
+        mma::ldmatrix_x4(vf[kk], sv + at);
+      }
+    }
+    const uint32_t qt = sq + buf * kTileBytes;
+    const uint32_t ot = sdo + buf * kTileBytes;
+    const float* stt = st + buf * 2 * kTile;
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + hi + 16 * i;
-    if (row >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      narrow(dq + head + (size_t)row * kD + lo + 16 * j, acc[i][j] * scale);
+    float s[8][4], dp[8][4];        // S^T, dP^T: 16 keys x 64 queries
+    scores_mma(s, kf, qt);
+    scores_mma(dp, vf, ot);
+    softmax_grad(
+        s, dp, scale_log2, [](int, int) { return true; },
+        [&](int j, int e, float& l, float& d) {
+          const int col = 8 * j + 2 * tq + (e & 1);
+          l = stt[col];
+          d = stt[kTile + col];
+        });
+    grads_mma(acc_v, s, ot);        // dV += P^T dO, P rounded to bf16
+    grads_mma(acc_k, dp, qt);       // dK += dS^T Q, dS rounded to bf16
+    __syncthreads();
   }
+  store_dkv(dk + head, dv + head, acc_k, acc_v, k0, N, scale);
 }
 
-constexpr int kDkvSmem = (6 * kBTile + 2 * kTile) * (int)sizeof(float);
-constexpr int kDqSmem = 5 * kBTile * (int)sizeof(float);
+constexpr int kDqF32Smem = 6 * kBTile * (int)sizeof(float);
+constexpr int kDkvF32Smem = (6 * kBTile + 4 * kTile) * (int)sizeof(float);
+constexpr int kDqMmaSmem = 6 * kTileBytes;
+constexpr int kDkvMmaSmem = 6 * kTileBytes + 4 * kTile * (int)sizeof(float);
 
-template <typename T>
-cudaError_t launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                           const float* lse, const float* di, void* dk, void* dv, int BH, int N,
-                           float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(vit_attention_bwd_dkv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+// Sets the kernel's dynamic shared memory and launches it on (N / 64
+// tiles, BH) blocks of kBwdThreads.
+template <typename Kernel, typename... Args>
+cudaError_t launch_bwd(Kernel kernel, int smem, int BH, int N, cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kTile - 1) / kTile, BH);
-  vit_attention_bwd_dkv_kernel<T><<<grid, kBwdThreads, kDkvSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, static_cast<T*>(dk), static_cast<T*>(dv), N,
-      scale * kLog2e, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* di, void* dq, int BH, int N,
-                          float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(vit_attention_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTile - 1) / kTile, BH);
-  vit_attention_bwd_dq_kernel<T><<<grid, kBwdThreads, kDqSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, static_cast<T*>(dq), N, scale * kLog2e, scale);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -820,9 +1072,9 @@ int vit_attention_tf32x3(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-// The backward, design "simt". q, k, v, dout and the gradients: [BH, N, 64]
-// of the input type (dtype 0 float32, 1 bfloat16), 16-byte aligned; lse, di:
-// float32 [BH, N].
+// The backward: bfloat16 "mma" (dtype 1), float32 "tf32x3" (dtype 0). q, k,
+// v, dout and the gradients: [BH, N, 64] of the input type, 16-byte
+// aligned; lse, di: float32 [BH, N].
 int vit_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* di, void* dk, void* dv, int BH, int N,
                           float scale, int dtype, void* stream) {
@@ -832,8 +1084,17 @@ int vit_attention_bwd_dkv(const void* q, const void* k, const void* v, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
-  return (int)(dtype == 0 ? launch_bwd_dkv<float>(q, k, v, dout, l, d, dk, dv, BH, N, scale, s)
-                          : launch_bwd_dkv<bf16>(q, k, v, dout, l, d, dk, dv, BH, N, scale, s));
+  if (dtype == 0)
+    return (int)launch_bwd(vit_attention_bwd_dkv_tf32x3_kernel, kDkvF32Smem, BH, N, s,
+                           static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
+                           static_cast<float*>(dk), static_cast<float*>(dv), N, scale * kLog2e,
+                           scale);
+  return (int)launch_bwd(vit_attention_bwd_dkv_mma_kernel, kDkvMmaSmem, BH, N, s,
+                         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, d,
+                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, scale * kLog2e,
+                         scale);
 }
 
 int vit_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -845,8 +1106,15 @@ int vit_attention_bwd_dq(const void* q, const void* k, const void* v, const void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
-  return (int)(dtype == 0 ? launch_bwd_dq<float>(q, k, v, dout, l, d, dq, BH, N, scale, s)
-                          : launch_bwd_dq<bf16>(q, k, v, dout, l, d, dq, BH, N, scale, s));
+  if (dtype == 0)
+    return (int)launch_bwd(vit_attention_bwd_dq_tf32x3_kernel, kDqF32Smem, BH, N, s,
+                           static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
+                           static_cast<float*>(dq), N, scale * kLog2e, scale);
+  return (int)launch_bwd(vit_attention_bwd_dq_mma_kernel, kDqMmaSmem, BH, N, s,
+                         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, d,
+                         static_cast<bf16*>(dq), N, scale * kLog2e, scale);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -25,14 +25,25 @@ row's log-sum-exp (float32 ``[B · heads, N]``, natural log), which it saves
 with q, k, v and the output; its backward forms ``di = rowsum(dO ∘ O)`` in
 float32 (one PyTorch reduction, as the JAX library does in XLA outside its
 kernels) and launches K7-bwd (`attention_backward`): two hand-written CUDA
-kernels, the counterparts of the library's ``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq``, design "simt" (float32 FMA on the CUDA cores;
-bound by operations, 10·N²·64 FLOP a head at the 67 TF/s float32 peak). Each
-counts its launches like `attention` (`attention_backward_dkv`,
-`attention_backward_dq`). On the CPU the same Function runs the plain
-versions: `attention_reference` with the log-sum-exp of its logits, and
-`attention_backward_reference`, the plain dQ, dK and dV from the saved
-log-sum-exp, which is also the card's oracle.
+kernels, the counterparts of the library's ``_flash_attention_bwd_dkv``
+(dK and dV: a block owns 64 keys and walks the query tiles) and
+``_flash_attention_bwd_dq`` (dQ: a block owns 64 queries and walks the key
+tiles), each on the tensor cores in the forward's design for its type
+(`DESIGNS`): bfloat16 "mma" (P and dS rounded to bfloat16 as the
+A operands of dV, dK and dQ, where the library rounds them), float32
+"tf32x3" (every product 3xTF32). Both recompute S = Q·Kᵀ and P = exp2(S ·
+scale · log2e − lse · log2e), form dS = P ∘ (dO · Vᵀ − di) and keep P and
+dS in registers from the product that makes them to the one that uses
+them. Bound on the card by operations: dK and dV 8·N²·64 FLOP a head, dQ
+6·N²·64, at the bf16 peak or, in float32, three TF32 products each at the
+TF32 peak. Each counts its launches like `attention`
+(`attention_backward_dkv`, `attention_backward_dq`). On the CPU the same
+Function runs the plain versions: `attention_reference` with the
+log-sum-exp of its logits, and `attention_backward_reference`, the plain
+dQ, dK and dV from the saved log-sum-exp, which is also the card's oracle.
+`attention_backward_mma_reference` and `attention_backward_tf32x3_reference`
+compute the two designs' arithmetic (the CPU tests use them; nothing on
+the main path does).
 """
 
 from __future__ import annotations
@@ -46,11 +57,9 @@ from stereo_toolbox_tpu_torch.utils.precision import tf32_split
 
 HEAD_DIM = 64   # the kernels' head dim; every DepthAnythingV2 encoder has it
 QUERY_TILE = KEY_TILE = 64   # both kernels' queries a block and keys a step
-# The design of each type ("mma": bf16 products; "tf32x3": three TF32
-# products of split float32 operands)
+# The design of each type, K7's and K7-bwd's ("mma": bf16 products;
+# "tf32x3": three TF32 products of split float32 operands)
 DESIGNS = {torch.bfloat16: "mma", torch.float32: "tf32x3"}
-# K7-bwd's one design in both types (float32 FMA on the CUDA cores)
-BACKWARD_DESIGN = "simt"
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,6 +123,56 @@ def attention_backward_reference(q, k, v, o, do, lse, scale: float,
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _backward_in(product, q, k, v, o, do, lse, scale, di, narrow):
+    """K7-bwd's arithmetic with each of its five products taken by
+    `product` (float32 operands, float32 result) and ``narrow`` applied to
+    P before ``dV = Pᵀ · dO`` and to dS before ``dK`` and ``dQ``: P =
+    exp2(S · scale · log2e − lse · log2e), dS = P ∘ (dP − di) in
+    float32."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    log2e = 1.4426950408889634
+    p = torch.exp2(product(qf, kf.transpose(-1, -2)) * (scale * log2e)
+                   - (lse.float() * log2e)[..., None])
+    di = (dof * o.float()).sum(-1) if di is None else di.float()
+    dv = product(narrow(p).transpose(-1, -2), dof)
+    ds = p * (product(dof, vf.transpose(-1, -2)) - di[..., None])
+    dq = product(narrow(ds), kf) * scale
+    dk = product(narrow(ds).transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_backward_mma_reference(q, k, v, o, do, lse, scale: float,
+                                     di=None):
+    """Plain version in the bfloat16 kernels' arithmetic ("mma"), as
+    `attention_backward_reference` takes its arguments: the products of
+    the input values summed in float32, P rounded to bfloat16 before ``dV
+    = Pᵀ · dO`` and dS before ``dK = scale · dSᵀ · Q`` and ``dQ = scale ·
+    dS · K``, where the JAX library's kernels round them (the tensor
+    cores' A operands)."""
+    def narrow(x):
+        return x.to(torch.bfloat16).float()
+    return _backward_in(torch.matmul, q, k, v, o, do, lse, scale, di,
+                        narrow)
+
+
+def attention_backward_tf32x3_reference(q, k, v, o, do, lse, scale: float,
+                                        di=None, terms: int = 3):
+    """Plain version in the float32 kernels' arithmetic ("tf32x3"): every
+    product's operands split into TF32 high parts and remainders
+    (`tf32_split`) and summed as lo·hi + hi·lo + hi·hi in float32, or
+    ``terms=1``, hi·hi alone (one TF32 product), which the float32 gate
+    tells apart."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+
+    def product(a, b):
+        (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+        hh = ah @ bh
+        return (al @ bh + ah @ bl) + hh if terms == 3 else hh
+    return _backward_in(product, q, k, v, o, do, lse, scale, di,
+                        lambda x: x)
 
 
 def _check(*tensors) -> None:
@@ -234,7 +293,7 @@ def attention_backward_dkv(q, k, v, do, lse, di, scale):
     `lse` and ``di = rowsum(dO ∘ O)``, float32 ``[B, heads, N]`` each."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_backward("dkv", q, k, v, do, lse, di, (dk, dv), scale)
-    _count(attention_backward_dkv, q.shape)
+    _count(attention_backward_dkv, q)
     return dk, dv
 
 
@@ -242,14 +301,15 @@ def attention_backward_dq(q, k, v, do, lse, di, scale):
     """dQ (K7-bwd's second kernel), as `attention_backward_dkv`."""
     dq = torch.empty_like(q)
     _launch_backward("dq", q, k, v, do, lse, di, (dq,), scale)
-    _count(attention_backward_dq, q.shape)
+    _count(attention_backward_dq, q)
     return dq
 
 
-def _count(wrapper, shape) -> None:
+def _count(wrapper, q) -> None:
+    """One launch of a K7-bwd kernel on `q`'s shape, on its type's design."""
     wrapper.launches += 1
-    wrapper.shapes[tuple(shape)] += 1
-    wrapper.designs[(BACKWARD_DESIGN, QUERY_TILE, KEY_TILE)] += 1
+    wrapper.shapes[tuple(q.shape)] += 1
+    wrapper.designs[(DESIGNS[q.dtype], QUERY_TILE, KEY_TILE)] += 1
 
 
 def attention_backward(q, k, v, o, do, lse, scale):
@@ -273,7 +333,7 @@ def attention_backward(q, k, v, o, do, lse, scale):
 
 
 # launches of the kernels, in all, by (B, heads, N, head_dim) and by design
-# ("mma" | "tf32x3" | "simt", queries of a block, keys a step)
+# ("mma" | "tf32x3", queries (dq) or keys (dkv) of a block, tokens a step)
 for _wrapper in (attention, attention_backward_dkv, attention_backward_dq):
     _wrapper.launches = 0
     _wrapper.shapes = Counter()

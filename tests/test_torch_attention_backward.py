@@ -22,7 +22,20 @@ past and ragged past a 64-row tile):
     `attention_with_lse` saves; without grad it is `attention_reference`
     itself;
   * the reference's ``di`` argument (the kernels take di = rowsum(dO ∘ O)
-    from the caller) gives the same gradients.
+    from the caller) gives the same gradients;
+  * the plain versions of the kernels' arithmetic (N ∈ {1, 15, 65, 77,
+    200}, scale 1/8 and 1, where logits reach ~±30):
+    `attention_backward_mma_reference` (bfloat16 "mma": P and dS rounded
+    to bfloat16 where the library rounds them) within the bfloat16 kernel
+    gate, 1e-2 × max|ref|, of `attention_backward_reference`, and
+    `attention_backward_tf32x3_reference` (float32 "tf32x3") within the
+    float32 gate, 1e-5 × max|ref|, with ``terms=3`` and outside it with
+    ``terms=1`` (one TF32 product);
+  * both against ``jax.vjp`` of the JAX package's TPU route
+    (``_vit_attention_fn`` at N = 1100, padded to 2048 with segment ids,
+    the library's Pallas forward and backward kernels in interpret mode)
+    in their own type, within the chain tolerance of ``chip_smoke.py``
+    (``K7_CHAIN_TOL``: JAX's VJP carries its own forward).
 """
 
 import importlib
@@ -33,7 +46,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference
+
+from stereo_toolbox_tpu.models import depth_anything_v2 as jax_dav2
 
 A = importlib.import_module("stereo_toolbox_tpu_torch.ops.attention")
 
@@ -127,3 +143,99 @@ def test_reference_takes_di_as_the_kernels_do():
                                          di=di)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert lse.shape == (2, 3, 33) and lse.dtype == torch.float32
+
+
+# the kernels' designs at small shapes: one key, under, one past and ragged
+# past a 64-row tile, and N 200 at logits of ~±30 (scale 1)
+DESIGN_NS = [1, 15, 65, 77, 200]
+# chip_smoke.K7_CHAIN_TOL: a backward whose forward is not the port's own
+CHAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _worst(got, want):
+    """The largest max|got − want| / max|ref| of dQ, dK, dV (dQ and dK
+    against dV's scale where their own is zero, N = 1)."""
+    got, want = ([torch.as_tensor(np.array(x, np.float32)) if not
+                  torch.is_tensor(x) else x.float() for x in xs]
+                 for xs in (got, want))
+    floor = want[2].abs().max().item()
+    return max((g - w).abs().max().item()
+               / max(w.abs().max().item(), floor if i < 2 else 0.0)
+               for i, (g, w) in enumerate(zip(got, want)))
+
+
+def _design_inputs(n, scale, dtype):
+    """q, k, v, dO in `dtype`, the plain forward's output and log-sum-exp,
+    and the float32 plain backward on the same values."""
+    q, k, v, do = (torch.from_numpy(x).to(dtype)
+                   for x in _inputs(n, seed=4))
+    out, lse = A.attention_with_lse(q, k, v, scale)
+    want = A.attention_backward_reference(q.float(), k.float(), v.float(),
+                                          out.float(), do.float(), lse,
+                                          scale)
+    return (q, k, v, out, do, lse), want
+
+
+@pytest.mark.parametrize("scale", [0.125, 1.0])
+@pytest.mark.parametrize("n", DESIGN_NS)
+def test_mma_reference_is_inside_the_bf16_gate(n, scale):
+    args, want = _design_inputs(n, scale, torch.bfloat16)
+    got = A.attention_backward_mma_reference(*args, scale)
+    assert all(g.dtype == torch.bfloat16 and g.shape == args[0].shape
+               for g in got)
+    worst = _worst(got, want)
+    print(f"K7-bwd mma N {n} scale {scale}: {worst:.2e} of max|ref|, "
+          f"margin {TOL[torch.bfloat16] / max(worst, 1e-30):.1f}x")
+    assert worst <= TOL[torch.bfloat16]
+    # the same di as the kernels take it
+    di = (args[4].float() * args[3].float()).sum(-1)
+    again = A.attention_backward_mma_reference(*args[:3], None, *args[4:],
+                                               scale, di=di)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("scale", [0.125, 1.0])
+@pytest.mark.parametrize("n", DESIGN_NS)
+def test_tf32x3_reference_is_inside_the_f32_gate_and_one_product_is_not(
+        n, scale):
+    args, want = _design_inputs(n, scale, torch.float32)
+    got = A.attention_backward_tf32x3_reference(*args, scale)
+    assert all(g.dtype == torch.float32 for g in got)
+    worst = _worst(got, want)
+    one = _worst(A.attention_backward_tf32x3_reference(*args, scale,
+                                                       terms=1), want)
+    print(f"K7-bwd tf32x3 N {n} scale {scale}: 3xTF32 {worst:.2e}, one "
+          f"TF32 product {one:.2e} of max|ref|")
+    assert worst <= TOL[torch.float32]
+    assert one > TOL[torch.float32]
+    with pytest.raises(ValueError):
+        A.attention_backward_tf32x3_reference(*args, scale, terms=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_design_references_match_the_pallas_flash_backward(monkeypatch,
+                                                           dtype):
+    """N = 1100 ≥ 1024 takes the TPU route: ``jax.vjp`` through the
+    library's Pallas forward and its two backward kernels (interpret
+    mode), against the port's plain forward and the type's design."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (rng.randn(1, 1100, 2, 64).astype(np.float32)
+                   for _ in range(4))
+    jtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_dav2._vit_attention_fn,
+                         *(jnp.asarray(x, jtype) for x in (q, k, v)))
+        want = [np.asarray(g.astype(jnp.float32)).transpose(0, 2, 1, 3)
+                for g in vjp(jnp.asarray(do, jtype))]
+    tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2).contiguous().to(
+        dtype) for x in (q, k, v, do))
+    scale = 64 ** -0.5
+    out, lse = A.attention_with_lse(tq, tk, tv, scale)
+    design = (A.attention_backward_tf32x3_reference if dtype == torch.float32
+              else A.attention_backward_mma_reference)
+    got = design(tq, tk, tv, out, tdo, lse, scale)
+    worst = _worst(got, want)
+    print(f"K7-bwd {dtype} design vs the Pallas flash backward: "
+          f"{worst:.2e} of max|ref|")
+    assert worst <= CHAIN_TOL[dtype]

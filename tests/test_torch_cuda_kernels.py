@@ -710,22 +710,28 @@ ATTENTION_BWD_CASES = [(8, 6, 641, 0.125), (2, 6, 1201, 0.125),
 def test_attention_backward_kernels_match_plain(dev, b, heads, n, scale,
                                                 dtype, rel):
     """K7-bwd ("dkv", "dq") on the forward kernel's output and
-    log-sum-exp, against `attention_backward_reference` on the same; at
+    log-sum-exp, each launch on its type's design (bfloat16 "mma", float32
+    "tf32x3"), against `attention_backward_reference` on the same; at
     N = 1, where dQ and dK are zero, against dV's scale; the same bits
     twice."""
     from stereo_toolbox_tpu_torch.ops import (attention_backward,
                                               attention_backward_dkv,
+                                              attention_backward_dq,
                                               attention_backward_reference,
                                               attention_with_lse)
     gen = torch.Generator().manual_seed(13)
     q, k, v, do = (torch.randn(b, heads, n, 64, generator=gen).to(dev, dtype)
                    for _ in range(4))
     out, lse = attention_with_lse(q, k, v, scale)
-    before = attention_backward_dkv.launches
+    key = ({torch.float32: "tf32x3", torch.bfloat16: "mma"}[dtype], 64, 64)
+    before = [(w.launches, w.designs[key])
+              for w in (attention_backward_dkv, attention_backward_dq)]
     got = attention_backward(q, k, v, out, do, lse, scale)
-    assert attention_backward_dkv.launches == before + 1
     assert all(torch.equal(a, b) for a, b in zip(
         got, attention_backward(q, k, v, out, do, lse, scale)))
+    assert [(w.launches, w.designs[key])
+            for w in (attention_backward_dkv, attention_backward_dq)] == [
+                (n0 + 2, d0 + 2) for n0, d0 in before]
     want = attention_backward_reference(q.float(), k.float(), v.float(),
                                         out.float(), do.float(), lse, scale)
     floor = want[2].abs().max().item()
