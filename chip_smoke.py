@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-bwd [--parent DIR]
+    python3 chip_smoke.py --data-parallel
 
-The second form studies K4's backward kernel alone (`main_k4_bwd`). The
-first runs these phases, each of which raises on failure (exit code != 0,
+The second form studies K4's backward kernel alone (`main_k4_bwd`), the
+third runs phases 1, 2 and 19 alone (`main_data_parallel`). The first runs
+these phases, each of which raises on failure (exit code != 0,
 no result line):
 
 1. require CUDA; print the card and its power limit (nvidia-smi);
@@ -98,7 +100,7 @@ no result line):
     its launches by shape required to be TRAIN_MIXES (every volume kernel
     of the forward and its backward kernel once a launch: GwcNet_G K1;
     GwcNet_GC and ACVNet K1 and K6; CFNet K1 and K6 x3, K4 and K5 x2;
-    PSMNet: no kernel of the port); then 12 steps on one fixed 256x512, B 2
+    PSMNet: no kernel of the port); then 6 steps on one fixed 256x512, B 2
     batch (lr 1e-3, clip 1.0) whose losses must be finite and fall below
     0.9 x the first; then the same three in bfloat16 (JAX's ``--bf16``:
     the float32 model's parameters are the masters, each step computes on a
@@ -156,18 +158,40 @@ no result line):
     phases 8-13 time theirs, K7-bwd timed at the train step's launches
     beside its plain version and autograd through
     ``F.scaled_dot_product_attention``;
-19. print one ``{"forward": {...}}``, one ``{"train": {...}}``, one
-    ``{"estimators": {...}}``, one ``{"eval": {...}}`` and one
-    ``{"kernels": [...]}`` line;
-20. print ``{"ok": true, "device": {...}}`` as the last line.
+19. data-parallel training (``parallel``, ``make_train_step(...,
+    mesh=)``): GwcNet_G and CFNet at 256x512, global B 4 (ground truth NaN
+    in regions of other sizes in each sample: the ranks hold different
+    numbers of valid pixels), in float32 and in bfloat16 on float32
+    masters, on two gloo ranks sharing the card (this process and a
+    spawned one, B 2 each), on NCCL at world 1 (B 4) and, where there are
+    two cards, on NCCL over both: each mesh's step against the one-process
+    step on the global batch on the card, float32 at phase 14's card
+    limits (the loss and the running statistics 1e-4, the gradients 3e-2 /
+    0.2, CFNet 5e-3 / 5e-2) or twice the one-process step's own rounding
+    floor where that is larger, bfloat16 as phase 14 holds it (the loss by
+    its pixels' terms, each head, the running statistics and each stable
+    group's gradient within twice the one-process bfloat16-vs-float32
+    distance, every limit below 1); every rank's gradients, parameters and
+    buffers the same bits, every step's launches on every rank the block's
+    train mix (each volume kernel and its backward kernel); on two ranks
+    the two negative controls (the per-rank loss mean, BatchNorm
+    statistics reduced outside autograd) each beyond the float32 limits;
+    each step's ms beside the one-process step's, its collectives, and
+    ``evaluation.scaling.measure_scaling`` at [1];
+20. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
+    under ``data_parallel``), one ``{"estimators": {...}}``, one
+    ``{"eval": {...}}`` and one ``{"kernels": [...]}`` line;
+21. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -175,6 +199,7 @@ import sys
 import tempfile
 import time
 from collections import Counter, defaultdict
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -189,6 +214,7 @@ from stereo_toolbox_tpu_torch import eval as eval_cli  # noqa: E402
 from stereo_toolbox_tpu_torch import evaluation  # noqa: E402
 from stereo_toolbox_tpu_torch import losses as port_losses  # noqa: E402
 from stereo_toolbox_tpu_torch import native as port_native  # noqa: E402
+from stereo_toolbox_tpu_torch import parallel  # noqa: E402
 from stereo_toolbox_tpu_torch import metrics as port_metrics  # noqa: E402
 from stereo_toolbox_tpu_torch import nn as port_nn  # noqa: E402
 from stereo_toolbox_tpu_torch import (  # noqa: E402
@@ -198,10 +224,13 @@ from stereo_toolbox_tpu_torch.datasets import (  # noqa: E402
 from stereo_toolbox_tpu_torch.datasets import io as port_io  # noqa: E402
 from stereo_toolbox_tpu_torch.datasets.fixtures import (  # noqa: E402
     FULL_SIZES, write_eval_trees)
+from stereo_toolbox_tpu_torch.evaluation.scaling import (  # noqa: E402
+    measure_scaling)
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.models.defom_stereo import (  # noqa: E402
     get_danv2_io_size)
 port_attention = sys.modules["stereo_toolbox_tpu_torch.ops.attention"]
+from stereo_toolbox_tpu_torch.nn import layers as port_layers  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import _cuda  # noqa: E402
 from stereo_toolbox_tpu_torch.ops import volume as port_volume  # noqa: E402
@@ -404,7 +433,9 @@ PS_K3_MIX = {(1, 48, 120, 160, 32, 1): 3}        # classif1..3's last conv
 TRAIN_MODELS = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet")
 TRAIN_H, TRAIN_W, TRAIN_B = 256, 512, 4
 TRAIN_CHECK_H, TRAIN_CHECK_W, TRAIN_CHECK_B = 64, 128, 2
-OVERFIT_B, OVERFIT_STEPS = 2, 12
+# 6 overfit steps since phase 19 came (12 before; the overfit losses fell
+# below 0.9 x the first by the third step in every run)
+OVERFIT_B, OVERFIT_STEPS = 2, 6
 TRAIN_STEPS, TRAIN_WARMUP = {F32: 5, BF16: 5}, 1
 # CFNet's nine heads take the sequence loss (the multi-head weights are
 # four), as JAX's own CFNet gradient check does
@@ -1824,26 +1855,15 @@ def compare_train_step(name) -> dict:
             got[dev] = (loss.item(), rec.grads, bn_buffers(m))
     finally:
         torch.backends.cudnn.deterministic = False
-    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = got["cpu"], got[DEV]
+    (l_cpu, _, _), (l_gpu, _, _) = got["cpu"], got[DEV]
     want = TRAIN_CHECK_MIXES[name]
     for tag, (fn, *_) in KERNELS.items():
         require(Counter(fn.shapes) == Counter(want.get(tag, {})),
                 f"{name} card train step {tag} launches {dict(fn.shapes)}, "
                 f"not {want.get(tag, {})}")
-    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    num = sum(((a - b) ** 2).sum().item() for a, b in zip(g_gpu, g_cpu))
-    den = sum((b ** 2).sum().item() for b in g_cpu)
-    grad_l2 = (num / den) ** 0.5
-    leaf = max((a - b).abs().max().item() / b.abs().max().item()
-               for a, b in zip(g_gpu, g_cpu) if b.abs().max() > 0)
-    stats = 0.0
-    for k, v in s_cpu.items():
-        if k.endswith("running_mean"):
-            var = s_cpu[k.replace("running_mean", "running_var")]
-            stats = max(stats, ((s_gpu[k] - v).abs() / var.sqrt()).max()
-                        .item())
-        else:
-            stats = max(stats, ((s_gpu[k] - v).abs() / v).max().item())
+    apart = train_distances(got["cpu"], got[DEV])
+    loss_rel, grad_l2, leaf, stats = (apart[k] for k in (
+        "loss_rel", "grad_rel_l2", "grad_worst_leaf", "running_stats_rel"))
     moved = [int((a != b).sum()) for a, b in zip(samples["cpu"],
                                                   samples[DEV])]
     l2_tol, leaf_tol = TRAIN_GRAD.get(name, TRAIN_GRAD["default"])
@@ -1861,6 +1881,31 @@ def compare_train_step(name) -> dict:
     if moved:
         row["samples_moved"] = moved
     return row
+
+
+def train_distances(want, got) -> dict:
+    """How far a train step's readings ``(loss, gradients, running
+    statistics)`` `got` are from `want`'s: the loss relative, the
+    gradients' global relative L2 and worst leaf (max|d| / its max|ref|),
+    the running statistics' worst channel (a mean in units of its
+    channel's spread, a variance relative)."""
+    (l_ref, g_ref, s_ref), (loss, grads, stats) = want, got
+    num = sum(((a - b) ** 2).sum().item() for a, b in zip(grads, g_ref))
+    den = sum((b ** 2).sum().item() for b in g_ref)
+    worst = 0.0
+    for k, v in s_ref.items():
+        if k.endswith("running_mean"):
+            var = s_ref[k.replace("running_mean", "running_var")]
+            worst = max(worst, ((stats[k] - v).abs() / var.sqrt()).max()
+                        .item())
+        else:
+            worst = max(worst, ((stats[k] - v).abs() / v).max().item())
+    return {"loss_rel": abs(loss - l_ref) / abs(l_ref),
+            "grad_rel_l2": (num / den) ** 0.5,
+            "grad_worst_leaf": max(
+                (a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(grads, g_ref) if b.abs().max() > 0),
+            "running_stats_rel": worst}
 
 
 def train_step_within_limits(row) -> bool:
@@ -2139,11 +2184,11 @@ def loss_terms(heads, batch, config) -> torch.Tensor:
     return total[mask]
 
 
-def _groups(model, grads) -> dict:
-    """The gradients by group (the first part of a parameter's name),
-    flattened."""
+def _groups(names, grads) -> dict:
+    """The gradients by group (the first part of a parameter's name, in
+    `names`), flattened."""
     out = defaultdict(list)
-    for (key, _), g in zip(model.named_parameters(), grads):
+    for key, g in zip(names, grads):
         out[key.split(".")[0]].append(g.flatten())
     return {k: torch.cat(v) for k, v in out.items()}
 
@@ -2224,7 +2269,8 @@ def compare_train_step_bf16(name, mode=None) -> dict:
     card_stats = _stats_distance(g16["stats"], c16["stats"])
     own_stats = _stats_distance(c16["stats"], c32["stats"])
     row["stats"] = {k: (card_stats[k], own_stats[k]) for k in card_stats}
-    groups = {k: _groups(cpu, r["grads"]) for k, r in runs.items()}
+    names = [k for k, _ in cpu.named_parameters()]
+    groups = {k: _groups(names, r["grads"]) for k, r in runs.items()}
     moves = {g: _rel(groups["cpu32+"][g], v) for g, v in
              groups["cpu32"].items() if v.abs().max() > 0}
     row["stable_groups"] = {
@@ -3124,6 +3170,465 @@ def check_defom() -> tuple[dict, dict, dict]:
     print(f"  {DEFOM} phase: " + ", ".join(f"{k} {v:.1f} s"
                                           for k, v in seconds.items()))
     return runs, row, mix
+
+
+# --------------------------------------------------------------- phase 19
+# Data-parallel train steps (`parallel`, ``make_train_step(..., mesh=)``)
+# of GwcNet_G and CFNet at the original crop 256x512, global B 4, in
+# float32 and in bfloat16 on float32 masters: two gloo ranks on the one
+# card (this process rank 0, a spawned process rank 1; B 2 each) and NCCL
+# at world 1 (B 4), and NCCL over two cards where there are two. The
+# global batch's ground truth is NaN in regions of other sizes in each
+# sample (DP_NAN_ROWS, DP_NAN_COLS), so that the ranks hold different
+# numbers of valid pixels. Each mesh's step is held against the one-process
+# step on the global batch on the card (cuDNN's deterministic algorithms in
+# both). Float32: the loss, the reduced gradients and the running
+# statistics within phase 14's card limits, TRAIN_REL and TRAIN_GRAD, or
+# DP_FLOOR_FACTOR x the one-process step's own rounding floor where that is
+# larger (the same step on the batch in the order DP_REORDER: the sums of
+# its BatchNorm statistics and of its loss run in another order). Bfloat16
+# as phase 14 holds it: the loss (by its pixels' terms), each head, the
+# running statistics and the gradient of each group that the float32 step
+# keeps stable under a PERTURBATION of the left image, each within
+# BF16_FACTOR x the one-process step's own bfloat16-vs-float32 distance on
+# the same batch, and every such limit below 1. Exactly: every rank's
+# gradients, parameters and buffers the same bits, every step's launches on
+# every rank the block's train mix. On the two-rank meshes the two
+# negative controls (DP_CONTROLS) must each fail the float32 limits.
+DP_MODELS = ("GwcNet_G", "CFNet")
+DP_STEPS = 2                    # timed trainer steps after the recorded one
+DP_TIMEOUT_S = 300              # a collective; a rank's join
+DP_CASES = [(name, dtype) for name in DP_MODELS for dtype in (F32, BF16)]
+DP_REORDER = (1, 0, 3, 2)
+DP_FLOOR_FACTOR = 2.0
+# NaN ground truth by sample: its first rows, its first columns (a share of
+# the crop); ranks 0 and 1 of two keep 1.875 and 1.25 samples' pixels
+DP_NAN_ROWS, DP_NAN_COLS = (1 / 8, 0, 0, 1 / 4), (0, 0, 1 / 2, 0)
+DP_CONTROLS = ("per_rank_loss_mean", "detached_batch_statistics")
+
+
+def dp_limits(name) -> dict:
+    """Phase 14's float32 card limits of the readings a step of `name` is
+    held by."""
+    l2_tol, leaf_tol = TRAIN_GRAD.get(name, TRAIN_GRAD["default"])
+    return {"loss_rel": TRAIN_REL, "running_stats_rel": TRAIN_REL,
+            "grad_rel_l2": l2_tol, "grad_worst_leaf": leaf_tol}
+
+
+def dp_batch() -> dict:
+    """The global batch of every phase-19 step: B 4 at 256x512, its
+    ground truth NaN by DP_NAN_ROWS and DP_NAN_COLS."""
+    batch = next(iter(synthetic_loader(TRAIN_H, TRAIN_W, TRAIN_B, 1, seed=8,
+                                       workers=0)))
+    gt = np.array(batch["gt_disp"], np.float32)
+    for i, (rows, cols) in enumerate(zip(DP_NAN_ROWS, DP_NAN_COLS)):
+        gt[i, :int(rows * TRAIN_H)] = np.nan
+        gt[i, :, :int(cols * TRAIN_W)] = np.nan
+    return dict(batch, gt_disp=gt)
+
+
+def sha256(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def recorded_step(model, config, dtype, batch, mesh=None) -> tuple:
+    """One train step of `model` in `dtype` on `batch` (tensors on the
+    card; this rank's block under `mesh`), the optimizer a `GradRecorder`,
+    cuDNN deterministic: ((loss, gradients, running statistics), heads),
+    on the CPU."""
+    rec, heads = GradRecorder(), []
+    hook = model.register_forward_hook(lambda mod, inp, out: heads.extend(
+        o.detach().float().cpu() for o in out))
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, loss = make_train_step(model, config, dtype, mesh=mesh)(
+            TrainState(model.train(), rec), batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        hook.remove()
+    return (loss.item(), rec.grads, bn_buffers(model)), heads
+
+
+def dp_model(name):
+    return create_model(name, max_disp=MAX_DISP,
+                        generator=torch.Generator().manual_seed(0))
+
+
+def dp_steps(name, dtype, block, mesh=None) -> dict:
+    """DP_STEPS trainer steps of `name` (from the phase's seed) in `dtype`
+    on `block` (on the card) from ``init_train_state(..., mesh=)``, each
+    timed (host clock to a synchronize). The counts are set to 0 before
+    each step and read after it: every step's launches are required to be
+    the block's train mix, on the type's designs and data. Returns the
+    times, the losses, the collectives of each step, the launch problems
+    and the digest of the state after the steps."""
+    b = block["left"].shape[0]
+    mix = train_mix(name, b, TRAIN_H, TRAIN_W)
+    what = (f"{name} {DTYPE_NAME[dtype]}" + ("" if mesh is None else
+            f" rank {mesh.rank} of {mesh.size}"))
+    model = dp_model(name)
+    config = train_config(name)
+    state = init_train_state(model, config, 100, dtype, mesh=mesh)
+    step = make_train_step(model, config, dtype, mesh=mesh)
+    times, losses, collectives, problems = [], [], [], []
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        before = Counter(mesh.collectives if mesh else ())
+        reset_counts()
+        with launch_dtypes() as seen:
+            t0 = time.perf_counter()
+            state, loss = step(state, block)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        problems += train_launches(f"{what} step {i}", mix, dtype,
+                                   seen.seen)[1]
+        if mesh is not None:
+            collectives.append(sum((mesh.collectives - before).values()))
+        losses.append(loss.item())
+    row = dict(step_ms=times, losses=losses, collectives=collectives,
+               problems=problems,
+               launches={tag: sum(c.values()) for tag, c in mix.items()},
+               state_sha=sha256(model.state_dict().values()))
+    del state, step, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def dp_reference(name, batch) -> dict:
+    """The one-process steps of `name` on the global batch
+    (`recorded_step`): in float32 (its reading and heads), in float32 on
+    the batch in the order DP_REORDER (the float32 floor), in float32 on
+    the left image perturbed by PERTURBATION (each group's move: the
+    stable groups), and in bfloat16 (its reading and heads); then the
+    one-process trainer steps of each type, timed (`dp_steps`)."""
+    noise = np.random.RandomState(0).randn(*batch["left"].shape)
+    variants = {
+        "f32": (F32, batch),
+        "reordered": (F32, {k: v[list(DP_REORDER)] for k, v in
+                            batch.items()}),
+        "perturbed": (F32, dict(batch, left=(batch["left"] + PERTURBATION
+                                             * noise).astype(np.float32))),
+        "bf16": (BF16, batch)}
+    runs = {}
+    for key, (dtype, b) in variants.items():
+        model = dp_model(name)
+        runs[key] = recorded_step(model, train_config(name), dtype,
+                                  to_device(b, DEV))
+        names = [k for k, _ in model.named_parameters()]
+        del model
+    groups = {k: _groups(names, runs[k][0][1]) for k in ("f32",
+                                                         "perturbed")}
+    moves = {g: _rel(groups["perturbed"][g], v)
+             for g, v in groups["f32"].items() if v.abs().max() > 0}
+    steps = {dtype: dp_steps(name, dtype, to_device(batch, DEV))
+             for dtype in (F32, BF16)}
+    return {"f32": runs["f32"], "bf16": runs["bf16"], "names": names,
+            "floor": train_distances(runs["f32"][0], runs["reordered"][0]),
+            "stable": sorted(g for g, m in moves.items() if m < STABLE),
+            "moves": moves, "steps": steps}
+
+
+def dp_bf16_readings(ref, reading, heads, block, config) -> tuple:
+    """A bfloat16 mesh step's distances from the one-process bfloat16 step
+    and their limits, as phase 14 holds a bfloat16 step: the loss by its
+    pixels' terms over this rank's block (mean |d| over the float32 step's
+    mean |term|), each head over the block (relative L2), the running
+    statistics (`_stats_distance`) and each stable group's gradient
+    (relative L2), each limit BF16_FACTOR x the one-process step's own
+    bfloat16-vs-float32 distance."""
+    b = block["left"].shape[0]
+    (_, g16, s16), h16 = ref["bf16"]
+    (_, g32, s32), h32 = ref["f32"]
+    _, grads, stats = reading
+    t = [loss_terms([h[:b] for h in hs], block, config)
+         for hs in (heads, h16, h32)]
+    scale = t[2].abs().mean().item()
+    pairs = {"loss_terms": ((t[0] - t[1]).abs().mean().item() / scale,
+                            (t[1] - t[2]).abs().mean().item() / scale)}
+    for i, (a, c, d) in enumerate(zip(heads, h16, h32)):
+        pairs[f"head {i}"] = (_rel(a, c[:b]), _rel(c[:b], d[:b]))
+    got, own = _stats_distance(stats, s16), _stats_distance(s16, s32)
+    for k in got:
+        pairs[f"running {k}"] = (got[k], own[k])
+    gs = [_groups(ref["names"], g) for g in (grads, g16, g32)]
+    for g in ref["stable"]:
+        pairs[f"grad {g}"] = (_rel(gs[0][g], gs[1][g]),
+                              _rel(gs[1][g], gs[2][g]))
+    apart = {k: a for k, (a, _) in pairs.items()}
+    limits = {k: BF16_FACTOR * own for k, (_, own) in pairs.items()}
+    return apart, limits
+
+
+def dp_control_patches() -> dict:
+    """Each negative control's (object, attribute, fault), planted here
+    alone: the per-rank loss mean (each rank's own masked mean, averaged:
+    DDP's fault), and BatchNorm statistics reduced outside autograd (the
+    global statistics in the forward, each rank's own Σdy and Σdy·(x −
+    mean) in the backward)."""
+    backward = port_layers._GlobalBatchNorm.backward
+
+    def local_backward(ctx, *grads):
+        with patched(parallel, "all_reduce_sum", lambda ts, mesh: ts):
+            return backward(ctx, *grads)
+    return {"per_rank_loss_mean": (
+                parallel, "pixel_share",
+                lambda mask, mesh: torch.tensor(1.0 / mesh.size,
+                                                dtype=torch.float64)),
+            "detached_batch_statistics": (port_layers._GlobalBatchNorm,
+                                          "backward",
+                                          staticmethod(local_backward))}
+
+
+@contextlib.contextmanager
+def patched(obj, attr, value):
+    saved = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, saved)
+
+
+def dp_rank_run(name, dtype, batch, mesh) -> dict:
+    """On this rank of `mesh`, `name` from the phase's seed: one step of
+    ``make_train_step(..., mesh=)`` on the rank's block of `batch`, the
+    optimizer a `GradRecorder`, cuDNN deterministic (its readings, its
+    launches required to be the block's train mix), then `dp_steps`.
+    Returns the readings and the digests of the gradients and of the
+    state after the steps."""
+    b = TRAIN_B // mesh.size
+    what = f"{name} {DTYPE_NAME[dtype]} rank {mesh.rank} of {mesh.size}"
+    block = to_device(parallel.shard_batch(batch, mesh), DEV)
+    reset_counts()
+    with launch_dtypes() as seen:
+        reading, heads = recorded_step(dp_model(name), train_config(name),
+                                       dtype, block, mesh)
+    problems = train_launches(f"{what} recorded step",
+                              train_mix(name, b, TRAIN_H, TRAIN_W), dtype,
+                              seen.seen)[1]
+    row = dp_steps(name, dtype, block, mesh)
+    row.update(reading=reading, heads=heads, grads_sha=sha256(reading[1]),
+               problems=problems + row["problems"])
+    return row
+
+
+def dp_control_runs(batch, mesh) -> dict:
+    """Each model's float32 recorded step on this rank's block under each
+    control of DP_CONTROLS: its readings."""
+    block = to_device(parallel.shard_batch(batch, mesh), DEV)
+    out = {}
+    for name in DP_MODELS:
+        for control, (obj, attr, fault) in dp_control_patches().items():
+            with patched(obj, attr, fault):
+                out[name, control] = recorded_step(
+                    dp_model(name), train_config(name), F32, block, mesh)[0]
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank1(store, backend, device_index) -> None:
+    """Rank 1 of a two-rank mesh, in its own process: every case of
+    DP_CASES, its rows (without the readings) gathered to rank 0, then the
+    controls."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", device_index)
+    parallel.init_distributed(device, backend=backend, init_method=store,
+                              rank=1, world_size=2,
+                              timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = parallel.make_mesh(device=device)
+        batch = dp_batch()
+        for name, dtype in DP_CASES:
+            row = dp_rank_run(name, dtype, batch, mesh)
+            del row["reading"], row["heads"]
+            torch.distributed.gather_object(row, None, dst=0)
+        dp_control_runs(batch, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_mesh_cases(label, mesh, batch, refs) -> list:
+    """Every case of DP_CASES on `mesh` (this process its rank 0), held
+    against the one-process step `refs`, and on a mesh of two ranks the
+    controls: the rows of the train line."""
+    rows = []
+    b = TRAIN_B // mesh.size
+    block = {k: v[:b] for k, v in batch.items()}
+    for name, dtype in DP_CASES:
+        row = dp_rank_run(name, dtype, batch, mesh)
+        ranks = [row]
+        if mesh.size > 1:
+            ranks = [None] * mesh.size
+            torch.distributed.gather_object(
+                dict(row, reading=None, heads=None), ranks, dst=0)
+        ref = refs[name]
+        if dtype == F32:
+            apart = train_distances(ref["f32"][0], row["reading"])
+            floor = ref["floor"]
+            limits = {k: max(v, DP_FLOOR_FACTOR * floor[k])
+                      for k, v in dp_limits(name).items()}
+        else:
+            apart, limits = dp_bf16_readings(ref, row["reading"],
+                                             row["heads"], block,
+                                             train_config(name))
+            floor = None
+        one = ref["steps"][dtype]["step_ms"]
+        out = {"mesh": label, "model": name, "dtype": DTYPE_NAME[dtype],
+               "block": [b, TRAIN_H, TRAIN_W, 3], "apart": apart,
+               "limits": limits, "one_process_floor": floor,
+               "stable_groups": None if dtype == F32 else ref["stable"],
+               "step_ms": [r["step_ms"] for r in ranks],
+               "one_process_step_ms": one,
+               "losses": row["losses"],
+               "collectives_per_step": row["collectives"],
+               "launches_per_step": row["launches"],
+               "same_gradient_bits": len({r["grads_sha"] for r in ranks})
+               == 1,
+               "same_state_bits": len({r["state_sha"] for r in ranks}) == 1,
+               "launch_problems": [p for r in ranks for p in r["problems"]],
+               "same_losses": all(r["losses"] == row["losses"]
+                                  for r in ranks)}
+        out["within_limits"] = (
+            all(apart[k] <= v for k, v in limits.items())
+            and all(np.isfinite(v) and v < 1 for v in limits.values())
+            and (dtype == F32 or bool(ref["stable"])))
+        print(f"  {label} {name} {out['dtype']} B {b} a rank vs one process"
+              f" B {TRAIN_B} (the limit"
+              + ("; the one-process floor" if floor else "") + "): "
+              + ", ".join(f"{k} {apart[k]:.3e} ({v:.3e}"
+                          + (f"; {floor[k]:.3e}" if floor else "") + ")"
+                          for k, v in limits.items())
+              + (f"; {len(ref['stable'])} stable groups of "
+                 f"{len(ref['moves'])}" if dtype == BF16 else "")
+              + "; ranks' bits: "
+              f"gradients {'same' if out['same_gradient_bits'] else 'DIFFER'}"
+              f", state {'same' if out['same_state_bits'] else 'DIFFER'}; "
+              f"step ms by rank "
+              + "; ".join(", ".join(f"{t:.1f}" for t in r["step_ms"])
+                          for r in ranks)
+              + f" (one process B {TRAIN_B}: "
+              + ", ".join(f"{t:.1f}" for t in one)
+              + f"); {out['collectives_per_step'][-1]} collectives a step; "
+              f"launches a step {out['launches_per_step']}"
+              + "".join(f"; {p}" for p in out["launch_problems"]))
+        rows.append(out)
+    if mesh.size > 1:
+        for (name, control), reading in dp_control_runs(batch,
+                                                        mesh).items():
+            apart = train_distances(refs[name]["f32"][0], reading)
+            limits = {k: max(v, DP_FLOOR_FACTOR * refs[name]["floor"][k])
+                      for k, v in dp_limits(name).items()}
+            beyond = sorted(k for k, v in limits.items() if apart[k] > v)
+            print(f"  {label} {name} float32 control {control} vs one "
+                  f"process (the limit): "
+                  + ", ".join(f"{k} {apart[k]:.3e} ({v:.3e})"
+                              for k, v in limits.items())
+                  + f"; {'caught by ' + ', '.join(beyond) if beyond else 'NOT CAUGHT'}")
+            rows.append({"mesh": label, "model": name, "dtype": "float32",
+                         "control": control, "apart": apart,
+                         "limits": limits, "caught_by": beyond})
+    return rows
+
+
+def dp_failures(rows) -> list:
+    """The rows phase 19 fails on: a case off its limits, across ranks or
+    off its launches; a control within the limits."""
+    failed = []
+    for r in rows:
+        what = f"{r['mesh']} {r['model']} {r['dtype']}"
+        if "control" in r:
+            if not r["caught_by"]:
+                failed.append(f"{what} control {r['control']} not caught")
+        elif not (r["within_limits"] and r["same_gradient_bits"]
+                  and r["same_state_bits"] and r["same_losses"]) \
+                or r["launch_problems"]:
+            failed.append(what)
+    return failed
+
+
+def dp_two_ranks(label, backend, device_index, batch, refs, store,
+                 proc) -> list:
+    """This process as rank 0 of a two-rank `backend` mesh on cuda:0 and
+    `proc` (started on `dp_rank1`) as rank 1: `dp_mesh_cases`. Raises if
+    rank 1 fails or does not end."""
+    device = torch.device("cuda", 0)
+    parallel.init_distributed(device, backend=backend, init_method=store,
+                              rank=0, world_size=2,
+                              timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        rows = dp_mesh_cases(label, parallel.make_mesh(device=device),
+                             batch, refs)
+    finally:
+        torch.distributed.destroy_process_group()
+        proc.join(timeout=DP_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=30)
+    require(proc.exitcode == 0, f"{label}: rank 1 exited {proc.exitcode}")
+    return rows
+
+
+def check_data_parallel(smi_line) -> dict:
+    """Phase 19: the one-process references, the two gloo ranks on the
+    card, NCCL at world 1 (and over two cards where there are two), and
+    `measure_scaling` at [1]; every row within its limits, every control
+    caught."""
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    meshes = [("gloo x2 (one card)", "gloo", 0)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("nccl x2 (two cards)", "nccl", 1))
+    try:
+        # rank 1 imports while the references run
+        procs = []
+        for i, (_, backend, index) in enumerate(meshes):
+            procs.append(ctx.Process(target=dp_rank1, args=(
+                f"file://{tmp}/store{i}", backend, index)))
+        procs[0].start()
+        batch = dp_batch()
+        refs = {name: dp_reference(name, batch) for name in DP_MODELS}
+        torch.cuda.empty_cache()
+        rows = []
+        for i, ((label, backend, index), proc) in enumerate(zip(meshes,
+                                                                procs)):
+            if i:
+                proc.start()
+            rows += dp_two_ranks(label, backend, index, batch, refs,
+                                 f"file://{tmp}/store{i}", proc)
+        device = torch.device("cuda", 0)
+        parallel.init_distributed(device, init_method=f"file://{tmp}/nccl1",
+                                  rank=0, world_size=1,
+                                  timeout=timedelta(seconds=DP_TIMEOUT_S))
+        try:
+            mesh = parallel.make_mesh()
+            rows += dp_mesh_cases("nccl x1", mesh, batch, refs)
+            model = dp_model("GwcNet_G")
+            scaling = {}
+            for dtype in (F32, BF16):
+                print(f"  measure_scaling GwcNet_G {DTYPE_NAME[dtype]} "
+                      f"{TRAIN_H}x{TRAIN_W}, {TRAIN_B} a device ({smi_line})")
+                scaling[DTYPE_NAME[dtype]] = measure_scaling(
+                    model, train_config("GwcNet_G"), (TRAIN_H, TRAIN_W),
+                    TRAIN_B, steps=DP_STEPS, device_counts=[1], dtype=dtype)
+            del model
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = dp_failures(rows)
+    seconds = time.perf_counter() - t0
+    print(f"phase 19: {seconds:.1f} s ({smi_line})")
+    require(not failed, f"data-parallel steps off the one-process step or "
+                        f"across ranks, or a control passed: {failed}")
+    return {"rows": rows, "scaling": scaling, "seconds": seconds,
+            "card": smi_line}
 
 
 # ----------------------------------------------------- timing (phases 8-13)
@@ -4068,6 +4573,10 @@ def main() -> None:
     train[DEFOM]["seconds"]["timing"] = time.perf_counter() - t0 - sum(
         train[DEFOM]["seconds"].values())
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 19: data-parallel training "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    train["data_parallel"] = check_data_parallel(
+        smi[0] if smi else "nvidia-smi: none")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))
@@ -4079,8 +4588,27 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def main_data_parallel() -> None:
+    """``python3 chip_smoke.py --data-parallel``: phases 1, 2 and 19."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no output")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.build()
+    for lib in _cuda.SIGNATURES:
+        _cuda.library(lib)
+    dp = check_data_parallel(smi[0] if smi else "nvidia-smi: none")
+    print(json.dumps({"data_parallel": dp}))
+    print(json.dumps({"data_parallel_ok": True,
+                      "device": torch.cuda.get_device_name(0)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k4-bwd"]:
         main_k4_bwd(sys.argv[2:])
+    elif sys.argv[1:2] == ["--data-parallel"]:
+        main_data_parallel()
     else:
         main()

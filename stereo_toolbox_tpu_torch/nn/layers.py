@@ -20,9 +20,9 @@ their parameters (the folded affine, the packed or permuted weight) per
 refolds and copies nothing.
 
 In train mode every conv runs on cuDNN (the kernels have no backward) and
-every BatchNorm normalises with its batch statistics and updates its
-running statistics by flax's rule (`FlaxRunningStats`: the biased batch
-variance), as the JAX package trains.
+every BatchNorm normalises with its batch statistics (of the global batch
+in a data-parallel step) and updates its running statistics by flax's rule
+(`FlaxRunningStats`: the biased batch variance), as the JAX package trains.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stereo_toolbox_tpu_torch import parallel
 from stereo_toolbox_tpu_torch.ops.conv3d import (conv3d,
                                                  conv3d_concat_volume,
                                                  pack_concat_conv3d_weight)
@@ -62,7 +63,11 @@ class FlaxRunningStats:
     normalisation in float32 on x widened exactly, the running statistics
     updated in float32, the output rounded to bfloat16 once. The widening
     is explicit, so that the CPU and the card take the same float32 path
-    whatever mixed-type ``F.batch_norm`` calls each accepts."""
+    whatever mixed-type ``F.batch_norm`` calls each accepts.
+
+    Inside ``parallel.global_batch_statistics(mesh)`` (a data-parallel
+    train step) the batch statistics are those of the global batch, as
+    flax's BatchNorm takes them over a sharded batch (`_GlobalBatchNorm`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
@@ -73,6 +78,9 @@ class FlaxRunningStats:
         self.num_batches_tracked += 1
         m = (self.momentum if self.momentum is not None
              else 1.0 / int(self.num_batches_tracked))
+        mesh = parallel.batch_statistics_mesh()
+        if mesh is not None:
+            return self._global_forward(x, m, mesh)
         # the op keeps the variance it updates for its backward: update a
         # copy, then write the corrected value into the buffer
         kept = (1.0 - m) * self.running_var
@@ -83,6 +91,117 @@ class FlaxRunningStats:
         with torch.no_grad():
             self.running_var.copy_((var - kept) * ((n - 1) / n) + kept)
         return y
+
+    def _global_forward(self, x: torch.Tensor, m: float,
+                        mesh) -> torch.Tensor:
+        """Train mode over the global batch (`_GlobalBatchNorm`), then the
+        running statistics' update with its mean and biased variance."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps, mesh)
+        with torch.no_grad():
+            buffers = [self.running_mean, self.running_var]
+            torch._foreach_mul_(buffers, 1.0 - m)
+            torch._foreach_add_(buffers, [mean, var], alpha=m)
+        return y
+
+
+def _channel_view(t: torch.Tensor, dim: int) -> torch.Tensor:
+    return t.view((1, -1) + (1,) * (dim - 2))
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    """x's layout: channels-last where its strides are (the port's
+    ``channels_first`` view of an NDHWC tensor), else contiguous."""
+    fmt = {4: torch.channels_last, 5: torch.channels_last_3d}.get(x.dim())
+    if fmt is not None and x.is_contiguous(memory_format=fmt):
+        return fmt
+    return torch.contiguous_format
+
+
+def _bn_elemt(x, weight, bias, mean, invstd):
+    """``(x − mean) · (scale · invstd) + bias`` per channel: flax's
+    normalisation; on a card PyTorch's fused ``batch_norm_elemt``."""
+    if x.is_cuda:
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, 0.0)
+    mul = invstd if weight is None else invstd * weight
+    y = (x - _channel_view(mean, x.dim())) * _channel_view(mul, x.dim())
+    return y if bias is None else y + _channel_view(bias, x.dim())
+
+
+def _bn_backward_reduce(dy, x, mean, invstd, weight, grads):
+    """Per channel Σdy, Σdy·(x − mean), and the scale's and the bias's
+    gradients (`grads`: whether x's, the scale's and the bias's are
+    wanted); on a card PyTorch's fused ``batch_norm_backward_reduce``."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                *grads)
+    dims = [0, *range(2, x.dim())]
+    sum_dy = dy.sum(dims)
+    sum_dy_xmu = (dy * (x - _channel_view(mean, x.dim()))).sum(dims)
+    return (sum_dy, sum_dy_xmu, sum_dy_xmu * invstd if grads[1] else None,
+            sum_dy if grads[2] else None)
+
+
+def _bn_backward_elemt(dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+                       count):
+    """x's gradient from the global Σdy and Σdy·(x − mean) over `count`
+    values a channel: ``scale · invstd · (dy − Σdy / n − (x − mean) ·
+    invstd² · Σdy·(x − mean) / n)``; on a card PyTorch's fused
+    ``batch_norm_backward_elemt``."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_elemt(
+            dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+            count.to(torch.int32))
+    d = x.dim()
+    mul = invstd if weight is None else invstd * weight
+    xmu = x - _channel_view(mean, d)
+    return (dy - _channel_view(sum_dy / count, d)
+            - xmu * _channel_view(invstd * invstd * sum_dy_xmu / count, d)
+            ) * _channel_view(mul, d)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a mesh, as flax's
+    `_compute_stats` computes it over a sharded batch: each channel's
+    count, Σx and Σx² summed over the ranks in one all-reduce, the mean
+    and the biased variance ``max(0, E[x²] − E[x]²)`` from them, and
+    ``(x − mean) · (scale · rsqrt(var + eps)) + bias``. The backward sums
+    Σdy and Σdy·(x − mean) over the ranks in one all-reduce, from which
+    each rank's input gradient follows (SyncBatchNorm's backward). The
+    count is the global one: a channel may hold one value on a rank
+    (PSMNet's SPP at B = 1). Returns the output, the mean and the
+    variance (for the running statistics; no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh):
+        x = x.contiguous(memory_format=_memory_format(x))
+        c, dims = x.shape[1], [0, *range(2, x.dim())]
+        local = torch.cat([x.sum(dims), (x * x).sum(dims),
+                           x.new_full((1,), x.numel() // c)])
+        sums = parallel.all_reduce_sum([local], mesh)[0]
+        count = sums[2 * c:]
+        mean, mean2 = sums[:2 * c].view(2, c) / count
+        var = (mean2 - mean * mean).clamp_min_(0.0)
+        invstd = (var + eps).rsqrt_()
+        ctx.mesh = mesh
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.mark_non_differentiable(mean, var)
+        return _bn_elemt(x, weight, bias, mean, invstd), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dy = dy.contiguous(memory_format=_memory_format(x))
+        sum_dy, sum_dy_xmu, dw, db = _bn_backward_reduce(
+            dy, x, mean, invstd, weight, (need_x, need_w, need_b))
+        dx = None
+        if need_x:
+            sum_dy, sum_dy_xmu = parallel.all_reduce_sum(
+                [sum_dy, sum_dy_xmu], ctx.mesh)
+            dx = _bn_backward_elemt(dy, x, mean, invstd, weight, sum_dy,
+                                    sum_dy_xmu, count)
+        return dx, dw, db, None, None
 
 
 class BatchNorm2d(FlaxRunningStats, nn.BatchNorm2d):

@@ -3,6 +3,8 @@
     python -m stereo_toolbox_tpu_torch.train --model PSMNet --dataset synthetic
     python -m stereo_toolbox_tpu_torch.train --model GwcNet_G \
         --dataset sceneflow --root /data/Scene_Flow --bf16
+    torchrun --nproc_per_node=8 -m stereo_toolbox_tpu_torch.train \
+        --distributed --model GwcNet_G --batch-size 4
 
 Trains PSMNet, GwcNet_G, GwcNet_GC, ACVNet, CFNet, DEFOMStereo_S or
 DEFOMStereo_L on the card
@@ -28,8 +30,15 @@ trains them (``TrainConfig(loss="sequence")``; JAX's own
 The multi-head loss weighs PSMNet's three heads (0.5, 0.7, 1.0) and every
 other model's four (0.5, 0.5, 0.7, 1.0), as there: CFNet's nine heads train
 with ``--loss sequence`` (with ``multihead`` its step raises, as JAX's
-asserts). ``--distributed`` is refused: data parallelism is not ported yet
-(ROADMAP Queue 1).
+asserts). ``--distributed`` trains data-parallel over the processes
+torchrun starts (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; each on its card
+``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu`` on the CPU over
+gloo; the rendezvous is torchrun's ``env://``), as the JAX package's
+``--distributed`` does: each process loads its own part of every epoch
+(``DataLoader(process_index, process_count)``), and ``--batch-size`` is
+per process (the global batch is the world size times it); the step is `trainer.make_train_step`'s with a mesh, which computes
+the one-process step on the global batch; the first process alone logs and
+saves checkpoints.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import os
 import torch
 
 from stereo_toolbox_tpu_torch import datasets as D
+from stereo_toolbox_tpu_torch import parallel
 from stereo_toolbox_tpu_torch.models import create_model
 from stereo_toolbox_tpu_torch.trainer import (TrainConfig, Trainer,
                                               init_train_state)
@@ -112,7 +122,8 @@ def parse_args(argv=None):
                    help="bf16 compute on float32 master parameters (the "
                         "JAX package's --bf16, its analogue of --amp)")
     p.add_argument("--distributed", action="store_true",
-                   help="refused: data parallelism is not ported yet")
+                   help="data parallel over torchrun's processes; "
+                        "--batch-size is per process")
     return p.parse_args(argv)
 
 
@@ -146,13 +157,24 @@ def build_dataset(args):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    device, mesh = args.device, None
     if args.distributed:
-        raise SystemExit("--distributed: data parallelism is not ported yet "
-                         "(ROADMAP Queue 1, item 3)")
+        device = parallel.init_distributed(args.device)
+        mesh = parallel.make_mesh(device=device)
+    try:
+        train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def train(args, device, mesh: parallel.Mesh | None) -> None:
+    """Build the model, the data and the trainer from `args`, and train."""
+    lead = mesh is None or mesh.rank == 0
     torch.manual_seed(args.seed)
     model_kw = ({"max_disp": args.maxdisp}
                 if args.model in TAKES_MAX_DISP else {})
-    model = create_model(args.model, device=args.device,
+    model = create_model(args.model, device=device,
                          generator=torch.Generator().manual_seed(args.seed),
                          **model_kw)
     config = TrainConfig(
@@ -166,22 +188,27 @@ def main(argv=None) -> None:
     dataset = build_dataset(args)
     loader = D.DataLoader(dataset, batch_size=args.batch_size, shuffle=True,
                           seed=args.seed, drop_last=True,
-                          num_workers=args.num_workers)
+                          num_workers=args.num_workers,
+                          process_index=0 if mesh is None else mesh.rank,
+                          process_count=1 if mesh is None else mesh.size)
     total_steps = len(loader) * args.epochs
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    state = init_train_state(model, config, total_steps, dtype)
+    state = init_train_state(model, config, total_steps, dtype, mesh=mesh)
     trainer = Trainer(model, config, lr_schedule=state.optimizer.schedule,
-                      dtype=dtype)
+                      dtype=dtype, mesh=mesh)
     start_epoch = 0
     if args.resume:
         state, last_epoch = trainer.load_checkpoint(state, args.resume)
         start_epoch = last_epoch + 1
-        print(f"resumed from {args.resume}: last completed epoch "
-              f"{last_epoch}, continuing at {start_epoch}")
+        if lead:
+            print(f"resumed from {args.resume}: last completed epoch "
+                  f"{last_epoch}, continuing at {start_epoch}")
     device = next(model.parameters()).device
-    print(f"training {args.model} on {args.dataset}: {len(loader)} steps/"
-          f"epoch x {args.epochs} epochs on {device} in "
-          f"{str(dtype).replace('torch.', '')}")
+    if lead:
+        ranks = "" if mesh is None else f" x {mesh.size} processes"
+        print(f"training {args.model} on {args.dataset}: {len(loader)} "
+              f"steps/epoch x {args.epochs} epochs on {device}{ranks} in "
+              f"{str(dtype).replace('torch.', '')}")
     trainer.train(state, loader, epochs=args.epochs, start_epoch=start_epoch)
     trainer.writer.close()
 

@@ -1,7 +1,7 @@
 """Training: config, optimizer, loss dispatch, the train step and the
 epoch loop (PyTorch).
 
-Counterpart of ``stereo_toolbox_tpu/trainer/__init__.py`` on one device:
+Counterpart of ``stereo_toolbox_tpu/trainer/__init__.py``:
 
   JAX package (optax, jit)                 this port
   ---------------------------------------  --------------------------------
@@ -20,14 +20,20 @@ Counterpart of ``stereo_toolbox_tpu/trainer/__init__.py`` on one device:
   orbax checkpoint, epoch-granular resume  ``torch.save`` to
                                            ``ckpt_dir/epoch_XXXX.pt``,
                                            epoch-granular resume
+  make_train_step(..., mesh): the batch    ``make_train_step(..., mesh=)``
+  sharded on 'data', GSPMD's collectives   (`parallel.Mesh`): each rank
+                                           steps on its block of the
+                                           global batch; the loss, the
+                                           BatchNorm statistics and the
+                                           gradients are the global
+                                           batch's (see `make_train_step`)
 
 JAX's `make_optimizer` takes no weight decay (``weight_decay`` is read
 nowhere), and neither does this one. JAX's `TrainConfig` has no dtype: the
 compute dtype is the model's side of the step there (``create_model(...,
 dtype=)``) and `make_train_step`'s, `init_train_state`'s and `Trainer`'s
 ``dtype`` here; checkpoints hold the float32 masters and running
-statistics in both dtypes. Data parallelism is not ported yet (ROADMAP
-Queue 1).
+statistics in both dtypes.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from stereo_toolbox_tpu_torch import losses, metrics
+from stereo_toolbox_tpu_torch import losses, metrics, parallel
 from stereo_toolbox_tpu_torch.models import bfloat16_view
 from stereo_toolbox_tpu_torch.utils.observability import ScalarWriter
 from stereo_toolbox_tpu_torch.utils.precision import full_float32
@@ -182,12 +188,15 @@ class TrainState:
 
 
 def init_train_state(model: torch.nn.Module, config: TrainConfig,
-                     total_steps: int,
-                     dtype: torch.dtype = torch.float32) -> TrainState:
+                     total_steps: int, dtype: torch.dtype = torch.float32,
+                     mesh: parallel.Mesh | None = None) -> TrainState:
     """The model in train mode with a fresh optimizer over its parameters.
     A step in ``dtype=torch.bfloat16`` updates float32 masters: every
-    floating parameter of `model` must be float32."""
+    floating parameter of `model` must be float32. With a `mesh`, every
+    rank first takes the mesh's first rank's parameters and buffers."""
     _check_compute_dtype(model, dtype)
+    if mesh is not None:
+        parallel.broadcast_state(model, mesh)
     return TrainState(model.train(),
                       make_optimizer(model, config, total_steps)[0])
 
@@ -231,7 +240,8 @@ def compute_loss(outputs, gt: torch.Tensor, mask: torch.Tensor,
 
 
 def make_train_step(model: torch.nn.Module, config: TrainConfig,
-                    dtype: torch.dtype = torch.float32
+                    dtype: torch.dtype = torch.float32,
+                    mesh: parallel.Mesh | None = None
                     ) -> Callable[[TrainState, dict], tuple]:
     """The train step of `model`: ``step(state, batch) → (state, loss)``
     with ``batch`` a dict of ``left``, ``right`` ``[B, H, W, 3]`` and
@@ -245,7 +255,19 @@ def make_train_step(model: torch.nn.Module, config: TrainConfig,
     computes as the bfloat16 model does; the predictions, the loss and the
     running statistics stay float32, and the gradients are taken with
     respect to the masters, each the view's gradient widened to float32.
-    Then the optimizer updates the parameters (the masters)."""
+    Then the optimizer updates the parameters (the masters).
+
+    With a `mesh` (every rank with the same state, `init_train_state`),
+    each rank's ``batch`` is its block of the global batch, and the step
+    computes what JAX's sharded step (the one-device step on the global
+    batch) computes: every train BatchNorm takes the global batch's
+    statistics (`parallel.global_batch_statistics`); the loss each rank
+    differentiates is its share of the global masked mean (its masked loss
+    times `parallel.pixel_share`: its valid pixels over the global count,
+    since every term of the loss masks with the same mask); the gradients
+    and that share are summed over the ranks (`parallel.all_reduce_sum`),
+    and every rank makes the same update. The loss returned is the global
+    one."""
     _check_compute_dtype(model, dtype)
     params = list(model.parameters())
 
@@ -267,11 +289,19 @@ def make_train_step(model: torch.nn.Module, config: TrainConfig,
                             dtype=batch["left"].dtype,
                             device=batch["left"].device)
         mask = metrics.valid_mask(gt, config.max_disp)
-        with full_float32(dtype == torch.float32):
+        share = None if mesh is None else parallel.pixel_share(mask, mesh)
+        with full_float32(dtype == torch.float32), \
+                parallel.global_batch_statistics(mesh):
             loss = forward_loss(batch, gt, mask)
+            if share is not None:
+                loss = loss * share.to(loss.dtype)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if mesh is not None:
+            *grads, loss = parallel.all_reduce_sum(
+                [*grads, loss.detach().reshape(1)], mesh)
+            loss = loss.reshape(())
         state.optimizer.step(grads)
         return state, loss.detach()
     return step
@@ -313,21 +343,31 @@ def to_device(batch: dict, device) -> dict:
 
 
 class Trainer:
-    """Epoch-driven training loop (the JAX package's `Trainer`)."""
+    """Epoch-driven training loop (the JAX package's `Trainer`). With a
+    `mesh`, each rank trains on its own loader's batches (its block of the
+    global batch: ``DataLoader(process_index=rank, process_count=size)``)
+    with the data-parallel step; the mesh's rank 0 alone logs and saves
+    checkpoints, and every rank loads them."""
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
                  lr_schedule: Callable[[int], float] | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 mesh: parallel.Mesh | None = None):
         self.model = model
         self.config = config
-        self.train_step = make_train_step(model, config, dtype)
+        self.mesh = mesh
+        self.train_step = make_train_step(model, config, dtype, mesh=mesh)
         self.lr_schedule = lr_schedule
+        self.lead = mesh is None or mesh.rank == 0
         self.writer = ScalarWriter(config.log_dir)
 
     # -- checkpointing ---------------------------------------------------
-    def save_checkpoint(self, state: TrainState, epoch: int) -> str:
+    def save_checkpoint(self, state: TrainState, epoch: int) -> str | None:
         """``torch.save`` of the step, the epoch, the model, the optimizer
-        and the schedule's arguments to ``ckpt_dir/epoch_XXXX.pt``."""
+        and the schedule's arguments to ``ckpt_dir/epoch_XXXX.pt``, on the
+        mesh's rank 0 alone (its path; ``None`` on the other ranks)."""
+        if not self.lead:
+            return None
         os.makedirs(self.config.ckpt_dir, exist_ok=True)
         path = os.path.join(self.config.ckpt_dir, f"epoch_{epoch:04d}.pt")
         torch.save({"step": state.step, "epoch": epoch,
@@ -361,7 +401,7 @@ class Trainer:
             for batch in loader:
                 state, loss = self.train_step(state, to_device(batch, device))
                 n += 1
-                if n % self.config.log_every == 0:
+                if self.lead and n % self.config.log_every == 0:
                     running = float(loss)
                     scalars = {"train/loss": running, "train/epoch": epoch,
                                "perf/steps_per_s": n / max(time.time() - t0,
@@ -371,8 +411,9 @@ class Trainer:
                     self.writer.scalars(state.step, **scalars)
                     log(f"epoch {epoch} step {n}: loss {running:.4f}")
             dt = time.time() - t0
-            log(f"epoch {epoch} done: {n} steps in {dt:.1f}s "
-                f"({n / max(dt, 1e-9):.2f} it/s)")
+            if self.lead:
+                log(f"epoch {epoch} done: {n} steps in {dt:.1f}s "
+                    f"({n / max(dt, 1e-9):.2f} it/s)")
             self.writer.flush()
             if (epoch + 1) % self.config.save_every == 0:
                 self.save_checkpoint(state, epoch)

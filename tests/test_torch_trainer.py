@@ -17,6 +17,7 @@
 """
 
 import json
+import os
 import subprocess
 import sys
 
@@ -322,10 +323,10 @@ def test_bfloat16_training_raises(name):
 
 
 # ------------------------------------------------------------ entry point
-def _run_entry(*args, timeout=240):
+def _run_entry(*args, timeout=240, env=None):
     return subprocess.run(
         [sys.executable, "-m", "stereo_toolbox_tpu_torch.train", *args],
-        capture_output=True, text=True, timeout=timeout)
+        capture_output=True, text=True, timeout=timeout, env=env)
 
 
 def test_entry_point_trains_one_epoch_on_the_cpu(tmp_path):
@@ -340,14 +341,19 @@ def test_entry_point_trains_one_epoch_on_the_cpu(tmp_path):
 
 
 def test_entry_point_refuses_what_is_not_ported(tmp_path):
-    """Data parallelism is refused, and so is the card where there is
-    none (``--bf16`` trains: `tests/test_torch_bf16_training.py`). Every
+    """Data parallelism outside torchrun's environment is refused (it
+    trains under torchrun: `tests/test_torch_parallel.py`), and so is the
+    card where there is none (``--bf16`` trains:
+    `tests/test_torch_bf16_training.py`). Every
     model the port trains is taken, with JAX's multi-head weights (PSMNet's
     three heads, four for the others); CFNet's nine heads fail the default
     multi-head loss, as JAX's assert does, and train with ``--loss
     sequence``, DEFOMStereo's default."""
-    r = _run_entry("--device", "cpu", "--distributed", timeout=120)
-    assert r.returncode != 0 and "item 3" in r.stderr, r.stderr
+    env_free = {k: v for k, v in os.environ.items()
+                if k not in ("RANK", "WORLD_SIZE")}
+    r = _run_entry("--device", "cpu", "--distributed", timeout=120,
+                   env=env_free)
+    assert r.returncode != 0 and "torchrun" in r.stderr, r.stderr
     if not torch.cuda.is_available():
         r = _run_entry("--epochs", "1", timeout=120)
         assert r.returncode != 0 and "CUDA" in r.stderr, r.stderr
