@@ -3,9 +3,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-bwd [--parent DIR]
     python3 chip_smoke.py --data-parallel
+    python3 chip_smoke.py --pcwnet
 
 The second form studies K4's backward kernel alone (`main_k4_bwd`), the
-third runs phases 1, 2 and 19 alone (`main_data_parallel`). The first runs
+third runs phases 1, 2 and 19 alone (`main_data_parallel`), the fourth
+phases 1, 2 and 20 (`main_pcwnet`). The first runs
 these phases, each of which raises on failure (exit code != 0,
 no result line):
 
@@ -178,10 +180,24 @@ no result line):
     statistics reduced outside autograd) each beyond the float32 limits;
     each step's ms beside the one-process step's, its collectives, and
     ``evaluation.scaling.measure_scaling`` at [1];
-20. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
+20. PCWNet_G and PCWNet_GC eval (max_disp 192, seeded random weights,
+    settled and perturbed BatchNorm statistics): K1, K2, K3 and K6 against
+    their plain versions at every launch shape of the two forwards (K1 x4
+    at C 320 from 1/4 to 1/32; K2 x17, every layer Mish, ``combine1..3``
+    at Ci 104 / 168 / 168 or 128 / 192 / 192; K3 x1; K6 x4 masked for
+    PCWNet_GC; each K2 shape also with both epilogue options on and off),
+    both types, phases 3-6's checks and tolerances; each model on the
+    card against the port's CPU paths at 256x512, float32: ``classif3``'s
+    costs within 1e-3 x max|ref|, ``pred3`` and the output within mean
+    < 5e-3 and max < 0.1 px (the pixels whose 0.999 warp mask flipped
+    counted, the output held on the rows beyond the refinement's reach
+    from them); bf16 against its K2 plain swap by those costs; the 480x640
+    forwards in both types with their launches by shape, profiled and
+    their kernels timed as phases 8-13 do;
+21. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
     under ``data_parallel``), one ``{"estimators": {...}}``, one
     ``{"eval": {...}}`` and one ``{"kernels": [...]}`` line;
-21. print ``{"ok": true, "device": {...}}`` as the last line.
+22. print ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -229,6 +245,7 @@ from stereo_toolbox_tpu_torch.evaluation.scaling import (  # noqa: E402
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.models.defom_stereo import (  # noqa: E402
     get_danv2_io_size)
+from stereo_toolbox_tpu_torch.models import pcwnet  # noqa: E402
 port_attention = sys.modules["stereo_toolbox_tpu_torch.ops.attention"]
 from stereo_toolbox_tpu_torch.nn import layers as port_layers  # noqa: E402
 from stereo_toolbox_tpu_torch.nn.layers import ConvBNAct  # noqa: E402
@@ -424,6 +441,34 @@ PS_K2_MIX = {
     (1, 12, 30, 40, 64, 64, False, True): 3,     # hourglass conv4 x3
 }
 PS_K3_MIX = {(1, 48, 120, 160, 32, 1): 3}        # classif1..3's last conv
+# PCWNet: gwc volumes (C 320, G 40) and, for PCWNet_GC, masked concat
+# volumes (C 12) at 1/4, 1/8, 1/16 and 1/32
+PCW_MODELS = ("PCWNet_G", "PCWNet_GC")
+PCW_K1_MIX = {(1, 120 // s, 160 // s, 320, 48 // s, 40): 1
+              for s in (1, 2, 4, 8)}
+PCW_K6_MIX = {(1, 120 // s, 160 // s, 12, 48 // s, True): 1
+              for s in (1, 2, 4, 8)}
+PCW_K3_MIX = {(1, 48, 120, 160, 32, 1): 1}       # classif3's last conv
+
+
+def pcw_k2_mix(cv: int) -> dict:
+    """PCWNet's K2 launches with `cv`-channel volumes (40 G, 64 GC): every
+    layer Mish, so no ReLU epilogue; ``combine1..3`` take ``[c, v]``."""
+    return {
+        (1, 48, 120, 160, cv, 32, False, False): 1,    # dres0.0
+        (1, 48, 120, 160, 32, 32, False, False): 3,    # dres0.2, dres1.0,
+        #                                                classif3.0
+        (1, 48, 120, 160, 32, 32, True, False): 1,     # dres1.2 (+ cost0)
+        (1, 24, 60, 80, 64 + cv, 64, False, False): 1,   # combine1.combine1
+        (1, 24, 60, 80, 64, 64, False, False): 4,      # combine1.conv2,
+        #                                                dres2-4.conv2
+        (1, 12, 30, 40, 128 + cv, 128, False, False): 1,  # .combine2
+        (1, 12, 30, 40, 128, 128, False, False): 4,    # .conv4, dres2-4.conv4
+        (1, 6, 15, 20, 128 + cv, 128, False, False): 1,   # .combine3
+        (1, 6, 15, 20, 128, 128, False, False): 1,     # combine1.conv6
+    }
+
+
 # Train steps at the original's crop 256x512, B 4, and at the card-vs-CPU
 # check's 64x128, B 2, max_disp 192, float32. A step launches each volume
 # kernel of the forward once and its backward kernel once; PSMNet launches
@@ -436,7 +481,8 @@ TRAIN_CHECK_H, TRAIN_CHECK_W, TRAIN_CHECK_B = 64, 128, 2
 # 6 overfit steps since phase 19 came (12 before; the overfit losses fell
 # below 0.9 x the first by the third step in every run)
 OVERFIT_B, OVERFIT_STEPS = 2, 6
-TRAIN_STEPS, TRAIN_WARMUP = {F32: 5, BF16: 5}, 1
+# 3 timed steps a type since phase 20 came (5 before)
+TRAIN_STEPS, TRAIN_WARMUP = {F32: 3, BF16: 3}, 1
 # CFNet's nine heads take the sequence loss (the multi-head weights are
 # four), as JAX's own CFNet gradient check does
 TRAIN_LOSS = {"CFNet": "sequence"}
@@ -531,6 +577,9 @@ MIXES = {
     "PSMNet": {"K2": PS_K2_MIX, "K3": PS_K3_MIX},
     DEFOM: {"K7": DEFOM_K7_MIX},
     DEFOM_L: {"K7": DEFOM_L_K7_MIX},
+    "PCWNet_G": {"K1": PCW_K1_MIX, "K2": pcw_k2_mix(40), "K3": PCW_K3_MIX},
+    "PCWNet_GC": {"K1": PCW_K1_MIX, "K2": pcw_k2_mix(64), "K3": PCW_K3_MIX,
+                  "K6": PCW_K6_MIX},
 }
 
 # Stages of each forward, as (stage, first module, last module, label of the
@@ -639,9 +688,25 @@ STAGES = {
         ("classif3", "classif3.0", "classif3.2", "glue (cascade adds)"),
     ], "cascade add + head (upsample, softmax, regression)"),
 }
+for _name, _volumes in (("PCWNet_G", "K1"), ("PCWNet_GC", "K1, K6")):
+    STAGES[_name] = ([
+        ("2D trunk", "feature_extraction", "feature_extraction",
+         "input cast + view batching"),
+        (f"volumes 1/4-1/32 ({_volumes})", "volumes", "volumes", "glue"),
+        ("first stack (dres0, dres1)", "dres0", "dres1.2", "glue"),
+        ("HourglassUp3 (combine1)", "combine1", "combine1", "glue"),
+        ("hourglasses (dres2-dres4)", "dres2", "dres4", "glue"),
+        ("classif3", "classif3.0", "classif3.2", "glue"),
+        ("refinement warp + correlation", "warp", "warp",
+         "regression (upsample, softmax)"),
+        ("refinement net (dispupsample, refinenet3)", "dispupsample",
+         "refinenet3", "glue"),
+    ], "glue")
 GAP = "between forwards (host)"
-FWD_ITERS, FWD_WARMUP = 10, 3
-TRACE_ITERS = 3        # forwards in the torch.profiler trace
+# 5 timed forwards after 2 warm ones, and one traced forward, since phase
+# 20 came (10 after 3, and 3 traced, before)
+FWD_ITERS, FWD_WARMUP = 5, 2
+TRACE_ITERS = 1        # forwards in the torch.profiler trace
 
 # The design each type's K2, K7 and K7-bwd launches must run, and the one
 # design every K1, (Co = 1) K3, K4, K5 and K6 launch of a forward (and each
@@ -776,20 +841,25 @@ def held(tag, dtype, got, want, what) -> float:
 
 def all_shapes(tag):
     """Every shape that an eval forward or a train step launches `tag`
-    at."""
+    at, but PCWNet's (phase 20 holds those)."""
     return {key for mixes in (MIXES, TRAIN_MIXES, TRAIN_CHECK_MIXES)
-            for mix in mixes.values() for key in mix.get(tag, {})}
+            for name, mix in mixes.items() if name not in PCW_MODELS
+            for key in mix.get(tag, {})}
 
 
 # ---------------------------------------------------------------- phase 3
-def check_gwc(gen) -> dict:
+def check_gwc(gen, model_cases=None) -> dict:
+    """K1 at `model_cases` (default: every launch shape of the forwards and
+    train steps of phases 8-19, with ragged cases)."""
     errs = {}
-    model_cases = all_shapes("K1")
-    # W not a multiple of the tile, W < D, C/G = 3, B = 2; odd G (one group
-    # a bf16 thread); a row of 6 channels (plain staging, no 16-byte copies)
-    cases = [*sorted(model_cases), (2, 5, 37, 48, 48, 16),
-             (1, 3, 21, 24, 9, 3), (1, 4, 70, 320, 48, 40),
-             (1, 2, 9, 6, 13, 6)]
+    cases = [] if model_cases else [
+        # W not a multiple of the tile, W < D, C/G = 3, B = 2; odd G (one
+        # group a bf16 thread); a row of 6 channels (plain staging, no
+        # 16-byte copies)
+        (2, 5, 37, 48, 48, 16), (1, 3, 21, 24, 9, 3), (1, 4, 70, 320, 48, 40),
+        (1, 2, 9, 6, 13, 6)]
+    model_cases = model_cases or all_shapes("K1")
+    cases = [*sorted(model_cases), *cases]
     for dtype in (F32, BF16):
         worst = 0.0
         for b, h, w, c, d, g in cases:
@@ -858,11 +928,13 @@ def k2_inputs(ci, co, d, h, w, residual, dtype, gen, b=1):
     return x, k, scale, bias, res
 
 
-def check_conv(gen) -> dict:
-    """Every launch shape of both forwards, each of their volume shapes
-    also with both epilogue options on and off, and a ragged case."""
+def check_conv(gen, model_cases=None) -> dict:
+    """K2 at `model_cases` (default: every launch shape of the forwards of
+    phases 8-18, with ragged cases), each of their volume shapes also with
+    both epilogue options on and off."""
     errs = {}
-    model_cases = all_shapes("K2")
+    ragged = not model_cases
+    model_cases = model_cases or all_shapes("K2")
     cases = dict.fromkeys(sorted(model_cases))
     for key in sorted(model_cases):
         for res, relu in ((False, False), (True, True)):
@@ -870,12 +942,12 @@ def check_conv(gen) -> dict:
     # ragged: Ci not a multiple of 16 (1, 3, 12, 33, 65; all but 40 also
     # not of 8, where the halo goes through plain loads), Co 8, 33 and 40
     # (ragged channel tiles, scalar stores at 33), odd H and W, D 1 and 2
-    for ragged in ((2, 5, 7, 19, 12, 40, True, True),
-                   (1, 3, 7, 19, 1, 8, False, True),
-                   (2, 2, 9, 35, 3, 33, True, True),
-                   (1, 1, 5, 7, 33, 8, True, False),
-                   (1, 2, 11, 13, 65, 33, False, False)):
-        cases[ragged] = None
+    for key in ((2, 5, 7, 19, 12, 40, True, True),
+                (1, 3, 7, 19, 1, 8, False, True),
+                (2, 2, 9, 35, 3, 33, True, True),
+                (1, 1, 5, 7, 33, 8, True, False),
+                (1, 2, 11, 13, 65, 33, False, False)) if ragged else ():
+        cases[key] = None
     for dtype in (F32, BF16):
         worst = 0.0
         for b, d, h, w, ci, co, res, relu in cases:
@@ -912,15 +984,18 @@ def k3_inputs(b, d, h, w, ci, co, dtype, gen):
     return x, k
 
 
-def check_conv3d(gen) -> dict:
-    """K3 at every launch shape of the stereo forwards and ragged cases:
-    Co 8 and 33 (the second tile ragged), odd H and W, D < 3, Ci not a
-    multiple of the staged chunk, B = 2."""
+def check_conv3d(gen, model_cases=None) -> dict:
+    """K3 at `model_cases` (default: every launch shape of the stereo
+    forwards of phases 8-12, with ragged cases: Co 8 and 33 (the second
+    tile ragged), odd H and W, D < 3, Ci not a multiple of the staged
+    chunk, B = 2)."""
     errs = {}
-    model_cases = all_shapes("K3")
-    cases = [*sorted(model_cases), (2, 5, 7, 37, 32, 1), (1, 2, 9, 33, 32, 1),
-             (1, 1, 5, 7, 16, 1), (2, 3, 7, 19, 12, 8), (1, 4, 9, 35, 32, 33),
-             (1, 3, 17, 30, 5, 1), (1, 2, 11, 9, 5, 1)]
+    cases = [] if model_cases else [
+        (2, 5, 7, 37, 32, 1), (1, 2, 9, 33, 32, 1), (1, 1, 5, 7, 16, 1),
+        (2, 3, 7, 19, 12, 8), (1, 4, 9, 35, 32, 33), (1, 3, 17, 30, 5, 1),
+        (1, 2, 11, 9, 5, 1)]
+    model_cases = model_cases or all_shapes("K3")
+    cases = [*sorted(model_cases), *cases]
     for dtype in (F32, BF16):
         errs[dtype] = 0.0
         for b, d, h, w, ci, co in cases:
@@ -998,20 +1073,23 @@ def check_samples(gen) -> tuple[dict, dict]:
     return errs4, errs5
 
 
-def check_concat(gen) -> dict:
-    """K6 on its "rows" design at the stereo models' launch shapes (masked:
-    CFNet, GwcNet_GC; unmasked: ACVNet) and ragged cases, with the left half
-    masked and not: D > W (zero planes, or zero right halves unmasked), odd
-    C (rows of 8- and 4-byte stores: W x C odd in bfloat16), bfloat16 C = 12
-    (24-byte halves, vectors that straddle them), a row past the plan's
-    shared memory (W tiles); and feature bases one element past 16-byte
-    alignment (narrow staging)."""
+def check_concat(gen, model_cases=None) -> dict:
+    """K6 on its "rows" design at `model_cases` (default: the stereo
+    models' launch shapes of phases 8-14, masked: CFNet, GwcNet_GC;
+    unmasked: ACVNet, with ragged cases, the left half masked and not: D >
+    W (zero planes, or zero right halves unmasked), odd C (rows of 8- and
+    4-byte stores: W x C odd in bfloat16), bfloat16 C = 12 (24-byte halves,
+    vectors that straddle them), a row past the plan's shared memory (W
+    tiles); and feature bases one element past 16-byte alignment (narrow
+    staging))."""
     errs = {}
-    model_cases = all_shapes("K6")
+    ragged = () if model_cases else (
+        (2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 2, 10, 32, 14),
+        (1, 3, 11, 3, 7), (1, 4, 160, 12, 48), (1, 2, 20, 700, 3))
+    model_cases = model_cases or all_shapes("K6")
     cases = [*sorted(model_cases)]
-    for ragged in ((2, 3, 37, 12, 45), (1, 2, 9, 5, 4), (1, 2, 10, 32, 14),
-                   (1, 3, 11, 3, 7), (1, 4, 160, 12, 48), (1, 2, 20, 700, 3)):
-        cases += [(*ragged, True), (*ragged, False)]
+    for key in ragged:
+        cases += [(*key, True), (*key, False)]
     for dtype in (F32, BF16):
         errs[dtype] = 0.0
         for b, h, w, c, d, mask_left in cases:
@@ -2434,7 +2512,7 @@ EVAL_CHECK = (192, 384)          # the frames of the card-vs-CPU trees
 EVAL_MEAN_PX, EVAL_MAX_PX = 5e-3, 0.1   # the forward's card-vs-CPU gates
 # speed rows: warm-up forwards, then SPEED_READINGS readings of the timed
 # forwards at each resolution of the suite's ladder
-SPEED_WARMUP, SPEED_READINGS = 2, 3
+SPEED_WARMUP, SPEED_READINGS = 2, 2   # 3 readings before phase 20 came
 SPEED_ITERS = {(480, 640): 30, (736, 1280): 8, (1088, 1920): 8}
 HOST_RUNS = 5                    # forwards enqueued alone on an idle card
 HOST_BOUND = 0.9                 # their enqueue / the card's time: host-bound
@@ -3631,6 +3709,106 @@ def check_data_parallel(smi_line) -> dict:
             "card": smi_line}
 
 
+# --------------------------------------------------------------- phase 20
+# The refinement's reach in rows: refinenet3's 3x3 convs at dilations 1, 1,
+# 2, 4, (8, 8), (16, 16), (1, 1) and conv8's 1. The warp mask and the
+# signed correlation are per pixel and per row, so a pixel whose warp mask
+# flipped moves the output only within this many rows of its own.
+PCW_REFINE_REACH = 1 + 1 + 2 + 4 + 8 + 8 + 16 + 16 + 1 + 1 + 1
+
+
+def pcw_shapes(tag) -> set:
+    """Every launch shape of `tag` in PCWNet_G's and PCWNet_GC's forwards."""
+    return {key for name in PCW_MODELS for key in MIXES[name].get(tag, {})}
+
+
+def check_pcwnet(name):
+    """Phase 20 for `name`: the card against the port's CPU paths at
+    CHECK_H x CHECK_W, float32: ``classif3``'s costs within 1e-3 x
+    max|ref|, ``pred3`` (their regression on each side) and the output
+    within mean < 5e-3 and max < 0.1 px. The warp mask (a sampled mask of
+    ones >= 0.999) can flip at a near-tie pixel; the flipped pixels are
+    counted and printed, and the output is held on the rows farther than
+    the refinement's reach from every flipped row (all rows where none
+    flipped; at least half of them required). Then bf16 against its K2
+    plain swap, held by those costs (`bf16_vs_plain`), and the 480x640
+    runs."""
+    size = (CHECK_H, CHECK_W)
+    model, d, (want_cost, got_cost), _ = card_vs_cpu(name, hook="classif3.2",
+                                                      size=size)
+    err = (got_cost - want_cost).abs().max().item()
+    ref = want_cost.abs().max().item()
+    with torch.no_grad():      # pred3 as each side's forward computed it
+        want3 = pcwnet.regress(want_cost[..., 0], MAX_DISP, *size)
+        got3 = pcwnet.regress(got_cost[..., 0].to(DEV), MAX_DISP,
+                              *size).cpu()
+    d3 = (got3 - want3).abs()
+    flipped = (pcwnet.warp_mask(pcwnet.warp_coords(got3))
+               != pcwnet.warp_mask(pcwnet.warp_coords(want3)))[0]
+    rows = flipped.any(dim=1).nonzero()[:, 0]
+    far = torch.ones(size[0], dtype=torch.bool)
+    for y in rows.tolist():
+        far[max(0, y - PCW_REFINE_REACH):y + PCW_REFINE_REACH + 1] = False
+    d_far = d[0, far]
+    check = {"shape": [1, *size, 3], "classif3_max_abs": err,
+             "pred3_mean_abs": d3.mean().item(),
+             "pred3_max_abs": d3.max().item(),
+             "mask_flipped": int(flipped.sum()),
+             "rows_held": int(far.sum()), "mean_abs": d_far.mean().item(),
+             "max_abs": d_far.max().item(),
+             "all_rows_mean_abs": d.mean().item(),
+             "all_rows_max_abs": d.max().item()}
+    print(f"  {name} classif3 costs, card vs CPU: max|d| {err:.3e} (tol "
+          f"{1e-3 * ref:.3e}); pred3 mean |d| {check['pred3_mean_abs']:.3e},"
+          f" max {check['pred3_max_abs']:.3e} px; warp mask flipped at "
+          f"{check['mask_flipped']} pixels; output held on "
+          f"{check['rows_held']} of {size[0]} rows: mean |d| "
+          f"{check['mean_abs']:.3e}, max {check['max_abs']:.3e} px")
+    require(err <= 1e-3 * ref, f"{name} classif3 costs differ from the CPU")
+    require(d3.mean().item() < 5e-3 and d3.max().item() < 0.1,
+            f"{name} card pred3 differs from the CPU port")
+    require(2 * check["rows_held"] >= size[0]
+            and check["mean_abs"] < 5e-3 and check["max_abs"] < 0.1,
+            f"{name} card output differs from the CPU port")
+    check["bf16_vs_plain"] = bf16_vs_plain(name, model, size,
+                                           hook="classif3.2")
+    runs = full_size_runs(name, model)
+    diff = (runs[BF16][3] - runs[F32][3]).abs()
+    print(f"  {name} {H}x{W} pair 3, bfloat16 vs float32: mean |d| "
+          f"{diff.mean().item():.3f} px, median {diff.median().item():.3f} px")
+    return runs, check
+
+
+def check_pcwnets(gen, forward, kernels) -> None:
+    """Phase 20: PCWNet's kernels at its launch shapes, then each variant
+    checked (`check_pcwnet`), profiled at 480x640 in both types and its
+    kernels timed at the launches its forwards recorded. Fills `forward`
+    and `kernels`."""
+    t0 = time.perf_counter()
+    # K1, K2, K3 and K6 at every launch shape of the two forwards (new to
+    # the port: K1's 1/8 launch at C 320, K2's Mish layers and combine1..3
+    # at Ci 104 / 168 / 128 / 192), both types, phases 3-6's tolerances
+    errs = {tag: check(gen, pcw_shapes(tag)) for tag, check in (
+        ("K1", check_gwc), ("K2", check_conv), ("K3", check_conv3d),
+        ("K6", check_concat))}
+    for model_name in PCW_MODELS:
+        runs, checked = check_pcwnet(model_name)
+        forward[model_name] = {"shape": [1, H, W, 3], "max_disp": MAX_DISP,
+                               "iters": FWD_ITERS, "warmup": FWD_WARMUP,
+                               "trace_iters": TRACE_ITERS,
+                               "card_vs_cpu": checked}
+        for dtype, (m, inputs, shapes, _, designs) in runs.items():
+            forward[model_name][DTYPE_NAME[dtype]] = profile_forward(
+                model_name, m, inputs, dtype)
+            for tag in MIXES[model_name]:
+                kernels.append(time_kernel(model_name, tag, dtype,
+                                           shapes[tag], designs,
+                                           errs[tag][dtype], gen))
+        del runs, m, inputs
+        torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+
+
 # ----------------------------------------------------- timing (phases 8-13)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
@@ -4577,6 +4755,9 @@ def main() -> None:
           f"({time.perf_counter() - t_start:.1f} s)")
     train["data_parallel"] = check_data_parallel(
         smi[0] if smi else "nvidia-smi: none")
+    print(f"phase 20: PCWNet_G / PCWNet_GC eval "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    check_pcwnets(gen, forward, kernels)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))
@@ -4588,8 +4769,10 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def main_data_parallel() -> None:
-    """``python3 chip_smoke.py --data-parallel``: phases 1, 2 and 19."""
+def start_alone() -> list:
+    """Phases 1 and 2 of a run of one phase: the card's name and power
+    limit printed (nvidia-smi's lines returned), TF32 off, the kernels
+    built and loaded."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -4599,6 +4782,23 @@ def main_data_parallel() -> None:
     _cuda.build()
     for lib in _cuda.SIGNATURES:
         _cuda.library(lib)
+    return smi
+
+
+def main_pcwnet() -> None:
+    """``python3 chip_smoke.py --pcwnet``: phases 1, 2 and 20."""
+    start_alone()
+    forward, kernels = {}, []
+    check_pcwnets(torch.Generator().manual_seed(1234), forward, kernels)
+    print(json.dumps({"forward": forward}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"pcwnet_ok": True,
+                      "device": torch.cuda.get_device_name(0)}))
+
+
+def main_data_parallel() -> None:
+    """``python3 chip_smoke.py --data-parallel``: phases 1, 2 and 19."""
+    smi = start_alone()
     dp = check_data_parallel(smi[0] if smi else "nvidia-smi: none")
     print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"data_parallel_ok": True,
@@ -4610,5 +4810,7 @@ if __name__ == "__main__":
         main_k4_bwd(sys.argv[2:])
     elif sys.argv[1:2] == ["--data-parallel"]:
         main_data_parallel()
+    elif sys.argv[1:2] == ["--pcwnet"]:
+        main_pcwnet()
     else:
         main()

@@ -1,5 +1,6 @@
 """Model registry of the PyTorch port (counterpart of
-``stereo_toolbox_tpu.models``).
+``stereo_toolbox_tpu.models``): ACVNet, CFNet, DEFOMStereo_S and _L,
+DepthAnythingV2, GwcNet_G and _GC, PCWNet_G and _GC (eval only) and PSMNet.
 
 `create_model(name, device=None, dtype=torch.float32)` builds an eval-mode
 model on the card (``device=None`` means ``"cuda"``) and raises when there
@@ -29,6 +30,8 @@ from stereo_toolbox_tpu_torch.models.defom_stereo import (DEFOMStereo,
 from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 from stereo_toolbox_tpu_torch.models.gwcnet import (GwcNet, GwcNet_G,
                                                     GwcNet_GC)
+from stereo_toolbox_tpu_torch.models.pcwnet import (PCWNet, PCWNet_G,
+                                                    PCWNet_GC)
 from stereo_toolbox_tpu_torch.models.psmnet import PSMNet
 from stereo_toolbox_tpu_torch.nn.vit import DINOv2, LayerScale
 
@@ -40,6 +43,8 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "DepthAnythingV2": DepthAnythingV2,
     "GwcNet_G": GwcNet_G,
     "GwcNet_GC": GwcNet_GC,
+    "PCWNet_G": PCWNet_G,
+    "PCWNet_GC": PCWNet_GC,
     "PSMNet": PSMNet,
 }
 
@@ -125,5 +130,5 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype
 __all__ = ["ACVNet", "CFNet", "DEFOMStereo", "DEFOMStereo_L",
            "DEFOMStereo_S", "DepthAnythingV2", "F32_MODULES",
            "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "MODEL_REGISTRY",
-           "PSMNet", "bfloat16_view", "cast_model", "create_model",
-           "keeps_float32"]
+           "PCWNet", "PCWNet_G", "PCWNet_GC", "PSMNet", "bfloat16_view",
+           "cast_model", "create_model", "keeps_float32"]

@@ -207,24 +207,30 @@ def uniform_samples(min_d: torch.Tensor, max_d: torch.Tensor,
 
 
 class CostVolumes(nn.Module):
-    """The fused ``[gwc, concat]`` volumes at 1/8, 1/16 and 1/32 (K1, K6);
-    no parameters."""
+    """The ``[gwc, concat]`` volumes (K1, K6; with ``concat=False`` the gwc
+    volumes alone) of the features ``gw{s}`` and ``concat_feature{s}`` for
+    each ``s: factor`` of `scales`, over ``max_disp // factor``
+    disparities; no parameters. CFNet's are at 1/8, 1/16 and 1/32."""
 
-    def __init__(self, max_disp: int, num_groups: int):
+    def __init__(self, max_disp: int, num_groups: int,
+                 scales: dict[int, int] | None = None, concat: bool = True):
         super().__init__()
         self.max_disp, self.num_groups = max_disp, num_groups
+        self.scales = scales or {4: 8, 5: 16, 6: 32}
+        self.concat = concat
 
     def forward(self, fl: dict, fr: dict) -> list[torch.Tensor]:
         out = []
-        for scale in (4, 5, 6):
-            d = self.max_disp // 2 ** (scale - 1)
-            gwc = build_gwc_volume(fl[f"gw{scale}"].contiguous(),
-                                   fr[f"gw{scale}"].contiguous(), d,
-                                   self.num_groups)
-            cv = build_concat_volume(
-                fl[f"concat_feature{scale}"].contiguous(),
-                fr[f"concat_feature{scale}"].contiguous(), d)
-            out.append(torch.cat([gwc, cv], -1))
+        for scale, factor in self.scales.items():
+            d = self.max_disp // factor
+            v = build_gwc_volume(fl[f"gw{scale}"].contiguous(),
+                                 fr[f"gw{scale}"].contiguous(), d,
+                                 self.num_groups)
+            if self.concat:
+                v = torch.cat([v, build_concat_volume(
+                    fl[f"concat_feature{scale}"].contiguous(),
+                    fr[f"concat_feature{scale}"].contiguous(), d)], -1)
+            out.append(v)
         return out
 
 

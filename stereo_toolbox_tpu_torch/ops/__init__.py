@@ -7,7 +7,8 @@ from stereo_toolbox_tpu_torch.ops.attention import (
 from stereo_toolbox_tpu_torch.ops.corr import (all_pairs_correlation,
                                                build_corr_pyramid,
                                                corr_lookup_1d)
-from stereo_toolbox_tpu_torch.ops.sampling import sample_1d
+from stereo_toolbox_tpu_torch.ops.sampling import (bilinear_sampler,
+                                                   coords_grid, sample_1d)
 from stereo_toolbox_tpu_torch.ops.conv3d import (
     conv3d, conv3d_concat_volume, conv3d_concat_volume_reference,
     conv3d_reference)
@@ -31,6 +32,7 @@ from stereo_toolbox_tpu_torch.ops.volume import (
     shifted_right_stack, soft_argmax)
 
 __all__ = ["all_pairs_correlation", "attention", "attention_backward",
+           "bilinear_sampler", "coords_grid",
            "attention_backward_dkv", "attention_backward_dq",
            "attention_backward_reference", "attention_lse_reference",
            "attention_reference", "attention_with_lse",

@@ -154,6 +154,17 @@ def _hourglass(t: JaxToTorch, path: str, key: str) -> None:
     t.convbn(f"{path}/ConvBNAct_5", f"{key}.redir1.0", f"{key}.redir1.1")
 
 
+def _res_block(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX residual block (``BasicResBlock``, CFNet's ``CFBasicBlock``,
+    PCWNet's ``_DilatedBlock``) → the port's ``BasicResBlock``, with its
+    ``downsample`` where the JAX block has a third ConvBNAct."""
+    t.convbn(f"{path}/ConvBNAct_0", f"{key}.conv1.0.0", f"{key}.conv1.0.1")
+    t.convbn(f"{path}/ConvBNAct_1", f"{key}.conv2.0", f"{key}.conv2.1")
+    if t.has(f"{path}/ConvBNAct_2"):
+        t.convbn(f"{path}/ConvBNAct_2", f"{key}.downsample.0",
+                 f"{key}.downsample.1")
+
+
 def _res_trunk(t: JaxToTorch) -> None:
     """The residual trunk of GwcNet, ACVNet and PSMNet: ``firstconv`` and
     ``layer1..4``."""
@@ -165,12 +176,7 @@ def _res_trunk(t: JaxToTorch) -> None:
     for layer, blocks in (("layer1", 3), ("layer2", 16), ("layer3", 3),
                           ("layer4", 3)):
         for blk in range(blocks):
-            f, k = f"{fe}/BasicResBlock_{n}", f"{fe}.{layer}.{blk}"
-            t.convbn(f"{f}/ConvBNAct_0", f"{k}.conv1.0.0", f"{k}.conv1.0.1")
-            t.convbn(f"{f}/ConvBNAct_1", f"{k}.conv2.0", f"{k}.conv2.1")
-            if t.has(f"{f}/ConvBNAct_2"):
-                t.convbn(f"{f}/ConvBNAct_2", f"{k}.downsample.0",
-                         f"{k}.downsample.1")
+            _res_block(t, f"{fe}/BasicResBlock_{n}", f"{fe}.{layer}.{blk}")
             n += 1
 
 
@@ -253,10 +259,7 @@ def _cfnet(t: JaxToTorch) -> None:
                  f"{fe}.firstconv.{2 * i}.1")
     for n, layer in enumerate(("layer2", "layer3", "layer4", "layer5",
                                "layer6")):
-        f, k = f"{fe}/CFBasicBlock_{n}", f"{fe}.{layer}.0"
-        t.convbn(f"{f}/ConvBNAct_0", f"{k}.conv1.0.0", f"{k}.conv1.0.1")
-        t.convbn(f"{f}/ConvBNAct_1", f"{k}.conv2.0", f"{k}.conv2.1")
-        t.convbn(f"{f}/ConvBNAct_2", f"{k}.downsample.0", f"{k}.downsample.1")
+        _res_block(t, f"{fe}/CFBasicBlock_{n}", f"{fe}.{layer}.0")
     for i in range(4):
         k = f"{fe}.pyramid_pooling.path_module_list.{i}.cbr_unit"
         t.convbn(f"{fe}/PyramidPooling_0/path{i}", f"{k}.0", f"{k}.1")
@@ -303,6 +306,69 @@ def _cfnet(t: JaxToTorch) -> None:
         t.conv(f"{cl}_out", f"{cl}.2")
     for p in ("gamma_s3", "beta_s3", "gamma_s2", "beta_s2"):
         t.raw(p, p)
+
+
+def _hourglass_up3(t: JaxToTorch, path: str, key: str) -> None:
+    """PCWNet's JAX ``HourglassUp3`` → the port's: the stride-2 ``Conv_i``
+    → ``conv1/3/5``, ``combine1..3``, ``ConvBNAct_0..2`` → ``conv2/4/6``,
+    ``ConvTransposeBN_0..2`` → ``conv7..9`` and ``ConvBNAct_3..5`` →
+    ``redir3..1``."""
+    for i, (down, comb, conv) in enumerate((("conv1", "combine1", "conv2"),
+                                            ("conv3", "combine2", "conv4"),
+                                            ("conv5", "combine3", "conv6"))):
+        t.conv(f"{path}/Conv_{i}", f"{key}.{down}")
+        t.convbn(f"{path}/{comb}", f"{key}.{comb}.0.0", f"{key}.{comb}.0.1")
+        t.convbn(f"{path}/ConvBNAct_{i}", f"{key}.{conv}.0.0",
+                 f"{key}.{conv}.0.1")
+    for i, (up, redir) in enumerate((("conv7", "redir3"), ("conv8", "redir2"),
+                                     ("conv9", "redir1"))):
+        t.conv_transpose(f"{path}/ConvTransposeBN_{i}/ConvTranspose_0",
+                         f"{key}.{up}.0")
+        t.bn(f"{path}/ConvTransposeBN_{i}/BatchNorm_0", f"{key}.{up}.1")
+        t.convbn(f"{path}/ConvBNAct_{i + 3}", f"{key}.{redir}.0",
+                 f"{key}.{redir}.1")
+
+
+def _pcwnet(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_pcwnet`` (either variant)."""
+    fe = "feature_extraction"
+    for i in range(3):
+        t.convbn(f"{fe}/ConvBNAct_{i}", f"{fe}.firstconv.{2 * i}.0",
+                 f"{fe}.firstconv.{2 * i}.1")
+    n = 0
+    for layer, blocks in (("layer1", 3), ("layer2", 16), ("layer3", 3),
+                          ("layer5", 3), ("layer7", 3), ("layer9", 3)):
+        for blk in range(blocks):
+            _res_block(t, f"{fe}/CFBasicBlock_{n}", f"{fe}.{layer}.{blk}")
+            n += 1
+    for blk in range(3):
+        _res_block(t, f"{fe}/_DilatedBlock_{blk}", f"{fe}.layer4.{blk}")
+    # the concat heads in both variants: JAX's PCWFeature builds them
+    for path, key in (("gw1", "layer11"), ("gw2", "gw2"), ("gw3", "gw3"),
+                      ("gw4", "gw4"), ("concat1", "lastconv"),
+                      ("concat2", "concat2"), ("concat3", "concat3"),
+                      ("concat4", "concat4")):
+        t.convbn(f"{fe}/{path}_0", f"{fe}.{key}.0.0", f"{fe}.{key}.0.1")
+        t.conv(f"{fe}/{path}_1", f"{fe}.{key}.2")
+    for i in range(2):
+        t.convbn(f"{fe}/refine_{i}", f"{fe}.layer_refine.{2 * i}.0",
+                 f"{fe}.layer_refine.{2 * i}.1")
+    for i, key in enumerate(("dres0.0", "dres0.2", "dres1.0", "dres1.2")):
+        t.convbn(f"ConvBNAct_{i}", f"{key}.0", f"{key}.1")
+    _hourglass_up3(t, "combine1", "combine1")
+    for i, dres in enumerate(("dres2", "dres3", "dres4")):
+        _hourglass(t, f"HourglassMish_{i}", dres)
+    for i in range(5):
+        t.convbn(f"classif{i}_conv", f"classif{i}.0.0", f"classif{i}.0.1")
+        t.conv(f"classif{i}_out", f"classif{i}.2")
+    t.convbn("dispupsample", "dispupsample.0.0", "dispupsample.0.1")
+    rf = "refinenet3"
+    for i in range(4):
+        t.convbn(f"{rf}/ConvBNAct_{i}", f"{rf}.conv{i + 1}.0.0",
+                 f"{rf}.conv{i + 1}.0.1")
+    for i in range(3):
+        _res_block(t, f"{rf}/_DilatedBlock_{i}", f"{rf}.conv{i + 5}.0")
+    t.conv(f"{rf}/Conv_0", f"{rf}.conv8")
 
 
 def _numbered(tree: dict, prefix: str) -> list[int]:
@@ -440,7 +506,8 @@ def _defom(t: JaxToTorch) -> None:
 CONVERTERS = {"ACVNet": _acvnet, "CFNet": _cfnet,
               "DEFOMStereo_L": _defom, "DEFOMStereo_S": _defom,
               "DepthAnythingV2": _depth_anything_v2, "GwcNet_G": _gwcnet,
-              "GwcNet_GC": _gwcnet, "PSMNet": _psmnet}
+              "GwcNet_GC": _gwcnet, "PCWNet_G": _pcwnet,
+              "PCWNet_GC": _pcwnet, "PSMNet": _psmnet}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:

@@ -252,7 +252,8 @@ def test_write_back_records_passes_and_raises(tmp_path):
 
 # ------------------------------------------------------------ count_params
 @pytest.mark.parametrize("name", ["PSMNet", "GwcNet_G", "GwcNet_GC",
-                                  "ACVNet", "CFNet", "DepthAnythingV2"])
+                                  "ACVNet", "CFNet", "DepthAnythingV2",
+                                  "PCWNet_G", "PCWNet_GC"])
 def test_count_params_matches_jax(name):
     """Against JAX's count of its every-head (``train=True``) variables,
     the original toolbox's model. DepthAnythingV2 (``vits``): JAX keeps one

@@ -46,6 +46,8 @@ SMALL = {
     "ACVNet": (dict(max_disp=48), 64, 128),
     "DepthAnythingV2": (dict(encoder="vits"), 28, 42),
     "PSMNet": (dict(max_disp=16), 32, 64),
+    "PCWNet_G": (dict(max_disp=64), 64, 128),
+    "PCWNet_GC": (dict(max_disp=64), 64, 128),
 }
 
 
@@ -177,7 +179,8 @@ def _perturb_norms(model, seed):
                     0.5 + torch.rand(m.running_var.shape, generator=gen))
 
 
-BN_MODELS = ["ACVNet", "CFNet", "GwcNet_G", "GwcNet_GC", "PSMNet"]
+BN_MODELS = ["ACVNet", "CFNet", "GwcNet_G", "GwcNet_GC", "PSMNet",
+             "PCWNet_G", "PCWNet_GC"]
 
 
 @pytest.mark.parametrize("name", BN_MODELS)
