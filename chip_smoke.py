@@ -4,10 +4,12 @@
     python3 chip_smoke.py --k4-bwd [--parent DIR]
     python3 chip_smoke.py --data-parallel
     python3 chip_smoke.py --pcwnet
+    python3 chip_smoke.py --iterative
 
 The second form studies K4's backward kernel alone (`main_k4_bwd`), the
 third runs phases 1, 2 and 19 alone (`main_data_parallel`), the fourth
-phases 1, 2 and 20 (`main_pcwnet`). The first runs
+phases 1, 2 and 20 (`main_pcwnet`), the fifth phases 1, 2 and 21
+(`main_iterative`). The first runs
 these phases, each of which raises on failure (exit code != 0,
 no result line):
 
@@ -154,7 +156,7 @@ no result line):
     64x128, B 2 (f32: the loss 1e-4, each group's gradient 5e-2 relative
     L2, the frozen depth head's zero on both sides; bf16: each K7-bwd
     launch against its plain version), its launches 12 K7 and 12 + 12
-    K7-bwd; at the default crop 320x512, B 4, a warm and three timed steps
+    K7-bwd; at the default crop 320x512, B 4, a warm and two timed steps
     in each type with those launches every step, and eight steps on one
     batch whose last loss is below 0.9 x the first; each forward timed as
     phases 8-13 time theirs, K7-bwd timed at the train step's launches
@@ -194,10 +196,30 @@ no result line):
     from them); bf16 against its K2 plain swap by those costs; the 480x640
     forwards in both types with their launches by shape, profiled and
     their kernels timed as phases 8-13 do;
-21. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
+21. RAFTStereo and IGEVStereo eval (the published widths, 32 iterations,
+    max_disp 192, ``corr_impl='banded'``; seeded random weights,
+    BatchNorm settled and perturbed): K1 against its plain version at
+    IGEVStereo's launch shapes (C 96, G 8: C/G 12, at 480x640 and the check
+    size, and a ragged row with D > W), both types, phase 3's tolerances;
+    each model on the card against the port's CPU paths at 128x256 (W/4 >
+    48: the band's cap binds), float32: the output's mean |d| < 5e-3 and
+    99th percentile < 2e-2 of max(mean |ref|, 1), IGEVStereo's initial
+    disparity mean < 1e-3, max < 1e-2 px at 1/4; the card's bfloat16
+    forward within twice the CPU's own bfloat16-vs-float32 distance of
+    its float32 one, and IGEVStereo's against the same forward with K1
+    swapped for its plain version (mean |d| < 0.5 px); the 480x640 forwards
+    in both types with their launches by shape (IGEVStereo K1 x1 "stream",
+    RAFTStereo none of the port's kernels), profiled, and K1 timed, as
+    phases 8-13 do;
+22. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
     under ``data_parallel``), one ``{"estimators": {...}}``, one
-    ``{"eval": {...}}`` and one ``{"kernels": [...]}`` line;
-22. print ``{"ok": true, "device": {...}}`` as the last line.
+    ``{"eval": {...}}``, one ``{"kernels": [...]}`` line and one
+    ``{"phase_seconds": {...}, "total_s": ...}`` line (each phase's
+    seconds: where the time limit goes);
+23. print ``{"ok": true, "device": {...}}`` as the last line.
+
+Phase 14's float32 and bfloat16 card-vs-CPU checks share one CPU float32
+step a model (`cpu_f32_step`): the same weights, batch and config.
 """
 
 from __future__ import annotations
@@ -245,6 +267,7 @@ from stereo_toolbox_tpu_torch.evaluation.scaling import (  # noqa: E402
 from stereo_toolbox_tpu_torch.models import create_model  # noqa: E402
 from stereo_toolbox_tpu_torch.models.defom_stereo import (  # noqa: E402
     get_danv2_io_size)
+from stereo_toolbox_tpu_torch.models import igev_stereo  # noqa: E402
 from stereo_toolbox_tpu_torch.models import pcwnet  # noqa: E402
 port_attention = sys.modules["stereo_toolbox_tpu_torch.ops.attention"]
 from stereo_toolbox_tpu_torch.nn import layers as port_layers  # noqa: E402
@@ -449,6 +472,11 @@ PCW_K1_MIX = {(1, 120 // s, 160 // s, 320, 48 // s, 40): 1
 PCW_K6_MIX = {(1, 120 // s, 160 // s, 12, 48 // s, True): 1
               for s in (1, 2, 4, 8)}
 PCW_K3_MIX = {(1, 48, 120, 160, 32, 1): 1}       # classif3's last conv
+# The iterative models: RAFTStereo launches none of the port's kernels;
+# IGEVStereo one K1, its 8-group volume of the 96-channel matching features
+RAFT, IGEV = "RAFTStereo", "IGEVStereo"
+ITERATIVE = (RAFT, IGEV)
+IGEV_K1_MIX = {(1, 120, 160, 96, 48, 8): 1}
 
 
 def pcw_k2_mix(cv: int) -> dict:
@@ -481,8 +509,8 @@ TRAIN_CHECK_H, TRAIN_CHECK_W, TRAIN_CHECK_B = 64, 128, 2
 # 6 overfit steps since phase 19 came (12 before; the overfit losses fell
 # below 0.9 x the first by the third step in every run)
 OVERFIT_B, OVERFIT_STEPS = 2, 6
-# 3 timed steps a type since phase 20 came (5 before)
-TRAIN_STEPS, TRAIN_WARMUP = {F32: 3, BF16: 3}, 1
+# 2 timed steps a type since phase 21 came (3 since phase 20, 5 before)
+TRAIN_STEPS, TRAIN_WARMUP = {F32: 2, BF16: 2}, 1
 # CFNet's nine heads take the sequence loss (the multi-head weights are
 # four), as JAX's own CFNet gradient check does
 TRAIN_LOSS = {"CFNet": "sequence"}
@@ -580,6 +608,8 @@ MIXES = {
     "PCWNet_G": {"K1": PCW_K1_MIX, "K2": pcw_k2_mix(40), "K3": PCW_K3_MIX},
     "PCWNet_GC": {"K1": PCW_K1_MIX, "K2": pcw_k2_mix(64), "K3": PCW_K3_MIX,
                   "K6": PCW_K6_MIX},
+    RAFT: {},
+    IGEV: {"K1": IGEV_K1_MIX},
 }
 
 # Stages of each forward, as (stage, first module, last module, label of the
@@ -702,6 +732,28 @@ for _name, _volumes in (("PCWNet_G", "K1"), ("PCWNet_GC", "K1, K6")):
         ("refinement net (dispupsample, refinenet3)", "dispupsample",
          "refinenet3", "glue"),
     ], "glue")
+STAGES[RAFT] = ([
+    ("fnet (both views)", "fnet", "fnet", "input normalisation"),
+    ("cnet", "cnet", "cnet", "correlation volumes (bands, cuBLAS)"),
+    ("context convs", "context_zqr_convs.0", "context_zqr_convs.2", "tanh"),
+    ("update blocks (32)", "update_block", "update_block",
+     "lookups, flow updates"),
+], "final convex upsample")
+STAGES[IGEV] = ([
+    ("features + stems (both views)", "feature", "stem_4",
+     "input normalisation"),
+    ("descriptors", "conv", "desc", "glue"),
+    ("corr_stem + corr_feature_att", "corr_stem", "corr_feature_att",
+     "gwc volume (K1)"),
+    ("GEV hourglass", "cost_agg", "cost_agg", "glue"),
+    ("classifier", "classifier", "classifier", "glue"),
+    ("cnet", "cnet", "cnet",
+     "initial disparity, volume pyramid, correlation bands"),
+    ("context convs", "context_zqr_convs.0", "context_zqr_convs.2", "tanh"),
+    ("update blocks (32)", "update_block", "update_block",
+     "geometry lookups, disparity updates"),
+    ("superpixel weights", "spx_2_gru", "spx_gru", "glue"),
+], "context upsample")
 GAP = "between forwards (host)"
 # 5 timed forwards after 2 warm ones, and one traced forward, since phase
 # 20 came (10 after 3, and 3 traced, before)
@@ -841,9 +893,11 @@ def held(tag, dtype, got, want, what) -> float:
 
 def all_shapes(tag):
     """Every shape that an eval forward or a train step launches `tag`
-    at, but PCWNet's (phase 20 holds those)."""
+    at, but PCWNet's and the iterative models' (phases 20 and 21 hold
+    those)."""
     return {key for mixes in (MIXES, TRAIN_MIXES, TRAIN_CHECK_MIXES)
-            for name, mix in mixes.items() if name not in PCW_MODELS
+            for name, mix in mixes.items()
+            if name not in PCW_MODELS + ITERATIVE
             for key in mix.get(tag, {})}
 
 
@@ -1902,6 +1956,40 @@ def bn_buffers(model) -> dict:
             if k.endswith(("running_mean", "running_var"))}
 
 
+def check_batch() -> dict:
+    """The card-vs-CPU checks' batch: TRAIN_CHECK_B samples of
+    TRAIN_CHECK_H x TRAIN_CHECK_W from seed 5."""
+    return next(iter(synthetic_loader(TRAIN_CHECK_H, TRAIN_CHECK_W,
+                                      TRAIN_CHECK_B, 1, seed=5, workers=0)))
+
+
+# The CPU's float32 step of each model on `check_batch`, by name: the
+# float32 and the bfloat16 comparisons both hold the card to it, from the
+# same weights (seed 0), batch and `train_config`, so it is computed once
+CPU_F32_STEPS: dict = {}
+
+
+def cpu_f32_step(name, model) -> tuple[dict, list]:
+    """`step_readings` of the CPU's float32 step of `name` (weights those
+    of the card's `model`, freshly built from seed 0) on `check_batch`,
+    and for CFNet the samples of both cascade stages; computed at the first
+    call and kept."""
+    if name not in CPU_F32_STEPS:
+        cpu = create_model(name, max_disp=MAX_DISP, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        caught = []
+        hooks = [cpu.get_submodule(stage).register_forward_pre_hook(
+            lambda mod, args: caught.append(args[2].detach().cpu()))
+            for stage in ("volume_s3", "volume_s2") if name == "CFNet"]
+        reset_counts()
+        readings = step_readings(cpu, train_config(name), check_batch(), F32,
+                                 "cpu")
+        for hk in hooks:
+            hk.remove()
+        CPU_F32_STEPS[name] = (readings, caught)
+    return CPU_F32_STEPS[name]
+
+
 def compare_train_step(name) -> dict:
     """One train step on the card and on the port's CPU paths at 64x128, B
     2, from the same weights and batch: the loss, every gradient and the
@@ -1912,25 +2000,23 @@ def compare_train_step(name) -> dict:
     that differ between the card and the CPU."""
     model = create_model(name, max_disp=MAX_DISP,
                          generator=torch.Generator().manual_seed(0))
-    cpu = create_model(name, max_disp=MAX_DISP, device="cpu")
-    cpu.load_state_dict(model.state_dict())
-    batch = next(iter(synthetic_loader(TRAIN_CHECK_H, TRAIN_CHECK_W,
-                                       TRAIN_CHECK_B, 1, seed=5, workers=0)))
-    got, samples = {}, {}
+    batch = check_batch()
+    cpu32, cpu_samples = cpu_f32_step(name, model)
+    got = {"cpu": (cpu32["loss"], cpu32["grads"], cpu32["stats"])}
+    samples = {"cpu": cpu_samples}
     torch.backends.cudnn.deterministic = True
     try:
-        for m, dev in ((cpu, "cpu"), (model, DEV)):
-            rec = GradRecorder()
-            caught = samples[dev] = []
-            hooks = [m.get_submodule(stage).register_forward_pre_hook(
-                lambda mod, args: caught.append(args[2].detach().cpu()))
-                for stage in ("volume_s3", "volume_s2") if name == "CFNet"]
-            reset_counts()
-            _, loss = make_train_step(m, train_config(name))(
-                TrainState(m, rec), to_device(batch, dev))
-            for hk in hooks:
-                hk.remove()
-            got[dev] = (loss.item(), rec.grads, bn_buffers(m))
+        rec = GradRecorder()
+        caught = samples[DEV] = []
+        hooks = [model.get_submodule(stage).register_forward_pre_hook(
+            lambda mod, args: caught.append(args[2].detach().cpu()))
+            for stage in ("volume_s3", "volume_s2") if name == "CFNet"]
+        reset_counts()
+        _, loss = make_train_step(model, train_config(name))(
+            TrainState(model, rec), to_device(batch, DEV))
+        for hk in hooks:
+            hk.remove()
+        got[DEV] = (loss.item(), rec.grads, bn_buffers(model))
     finally:
         torch.backends.cudnn.deterministic = False
     (l_cpu, _, _), (l_gpu, _, _) = got["cpu"], got[DEV]
@@ -2292,20 +2378,22 @@ def compare_train_step_bf16(name, mode=None) -> dict:
     cpu = create_model(name, max_disp=MAX_DISP, device="cpu", **kw)
     cpu.load_state_dict(model.state_dict())
     init = {k: v.clone() for k, v in cpu.state_dict().items()}
-    batch = next(iter(synthetic_loader(TRAIN_CHECK_H, TRAIN_CHECK_W,
-                                       TRAIN_CHECK_B, 1, seed=5, workers=0)))
+    batch = check_batch()
     noise = np.random.RandomState(0).randn(*batch["left"].shape)
     perturbed = dict(batch, left=(batch["left"] + PERTURBATION * noise)
                      .astype(np.float32))
     what = f"{name}{' ' + mode if mode else ''} bf16 card train step"
     runs, samples = {}, {}
+    steps = [("cpu32", cpu, "cpu", F32, batch),
+             ("cpu32+", cpu, "cpu", F32, perturbed),
+             ("cpu16", cpu, "cpu", BF16, batch),
+             ("card16", model, DEV, BF16, batch)]
+    if mode is None:            # the float32 comparison's CPU step
+        runs["cpu32"], samples["cpu32"] = cpu_f32_step(name, model)
+        steps = steps[1:]
     torch.backends.cudnn.deterministic = True
     try:
-        for key, m, dev, dtype, b in (
-                ("cpu32", cpu, "cpu", F32, batch),
-                ("cpu32+", cpu, "cpu", F32, perturbed),
-                ("cpu16", cpu, "cpu", BF16, batch),
-                ("card16", model, DEV, BF16, batch)):
+        for key, m, dev, dtype, b in steps:
             if m is cpu:
                 cpu.load_state_dict(init)
             caught = samples[key] = []
@@ -2512,7 +2600,8 @@ EVAL_CHECK = (192, 384)          # the frames of the card-vs-CPU trees
 EVAL_MEAN_PX, EVAL_MAX_PX = 5e-3, 0.1   # the forward's card-vs-CPU gates
 # speed rows: warm-up forwards, then SPEED_READINGS readings of the timed
 # forwards at each resolution of the suite's ladder
-SPEED_WARMUP, SPEED_READINGS = 2, 2   # 3 readings before phase 20 came
+# one reading since phase 21 came (2 since phase 20, 3 before)
+SPEED_WARMUP, SPEED_READINGS = 2, 1
 SPEED_ITERS = {(480, 640): 30, (736, 1280): 8, (1088, 1920): 8}
 HOST_RUNS = 5                    # forwards enqueued alone on an idle card
 HOST_BOUND = 0.9                 # their enqueue / the card's time: host-bound
@@ -2854,7 +2943,8 @@ DEFOM_CHECK_B = 2
 # published 32 (eval) and 18 (train) iterations, 8 of them scale updates
 DEFOM_CHECK_ITERS = dict(valid_iters=4, train_iters=4, scale_iters=2)
 DEFOM_TRAIN_H, DEFOM_TRAIN_W, DEFOM_TRAIN_B = 320, 512, 4
-DEFOM_TRAIN_STEPS, DEFOM_TRAIN_WARMUP = {F32: 3, BF16: 3}, 1
+# 2 timed steps a type since phase 21 came (3 before)
+DEFOM_TRAIN_STEPS, DEFOM_TRAIN_WARMUP = {F32: 2, BF16: 2}, 1
 DEFOM_OVERFIT_B, DEFOM_OVERFIT_STEPS = 2, 8
 # one forward a trace: a 480x640 forward launches ~11,000 kernels, and with
 # three a trace the timing took half of phase 18 (96 of 196 s, H100)
@@ -3809,6 +3899,188 @@ def check_pcwnets(gen, forward, kernels) -> None:
     print(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------------------------------------------- phase 21
+ITER_CHECK = (128, 256)    # card vs CPU: W/4 = 64 > 48, the band's cap binds
+# the output's gates (DEFOM's): mean and p99 of |d| as shares of
+# max(mean |ref|, 1); IGEV's initial disparity (1/4 units): mean, max px
+ITER_EVAL_GATES = (5e-3, 2e-2)
+IGEV_INIT_GATES = (1e-3, 1e-2)
+# K1's launches of IGEV's forwards at ITER_CHECK and a ragged row (C/G 12,
+# D > W), beside IGEV_K1_MIX's
+IGEV_K1_CASES = {(1, 32, 64, 96, 48, 8), (1, 5, 37, 96, 48, 8)}
+
+
+def iter_model(name, device=None, dtype=F32):
+    """RAFTStereo or IGEVStereo (max_disp 192) with seeded random
+    weights, 32 eval iterations."""
+    kw = {"max_disp": MAX_DISP} if name == IGEV else {}
+    return create_model(name, device=device, dtype=dtype,
+                        generator=torch.Generator().manual_seed(0), **kw)
+
+
+def gwc_volume_plain_f32(left, right, max_disp, num_groups):
+    """K1's plain version in float32 arithmetic, cast to the features'
+    type."""
+    return gwc_volume_reference(left.float(), right.float(), max_disp,
+                                num_groups).to(left.dtype)
+
+
+def init_disparity(costs) -> torch.Tensor:
+    """IGEV's initial disparity from ``classifier``'s ``[B, 1, D, H, W]``
+    costs: softmax over D in float32, regressed."""
+    prob = torch.softmax(costs[:, 0].float(), dim=1)
+    return port_volume.disparity_regression(prob)
+
+
+def iter_eval_check(name):
+    """Phase 21's checks of `name` at ITER_CHECK (32 iterations): the card
+    against the CPU in float32 (ITER_EVAL_GATES; IGEV's initial disparity
+    IGEV_INIT_GATES); the card's bfloat16 forward against its float32 one,
+    within twice the CPU's own bfloat16-vs-float32 distance on the same
+    input; IGEV's bfloat16 forward against the same forward with K1
+    swapped for its plain version (mean |d| < PLAIN_SWAP_MEAN_PX). Both
+    types take the float32 images, as the JAX models do. Returns the
+    float32 card model (BatchNorm settled and perturbed) and the
+    readings."""
+    size = ITER_CHECK
+    model = iter_model(name)
+    left, right = stereo_pair(1, *size, seed=1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        settle_and_perturb_bn(model, left.to(DEV), right.to(DEV),
+                              torch.Generator().manual_seed(1234))
+        models = {"cpu": iter_model(name, "cpu"),
+                  "cpu16": iter_model(name, "cpu", BF16), "card": model,
+                  "card16": iter_model(name, dtype=BF16)}
+        for m in models.values():
+            m.load_state_dict(model.state_dict())
+        costs, outs, cpu_s = {}, {}, {}
+
+        def keep_costs(key):
+            def hook(mod, inputs, out):     # returns None: out unchanged
+                costs.setdefault(key, out.float().cpu())
+            return hook
+        for key, m in models.items():
+            if name == IGEV:
+                m.classifier.register_forward_hook(keep_costs(key))
+            t0 = time.perf_counter()
+            if key.startswith("cpu"):
+                with torch.no_grad():
+                    outs[key] = m(left, right).float()
+                cpu_s[key] = time.perf_counter() - t0
+            else:
+                out, _, _ = forward_counted(name, m, left.to(DEV),
+                                            right.to(DEV))
+                outs[key] = out.float().cpu()
+        if name == IGEV:
+            reset_counts()
+            l16, r16 = left.to(DEV), right.to(DEV)
+            with patched(igev_stereo, "build_gwc_volume",
+                              gwc_volume_plain_f32), torch.no_grad():
+                plain16 = models["card16"](l16, r16).float().cpu()
+            torch.cuda.synchronize()
+            require(build_gwc_volume.launches == 0,
+                    "the plain swap still launched K1")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for key, out in outs.items():
+        require(out.shape == (1, *size) and bool(torch.isfinite(out).all()),
+                f"{name} {key} output {tuple(out.shape)} not finite")
+    d = (outs["card"] - outs["cpu"]).abs()
+    scale = max(outs["cpu"].abs().mean().item(), 1.0)
+    own = (outs["cpu16"] - outs["cpu"]).abs().mean().item()
+    card16 = (outs["card16"] - outs["card"]).abs().mean().item()
+    row = {"shape": [1, *size, 3], "iters": 32, "mean_abs": d.mean().item(),
+           "p99_abs": d.quantile(0.99).item(), "max_abs": d.max().item(),
+           "scale": scale, "bf16_vs_f32_card_mean_abs": card16,
+           "bf16_vs_f32_cpu_mean_abs": own, "cpu_s": cpu_s}
+    print(f"  {name} {size[0]}x{size[1]} f32, card vs CPU ({cpu_s['cpu']:.1f}"
+          f" s on the CPU): mean |d| {row['mean_abs']:.3e}, p99 "
+          f"{row['p99_abs']:.3e}, max {row['max_abs']:.3e} px (scale "
+          f"{scale:.3f}; limits {ITER_EVAL_GATES} x scale)")
+    print(f"  {name} {size[0]}x{size[1]} bf16 vs f32: card {card16:.3e} px "
+          f"mean, the CPU's own {own:.3e} ({cpu_s['cpu16']:.1f} s; limit 2x)")
+    require(row["mean_abs"] < ITER_EVAL_GATES[0] * scale
+            and row["p99_abs"] < ITER_EVAL_GATES[1] * scale,
+            f"{name} card forward differs from the CPU port")
+    require(card16 <= 2 * own, f"{name} card bf16 forward farther from its "
+                               f"f32 one than twice the CPU's own distance")
+    if name == IGEV:
+        di = (init_disparity(costs["card"])
+              - init_disparity(costs["cpu"])).abs()
+        row["init_disp_mean_abs"] = di.mean().item()
+        row["init_disp_max_abs"] = di.max().item()
+        dp = (outs["card16"] - plain16).abs()
+        row["bf16_vs_plain_k1_mean_abs"] = dp.mean().item()
+        row["bf16_vs_plain_k1_max_abs"] = dp.max().item()
+        print(f"  {name} initial disparity (1/4 px), card vs CPU: mean |d| "
+              f"{row['init_disp_mean_abs']:.3e}, max "
+              f"{row['init_disp_max_abs']:.3e} (limits {IGEV_INIT_GATES});"
+              f" bf16, K1 vs its plain version: mean |d| "
+              f"{row['bf16_vs_plain_k1_mean_abs']:.3e} px (limit "
+              f"{PLAIN_SWAP_MEAN_PX}), max "
+              f"{row['bf16_vs_plain_k1_max_abs']:.3e}")
+        require(row["init_disp_mean_abs"] < IGEV_INIT_GATES[0]
+                and row["init_disp_max_abs"] < IGEV_INIT_GATES[1],
+                f"{name} initial disparity differs from the CPU port")
+        require(row["bf16_vs_plain_k1_mean_abs"] < PLAIN_SWAP_MEAN_PX,
+                f"{name} bf16 forward differs from its plain K1")
+    del models
+    return model, row
+
+
+def iter_full_size(name, model) -> dict:
+    """The 480x640 forward (32 iterations) in float32 and bfloat16 on the
+    float32 images, the launches by shape required to be MIXES[name] (none
+    for RAFTStereo), the output finite. Returns the runs as
+    `full_size_runs` does."""
+    runs = {}
+    for dtype in (F32, BF16):
+        m = model if dtype == F32 else iter_model(name, dtype=dtype)
+        if dtype != F32:
+            m.load_state_dict(model.state_dict())
+        left, right = (t.to(DEV) for t in stereo_pair(1, H, W, 2))
+        out, shapes, designs = forward_counted(name, m, left, right,
+                                               by_shape=True)
+        require(out.shape == (1, H, W) and bool(torch.isfinite(out).all()),
+                f"{name} {DTYPE_NAME[dtype]} output {tuple(out.shape)} "
+                f"not finite")
+        print(f"  {name} {H}x{W} {DTYPE_NAME[dtype]}: disparity "
+              f"{out.min().item():.2f}..{out.max().item():.2f}, mean "
+              f"{out.float().mean().item():.2f}, launches "
+              + (" ".join(f"{t}={c.total()}" for t, c in shapes.items() if c)
+                 or "none of the port's kernels"))
+        runs[dtype] = (m, (left, right), shapes, out.float(), designs)
+    return runs
+
+
+def check_iteratives(gen, forward, kernels) -> None:
+    """Phase 21: K1 at IGEVStereo's launch shapes (C 96, G 8: C/G 12) both
+    ways, then each model checked (`iter_eval_check`), its 480x640
+    forwards run with their launches by shape, profiled in both types, and
+    IGEV's K1 timed at the launches its forwards recorded. Fills `forward`
+    and `kernels`."""
+    t0 = time.perf_counter()
+    errs = check_gwc(gen, set(IGEV_K1_MIX) | IGEV_K1_CASES)
+    for name in ITERATIVE:
+        model, checked = iter_eval_check(name)
+        runs = iter_full_size(name, model)
+        forward[name] = {"shape": [1, H, W, 3], "iters": FWD_ITERS,
+                         "warmup": FWD_WARMUP, "trace_iters": TRACE_ITERS,
+                         "valid_iters": 32, "card_vs_cpu": checked}
+        if name == IGEV:
+            forward[name]["max_disp"] = MAX_DISP
+        for dtype, (m, inputs, shapes, _, designs) in runs.items():
+            forward[name][DTYPE_NAME[dtype]] = profile_forward(
+                name, m, inputs, dtype)
+            for tag in MIXES[name]:
+                kernels.append(time_kernel(name, tag, dtype, shapes[tag],
+                                           designs, errs[dtype], gen))
+        del runs, m, inputs, model
+        torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+
 # ----------------------------------------------------- timing (phases 8-13)
 def forward_breakdown(name, model, *inputs) -> dict:
     """Forward ms, peak memory (and the memory resident before the
@@ -4601,8 +4873,33 @@ def main_k4_bwd(argv) -> None:
                       "device": torch.cuda.get_device_name(0)}))
 
 
+class PhaseClock:
+    """Seconds of each phase: `start` ends the running phase and starts
+    the next."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self.phase, self.t = None, time.perf_counter()
+
+    def start(self, phase) -> None:
+        now = time.perf_counter()
+        if self.phase is not None:
+            self.seconds[self.phase] = (self.seconds.get(self.phase, 0.0)
+                                        + now - self.t)
+        self.phase, self.t = str(phase), now
+
+    def line(self) -> str:
+        """``{"phase_seconds": {phase: s, ...}, "total_s": s}``, the
+        running phase ended."""
+        self.start(None)
+        return json.dumps({"phase_seconds": self.seconds,
+                           "total_s": sum(self.seconds.values())})
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    clock = PhaseClock()
+    clock.start(1)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4614,6 +4911,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    clock.start(2)
     t0 = time.perf_counter()
     logs = _cuda.build()
     for lib in _cuda.SIGNATURES:
@@ -4627,19 +4925,24 @@ def main() -> None:
 
     gen = torch.Generator().manual_seed(1234)
     errs = {}
+    clock.start(3)
     print("phase 3: K1 gwc_volume kernel and its backward vs plain")
     errs["K1"] = check_gwc(gen)
     errs["K1-bwd"] = check_gwc_backward(gen)
+    clock.start(4)
     print("phase 4: K2 conv3d_fused kernel vs plain")
     errs["K2"] = check_conv(gen)
+    clock.start(5)
     print("phase 5: K3 conv3d kernel vs plain")
     errs["K3"] = check_conv3d(gen)
+    clock.start(6)
     print("phase 6: K4, K5 sample kernels and K6 concat volume, and their "
           "backward kernels, vs plain")
     errs["K4"], errs["K5"] = check_samples(gen)
     errs["K6"] = check_concat(gen)
     errs["K6-bwd"] = check_concat_backward(gen)
     errs["K4-bwd"], errs["K5-bwd"] = check_samples_backward(gen)
+    clock.start(7)
     print(f"phase 7: K7 vit_attention kernel and its backward (K7-bwd) vs "
           f"plain ({time.perf_counter() - t_start:.1f} s)")
     errs["K7"], errs["K7 DEFOM"] = check_attention(gen)
@@ -4655,6 +4958,7 @@ def main() -> None:
             ("ACVNet", check_acvnet, stereo),
             ("DepthAnythingV2", check_dav2,
              {"shape": [1, DAV2_H, DAV2_W, 3], "encoder": DAV2_ENCODER})), 8):
+        clock.start(phase)
         print(f"phase {phase}: {model_name} "
               f"({time.perf_counter() - t_start:.1f} s)")
         runs, checked = check()
@@ -4674,6 +4978,7 @@ def main() -> None:
         del runs, m, inputs   # the next model's peak memory is its own
         torch.cuda.empty_cache()
 
+    clock.start(14)
     print(f"phase 14: training ({time.perf_counter() - t_start:.1f} s)")
     train = {}
     for model_name in TRAIN_MODELS:
@@ -4698,19 +5003,23 @@ def main() -> None:
                           f"{entry['build_ms']:.4f} ms")
                 kernels.append(entry)
         torch.cuda.empty_cache()
+    clock.start(15)
     print(f"phase 15: disparity estimators, card vs CPU "
           f"({time.perf_counter() - t_start:.1f} s)")
     estimates = check_estimators(gen)
     torch.cuda.empty_cache()
+    clock.start(16)
     print("phase 16: cuDNN float32 probe")
     forward["CFNet"]["cudnn_f32_probe"] = cudnn_probe(gen)
     torch.cuda.empty_cache()
+    clock.start(17)
     print(f"phase 17: evaluation suites, {EVAL_MODEL} "
           f"({time.perf_counter() - t_start:.1f} s)")
     t0 = time.perf_counter()
     suites = check_eval_suites(gen, smi[0] if smi else "nvidia-smi: none")
     suites["phase_s"] = time.perf_counter() - t0
     print(f"phase 17: {suites['phase_s']:.1f} s")
+    clock.start(18)
     print(f"phase 18: {DEFOM}, eval and training "
           f"({time.perf_counter() - t_start:.1f} s)")
     t0 = time.perf_counter()
@@ -4751,19 +5060,27 @@ def main() -> None:
     train[DEFOM]["seconds"]["timing"] = time.perf_counter() - t0 - sum(
         train[DEFOM]["seconds"].values())
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    clock.start(19)
     print(f"phase 19: data-parallel training "
           f"({time.perf_counter() - t_start:.1f} s)")
     train["data_parallel"] = check_data_parallel(
         smi[0] if smi else "nvidia-smi: none")
+    clock.start(20)
     print(f"phase 20: PCWNet_G / PCWNet_GC eval "
           f"({time.perf_counter() - t_start:.1f} s)")
     check_pcwnets(gen, forward, kernels)
+    clock.start(21)
+    print(f"phase 21: RAFTStereo and IGEVStereo eval "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    check_iteratives(gen, forward, kernels)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    clock.start(22)
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))
     print(json.dumps({"estimators": estimates}))
     print(json.dumps({"eval": suites}))
     print(json.dumps({"kernels": kernels}))
+    print(clock.line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -4796,6 +5113,21 @@ def main_pcwnet() -> None:
                       "device": torch.cuda.get_device_name(0)}))
 
 
+def main_iterative() -> None:
+    """``python3 chip_smoke.py --iterative``: phases 1, 2 and 21."""
+    clock = PhaseClock()
+    clock.start("1-2")
+    start_alone()
+    clock.start(21)
+    forward, kernels = {}, []
+    check_iteratives(torch.Generator().manual_seed(1234), forward, kernels)
+    print(json.dumps({"forward": forward}))
+    print(json.dumps({"kernels": kernels}))
+    print(clock.line())
+    print(json.dumps({"iterative_ok": True,
+                      "device": torch.cuda.get_device_name(0)}))
+
+
 def main_data_parallel() -> None:
     """``python3 chip_smoke.py --data-parallel``: phases 1, 2 and 19."""
     smi = start_alone()
@@ -4812,5 +5144,7 @@ if __name__ == "__main__":
         main_data_parallel()
     elif sys.argv[1:2] == ["--pcwnet"]:
         main_pcwnet()
+    elif sys.argv[1:2] == ["--iterative"]:
+        main_iterative()
     else:
         main()

@@ -42,8 +42,8 @@ from stereo_toolbox_tpu_torch.utils.weights import reference_state_dict
 # the models `--max-disp` goes to (examples/eval.py:94-96, those ported),
 # and every model that predicts disparity
 TAKES_MAX_DISP = ("PSMNet", "GwcNet_G", "GwcNet_GC", "ACVNet", "CFNet",
-                  "PCWNet_G", "PCWNet_GC")
-STEREO = TAKES_MAX_DISP + ("DEFOMStereo_S", "DEFOMStereo_L")
+                  "PCWNet_G", "PCWNet_GC", "IGEVStereo")
+STEREO = TAKES_MAX_DISP + ("RAFTStereo", "DEFOMStereo_S", "DEFOMStereo_L")
 DATA_SUITES = ("sceneflow", "generalization", "weather")
 SUITES = DATA_SUITES + ("speed",)
 LOADER_WORKERS = 2                  # examples/eval.py's

@@ -1,6 +1,7 @@
 """Model registry of the PyTorch port (counterpart of
 ``stereo_toolbox_tpu.models``): ACVNet, CFNet, DEFOMStereo_S and _L,
-DepthAnythingV2, GwcNet_G and _GC, PCWNet_G and _GC (eval only) and PSMNet.
+DepthAnythingV2, GwcNet_G and _GC, IGEVStereo (eval only), PCWNet_G and
+_GC (eval only), PSMNet and RAFTStereo (eval only).
 
 `create_model(name, device=None, dtype=torch.float32)` builds an eval-mode
 model on the card (``device=None`` means ``"cuda"``) and raises when there
@@ -30,9 +31,11 @@ from stereo_toolbox_tpu_torch.models.defom_stereo import (DEFOMStereo,
 from stereo_toolbox_tpu_torch.models.depth_anything_v2 import DepthAnythingV2
 from stereo_toolbox_tpu_torch.models.gwcnet import (GwcNet, GwcNet_G,
                                                     GwcNet_GC)
+from stereo_toolbox_tpu_torch.models.igev_stereo import IGEVStereo
 from stereo_toolbox_tpu_torch.models.pcwnet import (PCWNet, PCWNet_G,
                                                     PCWNet_GC)
 from stereo_toolbox_tpu_torch.models.psmnet import PSMNet
+from stereo_toolbox_tpu_torch.models.raft_stereo import RAFTStereo
 from stereo_toolbox_tpu_torch.nn.vit import DINOv2, LayerScale
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
@@ -43,9 +46,11 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "DepthAnythingV2": DepthAnythingV2,
     "GwcNet_G": GwcNet_G,
     "GwcNet_GC": GwcNet_GC,
+    "IGEVStereo": IGEVStereo,
     "PCWNet_G": PCWNet_G,
     "PCWNet_GC": PCWNet_GC,
     "PSMNet": PSMNet,
+    "RAFTStereo": RAFTStereo,
 }
 
 # What a bfloat16 model keeps in float32: what the JAX package keeps as a
@@ -129,6 +134,7 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype
 
 __all__ = ["ACVNet", "CFNet", "DEFOMStereo", "DEFOMStereo_L",
            "DEFOMStereo_S", "DepthAnythingV2", "F32_MODULES",
-           "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "MODEL_REGISTRY",
-           "PCWNet", "PCWNet_G", "PCWNet_GC", "PSMNet", "bfloat16_view",
-           "cast_model", "create_model", "keeps_float32"]
+           "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "IGEVStereo",
+           "MODEL_REGISTRY", "PCWNet", "PCWNet_G", "PCWNet_GC", "PSMNet",
+           "RAFTStereo", "bfloat16_view", "cast_model", "create_model",
+           "keeps_float32"]

@@ -50,7 +50,7 @@ from stereo_toolbox_tpu_torch.models.depth_anything_v2 import (
     DEFAULT_FEATURES, VIT_CONFIGS, init_weights)
 from stereo_toolbox_tpu_torch.models.raft_stereo import (
     IMAGENET_MEAN, IMAGENET_STD, BasicMultiUpdateBlock, FrozenBatchNorm2d,
-    InstanceNorm, RAFTResBlock, make_norm)
+    InstanceNorm, RAFTResBlock, make_norm, res_stages)
 from stereo_toolbox_tpu_torch.nn.dpt import FeatureFusionBlock
 from stereo_toolbox_tpu_torch.nn.gru import conv_nhwc
 from stereo_toolbox_tpu_torch.nn.layers import channels_last
@@ -208,17 +208,6 @@ class ConvBlock(nn.Module):
         return F.relu(self.norm1(conv_nhwc(self.conv, x)))
 
 
-def _stages(norm: str) -> list[nn.Sequential]:
-    """``layer1..3``: two RAFTResBlocks at widths 64, 96, 128, the first of
-    the last two with stride 2."""
-    layers, planes = [], 64
-    for dim, stride in ((64, 1), (96, 2), (128, 2)):
-        layers.append(nn.Sequential(RAFTResBlock(planes, dim, norm, stride),
-                                    RAFTResBlock(dim, dim, norm, 1)))
-        planes = dim
-    return layers
-
-
 class DefomBasicEncoder(nn.Module):
     """``fnet``: 7×7 stem, instance norm, three residual stages, ``+
     convd(p1)``, 1×1 conv to `output_dim`."""
@@ -227,7 +216,7 @@ class DefomBasicEncoder(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, padding=3)
         self.norm1 = InstanceNorm()
-        self.layer1, self.layer2, self.layer3 = _stages("instance")
+        self.layer1, self.layer2, self.layer3 = res_stages("instance")
         self.convd = ConvBlock(dfeat_dim, 128, "instance")
         self.conv2 = nn.Conv2d(128, output_dim, 1)
 
@@ -247,7 +236,7 @@ class DefomMultiEncoder(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, padding=3)
         self.norm1 = FrozenBatchNorm2d(64)
-        self.layer1, self.layer2, self.layer3 = _stages("batch")
+        self.layer1, self.layer2, self.layer3 = res_stages("batch")
         self.layer4 = nn.Sequential(RAFTResBlock(128, 128, "batch", 2),
                                     RAFTResBlock(128, 128, "batch", 1))
         self.layer5 = nn.Sequential(RAFTResBlock(128, 128, "batch", 2),

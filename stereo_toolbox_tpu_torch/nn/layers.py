@@ -105,6 +105,24 @@ class FlaxRunningStats:
         return y
 
 
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """`x` in at least float32 (flax's float32 reductions)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class InstanceNorm(nn.Module):
+    """flax ``GroupNorm(group_size=1, use_scale=False, use_bias=False)`` on
+    a channels-last ``[B, H, W, C]`` tensor: each channel's mean and
+    ``E[x²] − E[x]²`` over H, W in float32, the output in x's type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = widened(x)
+        mu = xf.mean(dim=(1, 2), keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=(1, 2), keepdim=True) - mu * mu,
+                          min=0.0)
+        return ((xf - mu) * torch.rsqrt(var + BN_EPS)).to(x.dtype)
+
+
 def _channel_view(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.view((1, -1) + (1,) * (dim - 2))
 
@@ -473,6 +491,26 @@ class HourglassRedir(nn.Module):
         return activate(self.conv6(c5) + self.redir1(x), self.act)
 
 
+class FeatureAtt(nn.Module):
+    """A 2D feature map gating every disparity plane of a cost volume
+    (IGEV's ``FeatureAtt``): ``sigmoid(feat_att(feat))[:, None] · cv``,
+    ``feat_att`` a 1×1 ConvBN-LeakyReLU to half the feature's channels and
+    a 1×1 conv (with bias) to the volume's. ``cv [B, D, H, W, Cv]``,
+    ``feat [B, H, W, Cf]``."""
+
+    def __init__(self, cv_channels: int, feat_channels: int):
+        super().__init__()
+        from stereo_toolbox_tpu_torch.nn.igev_blocks import BasicConvBN
+        self.feat_att = nn.Sequential(
+            BasicConvBN(feat_channels, feat_channels // 2, 1),
+            nn.Conv2d(feat_channels // 2, cv_channels, 1))
+
+    def forward(self, cv: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        conv = self.feat_att[1]
+        att = channels_last(conv(channels_first(self.feat_att[0](feat))))
+        return torch.sigmoid(att)[:, None] * cv
+
+
 def dual_view_apply(feat_fn, left: torch.Tensor, right: torch.Tensor,
                     train: bool = False):
     """Run a shared feature trunk on both views. In train mode: two calls,
@@ -503,6 +541,30 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
                 n = math.prod(m.kernel_size) * m.out_channels
                 m.weight.normal_(0.0, math.sqrt(2.0 / n), generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+def lecun_init(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialisation (flax's defaults), drawn from
+    `generator`: conv (2D and 3D, transposed too) and Linear weights ~ N(0,
+    1 / fan_in), biases 0, BatchNorm γ = 1, β = 0. The iterative models
+    take it: under `init_weights`' larger draws their 32 random update
+    blocks turn float32 rounding into hundreds of px."""
+    convs = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d,
+             nn.Linear)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, convs):
+                w = m.weight
+                transposed = isinstance(m, (nn.ConvTranspose2d,
+                                            nn.ConvTranspose3d))
+                fan_in = w.shape[0] * w[0, 0].numel() if transposed \
+                    else w[0].numel()
+                w.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):

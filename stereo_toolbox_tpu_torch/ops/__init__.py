@@ -4,9 +4,10 @@ from stereo_toolbox_tpu_torch.ops.attention import (
     attention, attention_backward, attention_backward_dkv,
     attention_backward_dq, attention_backward_reference,
     attention_lse_reference, attention_reference, attention_with_lse)
-from stereo_toolbox_tpu_torch.ops.corr import (all_pairs_correlation,
-                                               build_corr_pyramid,
-                                               corr_lookup_1d)
+from stereo_toolbox_tpu_torch.ops.corr import (
+    all_pairs_correlation, band_d_max, band_offsets, build_corr_band_pyramid,
+    build_corr_pyramid, build_volume_pyramid, corr_lookup_1d,
+    corr_lookup_1d_alt, corr_lookup_1d_banded, volume_lookup_1d)
 from stereo_toolbox_tpu_torch.ops.sampling import (bilinear_sampler,
                                                    coords_grid, sample_1d)
 from stereo_toolbox_tpu_torch.ops.conv3d import (
@@ -14,7 +15,8 @@ from stereo_toolbox_tpu_torch.ops.conv3d import (
     conv3d_reference)
 from stereo_toolbox_tpu_torch.ops.conv3d_fused import (conv3d_fused,
                                                        conv3d_fused_reference)
-from stereo_toolbox_tpu_torch.ops.upsample import (convex_upsample,
+from stereo_toolbox_tpu_torch.ops.upsample import (context_upsample,
+                                                   convex_upsample,
                                                    interpolate,
                                                    resize_nearest)
 from stereo_toolbox_tpu_torch.ops.volume import (
@@ -32,7 +34,10 @@ from stereo_toolbox_tpu_torch.ops.volume import (
     shifted_right_stack, soft_argmax)
 
 __all__ = ["all_pairs_correlation", "attention", "attention_backward",
-           "bilinear_sampler", "coords_grid",
+           "band_d_max", "band_offsets", "bilinear_sampler",
+           "build_corr_band_pyramid", "build_volume_pyramid",
+           "context_upsample", "coords_grid", "corr_lookup_1d_alt",
+           "corr_lookup_1d_banded", "volume_lookup_1d",
            "attention_backward_dkv", "attention_backward_dq",
            "attention_backward_reference", "attention_lse_reference",
            "attention_reference", "attention_with_lse",

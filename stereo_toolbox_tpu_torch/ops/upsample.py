@@ -3,7 +3,8 @@ over any axes.
 
 Counterpart of ``stereo_toolbox_tpu/ops/upsample.py`` (`_resize_axis_linear`,
 `interpolate`, `resize_nearest`): separable, one axis at a time, in both
-``align_corners`` modes, on channels-last or any other layout. Also the
+``align_corners`` modes, on channels-last or any other layout; and RAFT's
+`convex_upsample` and IGEV's `context_upsample`. Also the
 bicubic resize matrix of DINOv2's position-embedding interpolation
 (`bicubic_matrix`, the port's copy of
 ``stereo_toolbox_tpu/models/depth_anything_v2.py::_torch_bicubic_matrix``).
@@ -107,3 +108,15 @@ def convex_upsample(disp: torch.Tensor, mask_logits: torch.Tensor,
     nb = unfold3x3(disp.float() * f)
     up = torch.einsum("bhwkij,bhwk->bhwij", m, nb)
     return up.permute(0, 1, 3, 2, 4).reshape(b, h * f, w * f)
+
+
+def context_upsample(disp_low: torch.Tensor, up_weights: torch.Tensor,
+                     factor: int = 4) -> torch.Tensor:
+    """IGEV's superpixel upsampling: the 3×3 neighbourhoods of `disp_low`
+    ``[B, h, w]`` (already in full-resolution units; zero padding),
+    nearest-upsampled by `factor` and blended with the softmax weights
+    `up_weights` ``[B, h · factor, w · factor, 9]`` → ``[B, h · factor, w ·
+    factor]``."""
+    b, h, w = disp_low.shape
+    nb = resize_nearest(unfold3x3(disp_low), (h * factor, w * factor), (1, 2))
+    return (nb * up_weights).sum(dim=-1)

@@ -455,19 +455,65 @@ def _raft_res(t: JaxToTorch, path: str, key: str, norm: str) -> None:
             t.bn(f"{path}/BatchNorm_2", f"{key}.downsample.1")
 
 
-def _update_block(t: JaxToTorch, path: str, key: str) -> None:
-    """A JAX ``BasicMultiUpdateBlock`` (DEFOM's, one flow channel)."""
+def _update_block(t: JaxToTorch, path: str, key: str, flow: str = "convd",
+                  head: str = "disp_head") -> None:
+    """A JAX ``BasicMultiUpdateBlock`` (DEFOM's, one flow channel; RAFT's,
+    two, with ``flow="convf"`` and ``head="flow_head"``), with the GRUs its
+    `n_gru_layers` creates."""
     for g in ("gru08", "gru16", "gru32"):
-        for c in ("convz", "convr", "convq"):
-            t.conv(f"{path}/{g}/{c}", f"{key}.{g}.{c}", bias=True)
-    for i, name in enumerate(("convc1", "convc2", "convd1", "convd2",
+        if t.has(f"{path}/{g}"):
+            for c in ("convz", "convr", "convq"):
+                t.conv(f"{path}/{g}/{c}", f"{key}.{g}.{c}", bias=True)
+    for i, name in enumerate(("convc1", "convc2", f"{flow}1", f"{flow}2",
                               "conv")):
         t.conv(f"{path}/encoder/Conv_{i}", f"{key}.encoder.{name}",
                bias=True)
-    t.conv(f"{path}/flow_head_1", f"{key}.disp_head.conv1", bias=True)
-    t.conv(f"{path}/flow_head_2", f"{key}.disp_head.conv2", bias=True)
+    t.conv(f"{path}/flow_head_1", f"{key}.{head}.conv1", bias=True)
+    t.conv(f"{path}/flow_head_2", f"{key}.{head}.conv2", bias=True)
     t.conv(f"{path}/mask_1", f"{key}.mask.0", bias=True)
     t.conv(f"{path}/mask_2", f"{key}.mask.2", bias=True)
+
+
+def _raft_trunk(t: JaxToTorch, path: str, key: str, norm: str) -> None:
+    """The stem (``Conv_0`` and, for batch norm, ``BatchNorm_0``) and the
+    three residual stages (``RAFTResBlock_0..5``) of a JAX ``BasicEncoder``
+    or ``MultiBasicEncoder``."""
+    t.conv(f"{path}/Conv_0", f"{key}.conv1", bias=True)
+    if norm == "batch":
+        t.bn(f"{path}/BatchNorm_0", f"{key}.norm1")
+    for n, stage in enumerate(f"layer{i}.{j}" for i in (1, 2, 3)
+                              for j in (0, 1)):
+        _raft_res(t, f"{path}/RAFTResBlock_{n}", f"{key}.{stage}", norm)
+
+
+def _multi_basic_encoder(t: JaxToTorch, path: str, key: str,
+                         out_names=("outputs08", "outputs16", "outputs32")
+                         ) -> None:
+    """A JAX ``MultiBasicEncoder`` (batch norm) → the port's: the trunk,
+    ``RAFTResBlock_6..13`` (the two finer heads' blocks around ``layer4``
+    and ``layer5``) and ``Conv_1..6`` (the heads' convs, hidden then
+    context at each scale)."""
+    _raft_trunk(t, path, key, "batch")
+    fine, mid, coarse = out_names
+    blocks = [f"{fine}.0.0", f"{fine}.1.0", "layer4.0", "layer4.1",
+              f"{mid}.0.0", f"{mid}.1.0", "layer5.0", "layer5.1"]
+    for n, name in enumerate(blocks, 6):
+        _raft_res(t, f"{path}/RAFTResBlock_{n}", f"{key}.{name}", "batch")
+    convs = [f"{fine}.0.1", f"{fine}.1.1", f"{mid}.0.1", f"{mid}.1.1",
+             f"{coarse}.0", f"{coarse}.1"]
+    for n, name in enumerate(convs, 1):
+        t.conv(f"{path}/Conv_{n}", f"{key}.{name}", bias=True)
+
+
+def _raft_stereo(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_raft_stereo``."""
+    _raft_trunk(t, "fnet", "fnet", "instance")
+    t.conv("fnet/Conv_1", "fnet.conv2", bias=True)
+    _multi_basic_encoder(t, "cnet", "cnet")
+    for i in range(3):
+        t.conv(f"context_zqr_{i}", f"context_zqr_convs.{i}", bias=True)
+    _update_block(t, "step/update_block", "update_block", flow="convf",
+                  head="flow_head")
 
 
 def _defom(t: JaxToTorch) -> None:
@@ -503,11 +549,144 @@ def _defom(t: JaxToTorch) -> None:
     _update_block(t, "scale_phase/scale_update_block", "scale_update_block")
 
 
+def _conv2x(t: JaxToTorch, path: str, key: str, instance_norm: bool
+            ) -> None:
+    """A JAX ``Conv2x`` (transposed ``conv1``, then ``conv2``) → the
+    port's, with their BatchNorms unless `instance_norm`."""
+    unit = "BasicConvIN" if instance_norm else "BasicConvBN"
+    t.conv_transpose(f"{path}/{unit}_0/ConvTranspose_0", f"{key}.conv1.conv")
+    t.conv(f"{path}/{unit}_1/Conv_0", f"{key}.conv2.conv")
+    if not instance_norm:
+        t.bn(f"{path}/{unit}_0/BatchNorm_0", f"{key}.conv1.bn")
+        t.bn(f"{path}/{unit}_1/BatchNorm_0", f"{key}.conv2.bn")
+
+
+def _feature_att(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX ``FeatureAtt`` → the port's ``feat_att.{0,1}``."""
+    t.conv(f"{path}/ConvBNAct_0/Conv_0", f"{key}.feat_att.0.conv")
+    t.bn(f"{path}/ConvBNAct_0/BatchNorm_0", f"{key}.feat_att.0.bn")
+    t.conv(f"{path}/Conv_0", f"{key}.feat_att.1", bias=True)
+
+
+def _mobilenet_trunk(t: JaxToTorch, path: str, key: str) -> None:
+    """The JAX ``MobileNetV2Trunk`` → the port's (timm's names):
+    ``InvertedResidual_n`` → ``block{b}.{s}.{j}``."""
+    # here, not at the top: ops and nn import utils, which imports this
+    from stereo_toolbox_tpu_torch.nn.igev_blocks import (MOBILENET_BLOCKS,
+                                                         MOBILENET_STAGES)
+    t.conv(f"{path}/Conv_0", f"{key}.conv_stem")
+    t.bn(f"{path}/BatchNorm_0", f"{key}.bn1")
+    n = 0
+    for blk, stages in enumerate(MOBILENET_BLOCKS):
+        for s, stage in enumerate(stages):
+            for j, (_, _, expand) in enumerate(MOBILENET_STAGES[stage]):
+                f = f"{path}/InvertedResidual_{n}"
+                k = f"{key}.block{blk}.{s}.{j}"
+                names = ((("conv_dw", "bn1"), ("conv_pw", "bn2"))
+                         if expand == 1 else
+                         (("conv_pw", "bn1"), ("conv_dw", "bn2"),
+                          ("conv_pwl", "bn3")))
+                for i, (conv, bn) in enumerate(names):
+                    t.conv(f"{f}/Conv_{i}", f"{k}.{conv}")
+                    t.bn(f"{f}/BatchNorm_{i}", f"{k}.{bn}")
+                n += 1
+
+
+def _gev_hourglass(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX ``GEVHourglass`` (``BasicConvBN_0..14`` in call order, the
+    transposed ones at 6, 10 and 14; ``FeatureAtt_0..4``) → the port's."""
+    for i, name in enumerate(("conv1.0", "conv1.1", "conv2.0", "conv2.1",
+                              "conv3.0", "conv3.1", "conv3_up", "agg_0.0",
+                              "agg_0.1", "agg_0.2", "conv2_up", "agg_1.0",
+                              "agg_1.1", "agg_1.2", "conv1_up")):
+        f = f"{path}/BasicConvBN_{i}"
+        if name.endswith("_up"):
+            t.conv_transpose(f"{f}/ConvTranspose_0", f"{key}.{name}.conv")
+        else:
+            t.conv(f"{f}/Conv_0", f"{key}.{name}.conv")
+        if name != "conv1_up":
+            t.bn(f"{f}/BatchNorm_0", f"{key}.{name}.bn")
+    for i, att in enumerate(("feature_att_8", "feature_att_16",
+                             "feature_att_32", "feature_att_up_16",
+                             "feature_att_up_8")):
+        _feature_att(t, f"{path}/FeatureAtt_{i}", f"{key}.{att}")
+
+
+def _igev_feature(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX ``IGEVFeature`` → the port's (one flat scope, as the
+    original's ``Feature``)."""
+    _mobilenet_trunk(t, f"{path}/trunk", key)
+    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
+        _conv2x(t, f"{path}/{name}", f"{key}.{name}", True)
+    t.conv(f"{path}/conv4/Conv_0", f"{key}.conv4.conv")
+
+
+def _igev_update_block(t: JaxToTorch, path: str, key: str) -> None:
+    """A JAX ``IGEVUpdateBlock``, with the GRUs its `n_gru_layers`
+    creates."""
+    for g in ("gru04", "gru08", "gru16"):
+        if t.has(f"{path}/{g}"):
+            for c in ("convz", "convr", "convq"):
+                t.conv(f"{path}/{g}/{c}", f"{key}.{g}.{c}", bias=True)
+    for i, name in enumerate(("convc1", "convc2", "convd1", "convd2",
+                              "conv")):
+        t.conv(f"{path}/encoder/Conv_{i}", f"{key}.encoder.{name}",
+               bias=True)
+    t.conv(f"{path}/disp_head_1", f"{key}.disp_head.conv1", bias=True)
+    t.conv(f"{path}/disp_head_2", f"{key}.disp_head.conv2", bias=True)
+    t.conv(f"{path}/mask_feat_4", f"{key}.mask_feat_4.0", bias=True)
+
+
+# The train-only heads of IGEVStereo (the initial disparity's upsampler) and
+# their shapes, which a JAX init in eval mode does not create
+IGEV_TRAIN_HEADS = {"spx_4.0.conv.weight": (24, 96, 3, 3),
+                    "spx_4.1.weight": (24, 24, 3, 3),
+                    "spx_2.conv1.conv.weight": (24, 32, 4, 4),
+                    "spx_2.conv2.conv.weight": (64, 64, 3, 3),
+                    "spx.0.weight": (64, 9, 4, 4), "spx.0.bias": (9,)}
+
+
+def _igev_stereo(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_igev_stereo``. The train-only
+    heads ``spx_4``, ``spx_2`` and ``spx`` are carried from variables that
+    have them (a JAX init with ``train=True``); variables of an eval-mode
+    init lack them, and they are then filled with zeros (`IGEV_TRAIN_HEADS`),
+    which the eval forward never reads: its output is the JAX model's."""
+    _igev_feature(t, "feature", "feature")
+    for stem in ("stem_2", "stem_4"):
+        t.conv(f"{stem}a/Conv_0", f"{stem}.0.conv")
+        t.conv(f"{stem}b", f"{stem}.1")
+    t.conv("conv/Conv_0", "conv.conv")
+    t.conv("desc", "desc", bias=True)
+    t.conv("corr_stem/Conv_0", "corr_stem.conv")
+    t.bn("corr_stem/BatchNorm_0", "corr_stem.bn")
+    _feature_att(t, "corr_feature_att", "corr_feature_att")
+    _gev_hourglass(t, "cost_agg", "cost_agg")
+    t.conv("classifier", "classifier")
+    _multi_basic_encoder(t, "cnet", "cnet",
+                         ("outputs04", "outputs08", "outputs16"))
+    for i in range(3):
+        t.conv(f"context_zqr_{i}", f"context_zqr_convs.{i}", bias=True)
+    _igev_update_block(t, "step/update_block", "update_block")
+    _conv2x(t, "step/spx_2_gru", "spx_2_gru", False)
+    t.conv_transpose("step/spx_gru", "spx_gru.0", bias=True)
+    if t.has("spx_4"):
+        t.conv("spx_4/Conv_0", "spx_4.0.conv")
+        t.conv("spx_4b", "spx_4.1")
+        _conv2x(t, "spx_2", "spx_2", True)
+        t.conv_transpose("spx", "spx.0", bias=True)
+    else:
+        t.sd.update({k: np.zeros(shape, np.float32)
+                     for k, shape in IGEV_TRAIN_HEADS.items()})
+
+
 CONVERTERS = {"ACVNet": _acvnet, "CFNet": _cfnet,
               "DEFOMStereo_L": _defom, "DEFOMStereo_S": _defom,
               "DepthAnythingV2": _depth_anything_v2, "GwcNet_G": _gwcnet,
-              "GwcNet_GC": _gwcnet, "PCWNet_G": _pcwnet,
-              "PCWNet_GC": _pcwnet, "PSMNet": _psmnet}
+              "GwcNet_GC": _gwcnet, "IGEVStereo": _igev_stereo,
+              "PCWNet_G": _pcwnet,
+              "PCWNet_GC": _pcwnet, "PSMNet": _psmnet,
+              "RAFTStereo": _raft_stereo}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:
@@ -523,8 +702,10 @@ def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:
 
 # Keys of the original toolbox's checkpoints that its forward never uses and
 # the port does not register (the JAX importer's ``expect_unused``,
-# utils/torch_import.py:444-447, :992-997)
+# utils/torch_import.py:444-447, :992-997; RAFT's residual blocks register
+# their downsample norm twice, as ``norm3`` and ``downsample.1``, :700)
 UNUSED_REFERENCE_KEYS = {
+    **{name: (".norm3.",) for name in ("IGEVStereo", "RAFTStereo")},
     "CFNet": ("combine1.combine3.", "combine1.redir3."),
     "DepthAnythingV2": ("refinenet4.resConfUnit1.", "pretrained.mask_token"),
     # convert_defom's (:1324-1327): the doubly registered downsample norms,

@@ -49,7 +49,11 @@ def dev():
 GWC_CASES = [(1, 60, 80, 160, 24, 40), (1, 30, 40, 320, 12, 40),
              (1, 15, 20, 320, 6, 40), (1, 4, 70, 320, 48, 40),
              (2, 3, 37, 48, 48, 16), (1, 3, 21, 24, 9, 3),
-             (1, 2, 9, 6, 13, 6)]
+             (1, 2, 9, 6, 13, 6),
+             # IGEVStereo's (C 96, G 8: C/G 12) at 480x640 and 128x256,
+             # and a ragged row with D > W
+             (1, 120, 160, 96, 48, 8), (1, 32, 64, 96, 48, 8),
+             (1, 5, 37, 96, 48, 8)]
 
 
 @pytest.mark.parametrize("b,h,w,c,d,g", GWC_CASES)

@@ -117,10 +117,15 @@ def walk_gwc(left, right, d_max, g_num, plan, ng):
 
 
 # (b, h, w, c, d, g): CFNet's 1/16 and 1/32 widths (short rows), W not a
-# multiple of either tile, D > W, C/G = 3, 4, 8 and 1, B = 2
+# multiple of either tile, D > W, C/G = 3, 4, 8 and 1, B = 2; IGEVStereo's
+# C 96, G 8 (C/G 12: a strip of 2 in float32, of 1 with two groups a
+# thread in bfloat16) on a short row and on a ragged one with D > W
 GWC_CASES = [(1, 3, 40, 320, 12, 40), (1, 2, 20, 320, 6, 40),
              (2, 3, 37, 48, 48, 16), (1, 2, 70, 160, 24, 40),
-             (1, 2, 9, 6, 13, 6), (2, 2, 33, 16, 5, 2)]
+             (1, 2, 9, 6, 13, 6), (2, 2, 33, 16, 5, 2),
+             (1, 2, 64, 96, 48, 8), (1, 1, 37, 96, 48, 8)]
+# IGEVStereo's K1 launches: 480x640 and the card-vs-CPU check's 128x256
+IGEV_GWC = [(1, 120, 160, 96, 48, 8), (1, 32, 64, 96, 48, 8)]
 
 
 @pytest.mark.parametrize("b,h,w,c,d,g", GWC_CASES)
@@ -146,7 +151,7 @@ def test_gwc_kernel_walk_matches_plain(b, h, w, c, d, g, dtype, sms):
                                    (1, 30, 40, 320, 12, 40),
                                    (1, 15, 20, 320, 6, 40),
                                    (1, 64, 256, 96, 192, 8),
-                                   (1, 8, 64, 320, 600, 40)])
+                                   (1, 8, 64, 320, 600, 40), *IGEV_GWC])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_gwc_plan_fits_the_kernel(shape, dtype):
     """The plan takes what the kernel takes: a tile of whole strips, slices
@@ -165,8 +170,11 @@ def test_gwc_plan_fits_the_kernel(shape, dtype):
     blocks = b * h * -(-w // tw) * -(-g // gs) * -(-d // dc)
     if shape[-2] <= 48:
         assert blocks >= 132
-    if shape == (1, 120, 160, 320, 48, 40):
+    if shape in ((1, 120, 160, 320, 48, 40), IGEV_GWC[0]):
         assert gs == g and dc == d
+    if cpg == 12:
+        assert s == (2 if dtype == F32 else 1) and ng == (1 if dtype == F32
+                                                          else 2)
 
 
 def _rowpass_feat(arr, rows, x, slot, nv, s, epc, re):

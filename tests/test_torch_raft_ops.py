@@ -7,7 +7,14 @@ has them, through ``utils.weights``'s name map):
   * ``ops.corr``: `all_pairs_correlation` (float32, / √C), `avg_pool_last`
     (odd widths floor), `build_corr_pyramid` and `corr_lookup_1d`
     (level-major, dx ascending), exact to float32 rounding;
-  * ``ops.upsample``: `unfold3x3` (exact) and `convex_upsample`;
+  * ``ops.corr``'s banded volumes (`build_corr_band_pyramid`,
+    `corr_lookup_1d_banded`) where the cap binds and where the width clamps
+    it, every band column (the zero edges included) at every level, and
+    against the all-pairs pyramid inside the band (level 0 bit for bit);
+    `corr_lookup_1d_alt`; IGEV's `build_volume_pyramid` and
+    `volume_lookup_1d`;
+  * ``ops.upsample``: `unfold3x3` (exact), `convex_upsample` and
+    `context_upsample`;
   * ``nn.gru``: `ConvGRU` with context biases and `pool2x`;
   * ``models.raft_stereo``: `RAFTResBlock` with instance and with frozen
     batch norm, at stride 1 and 2 (symmetric padding), in train mode too;
@@ -112,6 +119,121 @@ def test_unfold_and_convex_upsample_match_jax():
                                    torch.from_numpy(mask), 4)
     assert got.shape == (2, 20, 28) and got.dtype == torch.float32
     _close(got, want, 1e-5)
+
+
+# JAX's band volumes, compiled (eagerly it dispatches one product a column)
+_jax_bands = jax.jit(jcorr.build_corr_band_pyramid,
+                     static_argnums=(2, 3, 4, 5, 6))
+
+
+@pytest.mark.parametrize("w,d_max", [(64, 48), (32, 48), (13, 5)])
+def test_band_pyramid_and_lookup_match_jax(w, d_max):
+    """The cap binds at W 64 (48 < 64) and at the ragged W 13 (odd pooled
+    rows, a truncated tail at every level); the width clamps it at W 32.
+    Every column of every band, edges included, against JAX's."""
+    rng = _rng(6)
+    f1, f2 = (rng.randn(2, 3, w, 16).astype(np.float32) for _ in range(2))
+    levels, radius, margin = 4, 4, 8
+    d = jcorr.band_d_max(d_max, w)
+    assert corr.band_d_max(d_max, w) == d == min(d_max, w)
+    assert corr.band_d_max(None, w) == jcorr.band_d_max(None, w) == w
+    offs = jcorr.band_offsets(levels, d, radius, margin)
+    assert corr.band_offsets(levels, d, radius, margin) == offs
+    # one compile a width: the √C division where the cap binds, none else
+    for normalize in [d < w]:
+        want = _jax_bands(jnp.asarray(f1), jnp.asarray(f2), levels, d,
+                          radius, margin, normalize)
+        got = corr.build_corr_band_pyramid(
+            torch.from_numpy(f1), torch.from_numpy(f2), levels, d, radius,
+            margin, normalize)
+        for a, b, (lo, hi) in zip(got, want, offs):
+            assert a.shape == b.shape == (2, 3, w, hi - lo + 1)
+            assert a.dtype == torch.float32
+            _close(a, b, 1e-5)
+            # the zero edge, column by column: zero exactly where JAX's is
+            assert np.array_equal(a.numpy() == 0, np.asarray(b) == 0)
+    x = np.concatenate([rng.uniform(-margin - 3, w + 3, (2, 3, w)),
+                        np.arange(w)[None, None].repeat(2, 0).repeat(3, 1)
+                        - rng.uniform(0, d, (2, 3, w))], 1).astype(
+                            np.float32)
+    f1, f2 = (np.concatenate([f, f], 1) for f in (f1, f2))  # 6 rows
+    bands = corr.build_corr_band_pyramid(torch.from_numpy(f1),
+                                         torch.from_numpy(f2), levels, d,
+                                         radius, margin)
+    jbands = _jax_bands(jnp.asarray(f1), jnp.asarray(f2), levels, d, radius,
+                        margin, True)
+    want = jax.jit(jcorr.corr_lookup_1d_banded, static_argnums=(2, 3))(
+        jbands, jnp.asarray(x), offs, radius)
+    got = corr.corr_lookup_1d_banded(bands, torch.from_numpy(x), offs,
+                                     radius)
+    assert got.shape == (2, 6, w, levels * (2 * radius + 1))
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("w,d_max", [(64, 48), (32, 48)])
+def test_band_lookup_equals_all_pairs_inside_the_band(w, d_max):
+    """At disparities in ``[−margin, d_max + margin]`` the banded lookup
+    reads what the all-pairs pyramid reads, to float32 rounding (its
+    positions, ``x − ⌊w / 2^i⌋ − lo_i``, round otherwise; the pooled levels
+    re-associate). Level 0's band is the all-pairs volume gathered, bit for
+    bit."""
+    rng = _rng(7)
+    f1, f2 = (torch.from_numpy(rng.randn(2, 3, w, 16).astype(np.float32))
+              for _ in range(2))
+    levels, radius, margin = 4, 4, 8
+    d = corr.band_d_max(d_max, w)
+    offs = corr.band_offsets(levels, d, radius, margin)
+    bands = corr.build_corr_band_pyramid(f1, f2, levels, d, radius, margin)
+    pyramid = corr.build_corr_pyramid(corr.all_pairs_correlation(f1, f2),
+                                      levels)
+    disp = torch.from_numpy(rng.uniform(-margin, d + margin, (2, 3, w))
+                            .astype(np.float32))
+    x = torch.arange(w, dtype=torch.float32) - disp
+    lo, hi = offs[0]
+    cols = torch.arange(w)[:, None] + torch.arange(lo, hi + 1)
+    inside = (cols >= 0) & (cols < w)
+    assert torch.equal(bands[0][..., inside],
+                       pyramid[0][..., torch.arange(w)[:, None].expand(
+                           -1, hi - lo + 1)[inside], cols[inside]])
+    got = corr.corr_lookup_1d_banded(bands, x, offs, radius)
+    want = corr.corr_lookup_1d(pyramid, x, radius)
+    err = (got - want).abs().max().item()
+    print(f"banded vs all-pairs lookup: max|d| {err:.3e}")
+    _close(got, want.numpy(), 1e-5)
+
+
+def test_alt_lookup_matches_jax():
+    rng = _rng(8)
+    f1, f2 = (rng.randn(2, 21, 24, 16).astype(np.float32) for _ in range(2))
+    x = rng.uniform(-3, 27, (2, 21, 24)).astype(np.float32)
+    want = jcorr.corr_lookup_1d_alt(jnp.asarray(f1), jnp.asarray(f2),
+                                    jnp.asarray(x), 4, 4, h_chunk=8)
+    got = corr.corr_lookup_1d_alt(torch.from_numpy(f1), torch.from_numpy(f2),
+                                  torch.from_numpy(x), 4, 4, h_chunk=8)
+    assert got.shape == (2, 21, 24, 36)
+    _close(got, want, 1e-5)
+
+
+def test_volume_pyramid_lookup_and_context_upsample_match_jax():
+    rng = _rng(9)
+    vol = rng.randn(2, 5, 7, 13, 8).astype(np.float32)     # D 13: floors
+    jpyr = jcorr.build_volume_pyramid(jnp.asarray(vol), 3)
+    pyr = corr.build_volume_pyramid(torch.from_numpy(vol), 3)
+    assert [p.shape[-2] for p in pyr] == [13, 6, 3]
+    for a, b in zip(pyr, jpyr):
+        _close(a, b, 1e-6)
+    x = rng.uniform(-3, 16, (2, 5, 7)).astype(np.float32)
+    want = jcorr.volume_lookup_1d(jpyr, jnp.asarray(x), 4)
+    got = corr.volume_lookup_1d(pyr, torch.from_numpy(x), 4)
+    assert got.shape == (2, 5, 7, 3 * 8 * 9)
+    _close(got, want, 1e-6)
+    disp = rng.uniform(0, 20, (2, 5, 7)).astype(np.float32)
+    wts = rng.rand(2, 20, 28, 9).astype(np.float32)
+    want = jupsample.context_upsample(jnp.asarray(disp), jnp.asarray(wts), 4)
+    got = upsample.context_upsample(torch.from_numpy(disp),
+                                    torch.from_numpy(wts), 4)
+    assert got.shape == (2, 20, 28)
+    _close(got, want, 1e-6)
 
 
 # -------------------------------------------------------------- modules
