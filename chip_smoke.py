@@ -5,11 +5,13 @@
     python3 chip_smoke.py --data-parallel
     python3 chip_smoke.py --pcwnet
     python3 chip_smoke.py --iterative
+    python3 chip_smoke.py --selective
 
 The second form studies K4's backward kernel alone (`main_k4_bwd`), the
 third runs phases 1, 2 and 19 alone (`main_data_parallel`), the fourth
 phases 1, 2 and 20 (`main_pcwnet`), the fifth phases 1, 2 and 21
-(`main_iterative`). The first runs
+(`main_iterative`), the sixth phases 1, 2 and 22 (`main_selective`, with
+K1 checked at IGEVStereo's shapes itself). The first runs
 these phases, each of which raises on failure (exit code != 0,
 no result line):
 
@@ -126,7 +128,9 @@ no result line):
 15. run the four disparity estimators on the card and on the CPU on one
     probability volume (the softmax of GwcNet_G's upsampled ``classif3``
     costs, [1, 192, 480, 640]): the argmax, the mode bounds and the modal
-    mask the same, the soft estimators within 1e-5 x max_disp;
+    mask the same, the soft estimators within 1e-5 x max_disp (the
+    dominant-modal one may pick the other mode only at a pixel whose two
+    masses lie within their float32 sums' rounding bound, `tie_bound`);
 16. probe cuDNN's float32 conv at the two trunk shapes where its algorithm
     choice takes most of CFNet's f32 forward;
 17. the evaluation suites: write dataset trees in the zoo's on-disk
@@ -156,7 +160,7 @@ no result line):
     64x128, B 2 (f32: the loss 1e-4, each group's gradient 5e-2 relative
     L2, the frozen depth head's zero on both sides; bf16: each K7-bwd
     launch against its plain version), its launches 12 K7 and 12 + 12
-    K7-bwd; at the default crop 320x512, B 4, a warm and two timed steps
+    K7-bwd; at the default crop 320x512, B 4, a warm and a timed step
     in each type with those launches every step, and eight steps on one
     batch whose last loss is below 0.9 x the first; each forward timed as
     phases 8-13 time theirs, K7-bwd timed at the train step's launches
@@ -211,12 +215,21 @@ no result line):
     in both types with their launches by shape (IGEVStereo K1 x1 "stream",
     RAFTStereo none of the port's kernels), profiled, and K1 timed, as
     phases 8-13 do;
-22. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
+22. SelectiveRAFT and SelectiveIGEV eval (the same widths, iterations
+    and settings): phase 21's checks and gates on each (the card against
+    the CPU at 128x256 in float32, SelectiveIGEV's initial disparity, bf16
+    within twice the CPU's own distance, SelectiveIGEV's bf16 against its
+    K1 plain swap, which launches K1 zero times), the 480x640 forwards
+    with their launches by shape (SelectiveIGEV K1 x1 "stream" at
+    IGEVStereo's shape, SelectiveRAFT none of the port's kernels),
+    profiled, and K1 timed; phase 21's K1 check holds this shape, so K1
+    is not checked again;
+23. print one ``{"forward": {...}}``, one ``{"train": {...}}`` (phase 19
     under ``data_parallel``), one ``{"estimators": {...}}``, one
     ``{"eval": {...}}``, one ``{"kernels": [...]}`` line and one
     ``{"phase_seconds": {...}, "total_s": ...}`` line (each phase's
     seconds: where the time limit goes);
-23. print ``{"ok": true, "device": {...}}`` as the last line.
+24. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Phase 14's float32 and bfloat16 card-vs-CPU checks share one CPU float32
 step a model (`cpu_f32_step`): the same weights, batch and config.
@@ -477,6 +490,11 @@ PCW_K3_MIX = {(1, 48, 120, 160, 32, 1): 1}       # classif3's last conv
 RAFT, IGEV = "RAFTStereo", "IGEVStereo"
 ITERATIVE = (RAFT, IGEV)
 IGEV_K1_MIX = {(1, 120, 160, 96, 48, 8): 1}
+# Their Selective variants (phase 22): SelectiveRAFT launches none of the
+# port's kernels, SelectiveIGEV IGEVStereo's one K1
+SRAFT, SIGEV = "SelectiveRAFT", "SelectiveIGEV"
+SELECTIVE = (SRAFT, SIGEV)
+IGEV_FAMILY = (IGEV, SIGEV)
 
 
 def pcw_k2_mix(cv: int) -> dict:
@@ -509,8 +527,9 @@ TRAIN_CHECK_H, TRAIN_CHECK_W, TRAIN_CHECK_B = 64, 128, 2
 # 6 overfit steps since phase 19 came (12 before; the overfit losses fell
 # below 0.9 x the first by the third step in every run)
 OVERFIT_B, OVERFIT_STEPS = 2, 6
-# 2 timed steps a type since phase 21 came (3 since phase 20, 5 before)
-TRAIN_STEPS, TRAIN_WARMUP = {F32: 2, BF16: 2}, 1
+# 1 timed step a type since phase 22 came (2 since phase 21, 3 since
+# phase 20, 5 before)
+TRAIN_STEPS, TRAIN_WARMUP = {F32: 1, BF16: 1}, 1
 # CFNet's nine heads take the sequence loss (the multi-head weights are
 # four), as JAX's own CFNet gradient check does
 TRAIN_LOSS = {"CFNet": "sequence"}
@@ -610,6 +629,8 @@ MIXES = {
                   "K6": PCW_K6_MIX},
     RAFT: {},
     IGEV: {"K1": IGEV_K1_MIX},
+    SRAFT: {},
+    SIGEV: {"K1": IGEV_K1_MIX},
 }
 
 # Stages of each forward, as (stage, first module, last module, label of the
@@ -754,10 +775,21 @@ STAGES[IGEV] = ([
      "geometry lookups, disparity updates"),
     ("superpixel weights", "spx_2_gru", "spx_gru", "glue"),
 ], "context upsample")
+# the Selective models: CAM and SAM (one each, called at the three scales)
+# in place of the context convs
+ATTENTION = ("context attention (CAM, SAM; 3 scales)", "cam", "sam",
+             "tanh, ReLU")
+STAGES[SRAFT] = ([*STAGES[RAFT][0][:2], ATTENTION, (
+    "update blocks (32)", "update_block", "update_block",
+    "lookups, disparity updates")], STAGES[RAFT][1])
+STAGES[SIGEV] = ([ATTENTION if first.startswith("context_zqr") else
+                  (stage, first, last, before)
+                  for stage, first, last, before in STAGES[IGEV][0]],
+                 STAGES[IGEV][1])
 GAP = "between forwards (host)"
-# 5 timed forwards after 2 warm ones, and one traced forward, since phase
-# 20 came (10 after 3, and 3 traced, before)
-FWD_ITERS, FWD_WARMUP = 5, 2
+# 3 timed forwards after 1 warm one since phase 22 came (5 after 2 since
+# phase 20, 10 after 3 before), and one traced forward (3 before phase 20)
+FWD_ITERS, FWD_WARMUP = 3, 1
 TRACE_ITERS = 1        # forwards in the torch.profiler trace
 
 # The design each type's K2, K7 and K7-bwd launches must run, and the one
@@ -795,15 +827,20 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def trace(fn, iters: int, grad: bool = False) -> tuple[dict, dict]:
+def trace(fn, iters: int, grad: bool = False,
+          host: bool = True) -> tuple[dict, dict]:
     """Device ms and launches per call of each kernel that `fn` launches
     (the forward's kernel families), and host ms and calls per call of each
-    operator, from a ``torch.profiler`` trace of `iters` calls (with
-    autograd off unless `grad`)."""
+    operator (none unless `host`: the device's activity alone is traced,
+    and a trace of a train step's ~5,000-74,000 launches then parses a
+    fraction of the events), from a ``torch.profiler`` trace of `iters`
+    calls (with autograd off unless `grad`)."""
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
     with torch.set_grad_enabled(grad):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -893,11 +930,11 @@ def held(tag, dtype, got, want, what) -> float:
 
 def all_shapes(tag):
     """Every shape that an eval forward or a train step launches `tag`
-    at, but PCWNet's and the iterative models' (phases 20 and 21 hold
+    at, but PCWNet's and the iterative models' (phases 20-22 hold
     those)."""
     return {key for mixes in (MIXES, TRAIN_MIXES, TRAIN_CHECK_MIXES)
             for name, mix in mixes.items()
-            if name not in PCW_MODELS + ITERATIVE
+            if name not in PCW_MODELS + ITERATIVE + SELECTIVE
             for key in mix.get(tag, {})}
 
 
@@ -2129,7 +2166,9 @@ def train_full_size(name, dtype=F32) -> tuple[dict, dict]:
     # device time by kernel family of one more step (forward, backward and
     # optimizer), from a torch.profiler trace
     families: dict = defaultdict(float)
-    kernels, _ = trace(lambda: step(state, batch), 1, grad=True)
+    t0 = time.perf_counter()
+    kernels, _ = trace(lambda: step(state, batch), 1, grad=True, host=False)
+    traced_s = time.perf_counter() - t0
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
     timed = sorted(times[TRAIN_WARMUP:])
@@ -2142,7 +2181,8 @@ def train_full_size(name, dtype=F32) -> tuple[dict, dict]:
                                  for tag, c in want.items() if c},
            "designs_last_step": designs,
            "traced_step_families_ms": dict(families) or None,
-           "traced_step_launches": sum(n for _, n in kernels.values())}
+           "traced_step_launches": sum(n for _, n in kernels.values()),
+           "traced_s": traced_s}
     print(f"  {name} train {TRAIN_H}x{TRAIN_W} B {TRAIN_B} "
           f"{DTYPE_NAME[dtype]}: median step "
           f"{row['step_ms_median']:.1f} ms over {steps} (all "
@@ -2154,7 +2194,8 @@ def train_full_size(name, dtype=F32) -> tuple[dict, dict]:
     if families:
         busy = sum(families.values())
         print(f"    traced step: device busy {busy:.1f} ms in "
-              f"{row['traced_step_launches']:g} launches")
+              f"{row['traced_step_launches']:g} launches ({traced_s:.1f} s "
+              f"to trace)")
         for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
             print(f"    family {fam:40s} {ms:9.3f} ms")
         for key, (ms, n) in sorted(kernels.items(),
@@ -2518,19 +2559,47 @@ def train_card_vs_cpu_bf16(name, mode=None) -> dict:
 # --------------------------------------------------------------- phase 15
 # estimators held card vs CPU on one probability volume: the argmax, the
 # mode bounds and the modal mask exactly; the soft estimators within
-# EST_TOL x max_disp (a pixel whose two modes carry masses within
-# EST_TIE of each other may take either: its decision is rounding)
-EST_TOL, EST_TIE = 1e-5, 1e-6
+# EST_TOL x max_disp (a pixel whose two modes' masses lie within the
+# rounding bound of their float32 sums, `tie_bound`, may take either mode:
+# its decision is rounding)
+EST_TOL = 1e-5
+UNIT_ROUNDOFF = 2.0 ** -24          # float32's u
 
 
-def dominant_margin(prob) -> torch.Tensor:
-    """|mass of the top mode − mass of the runner-up| of the dominant-modal
-    estimator, ``[B, H, W]``."""
+def gamma(k: int) -> float:
+    """``γ_k = k·u / (1 − k·u)``: a float32 sum of k + 1 terms, in any
+    order, lies within ``γ_k · Σ|terms|`` of the exact sum (Higham,
+    Accuracy and Stability of Numerical Algorithms, §4.2)."""
+    return k * UNIT_ROUNDOFF / (1 - k * UNIT_ROUNDOFF)
+
+
+def modal_terms(prob) -> tuple[torch.Tensor, torch.Tensor]:
+    """The terms ``[B, D, H, W]`` of the dominant-modal estimator's two
+    masses, as it forms them: its top mode's (y) and its runner-up's
+    (z)."""
     blur = estimators._box_blur_d(prob)
     mask = estimators.modal_mask(blur)
     y = prob * mask
-    z = (prob - y) * estimators.modal_mask(blur * ~mask)
-    return (y.sum(1) - z.sum(1)).abs()
+    return y, (prob - y) * estimators.modal_mask(blur * ~mask)
+
+
+def tie_bound(y, z, terms: int) -> torch.Tensor:
+    """``2·γ_{terms−1}·(y + z)``: how far two float32 summation orders of
+    y and z (nonnegative terms, `terms` a sum) can put ``y − z`` apart.
+    Each order's ``ŷ − ẑ`` lies within ``γ_{terms−1}·(y + z)`` of the
+    exact ``y − z``, so two orders lie within twice that of each other, and
+    their decisions ``ŷ ≥ ẑ`` can differ only where ``|y − z|`` is within
+    this bound."""
+    return 2 * gamma(terms - 1) * (y + z)
+
+
+def rounding_ties(prob) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where the dominant-modal estimator's choice of mode is rounding
+    (``|y − z| ≤ tie_bound``), and ``|y − z|``, ``[B, H, W]``."""
+    # summed in float64: exact to far below float32's rounding
+    y, z = (t.double().sum(1) for t in modal_terms(prob))
+    margin = (y - z).abs()
+    return margin <= tie_bound(y, z, prob.shape[1]), margin
 
 
 def check_estimators(gen) -> dict:
@@ -2561,7 +2630,7 @@ def check_estimators(gen) -> dict:
     require(torch.equal(estimators.modal_mask(prob).cpu(),
                         estimators.modal_mask(cpu)),
             "estimators: modal mask differs")
-    margin = dominant_margin(cpu)
+    tied, margin = rounding_ties(cpu)
     for name in ("argmax_disparity_estimator",
                  "softargmax_disparity_estimator",
                  "unimodal_disparity_estimator",
@@ -2569,26 +2638,31 @@ def check_estimators(gen) -> dict:
         fn = getattr(estimators, name)
         d = (fn(prob).cpu() - fn(cpu)).abs()
         ms = device_ms(lambda: fn(prob), 3, warmup=1)
-        ties = 0
+        ties, widest = 0, 0.0
         if name.startswith("argmax"):
             require(d.max().item() == 0, f"estimators: {name} differs")
         elif name.startswith("dominant"):
             off = d > EST_TOL * MAX_DISP
             ties = int(off.sum())
-            require(bool((margin[off] < EST_TIE).all()),
+            require(bool(tied[off].all()),
                     f"estimators: {name} differs beyond "
-                    f"{EST_TOL * MAX_DISP} px where its modes are not tied")
+                    f"{EST_TOL * MAX_DISP} px where its modes are farther "
+                    f"apart than their sums' rounding bound")
+            widest = margin[off].max().item() if ties else 0.0
             d = d[~off] if ties else d
         else:
             require(d.max().item() <= EST_TOL * MAX_DISP,
                     f"estimators: {name} differs by {d.max().item()} px")
         row[name] = {"max_abs_px": d.max().item(), "card_ms": ms,
-                     "tied_pixels": ties}
+                     "tied_pixels": ties, "largest_excused_margin": widest}
         print(f"  {name}: card vs CPU max|d| {d.max().item():.3e} px (tol "
-              f"{EST_TOL * MAX_DISP:.3e}; pixels tied within {EST_TIE}: "
-              f"{ties}), card {ms:.3f} ms")
-    print(f"  modes: {int((margin < EST_TIE).sum())} pixels tied within "
-          f"{EST_TIE}; argmax, bounds and modal mask equal")
+              f"{EST_TOL * MAX_DISP:.3e}; pixels excused as rounding ties: "
+              f"{ties}, the largest |y - z| excused {widest:.3e}), card "
+              f"{ms:.3f} ms")
+    print(f"  modes: {int(tied.sum())} pixels tied within their sums' "
+          f"rounding bound 2*gamma_{MAX_DISP - 1}*(y + z) (at most "
+          f"{2 * gamma(MAX_DISP - 1):.3e} x (y + z)); argmax, bounds and "
+          f"modal mask equal")
     return row
 
 
@@ -2943,8 +3017,8 @@ DEFOM_CHECK_B = 2
 # published 32 (eval) and 18 (train) iterations, 8 of them scale updates
 DEFOM_CHECK_ITERS = dict(valid_iters=4, train_iters=4, scale_iters=2)
 DEFOM_TRAIN_H, DEFOM_TRAIN_W, DEFOM_TRAIN_B = 320, 512, 4
-# 2 timed steps a type since phase 21 came (3 before)
-DEFOM_TRAIN_STEPS, DEFOM_TRAIN_WARMUP = {F32: 2, BF16: 2}, 1
+# 1 timed step a type since phase 22 came (2 since phase 21, 3 before)
+DEFOM_TRAIN_STEPS, DEFOM_TRAIN_WARMUP = {F32: 1, BF16: 1}, 1
 DEFOM_OVERFIT_B, DEFOM_OVERFIT_STEPS = 2, 8
 # one forward a trace: a 480x640 forward launches ~11,000 kernels, and with
 # three a trace the timing took half of phase 18 (96 of 196 s, H100)
@@ -3231,7 +3305,9 @@ def defom_train_full_size(dtype) -> tuple[dict, dict]:
     mix = {tag: Counter(KERNELS[tag][0].shapes) for tag in DEFOM_TRAIN_MIX}
     require(all(np.isfinite(losses)), f"{DEFOM} train losses {losses}")
     families: dict = defaultdict(float)
-    kernels, _ = trace(lambda: step(state, batch), 1, grad=True)
+    t0 = time.perf_counter()
+    kernels, _ = trace(lambda: step(state, batch), 1, grad=True, host=False)
+    traced_s = time.perf_counter() - t0
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
     timed = sorted(times[DEFOM_TRAIN_WARMUP:])
@@ -3244,7 +3320,8 @@ def defom_train_full_size(dtype) -> tuple[dict, dict]:
                                  for tag, c in mix.items()},
            "designs_last_step": designs,
            "traced_step_families_ms": dict(families) or None,
-           "traced_step_launches": sum(n for _, n in kernels.values())}
+           "traced_step_launches": sum(n for _, n in kernels.values()),
+           "traced_s": traced_s}
     print(f"  {DEFOM} train {DEFOM_TRAIN_H}x{DEFOM_TRAIN_W} B "
           f"{DEFOM_TRAIN_B} {DTYPE_NAME[dtype]}: median step "
           f"{row['step_ms_median']:.1f} ms over {steps} (all "
@@ -3255,7 +3332,8 @@ def defom_train_full_size(dtype) -> tuple[dict, dict]:
     if families:
         busy = sum(families.values())
         print(f"    traced step: device busy {busy:.1f} ms in "
-              f"{row['traced_step_launches']:g} launches")
+              f"{row['traced_step_launches']:g} launches ({traced_s:.1f} s "
+              f"to trace)")
         for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
             print(f"    family {fam:40s} {ms:9.3f} ms")
     else:
@@ -3911,9 +3989,10 @@ IGEV_K1_CASES = {(1, 32, 64, 96, 48, 8), (1, 5, 37, 96, 48, 8)}
 
 
 def iter_model(name, device=None, dtype=F32):
-    """RAFTStereo or IGEVStereo (max_disp 192) with seeded random
-    weights, 32 eval iterations."""
-    kw = {"max_disp": MAX_DISP} if name == IGEV else {}
+    """RAFTStereo, IGEVStereo or their Selective variants (the IGEV
+    family at max_disp 192) with seeded random weights, 32 eval
+    iterations."""
+    kw = {"max_disp": MAX_DISP} if name in IGEV_FAMILY else {}
     return create_model(name, device=device, dtype=dtype,
                         generator=torch.Generator().manual_seed(0), **kw)
 
@@ -3933,12 +4012,13 @@ def init_disparity(costs) -> torch.Tensor:
 
 
 def iter_eval_check(name):
-    """Phase 21's checks of `name` at ITER_CHECK (32 iterations): the card
-    against the CPU in float32 (ITER_EVAL_GATES; IGEV's initial disparity
-    IGEV_INIT_GATES); the card's bfloat16 forward against its float32 one,
-    within twice the CPU's own bfloat16-vs-float32 distance on the same
-    input; IGEV's bfloat16 forward against the same forward with K1
-    swapped for its plain version (mean |d| < PLAIN_SWAP_MEAN_PX). Both
+    """Phase 21's and 22's checks of `name` at ITER_CHECK (32
+    iterations): the card against the CPU in float32 (ITER_EVAL_GATES; the
+    IGEV family's initial disparity IGEV_INIT_GATES); the card's bfloat16
+    forward against its float32 one, within twice the CPU's own
+    bfloat16-vs-float32 distance on the same input; the IGEV family's
+    bfloat16 forward against the same forward with K1 swapped for its
+    plain version (mean |d| < PLAIN_SWAP_MEAN_PX). Both
     types take the float32 images, as the JAX models do. Returns the
     float32 card model (BatchNorm settled and perturbed) and the
     readings."""
@@ -3961,7 +4041,7 @@ def iter_eval_check(name):
                 costs.setdefault(key, out.float().cpu())
             return hook
         for key, m in models.items():
-            if name == IGEV:
+            if name in IGEV_FAMILY:
                 m.classifier.register_forward_hook(keep_costs(key))
             t0 = time.perf_counter()
             if key.startswith("cpu"):
@@ -3972,7 +4052,7 @@ def iter_eval_check(name):
                 out, _, _ = forward_counted(name, m, left.to(DEV),
                                             right.to(DEV))
                 outs[key] = out.float().cpu()
-        if name == IGEV:
+        if name in IGEV_FAMILY:
             reset_counts()
             l16, r16 = left.to(DEV), right.to(DEV)
             with patched(igev_stereo, "build_gwc_volume",
@@ -4005,7 +4085,7 @@ def iter_eval_check(name):
             f"{name} card forward differs from the CPU port")
     require(card16 <= 2 * own, f"{name} card bf16 forward farther from its "
                                f"f32 one than twice the CPU's own distance")
-    if name == IGEV:
+    if name in IGEV_FAMILY:
         di = (init_disparity(costs["card"])
               - init_disparity(costs["cpu"])).abs()
         row["init_disp_mean_abs"] = di.mean().item()
@@ -4054,21 +4134,29 @@ def iter_full_size(name, model) -> dict:
     return runs
 
 
-def check_iteratives(gen, forward, kernels) -> None:
-    """Phase 21: K1 at IGEVStereo's launch shapes (C 96, G 8: C/G 12) both
-    ways, then each model checked (`iter_eval_check`), its 480x640
-    forwards run with their launches by shape, profiled in both types, and
-    IGEV's K1 timed at the launches its forwards recorded. Fills `forward`
-    and `kernels`."""
+def check_iteratives(gen, forward, kernels, names=ITERATIVE, errs=None,
+                     phase=21) -> dict:
+    """Phase 21 (`names`: RAFTStereo, IGEVStereo) or 22 (their Selective
+    variants): K1 at IGEVStereo's launch shapes (C 96, G 8: C/G 12) both
+    ways unless `errs` holds that check's errors already, then each model
+    checked (`iter_eval_check`), its 480x640 forwards run with their
+    launches by shape, profiled in both types, and the IGEV family's K1
+    timed at the launches its forwards recorded. Fills `forward` and
+    `kernels`; returns K1's errors."""
     t0 = time.perf_counter()
-    errs = check_gwc(gen, set(IGEV_K1_MIX) | IGEV_K1_CASES)
-    for name in ITERATIVE:
+    if errs is None:
+        errs = check_gwc(gen, set(IGEV_K1_MIX) | IGEV_K1_CASES)
+    for name in names:
+        t1 = time.perf_counter()
         model, checked = iter_eval_check(name)
+        t2 = time.perf_counter()
         runs = iter_full_size(name, model)
+        print(f"  {name}: checks {t2 - t1:.1f} s, 480x640 forwards "
+              f"{time.perf_counter() - t2:.1f} s")
         forward[name] = {"shape": [1, H, W, 3], "iters": FWD_ITERS,
                          "warmup": FWD_WARMUP, "trace_iters": TRACE_ITERS,
                          "valid_iters": 32, "card_vs_cpu": checked}
-        if name == IGEV:
+        if name in IGEV_FAMILY:
             forward[name]["max_disp"] = MAX_DISP
         for dtype, (m, inputs, shapes, _, designs) in runs.items():
             forward[name][DTYPE_NAME[dtype]] = profile_forward(
@@ -4078,7 +4166,8 @@ def check_iteratives(gen, forward, kernels) -> None:
                                            designs, errs[dtype], gen))
         del runs, m, inputs, model
         torch.cuda.empty_cache()
-    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return errs
 
 
 # ----------------------------------------------------- timing (phases 8-13)
@@ -4179,8 +4268,11 @@ def kernel_family(name: str) -> str:
 
 def profile_forward(name, model, inputs, dtype,
                     trace_iters=TRACE_ITERS) -> dict:
+    t0 = time.perf_counter()
     fwd = forward_breakdown(name, model, *inputs)
+    t1 = time.perf_counter()
     kernels, host_ops = trace(lambda: model(*inputs), trace_iters)
+    fwd["seconds"] = {"timed": t1 - t0, "traced": time.perf_counter() - t1}
     families: dict = defaultdict(float)
     for key, (ms, _) in kernels.items():
         families[kernel_family(key)] += ms
@@ -4191,7 +4283,8 @@ def profile_forward(name, model, inputs, dtype,
           f"ms, peak memory {fwd['peak_bytes'] / 2**20:.1f} MiB, of which "
           f"{fwd['resident_bytes'] / 2**20:.1f} MiB resident before the "
           f"forwards (both dtypes' weights, inputs); host enqueues a forward "
-          f"in {fwd['host_enqueue_ms']:.3f} ms")
+          f"in {fwd['host_enqueue_ms']:.3f} ms; {fwd['seconds']['timed']:.1f}"
+          f" s timing, {fwd['seconds']['traced']:.1f} s tracing")
     for label, ms in sorted(fwd["stages_ms"].items(), key=lambda kv: -kv[1]):
         print(f"    stage {label:40s} {ms:8.3f} ms "
               f"{100 * ms / fwd['ms']:5.1f}%")
@@ -5072,9 +5165,13 @@ def main() -> None:
     clock.start(21)
     print(f"phase 21: RAFTStereo and IGEVStereo eval "
           f"({time.perf_counter() - t_start:.1f} s)")
-    check_iteratives(gen, forward, kernels)
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    k1_errs = check_iteratives(gen, forward, kernels)
     clock.start(22)
+    print(f"phase 22: SelectiveRAFT and SelectiveIGEV eval "
+          f"({time.perf_counter() - t_start:.1f} s)")
+    check_iteratives(gen, forward, kernels, SELECTIVE, k1_errs, 22)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    clock.start(23)
     print(json.dumps({"forward": forward}))
     print(json.dumps({"train": train}))
     print(json.dumps({"estimators": estimates}))
@@ -5128,6 +5225,23 @@ def main_iterative() -> None:
                       "device": torch.cuda.get_device_name(0)}))
 
 
+def main_selective() -> None:
+    """``python3 chip_smoke.py --selective``: phases 1, 2 and 22 (K1
+    checked at IGEVStereo's shapes here, as phase 21 checks it)."""
+    clock = PhaseClock()
+    clock.start("1-2")
+    start_alone()
+    clock.start(22)
+    forward, kernels = {}, []
+    check_iteratives(torch.Generator().manual_seed(1234), forward, kernels,
+                     SELECTIVE, phase=22)
+    print(json.dumps({"forward": forward}))
+    print(json.dumps({"kernels": kernels}))
+    print(clock.line())
+    print(json.dumps({"selective_ok": True,
+                      "device": torch.cuda.get_device_name(0)}))
+
+
 def main_data_parallel() -> None:
     """``python3 chip_smoke.py --data-parallel``: phases 1, 2 and 19."""
     smi = start_alone()
@@ -5146,5 +5260,7 @@ if __name__ == "__main__":
         main_pcwnet()
     elif sys.argv[1:2] == ["--iterative"]:
         main_iterative()
+    elif sys.argv[1:2] == ["--selective"]:
+        main_selective()
     else:
         main()

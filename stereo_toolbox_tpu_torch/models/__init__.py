@@ -1,7 +1,8 @@
 """Model registry of the PyTorch port (counterpart of
 ``stereo_toolbox_tpu.models``): ACVNet, CFNet, DEFOMStereo_S and _L,
 DepthAnythingV2, GwcNet_G and _GC, IGEVStereo (eval only), PCWNet_G and
-_GC (eval only), PSMNet and RAFTStereo (eval only).
+_GC (eval only), PSMNet, RAFTStereo, SelectiveIGEV and SelectiveRAFT
+(eval only).
 
 `create_model(name, device=None, dtype=torch.float32)` builds an eval-mode
 model on the card (``device=None`` means ``"cuda"``) and raises when there
@@ -36,6 +37,8 @@ from stereo_toolbox_tpu_torch.models.pcwnet import (PCWNet, PCWNet_G,
                                                     PCWNet_GC)
 from stereo_toolbox_tpu_torch.models.psmnet import PSMNet
 from stereo_toolbox_tpu_torch.models.raft_stereo import RAFTStereo
+from stereo_toolbox_tpu_torch.models.selective import (SelectiveIGEV,
+                                                       SelectiveRAFT)
 from stereo_toolbox_tpu_torch.nn.vit import DINOv2, LayerScale
 
 MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
@@ -51,6 +54,8 @@ MODEL_REGISTRY: dict[str, Callable[..., Any]] = {
     "PCWNet_GC": PCWNet_GC,
     "PSMNet": PSMNet,
     "RAFTStereo": RAFTStereo,
+    "SelectiveIGEV": SelectiveIGEV,
+    "SelectiveRAFT": SelectiveRAFT,
 }
 
 # What a bfloat16 model keeps in float32: what the JAX package keeps as a
@@ -136,5 +141,5 @@ __all__ = ["ACVNet", "CFNet", "DEFOMStereo", "DEFOMStereo_L",
            "DEFOMStereo_S", "DepthAnythingV2", "F32_MODULES",
            "F32_PARAMS", "GwcNet", "GwcNet_G", "GwcNet_GC", "IGEVStereo",
            "MODEL_REGISTRY", "PCWNet", "PCWNet_G", "PCWNet_GC", "PSMNet",
-           "RAFTStereo", "bfloat16_view", "cast_model", "create_model",
-           "keeps_float32"]
+           "RAFTStereo", "SelectiveIGEV", "SelectiveRAFT", "bfloat16_view",
+           "cast_model", "create_model", "keeps_float32"]

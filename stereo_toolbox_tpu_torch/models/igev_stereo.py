@@ -240,12 +240,10 @@ class IGEVStereo(nn.Module):
         self.classifier = nn.Conv3d(GWC_GROUPS, 1, 3, 1, 1, bias=False)
         self.cnet = MultiBasicEncoder(hidden_dims, hidden_dims, "batch",
                                       ("outputs04", "outputs08", "outputs16"))
-        self.context_zqr_convs = nn.ModuleList(
-            nn.Conv2d(hidden_dims[i], hidden_dims[i] * 3, 3, padding=1)
-            for i in range(3))
-        self.update_block = IGEVUpdateBlock(
+        self.context_heads(
+            tuple(hidden_dims),
             corr_levels * (2 * corr_radius + 1) * (GWC_GROUPS + 1),
-            hidden_dims, n_gru_layers)
+            n_gru_layers)
         self.spx_2_gru = Conv2x(32, 32, deconv=True)
         self.spx_gru = _TransposedHead()
         # the init disparity's upsampler, which only the train forward runs
@@ -255,12 +253,27 @@ class IGEVStereo(nn.Module):
         lecun_init(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
 
+    def context_heads(self, hidden_dims: tuple, cor_planes: int,
+                      n_gru_layers: int) -> None:
+        """The modules between the context network and the loop:
+        ``context_zqr_convs`` and the update block."""
+        self.context_zqr_convs = nn.ModuleList(
+            nn.Conv2d(hidden_dims[i], hidden_dims[i] * 3, 3, padding=1)
+            for i in range(3))
+        self.update_block = IGEVUpdateBlock(cor_planes, hidden_dims,
+                                            n_gru_layers)
+
+    def context(self, cnet_out) -> tuple:
+        """What the update block takes beside the nets from the context
+        network's ``[(h, c), ...]``: each scale's gate biases."""
+        return context_biases(self.context_zqr_convs, cnet_out)
+
     def forward(self, left: torch.Tensor, right: torch.Tensor,
                 iters: int | None = None) -> torch.Tensor:
         if self.training:
             raise NotImplementedError(
-                "IGEVStereo trains in a later part of the port (ROADMAP.md, "
-                "Queue 1 item 5); its eval forward runs")
+                f"{type(self).__name__} trains in a later part of the port "
+                f"(ROADMAP.md, Queue 1 item 5); its eval forward runs")
         dtype = compute_dtype(self.desc.weight, self.training)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, iters or self.valid_iters,
@@ -308,7 +321,7 @@ class IGEVStereo(nn.Module):
                 ml.float(), mr.float(), normalize=False), levels)
         cnet_out = self.cnet(img1)
         nets = tuple(torch.tanh(h) for h, _ in cnet_out)
-        contexts = context_biases(self.context_zqr_convs, cnet_out)
+        contexts = self.context(cnet_out)
         _, h4, w4 = disp.shape
         x0 = torch.arange(w4, dtype=torch.float32,
                           device=left.device).expand(b, h4, w4)

@@ -288,7 +288,12 @@ class RAFTStereo(nn.Module):
     correlation levels of radius 4, 3 GRU layers, 32 eval iterations,
     ``corr_impl='banded'`` reaching ``band_max_disp`` 192 + ``band_margin``
     32 full-resolution pixels; ``band_max_disp=None``: the whole width).
-    ``forward(left, right, iters=None)``."""
+    ``forward(left, right, iters=None)``. The loop carries the signed
+    offset ``x`` (its lookups at ``x0 + x``) and upsamples ``−x``; the
+    update block sees it as `flow_channels` channels (``[x, 0]``)."""
+
+    flow_channels = 2
+    corr_impls = CORR_IMPLS
 
     def __init__(self, hidden_dims: Sequence[int] = (128, 128, 128),
                  corr_levels: int = 4, corr_radius: int = 4,
@@ -298,9 +303,9 @@ class RAFTStereo(nn.Module):
                  band_max_disp: int | None = 192, band_margin: int = 32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if corr_impl not in CORR_IMPLS:
+        if corr_impl not in self.corr_impls:
             raise ValueError(f"corr_impl {corr_impl!r} is not one of "
-                             f"{CORR_IMPLS}")
+                             f"{self.corr_impls}")
         if n_downsample != 2:
             raise NotImplementedError("RAFTStereo's encoders run at 1/4 "
                                       "(n_downsample 2), as JAX's")
@@ -313,22 +318,32 @@ class RAFTStereo(nn.Module):
         self.band_max_disp, self.band_margin = band_max_disp, band_margin
         self.cnet = MultiBasicEncoder(hidden_dims, hidden_dims, "batch")
         self.fnet = BasicEncoder(256, "instance")
-        self.context_zqr_convs = nn.ModuleList(
-            nn.Conv2d(hidden_dims[i], hidden_dims[i] * 3, 3, padding=1)
-            for i in range(3))
-        self.update_block = BasicMultiUpdateBlock(
-            corr_levels * (2 * corr_radius + 1), hidden_dims, self.factor,
-            flow_channels=2, n_gru_layers=n_gru_layers, head="flow_head",
-            flow_convs="convf")
+        self.context_heads(corr_levels * (2 * corr_radius + 1), n_gru_layers)
         lecun_init(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
+
+    def context_heads(self, cor_planes: int, n_gru_layers: int) -> None:
+        """The modules between the context network and the loop:
+        ``context_zqr_convs`` and the update block (two flow channels,
+        RAFT's ``flow_head`` and ``convf`` names)."""
+        dims = self.hidden_dims
+        self.context_zqr_convs = nn.ModuleList(
+            nn.Conv2d(dims[i], dims[i] * 3, 3, padding=1) for i in range(3))
+        self.update_block = BasicMultiUpdateBlock(
+            cor_planes, dims, self.factor, flow_channels=2,
+            n_gru_layers=n_gru_layers, head="flow_head", flow_convs="convf")
+
+    def context(self, cnet_out) -> tuple:
+        """What the update block takes beside the nets from the context
+        network's ``[(h, c), ...]``: each scale's gate biases."""
+        return context_biases(self.context_zqr_convs, cnet_out)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor,
                 iters: int | None = None) -> torch.Tensor:
         if self.training:
             raise NotImplementedError(
-                "RAFTStereo trains in a later part of the port (ROADMAP.md, "
-                "Queue 1 item 5); its eval forward runs")
+                f"{type(self).__name__} trains in a later part of the port "
+                f"(ROADMAP.md, Queue 1 item 5); its eval forward runs")
         dtype = compute_dtype(self.fnet.conv1.weight, self.training)
         with full_float32(dtype == torch.float32):
             return self._forward(left, right, iters or self.valid_iters,
@@ -363,13 +378,14 @@ class RAFTStereo(nn.Module):
         lookup = self.correlation(fmaps[:b], fmaps[b:], dtype)
         cnet_out = self.cnet(img1)
         nets = tuple(torch.tanh(h) for h, _ in cnet_out)
-        contexts = context_biases(self.context_zqr_convs, cnet_out)
+        contexts = self.context(cnet_out)
         _, h4, w4 = fmaps[:b].shape[:3]
         x0 = torch.arange(w4, dtype=torch.float32,
                           device=left.device).expand(b, h4, w4)
         flow_x = torch.zeros(b, h4, w4, device=left.device)
         for _ in range(iters):
-            flow = torch.stack([flow_x, torch.zeros_like(flow_x)], dim=-1)
+            flow = (flow_x[..., None] if self.flow_channels == 1 else
+                    torch.stack([flow_x, torch.zeros_like(flow_x)], dim=-1))
             nets, mask, delta = self.update_block(nets, contexts,
                                                   lookup(x0 + flow_x), flow)
             flow_x = flow_x + delta[..., 0]

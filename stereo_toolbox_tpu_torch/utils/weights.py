@@ -464,14 +464,20 @@ def _update_block(t: JaxToTorch, path: str, key: str, flow: str = "convd",
         if t.has(f"{path}/{g}"):
             for c in ("convz", "convr", "convq"):
                 t.conv(f"{path}/{g}/{c}", f"{key}.{g}.{c}", bias=True)
-    for i, name in enumerate(("convc1", "convc2", f"{flow}1", f"{flow}2",
-                              "conv")):
-        t.conv(f"{path}/encoder/Conv_{i}", f"{key}.encoder.{name}",
-               bias=True)
+    _motion_encoder(t, path, key, flow)
     t.conv(f"{path}/flow_head_1", f"{key}.{head}.conv1", bias=True)
     t.conv(f"{path}/flow_head_2", f"{key}.{head}.conv2", bias=True)
     t.conv(f"{path}/mask_1", f"{key}.mask.0", bias=True)
     t.conv(f"{path}/mask_2", f"{key}.mask.2", bias=True)
+
+
+def _motion_encoder(t: JaxToTorch, path: str, key: str, flow: str) -> None:
+    """An update block's motion encoder (``encoder/Conv_0..4``), its flow
+    or disparity convs named `flow` (``convf``, ``convd``)."""
+    for i, name in enumerate(("convc1", "convc2", f"{flow}1", f"{flow}2",
+                              "conv")):
+        t.conv(f"{path}/encoder/Conv_{i}", f"{key}.encoder.{name}",
+               bias=True)
 
 
 def _raft_trunk(t: JaxToTorch, path: str, key: str, norm: str) -> None:
@@ -505,11 +511,16 @@ def _multi_basic_encoder(t: JaxToTorch, path: str, key: str,
         t.conv(f"{path}/Conv_{n}", f"{key}.{name}", bias=True)
 
 
-def _raft_stereo(t: JaxToTorch) -> None:
-    """Inverse of the JAX package's ``convert_raft_stereo``."""
+def _raft_encoders(t: JaxToTorch) -> None:
+    """RAFT's ``fnet`` (instance norm) and ``cnet``."""
     _raft_trunk(t, "fnet", "fnet", "instance")
     t.conv("fnet/Conv_1", "fnet.conv2", bias=True)
     _multi_basic_encoder(t, "cnet", "cnet")
+
+
+def _raft_stereo(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_raft_stereo``."""
+    _raft_encoders(t)
     for i in range(3):
         t.conv(f"context_zqr_{i}", f"context_zqr_convs.{i}", bias=True)
     _update_block(t, "step/update_block", "update_block", flow="convf",
@@ -628,10 +639,7 @@ def _igev_update_block(t: JaxToTorch, path: str, key: str) -> None:
         if t.has(f"{path}/{g}"):
             for c in ("convz", "convr", "convq"):
                 t.conv(f"{path}/{g}/{c}", f"{key}.{g}.{c}", bias=True)
-    for i, name in enumerate(("convc1", "convc2", "convd1", "convd2",
-                              "conv")):
-        t.conv(f"{path}/encoder/Conv_{i}", f"{key}.encoder.{name}",
-               bias=True)
+    _motion_encoder(t, path, key, "convd")
     t.conv(f"{path}/disp_head_1", f"{key}.disp_head.conv1", bias=True)
     t.conv(f"{path}/disp_head_2", f"{key}.disp_head.conv2", bias=True)
     t.conv(f"{path}/mask_feat_4", f"{key}.mask_feat_4.0", bias=True)
@@ -647,11 +655,17 @@ IGEV_TRAIN_HEADS = {"spx_4.0.conv.weight": (24, 96, 3, 3),
 
 
 def _igev_stereo(t: JaxToTorch) -> None:
-    """Inverse of the JAX package's ``convert_igev_stereo``. The train-only
-    heads ``spx_4``, ``spx_2`` and ``spx`` are carried from variables that
-    have them (a JAX init with ``train=True``); variables of an eval-mode
-    init lack them, and they are then filled with zeros (`IGEV_TRAIN_HEADS`),
-    which the eval forward never reads: its output is the JAX model's."""
+    """Inverse of the JAX package's ``convert_igev_stereo``."""
+    _igev_geometry(t)
+    for i in range(3):
+        t.conv(f"context_zqr_{i}", f"context_zqr_convs.{i}", bias=True)
+    _igev_update_block(t, "step/update_block", "update_block")
+    _igev_upsamplers(t)
+
+
+def _igev_geometry(t: JaxToTorch) -> None:
+    """The IGEV family's features, stems, descriptors, volume stem and
+    attention, GEV hourglass, classifier and context network."""
     _igev_feature(t, "feature", "feature")
     for stem in ("stem_2", "stem_4"):
         t.conv(f"{stem}a/Conv_0", f"{stem}.0.conv")
@@ -665,9 +679,15 @@ def _igev_stereo(t: JaxToTorch) -> None:
     t.conv("classifier", "classifier")
     _multi_basic_encoder(t, "cnet", "cnet",
                          ("outputs04", "outputs08", "outputs16"))
-    for i in range(3):
-        t.conv(f"context_zqr_{i}", f"context_zqr_convs.{i}", bias=True)
-    _igev_update_block(t, "step/update_block", "update_block")
+
+
+def _igev_upsamplers(t: JaxToTorch) -> None:
+    """The IGEV family's superpixel upsamplers: the loop's ``spx_2_gru`` and
+    ``spx_gru``, and the train-only heads ``spx_4``, ``spx_2`` and ``spx``,
+    carried from variables that have them (a JAX init with ``train=True``);
+    variables of an eval-mode init lack them, and they are then filled with
+    zeros (`IGEV_TRAIN_HEADS`), which the eval forward never reads: its
+    output is the JAX model's."""
     _conv2x(t, "step/spx_2_gru", "spx_2_gru", False)
     t.conv_transpose("step/spx_gru", "spx_gru.0", bias=True)
     if t.has("spx_4"):
@@ -680,13 +700,61 @@ def _igev_stereo(t: JaxToTorch) -> None:
                      for k, shape in IGEV_TRAIN_HEADS.items()})
 
 
+def _selective_update_block(t: JaxToTorch, path: str, key: str,
+                            flow: str = "convd", head: str = "superpixel"
+                            ) -> None:
+    """A JAX ``SelectiveUpdateBlock``, with the GRUs its `n_gru_layers`
+    creates (each a 1×1 ``small_gru`` and a 3×3 ``large_gru``), the motion
+    encoder's disparity convs named `flow`, and `head`'s output convs."""
+    for g in ("gru04", "gru08", "gru16"):
+        if t.has(f"{path}/{g}"):
+            for sub in ("small_gru", "large_gru"):
+                for c in ("convz", "convr", "convq"):
+                    t.conv(f"{path}/{g}/{sub}/{c}", f"{key}.{g}.{sub}.{c}",
+                           bias=True)
+    _motion_encoder(t, path, key, flow)
+    t.conv(f"{path}/disp_head_1", f"{key}.disp_head.conv1", bias=True)
+    t.conv(f"{path}/disp_head_2", f"{key}.disp_head.conv2", bias=True)
+    if head == "convex":
+        t.conv(f"{path}/mask_1", f"{key}.mask.0", bias=True)
+        t.conv(f"{path}/mask_2", f"{key}.mask.2", bias=True)
+    else:
+        t.conv(f"{path}/mask_feat_4", f"{key}.mask_feat_4.0", bias=True)
+
+
+def _cam_sam(t: JaxToTorch) -> None:
+    """The shared CAM (``fc1``, ``fc2`` → ``fc.0``, ``fc.2``) and SAM
+    (``Conv_0`` → ``samconv``), bias-free."""
+    t.conv("cam/fc1", "cam.fc.0")
+    t.conv("cam/fc2", "cam.fc.2")
+    t.conv("sam/Conv_0", "sam.samconv")
+
+
+def _selective_raft(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_selective_raft``."""
+    _raft_encoders(t)
+    _cam_sam(t)
+    _selective_update_block(t, "step/update_block", "update_block",
+                            flow="convf", head="convex")
+
+
+def _selective_igev(t: JaxToTorch) -> None:
+    """Inverse of the JAX package's ``convert_selective_igev``; the
+    train-only heads as `_igev_upsamplers` carries them."""
+    _igev_geometry(t)
+    _cam_sam(t)
+    _selective_update_block(t, "step/update_block", "update_block")
+    _igev_upsamplers(t)
+
+
 CONVERTERS = {"ACVNet": _acvnet, "CFNet": _cfnet,
               "DEFOMStereo_L": _defom, "DEFOMStereo_S": _defom,
               "DepthAnythingV2": _depth_anything_v2, "GwcNet_G": _gwcnet,
               "GwcNet_GC": _gwcnet, "IGEVStereo": _igev_stereo,
               "PCWNet_G": _pcwnet,
               "PCWNet_GC": _pcwnet, "PSMNet": _psmnet,
-              "RAFTStereo": _raft_stereo}
+              "RAFTStereo": _raft_stereo, "SelectiveIGEV": _selective_igev,
+              "SelectiveRAFT": _selective_raft}
 
 
 def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:
@@ -705,7 +773,11 @@ def from_jax_variables(name: str, variables: dict) -> dict[str, torch.Tensor]:
 # utils/torch_import.py:444-447, :992-997; RAFT's residual blocks register
 # their downsample norm twice, as ``norm3`` and ``downsample.1``, :700)
 UNUSED_REFERENCE_KEYS = {
-    **{name: (".norm3.",) for name in ("IGEVStereo", "RAFTStereo")},
+    **{name: (".norm3.",) for name in ("IGEVStereo", "RAFTStereo",
+                                       "SelectiveRAFT")},
+    # SelectiveIGEV's BasicConv registers a BatchNorm beside a bn=False conv
+    # (``convert_selective_igev``, utils/torch_import.py:920-924)
+    "SelectiveIGEV": (".norm3.", "cost_agg.conv1_up.bn."),
     "CFNet": ("combine1.combine3.", "combine1.redir3."),
     "DepthAnythingV2": ("refinenet4.resConfUnit1.", "pretrained.mask_token"),
     # convert_defom's (:1324-1327): the doubly registered downsample norms,

@@ -29,7 +29,6 @@ random) carried into the port by ``utils.weights.from_jax_variables``:
 """
 
 import flax.linen as fnn
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -75,9 +74,14 @@ def variables():
 def jax_forward(variables):
     """JAX's forward of `variables` by (H, W, dtype, corr_impl), each
     compiled and run once in the module."""
-    return functools.lru_cache(maxsize=None)(
-        lambda h, w, dtype=None, impl="banded": _jax_forward(
-            variables, h, w, dtype, corr_impl=impl))
+    cache = {}
+
+    def forward(h, w, dtype=None, impl="banded"):
+        if (h, w, dtype, impl) not in cache:
+            cache[h, w, dtype, impl] = _jax_forward(variables, h, w, dtype,
+                                                    corr_impl=impl)
+        return cache[h, w, dtype, impl]
+    return forward
 
 
 def _jax_forward(variables, h, w, dtype=None, **kw):
